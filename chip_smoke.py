@@ -4,13 +4,23 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``,
-holds each kernel against its plain PyTorch version on the card at the
-serving path's shapes, then serves a GPT-2-small-width ``DecoderLM``
-(seeded random weights) through ``ServingEngine.submit``/``run`` and checks
-that decode attention went through the kernel, that the streams match the
-gather path and the no-cache reference, and that no page leaked. Each
-phase prints one JSON line; any failed check exits non-zero. The line
+It builds every CUDA kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``
+(one process per source, all at once) and holds each kernel against its
+plain PyTorch version on the card at its main path's shapes. Then it
+drives both ported paths through the entry points a user calls:
+
+* serving: a GPT-2-small-width ``DecoderLM`` (seeded random weights)
+  through ``ServingEngine.submit``/``run``; decode attention must go
+  through K3, the streams must match the gather path and the no-cache
+  reference, and no page may leak;
+* training: the Transformer-base program of
+  ``__graft_entry__._build_transformer``, built with
+  ``import paddle_tpu_torch as fluid`` and trained through
+  ``Executor.run`` on one fixed batch of 64 x 256 tokens; every step must
+  launch K2a and K2b once, the losses must be finite and fall, and at
+  batch 2 with dropout 0 the card's losses must match the CPU's.
+
+Each phase prints one JSON line; any failed check exits non-zero. The line
 before the last holds every kernel's numbers, the last line the device.
 
 It imports neither ``jax`` nor ``paddle_tpu``, and exits non-zero without
@@ -30,6 +40,11 @@ import torch
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12   # float32 outside the tensor cores
 
+# Transformer-base as bench.py's bench_transformer trains it
+TRAIN = dict(n_layer=6, d_model=512, n_head=8, d_inner=2048, seq=256,
+             vocab=30000)
+TRAIN_BATCH = 64
+
 
 def check(ok, msg):
     if not ok:
@@ -38,6 +53,22 @@ def check(ok, msg):
 
 def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def rel_err(got, want):
+    """Largest |got - want| / |want| (|want| floored at 1e-6)."""
+    return float(((got.float() - want).abs()
+                  / want.abs().clamp_min(1e-6)).max())
+
+
+def scaled_err(got, want, rtol):
+    """Largest |got - want| / (rtol·|want| + 1e-6·max |want| of its row);
+    at most 1 passes. Relative per element, so a term far below a row's
+    largest value cannot hide; the row floor covers only elements that
+    cancel to about 0."""
+    floor = (1e-6 * want.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-30)
+    return float(((got.float() - want).abs()
+                  / (rtol * want.abs() + floor)).max())
 
 
 def cuda_ms(fn, reps=30, flush=None):
@@ -309,6 +340,281 @@ def profile_phase(model, stream):
                "device_ms": e.self_device_time_total / 1e3} for e in top])
 
 
+def xent_kernel_phase(dev):
+    """K2a/K2b against their plain versions at the Transformer-base loss
+    shape: N = 64 x 256 rows, V = 30000, label smoothing 0.1, a few rows
+    labelled -100. The loss to 1e-5 relative in both dtypes (bf16 logits
+    upcast exactly, so the plain version in float32 sees the same inputs);
+    dlogits to 1e-6 absolute in float32, and in bf16 each element to
+    2e-2·|want| + 1e-6·(max |want| of its row), a bound that a missing
+    eps/V term (~|g|·3e-6 here) breaks."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    n, v, eps = TRAIN_BATCH * TRAIN["seq"], TRAIN["vocab"], 0.1
+    rng = np.random.RandomState(0)
+    x32 = torch.as_tensor((rng.randn(n, v) * 2).astype(np.float32),
+                          device=dev)
+    lab_np = rng.randint(0, v, n).astype(np.int64)
+    lab_np[rng.choice(n, 16, replace=False)] = -100
+    lab = torch.as_tensor(lab_np, device=dev)
+    # an O(1) upstream gradient, so the absolute dlogits tolerance means
+    # something (the training step's is 1/N, which would hide errors)
+    g = torch.as_tensor(rng.randn(n, 1).astype(np.float32), device=dev)
+
+    errs = {}
+    keep = (lab != -100)[:, None]
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        x = x32.to(dt)
+        loss, lse = sx.softmax_xent_fwd(x, lab, eps)
+        dx = sx.softmax_xent_bwd(x, lab, lse, g, eps)
+        torch.cuda.synchronize()
+        # bf16 -> float32 is exact, so both sides see the same inputs
+        want_loss, want_lse = sx.softmax_xent_reference(x.float(), lab, eps)
+        want_dx = sx.softmax_xent_reference_bwd(x.float(), lab, want_lse, g,
+                                                eps)
+        e_loss = float((loss - want_loss).abs().max())
+        e_rel = rel_err(loss, want_loss)
+        e_dx = float((dx.float() - want_dx).abs().max())
+        check(e_rel <= 1e-5, "K2a %s loss rel err %g > 1e-5" % (name, e_rel))
+        if dt == torch.float32:
+            check(e_dx <= 1e-6, "K2b f32 dlogits abs err %g > 1e-6" % e_dx)
+            e_scaled = None
+        else:
+            e_scaled = scaled_err(dx, want_dx, 2e-2)
+            check(e_scaled <= 1, "K2b bf16 dlogits err %g of its bound "
+                  "(2e-2 |want| + 1e-6 row max)" % e_scaled)
+            # planted faults: the same checks reject a loss without the
+            # (eps/V)·Σx term and dlogits without the eps/V term
+            no_sum = torch.where(keep, want_loss + (eps / v) * x.float().sum(
+                dim=-1, keepdim=True), 0.0)
+            check(rel_err(no_sum, want_loss) > 1e-5,
+                  "the loss check passes a loss without its (eps/V)·Σx term")
+            no_eps = torch.where(keep, want_dx + g * (eps / v), 0.0).to(dt)
+            check(scaled_err(no_eps, want_dx, 2e-2) > 1,
+                  "the bf16 dlogits check passes dlogits without eps/V")
+            del no_sum, no_eps
+        check(bool(dx.dtype == dt), "dlogits dtype %s != %s" % (dx.dtype, dt))
+        check(not loss[lab == -100].any() and not dx[lab == -100].any(),
+              "rows labelled -100 not zeroed")
+        errs[name] = {"loss_abs": e_loss, "loss_rel": e_rel,
+                      "dlogits_abs": e_dx, "dlogits_scaled": e_scaled}
+        del loss, lse, dx, want_loss, want_lse, want_dx
+
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_  # 256 MB > the 50 MB L2
+    F = torch.nn.functional
+    loss, lse = sx.softmax_xent_fwd(x32, lab, eps)
+    fwd_ms = cuda_ms(lambda: sx.softmax_xent_fwd(x32, lab, eps), flush=flush)
+    fwd_plain = cuda_ms(lambda: sx.softmax_xent_reference(x32, lab, eps),
+                        flush=flush)
+    fwd_lib = cuda_ms(lambda: F.cross_entropy(
+        x32, lab, reduction="none", label_smoothing=eps), flush=flush)
+    bwd_ms = cuda_ms(lambda: sx.softmax_xent_bwd(x32, lab, lse, g, eps),
+                     flush=flush)
+    bwd_plain = cuda_ms(lambda: sx.softmax_xent_reference_bwd(
+        x32, lab, lse, g, eps), flush=flush)
+    xr = x32.detach().requires_grad_(True)
+    lib_loss = F.cross_entropy(xr, lab, reduction="none",
+                               label_smoothing=eps)
+    g1 = g.reshape(-1)
+    bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+        lib_loss, [xr], g1, retain_graph=True), flush=flush)
+    del xr, lib_loss, scratch
+
+    def row(name, fn_line, ms, plain, lib, nbytes, flops, err):
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_F32_FLOP_PER_S * 1e3
+        return {"name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/softmax_xent.cu",
+                "replaces": "paddle_tpu/ops/pallas_kernels/softmax_xent.py:"
+                            + fn_line,
+                "launches": None, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib}
+
+    # least work, float32: K2a reads the logits and labels once and writes
+    # loss and lse; K2b reads logits, labels, lse and g once and writes
+    # dlogits. Operations: K2a an exp, a max, 2 adds and a compare per
+    # element; K2b an exp, a sub, a compare, a sub and a mul.
+    nv = n * v
+    rows = [row("softmax_xent_fwd", "164", fwd_ms, fwd_plain, fwd_lib,
+                4 * nv + 8 * n + 8 * n, 5 * nv, errs["float32"]["loss_abs"]),
+            row("softmax_xent_bwd", "208", bwd_ms, bwd_plain, bwd_lib,
+                8 * nv + 8 * n + 8 * n, 5 * nv,
+                errs["float32"]["dlogits_abs"])]
+    emit("kernel_vs_plain", kernel="softmax_xent",
+         shape={"N": n, "V": v, "smooth": eps, "ignored_rows": 16},
+         max_err=errs, tol={"float32": {"loss_rel": 1e-5, "dlogits_abs": 1e-6},
+                            "bfloat16": {"loss_rel": 1e-5,
+                                         "dlogits_scaled": 1.0}},
+         fwd={"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": fwd_lib,
+              "bound_ms": rows[0]["bound_ms"]},
+         bwd={"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
+              "bound_ms": rows[1]["bound_ms"]})
+    del x32, lab, g, loss, lse
+    torch.cuda.empty_cache()
+    return rows
+
+
+def build_transformer(fluid, n_layer, d_model, n_head, d_inner, seq, vocab,
+                      train, dropout=None):
+    """``__graft_entry__._build_transformer``, for the port's package."""
+    from paddle_tpu_torch.models import transformer as tfm
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7
+    with fluid.program_guard(main, startup):
+        with fluid.unique_name.guard():
+            src = fluid.layers.data("src", shape=[seq], dtype="int64")
+            trg = fluid.layers.data("trg", shape=[seq], dtype="int64")
+            lbl = fluid.layers.data("lbl", shape=[seq, 1], dtype="int64")
+            smask = fluid.layers.data("smask", shape=[seq], dtype="float32")
+            tmask = fluid.layers.data("tmask", shape=[seq], dtype="float32")
+            logits, loss = tfm.transformer(
+                src, trg, lbl, smask, tmask,
+                src_vocab_size=vocab, trg_vocab_size=vocab, max_length=seq,
+                n_layer=n_layer, n_head=n_head, d_model=d_model,
+                d_inner=d_inner,
+                dropout_rate=(0.1 if train else 0.0) if dropout is None
+                else dropout,
+                label_smooth_eps=0.1, is_test=not train)
+            if train:
+                fluid.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+    return main, startup, loss, logits
+
+
+def train_feed(batch):
+    """The fixed batch of bench.py's bench_transformer."""
+    seq, vocab = TRAIN["seq"], TRAIN["vocab"]
+    rng = np.random.RandomState(0)
+    return {
+        "src": rng.randint(2, vocab, (batch, seq)).astype("int64"),
+        "trg": rng.randint(2, vocab, (batch, seq)).astype("int64"),
+        "lbl": rng.randint(2, vocab, (batch, seq, 1)).astype("int64"),
+        "smask": np.ones((batch, seq), "float32"),
+        "tmask": np.ones((batch, seq), "float32"),
+    }
+
+
+def train_steps(exe, main, loss, feed, scope, n):
+    """n training steps; returns (losses, seconds of each step). A step
+    ends with its loss on the host, so its time is the device's too."""
+    losses, secs = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        lv, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(lv))
+    return losses, secs
+
+
+def train_phase(xent_rows):
+    """Transformer-base at full width through the port's Fluid API: 2
+    warm-up steps, then 10 timed steps on one fixed batch."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    t0 = time.perf_counter()
+    main, startup, loss, _ = build_transformer(fluid, train=True, **TRAIN)
+    build_s = time.perf_counter() - t0
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    params = main.all_parameters()
+    n_weights = sum(int(np.prod(p.shape)) for p in params)
+    ops = [op.type for op in main.global_block.ops]
+    emit("train_model", config=TRAIN, batch=TRAIN_BATCH,
+         params=len(params), weights=n_weights, ops=len(ops),
+         op_types=len(set(ops)), adam_ops=ops.count("adam"),
+         build_s=build_s, setup_s=time.perf_counter() - t0)
+    feed = train_feed(TRAIN_BATCH)
+    warm, _ = train_steps(exe, main, loss, feed, scope, 2)
+    torch.cuda.reset_peak_memory_stats()
+    sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+    losses, secs = train_steps(exe, main, loss, feed, scope, 10)
+    fwd, bwd = sx.LAUNCHES_FWD, sx.LAUNCHES_BWD
+    peak = torch.cuda.max_memory_allocated()
+    all_losses = warm + losses
+    check(bool(np.isfinite(all_losses).all()), "non-finite training loss")
+    check(all_losses[-1] < all_losses[0],
+          "loss did not fall: %r" % all_losses)
+    check(fwd == len(losses) and bwd == len(losses),
+          "K2 launches fwd %d bwd %d over %d steps" % (fwd, bwd, len(losses)))
+    xent_rows[0]["launches"], xent_rows[1]["launches"] = fwd, bwd
+    step_ms = float(np.median(secs)) * 1e3
+    emit("train", steps=len(losses), step_ms_median=step_ms,
+         step_ms=[s * 1e3 for s in secs],
+         target_tokens_per_s=TRAIN_BATCH * TRAIN["seq"] / (step_ms / 1e3),
+         peak_memory_bytes=peak, losses=all_losses,
+         k2_launches={"fwd": fwd, "bwd": bwd})
+    train_profile_phase(exe, main, loss, feed, scope)
+    del scope, exe
+    torch.cuda.empty_cache()
+
+
+def train_profile_phase(exe, main, loss, feed, scope):
+    """Where a training step's time goes: one step under torch.profiler;
+    device busy share = kernel time summed over the CUDA events / wall time
+    of the step (the profiler's host cost is in the wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, secs = train_steps(exe, main, loss, feed, scope, 1)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    emit("train_profile", wall_ms=secs[0] * 1e3, device_busy_ms=busy_ms,
+         device_busy_share=busy_ms / (secs[0] * 1e3) if busy_ms else None,
+         kernels_launched=sum(e.count for e in kern),
+         top=[{"name": e.key[:80], "count": e.count,
+               "device_ms": e.self_device_time_total / 1e3} for e in top])
+
+
+def train_parity_phase():
+    """The training program at full width, batch 2, dropout 0: two steps
+    on the card and two on the CPU (the plain versions) from the same
+    startup state, carried by io.state_from_numpy. TF32 is off, so both
+    run float32 products; the losses must agree to 1e-4 relative."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    main, startup, loss, _ = build_transformer(fluid, train=True, dropout=0.0,
+                                               **TRAIN)
+    feed = train_feed(2)
+    card = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=card)
+    arrays = {n: card.as_numpy(n) for n in card.vars}
+    f0, b0 = sx.LAUNCHES_FWD, sx.LAUNCHES_BWD
+    card_losses, _ = train_steps(exe, main, loss, feed, card, 2)
+    check((sx.LAUNCHES_FWD - f0, sx.LAUNCHES_BWD - b0) == (2, 2),
+          "the card run launched K2a %d and K2b %d times over 2 steps"
+          % (sx.LAUNCHES_FWD - f0, sx.LAUNCHES_BWD - b0))
+    cpu = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                    fluid.CPUPlace())
+    t0 = time.perf_counter()
+    cpu_losses, _ = train_steps(fluid.Executor(fluid.CPUPlace()), main, loss,
+                                feed, cpu, 2)
+    check((sx.LAUNCHES_FWD - f0, sx.LAUNCHES_BWD - b0) == (2, 2),
+          "the CPU run launched a kernel")
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
+    check(bool(np.isfinite(card_losses + cpu_losses).all())
+          and max(rel) <= 1e-4,
+          "card %r vs CPU %r losses (rel %r > 1e-4)"
+          % (card_losses, cpu_losses, rel))
+    emit("train_parity", batch=2, dropout=0.0, card_losses=card_losses,
+         cpu_losses=cpu_losses, rel_err=rel, tol=1e-4,
+         cpu_s=time.perf_counter() - t0)
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -333,8 +639,11 @@ def main():
     emit("build", seconds=time.perf_counter() - t0, kernels=secs)
     dev = torch.device("cuda", torch.cuda.current_device())
     row = kernel_phase(dev)
+    xent_rows = xent_kernel_phase(dev)
     serve_phase(row)
-    print(json.dumps({"kernels": [row]}), flush=True)
+    train_phase(xent_rows)
+    train_parity_phase()
+    print(json.dumps({"kernels": [row] + xent_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

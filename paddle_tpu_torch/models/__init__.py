@@ -1,3 +1,4 @@
-"""Models of the port: the serving workload's decoder LM."""
+"""Models of the port: the serving workload's decoder LM and the
+Transformer / BERT / causal-LM program functions."""
 
-from . import decoder_lm  # noqa: F401
+from . import decoder_lm, transformer  # noqa: F401

@@ -1,1 +1,13 @@
-"""Tensor ops of the port: attention math and the hand-written kernels."""
+"""Op implementation library of the port — importing this package
+registers every ported op: attention math, the training slice's ops, and
+the hand-written kernels under :mod:`.kernels`."""
+
+from . import (  # noqa: F401
+    activation_ops,
+    attention_ops,
+    math_ops,
+    nn_ops,
+    optimizer_ops,
+    reduce_ops,
+    tensor_ops,
+)

@@ -1,15 +1,18 @@
 # ported from paddle_tpu/ops/attention_ops.py
-"""Attention math of the serving path.
+"""Attention math of the serving and training paths.
 
 * :func:`neg_inf` / :func:`neg_inf_value` — the one masking constant every
   attention implementation here shares (composed :func:`sdpa`,
   :func:`decode_attention`, :func:`verify_attention` and the paged-attention
   CUDA kernel), so masking cannot drift between them.
 * :func:`sdpa` — the composed scaled dot-product attention that prefill
-  runs. The JAX package routes it to its flash kernel only on a TPU and
-  from ``FLAGS_flash_attention_min_seq`` = 2048 up, never at the serving
-  path's prompt sizes, and leaves the product to XLA otherwise; here it is
-  left to ``torch.einsum``. It has no flash branch and no dropout yet.
+  and the ``scaled_dot_product_attention`` op run, with attention-probs
+  dropout. The JAX package routes it to its flash kernel only on a TPU,
+  from ``FLAGS_flash_attention_min_seq`` = 2048 up, and with dropout only
+  without segment ids; never at the serving prompts or the Transformer
+  training step (S = 256, segments, dropout 0.1), where it leaves the
+  product to XLA. Here it is left to ``torch.einsum``; the flash kernels
+  (K1a-c) come with the long-context training slice.
 * :func:`decode_attention` / :func:`verify_attention` — single-position
   and verify-window attention over a gathered KV context: the plain path
   the paged kernel is held against.
@@ -19,7 +22,9 @@ from __future__ import annotations
 
 import torch
 
+from ..core.registry import OpContext, register_op
 from ..flags import flags
+from .tensor_ops import keep_mask
 
 __all__ = ["neg_inf", "neg_inf_value", "paged_kernel_enabled", "sdpa",
            "decode_attention", "verify_attention"]
@@ -57,8 +62,10 @@ def paged_kernel_enabled() -> bool:
 
 
 def sdpa(q, k, v, bias=None, segment_ids_q=None, segment_ids_kv=None,
-         causal=False, sm_scale=1.0):
-    """Scaled dot-product attention over [B, H, S, D] tensors."""
+         causal=False, sm_scale=1.0, dropout_rate=0.0, dropout_rng=None):
+    """Scaled dot-product attention over [B, H, S, D] tensors. With
+    ``dropout_rate`` > 0 and a ``torch.Generator`` as ``dropout_rng``, the
+    probabilities are dropped (upscale_in_train) through a bool keep mask."""
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
     if bias is not None:
         scores = scores + bias
@@ -73,6 +80,9 @@ def sdpa(q, k, v, bias=None, segment_ids_q=None, segment_ids_kv=None,
                         device=scores.device).tril(diagonal=sk - sq)
         scores = torch.where(cm, scores, ninf)
     probs = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0 and dropout_rng is not None:
+        keep = keep_mask(probs.shape, dropout_rate, dropout_rng, probs.device)
+        probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_rate)), 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
@@ -110,3 +120,17 @@ def verify_attention(q, ctx_k, ctx_v, ctx_len, sm_scale=1.0):
     scores = torch.where(mask, scores, neg_inf(scores.dtype))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bwhl,blhd->bwhd", probs, ctx_v)
+
+
+@register_op("scaled_dot_product_attention")
+def sdpa_op(ctx: OpContext):
+    q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
+    bias = ctx.input("Bias")
+    seg_q = ctx.input("SegmentIdsQ")
+    seg_kv = ctx.input("SegmentIdsKV")
+    causal = ctx.attr("causal", False)
+    sm_scale = ctx.attr("sm_scale", 1.0)
+    p = 0.0 if ctx.is_test else ctx.attr("dropout_rate", 0.0)
+    rng = ctx.rng() if p > 0.0 else None
+    ctx.set_output("Out", sdpa(q, k, v, bias, seg_q, seg_kv, causal, sm_scale,
+                               p, rng))

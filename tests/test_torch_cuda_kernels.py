@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu_torch as fluid
 from paddle_tpu_torch import serving
 from paddle_tpu_torch.flags import set_flag
 from paddle_tpu_torch.models import decoder_lm
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
+from paddle_tpu_torch.ops.kernels import softmax_xent as sx
 from paddle_tpu_torch.serving import kv_cache
 
 SLOTS, H, D, PS, PPS, NUM_PAGES = 5, 2, 16, 8, 8, 24
@@ -121,3 +123,73 @@ def test_engine_decodes_through_the_kernel(cuda):
         assert eng.page_accounting_ok()
         outs.append([r.tokens_out for r in reqs])
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("n,v", [(37, 1000), (64, 30000), (5, 7)])
+@pytest.mark.parametrize("smooth", [0.0, 0.1])
+def test_softmax_xent_kernels_match_plain_version(cuda, n, v, smooth):
+    """K2a/K2b against the plain version on the same tensors: the loss to
+    1e-5 relative in both dtypes (bf16 upcasts exactly); dlogits to 1e-6
+    absolute in float32, and in bf16 each element to 2e-2·|want| +
+    1e-6·(max |want| of its row), which dlogits without the eps/V term
+    break. Ragged V (no multiple of the block), rows labelled -100
+    zeroed."""
+    rng = np.random.RandomState(n + v)
+    x32 = torch.as_tensor((rng.randn(n, v) * 3).astype(np.float32),
+                          device=cuda)
+    lab_np = rng.randint(0, v, n).astype(np.int64)
+    lab_np[::4] = -100
+    lab = torch.as_tensor(lab_np, device=cuda)
+    keep = (lab != -100)[:, None]
+    g = torch.as_tensor(rng.randn(n, 1).astype(np.float32), device=cuda)
+
+    def scaled_err(got, want):
+        floor = (1e-6 * want.abs().amax(dim=-1, keepdim=True)).clamp_min(
+            1e-30)
+        return float(((got.float() - want).abs()
+                      / (2e-2 * want.abs() + floor)).max())
+
+    for dt in (torch.float32, torch.bfloat16):
+        x = x32.to(dt)
+        f0, b0 = sx.LAUNCHES_FWD, sx.LAUNCHES_BWD
+        loss, lse = sx.softmax_xent_fwd(x, lab, smooth)
+        dx = sx.softmax_xent_bwd(x, lab, lse, g, smooth)
+        torch.cuda.synchronize()
+        assert (sx.LAUNCHES_FWD, sx.LAUNCHES_BWD) == (f0 + 1, b0 + 1)
+        assert dx.dtype == dt
+        want_loss, want_lse = sx.softmax_xent_reference(x.float(), lab,
+                                                        smooth)
+        want_dx = sx.softmax_xent_reference_bwd(x.float(), lab, want_lse,
+                                                g, smooth)
+        torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=1e-5)
+        if dt == torch.float32:
+            torch.testing.assert_close(dx, want_dx, rtol=0, atol=1e-6)
+        else:
+            assert scaled_err(dx, want_dx) <= 1
+            if smooth:
+                no_eps = torch.where(keep, want_dx + g * (smooth / v), 0.0)
+                assert scaled_err(no_eps.to(dt), want_dx) > 1
+        assert not loss[::4].any() and not dx[::4].any()
+
+
+def test_softmax_xent_op_trains_through_the_kernels(cuda):
+    """A small program's loss op launches K2a once and K2b once a step."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", shape=[16])
+        y = fluid.layers.data("y", shape=[1], dtype="int64")
+        logits = fluid.layers.fc(x, 300)
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            logits, y, label_smoothing=0.1))
+        fluid.optimizer.Adam(1e-2).minimize(loss)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.randn(32, 16).astype("float32"),
+            "y": rng.randint(0, 300, (32, 1)).astype("int64")}
+    f0, b0 = sx.LAUNCHES_FWD, sx.LAUNCHES_BWD
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(5)]
+    assert (sx.LAUNCHES_FWD - f0, sx.LAUNCHES_BWD - b0) == (5, 5)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -168,7 +168,10 @@ def test_entry_points_raise_without_a_gpu(models, monkeypatch):
 def test_port_imports_neither_jax_nor_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.models.decoder_lm, "
-            "paddle_tpu_torch.ops.kernels.paged_attention; "
+            "paddle_tpu_torch.ops.kernels.paged_attention, "
+            "paddle_tpu_torch.executor, paddle_tpu_torch.layers, "
+            "paddle_tpu_torch.models.transformer, "
+            "paddle_tpu_torch.ops.kernels.softmax_xent; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']; "
             "assert not bad, bad")
