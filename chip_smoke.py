@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 It builds every CUDA kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``
 (one process per source, all at once) and holds each kernel against its
 plain PyTorch version on the card at its main path's shapes. Then it
-drives both ported paths through the entry points a user calls:
+drives the ported paths through the entry points a user calls:
 
 * serving: a GPT-2-small-width ``DecoderLM`` (seeded random weights)
   through ``ServingEngine.submit``/``run``; decode attention must go
@@ -18,7 +18,14 @@ drives both ported paths through the entry points a user calls:
   ``import paddle_tpu_torch as fluid`` and trained through
   ``Executor.run`` on one fixed batch of 64 x 256 tokens; every step must
   launch K2a and K2b once, the losses must be finite and fall, and at
-  batch 2 with dropout 0 the card's losses must match the CPU's.
+  batch 2 with dropout 0 the card's losses must match the CPU's;
+* long-context training: the causal LM of ``bench.py``'s
+  ``bench_longseq_train`` (12 layers, d_model 1024, 16 heads, vocab 32000,
+  batch 8 x 2048 tokens, Adam) at full width and depth, once in float32
+  and once under ``fluid.amp.decorate`` (bfloat16); every step must launch
+  K1a, K1b and K1c once a layer and K2a, K2b once, the losses must be
+  finite and fall, and at batch 1 x 256 tokens, 2 layers, dropout 0 the
+  card's losses must match the CPU's.
 
 Each phase prints one JSON line; any failed check exits non-zero. The line
 before the last holds every kernel's numbers, the last line the device.
@@ -45,6 +52,12 @@ TRAIN = dict(n_layer=6, d_model=512, n_head=8, d_inner=2048, seq=256,
              vocab=30000)
 TRAIN_BATCH = 64
 
+# the causal LM as bench.py's bench_longseq_train trains it
+LONGCTX = dict(vocab_size=32000, n_layer=12, n_head=16, d_model=1024,
+               d_inner=4096)
+LONGCTX_BATCH, LONGCTX_SEQ = 8, 2048
+H100_BF16_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores
+
 
 def check(ok, msg):
     if not ok:
@@ -61,12 +74,12 @@ def rel_err(got, want):
                   / want.abs().clamp_min(1e-6)).max())
 
 
-def scaled_err(got, want, rtol):
-    """Largest |got - want| / (rtol·|want| + 1e-6·max |want| of its row);
+def scaled_err(got, want, rtol, floor=1e-6):
+    """Largest |got - want| / (rtol·|want| + floor·max |want| of its row);
     at most 1 passes. Relative per element, so a term far below a row's
     largest value cannot hide; the row floor covers only elements that
     cancel to about 0."""
-    floor = (1e-6 * want.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-30)
+    floor = (floor * want.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-30)
     return float(((got.float() - want).abs()
                   / (rtol * want.abs() + floor)).max())
 
@@ -512,7 +525,7 @@ def train_steps(exe, main, loss, feed, scope, n):
 
 def train_phase(xent_rows):
     """Transformer-base at full width through the port's Fluid API: 2
-    warm-up steps, then 10 timed steps on one fixed batch."""
+    warm-up steps, then 6 timed steps on one fixed batch."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops.kernels import softmax_xent as sx
 
@@ -534,7 +547,7 @@ def train_phase(xent_rows):
     warm, _ = train_steps(exe, main, loss, feed, scope, 2)
     torch.cuda.reset_peak_memory_stats()
     sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
-    losses, secs = train_steps(exe, main, loss, feed, scope, 10)
+    losses, secs = train_steps(exe, main, loss, feed, scope, 6)
     fwd, bwd = sx.LAUNCHES_FWD, sx.LAUNCHES_BWD
     peak = torch.cuda.max_memory_allocated()
     all_losses = warm + losses
@@ -555,7 +568,8 @@ def train_phase(xent_rows):
     torch.cuda.empty_cache()
 
 
-def train_profile_phase(exe, main, loss, feed, scope):
+def train_profile_phase(exe, main, loss, feed, scope,
+                        phase="train_profile"):
     """Where a training step's time goes: one step under torch.profiler;
     device busy share = kernel time summed over the CUDA events / wall time
     of the step (the profiler's host cost is in the wall time)."""
@@ -569,7 +583,7 @@ def train_profile_phase(exe, main, loss, feed, scope):
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
-    emit("train_profile", wall_ms=secs[0] * 1e3, device_busy_ms=busy_ms,
+    emit(phase, wall_ms=secs[0] * 1e3, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / (secs[0] * 1e3) if busy_ms else None,
          kernels_launched=sum(e.count for e in kern),
          top=[{"name": e.key[:80], "count": e.count,
@@ -615,6 +629,408 @@ def train_parity_phase():
     torch.cuda.empty_cache()
 
 
+# float32: another summation order over up to 2048 terms. bfloat16: outputs
+# are rounded to bf16 (4e-3 relative), and p and ds are rounded before their
+# products against a running row maximum in the kernel, the final one in the
+# plain version; elements that cancel are held to a share of their row's
+# largest value.
+FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 1e-2)}
+
+
+def flash_inputs(dev, dt, b, h, sq, sk, d, seed, bias=False, seg=False):
+    """q, k, v, do as the attention op receives them: q, k, v are the head
+    views of one fused [B,S,3·H·D] projection (when Sq == Sk), do a
+    transposed [B,S,H,D] tensor; a bias broadcast over heads; sorted
+    segment ids shared by q and kv."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    if sq == sk:
+        q, k, v = (t.reshape(b, sq, h, d).transpose(1, 2) for t in
+                   randn(b, sq, 3 * h * d).split(h * d, dim=2))
+    else:
+        q = randn(b, sq, h, d).transpose(1, 2)
+        k, v = (randn(b, sk, h, d).transpose(1, 2) for _ in range(2))
+    do = randn(b, sq, h, d).transpose(1, 2)
+    ab = randn(b, 1, sq, sk).expand(b, h, sq, sk) if bias else None
+    ids = None
+    if seg:
+        base = torch.randint(0, 3, (b, max(sq, sk)), generator=gen,
+                             device=dev).sort(dim=-1).values
+        ids = fa.SegmentIds(base[:, :sq], base[:, :sk])
+    return q, k, v, do, ab, ids
+
+
+def flash_check(name, dt, q, k, v, do, ab, ids, causal, sm, rate, seed):
+    """K1a, K1b, K1c against their plain versions on the same tensors;
+    returns the largest absolute error of each output. The backward
+    kernels get the plain forward's lse and di, so each is held alone."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    dname = str(dt).replace("torch.", "")
+    rtol, floor = FLASH_TOL[dname]
+    o, lse = fa.flash_fwd(q, k, v, ab, ids, causal, sm, rate, seed)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa.flash_fwd_reference(q, k, v, ab, ids, causal, sm,
+                                              rate, seed)
+    di = (want_o.float() * do.float()).sum(-1)
+    args = (q, k, v, ab, ids, want_lse, do, di, causal, sm, rate, seed)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    dq, dab = fa.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    want_dk, want_dv = fa.flash_bwd_dkv_reference(*args)
+    want_dq, want_dab = fa.flash_bwd_dq_reference(*args)
+    live = torch.isfinite(want_lse)  # a row that sees nothing has +inf
+    check(torch.equal(torch.isfinite(lse), live),
+          "%s %s: other dead rows than the plain version" % (name, dname))
+    e_lse = float((lse[live] - want_lse[live]).abs().max())
+    check(e_lse <= 2e-5 + 1e-5 * float(want_lse[live].abs().max()),
+          "%s %s lse abs err %g" % (name, dname, e_lse))
+    errs = {"lse": e_lse}
+    pairs = [("o", o, want_o), ("dk", dk, want_dk), ("dv", dv, want_dv),
+             ("dq", dq, want_dq)]
+    if ab is not None:
+        pairs.append(("dab", dab, want_dab))
+    for out, got, want in pairs:
+        check(got.dtype == dt, "%s %s dtype %s" % (name, out, got.dtype))
+        e = scaled_err(got, want.float(), rtol, floor)
+        check(e <= 1, "%s %s %s err %g of its bound (%g |want| + %g row max)"
+              % (name, dname, out, e, rtol, floor))
+        errs[out] = float((got.float() - want.float()).abs().max())
+    return errs
+
+
+def flash_planted_faults(dev):
+    """The check must reject a causal mask off by one and a ds without its
+    − di, in both dtypes' tolerances (the bfloat16 one is the looser)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, h, s, d = 2, 4, 256, 64
+    sm = d ** -0.5
+    q, k, v, do, _, _ = flash_inputs(dev, torch.float32, b, h, s, s, d, 5)
+    want_o, lse = fa.flash_fwd_reference(q, k, v, None, None, True, sm)
+    di = (want_o * do).sum(-1)
+    want_dq, _ = fa.flash_bwd_dq_reference(q, k, v, None, None, lse, do, di,
+                                           True, sm)
+    # every row sees one position too many
+    late = torch.ones(s, s, device=dev).tril(diagonal=1).log()
+    bad_o, _ = fa.flash_fwd_reference(q, k, v, late.expand(b, h, s, s), None,
+                                      False, sm)
+    # ds = p·dp, the row term left out
+    bad_dq, _ = fa.flash_bwd_dq_reference(q, k, v, None, None, lse, do,
+                                          torch.zeros_like(di), True, sm)
+    for rtol, floor in FLASH_TOL.values():
+        check(scaled_err(bad_o, want_o, rtol, floor) > 1,
+              "the flash check passes a causal mask off by one")
+        check(scaled_err(bad_dq, want_dq, rtol, floor) > 1,
+              "the flash check passes a ds without its - di")
+
+
+def flash_crossover(dev):
+    """Forward + backward of ``sdpa`` through the kernels and composed, at
+    B·S = 16384 tokens, 16 heads of 64, causal: where the kernels overtake
+    the composed path on this card."""
+    from paddle_tpu_torch.flags import set_flag
+    from paddle_tpu_torch.ops import attention_ops as ao
+
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    h, d = LONGCTX["n_head"], LONGCTX["d_model"] // LONGCTX["n_head"]
+    rows = []
+    for s in (512, 1024, 2048, 4096):
+        b = LONGCTX_BATCH * LONGCTX_SEQ // s
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do, _, _ = flash_inputs(dev, dt, b, h, s, s, d, s)
+            q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+            def fwd_bwd():
+                o = ao.sdpa(q, k, v, causal=True, sm_scale=d ** -0.5)
+                torch.autograd.grad(o, [q, k, v], do)
+
+            ms = {}
+            for route, min_seq in (("flash", 1), ("composed", 1 << 30)):
+                set_flag("flash_attention_min_seq", min_seq)
+                ms[route] = cuda_ms(fwd_bwd, reps=10, flush=scratch.zero_)
+            rows.append({"S": s, "B": b,
+                         "dtype": str(dt).replace("torch.", ""),
+                         "flash_ms": ms["flash"],
+                         "composed_ms": ms["composed"]})
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    set_flag("flash_attention_min_seq", 2048)
+    emit("flash_crossover", heads=h, head_dim=d, causal=True,
+         fwd_plus_bwd=rows)
+
+
+def flash_kernel_phase(dev):
+    """K1a/K1b/K1c against their plain versions: at the long-context
+    training shape [8,16,2048,64], causal, in float32 and bfloat16, and at
+    small shapes that cover bias, segment ids, ragged Sq != Sk, dropout and
+    head widths 32 and 128. Then their times beside bound, plain version
+    and library call."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, s = LONGCTX_BATCH, LONGCTX_SEQ
+    h, d = LONGCTX["n_head"], LONGCTX["d_model"] // LONGCTX["n_head"]
+    sm = d ** -0.5
+    flash_planted_faults(dev)
+
+    small = [  # b, h, sq, sk, d, causal, bias, seg, rate
+        (2, 4, 200, 200, 64, False, True, True, 0.0),
+        (2, 4, 200, 200, 64, True, True, True, 0.0),
+        (1, 4, 70, 333, 32, False, True, False, 0.0),
+        (1, 4, 333, 70, 128, False, False, True, 0.0),
+        (2, 4, 192, 192, 64, True, False, False, 0.1),
+        (1, 2, 130, 130, 128, True, False, False, 0.1),
+        (1, 2, 100, 130, 32, False, False, False, 0.1),
+    ]
+    small_errs = []
+    for i, (b_, h_, sq, sk, d_, causal, bias, seg, rate) in enumerate(small):
+        for dt in (torch.float32, torch.bfloat16):
+            x = flash_inputs(dev, dt, b_, h_, sq, sk, d_, 100 + i, bias, seg)
+            errs = flash_check("flash small %d" % i, dt, *x, causal,
+                               d_ ** -0.5, rate, 77 + i)
+            small_errs.append({"case": small[i],
+                               "dtype": str(dt).replace("torch.", ""),
+                               "max_abs_err": errs})
+    # the dropout mask itself: with v = identity columns the output is the
+    # dropped probabilities, 0 exactly where the plain mask drops
+    n = 128
+    q, k, _, _, _, _ = flash_inputs(dev, torch.float32, 2, 2, n, n, n, 9)
+    eye = torch.eye(n, device=dev).expand(2, 2, n, n).contiguous()
+    o, _ = fa.flash_fwd(q, k, eye, None, None, False, 0.05, 0.1, -12345)
+    keep = fa.dropout_keep_mask(
+        0.1, -12345, torch.arange(2, device=dev)[:, None, None, None],
+        torch.arange(2, device=dev)[None, :, None, None], 0, 0, (n, n), dev)
+    check(torch.equal(o != 0, keep), "the kernel's dropout mask differs "
+          "from the plain version's")
+
+    path_errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = flash_inputs(dev, dt, b, h, s, s, d, 0)
+        path_errs[str(dt).replace("torch.", "")] = flash_check(
+            "flash path", dt, *x, True, sm, 0.0, 0)
+        del x
+        torch.cuda.empty_cache()
+
+    # times: L2 flushed before each launch, median of 30
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do, _, _ = flash_inputs(dev, dt, b, h, s, s, d, 0)
+        o, lse = fa.flash_fwd(q, k, v, None, None, True, sm)
+        di = (o.float() * do.float()).sum(-1)
+        args = (q, k, v, None, None, lse, do, di, True, sm)
+        t = {"fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, None, None, True,
+                                                 sm), flush=flush),
+             "dkv": cuda_ms(lambda: fa.flash_bwd_dkv(*args), flush=flush),
+             "dq": cuda_ms(lambda: fa.flash_bwd_dq(*args), flush=flush),
+             "di": cuda_ms(lambda: (o.float() * do.float()).sum(-1),
+                           flush=flush),
+             "library_fwd": cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                                 scale=sm), flush=flush)}
+        qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
+        lib_o = sdpa(qr, kr, vr, is_causal=True, scale=sm)
+        t["library_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            lib_o, [qr, kr, vr], do, retain_graph=True), flush=flush)
+        del qr, kr, vr, lib_o
+        if dt == torch.float32:
+            t["plain_fwd"] = cuda_ms(lambda: fa.flash_fwd_reference(
+                q, k, v, None, None, True, sm), reps=5, flush=flush)
+            t["plain_dkv"] = cuda_ms(lambda: fa.flash_bwd_dkv_reference(
+                *args), reps=5, flush=flush)
+            t["plain_dq"] = cuda_ms(lambda: fa.flash_bwd_dq_reference(
+                *args), reps=5, flush=flush)
+        times[str(dt).replace("torch.", "")] = t
+        del q, k, v, do, o, lse, di, args
+        torch.cuda.empty_cache()
+    del scratch
+
+    # least work, causal: S(S+1)/2 visible scores a head, two flops a
+    # multiply-add; K1a does 2 products of width D per score, K1b 4, K1c 3.
+    # Bytes: each input read once, each output written once.
+    visible = b * h * s * (s + 1) // 2
+    qkv_o = b * h * s * d       # elements of one of q, k, v, o, do, ...
+    stats = b * h * s * 4       # lse or di, float32
+    work = {"fwd": (2 * 2 * d * visible, 4 * qkv_o, stats),
+            "dkv": (4 * 2 * d * visible, 6 * qkv_o, 2 * stats),
+            "dq": (3 * 2 * d * visible, 5 * qkv_o, 2 * stats)}
+
+    def bound(kern, itemsize, peak):
+        flops, elems, extra = work[kern]
+        t_bytes = (elems * itemsize + extra) / H100_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        return max(t_bytes, t_ops), \
+            "bytes" if t_bytes >= t_ops else "operations"
+
+    rows = []
+    f32, bf16 = times["float32"], times["bfloat16"]
+    for kern, name, line, out in (
+            ("fwd", "flash_attention_fwd", "682", "o"),
+            ("dkv", "flash_attention_bwd_dkv", "1061", "dk"),
+            ("dq", "flash_attention_bwd_dq", "1428", "dq")):
+        bound_ms, by = bound(kern, 4, H100_F32_FLOP_PER_S)
+        lib = "library_fwd" if kern == "fwd" else "library_bwd"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas_kernels/flash_attention.py:"
+                        + line,
+            "launches": None, "max_abs_err": path_errs["float32"][out],
+            "ms": f32[kern], "plain_ms": f32["plain_" + kern],
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": f32[lib],
+            # the library's backward is one call for dq, dk and dv together
+            "library_call": "scaled_dot_product_attention(is_causal=True)"
+                            + ("" if kern == "fwd" else " backward, whole"),
+            "bf16_ms": bf16[kern],
+            "bf16_bound_ms": bound(kern, 2, H100_BF16_FLOP_PER_S)[0],
+            "bf16_library_ms": bf16[lib],
+            "bf16_max_abs_err": path_errs["bfloat16"][out]})
+    emit("kernel_vs_plain", kernel="flash_attention",
+         shape={"B": b, "H": h, "S": s, "D": d, "causal": True},
+         tol={k_: {"rtol": r, "row_floor": f}
+              for k_, (r, f) in FLASH_TOL.items()},
+         max_abs_err=path_errs, small_shapes=small_errs,
+         planted_faults_rejected=True, dropout_mask_bit_equal=True,
+         ms=times, gflop={k_: w[0] / 1e9 for k_, w in work.items()})
+    flash_crossover(dev)
+    return rows
+
+
+def build_causal_lm(fluid, seq, amp, dropout=0.1, n_layer=None):
+    """``bench.py``'s ``bench_longseq_train`` program, for the port's
+    package; ``amp`` decorates the optimizer as the bench does."""
+    from paddle_tpu_torch.models import transformer as tfm
+
+    cfg = dict(LONGCTX, n_layer=n_layer or LONGCTX["n_layer"])
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("ids", shape=[seq], dtype="int64")
+        lbl = fluid.layers.data("lbl", shape=[seq, 1], dtype="int64")
+        _, loss = tfm.causal_lm(ids, lbl, max_length=seq,
+                                dropout_rate=dropout, **cfg)
+        opt = fluid.optimizer.Adam(learning_rate=1e-4)
+        if amp:
+            opt = fluid.amp.decorate(opt)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def longctx_feed(batch, seq):
+    rng = np.random.RandomState(0)
+    vocab = LONGCTX["vocab_size"]
+    return {"ids": rng.randint(0, vocab, (batch, seq)).astype("int64"),
+            "lbl": rng.randint(0, vocab, (batch, seq, 1)).astype("int64")}
+
+
+def flash_launches():
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    return fa.LAUNCHES_FWD, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ
+
+
+def longctx_train_phase(flash_rows, amp):
+    """The causal LM at full width and depth, batch 8 x 2048 tokens: 2
+    warm-up and 6 timed steps on one fixed batch, in float32 (TF32 off) or
+    under ``fluid.amp.decorate``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    mode = "bfloat16_amp" if amp else "float32"
+    t0 = time.perf_counter()
+    main, startup, loss = build_causal_lm(fluid, LONGCTX_SEQ, amp)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_weights = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    feed = longctx_feed(LONGCTX_BATCH, LONGCTX_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    warm, _ = train_steps(exe, main, loss, feed, scope, 2)
+    fa.LAUNCHES_FWD = fa.LAUNCHES_DKV = fa.LAUNCHES_DQ = 0
+    sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+    losses, secs = train_steps(exe, main, loss, feed, scope, 6)
+    k1 = flash_launches()
+    k2 = (sx.LAUNCHES_FWD, sx.LAUNCHES_BWD)
+    peak = torch.cuda.max_memory_allocated()
+    all_losses = warm + losses
+    check(bool(np.isfinite(all_losses).all()),
+          "non-finite long-context loss (%s): %r" % (mode, all_losses))
+    check(all_losses[-1] < all_losses[0],
+          "long-context loss did not fall (%s): %r" % (mode, all_losses))
+    want = LONGCTX["n_layer"] * len(losses)
+    check(k1 == (want, want, want),
+          "K1 launches %r over %d steps of %d layers (%s)"
+          % (k1, len(losses), LONGCTX["n_layer"], mode))
+    check(k2 == (len(losses), len(losses)),
+          "K2 launches %r over %d steps (%s)" % (k2, len(losses), mode))
+    masters = {str(scope.find_var(p.name).dtype)
+               for p in main.all_parameters()}
+    check(masters == {"torch.float32"}, "parameters not float32: %r" % masters)
+    for row, n in zip(flash_rows, k1):
+        row["launches_amp" if amp else "launches"] = n
+    step_ms = float(np.median(secs)) * 1e3
+    emit("longctx_train", mode=mode, config=LONGCTX, batch=LONGCTX_BATCH,
+         seq=LONGCTX_SEQ, weights=n_weights, steps=len(losses),
+         step_ms_median=step_ms, step_ms=[x * 1e3 for x in secs],
+         tokens_per_s=LONGCTX_BATCH * LONGCTX_SEQ / (step_ms / 1e3),
+         peak_memory_bytes=peak, losses=all_losses,
+         k1_launches=dict(zip(("fwd", "dkv", "dq"), k1)),
+         k2_launches=dict(zip(("fwd", "bwd"), k2)),
+         setup_s=time.perf_counter() - t0 - sum(secs))
+    train_profile_phase(exe, main, loss, feed, scope,
+                        phase="longctx_profile_" + mode)
+    del scope, exe
+    torch.cuda.empty_cache()
+
+
+def longctx_parity_phase():
+    """The causal LM at full width, 2 layers, batch 1 x 256 tokens, dropout
+    0, with the flash route taken from 128 tokens: two steps on the card
+    (the kernels) and two on the CPU (their plain versions) from the same
+    startup state. Float32, TF32 off; losses to 1e-4 relative."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.flags import set_flag
+
+    set_flag("flash_attention_min_seq", 128)
+    main, startup, loss = build_causal_lm(fluid, 256, amp=False, dropout=0.0,
+                                          n_layer=2)
+    feed = longctx_feed(1, 256)
+    card = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=card)
+    arrays = {n: card.as_numpy(n) for n in card.vars}
+    n0 = flash_launches()
+    card_losses, _ = train_steps(exe, main, loss, feed, card, 2)
+    n1 = flash_launches()
+    check(tuple(a - b for a, b in zip(n1, n0)) == (4, 4, 4),
+          "the card run launched K1a/K1b/K1c %r -> %r over 2 steps of 2 "
+          "layers" % (n0, n1))
+    cpu = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                    fluid.CPUPlace())
+    cpu_losses, _ = train_steps(fluid.Executor(fluid.CPUPlace()), main, loss,
+                                feed, cpu, 2)
+    check(flash_launches() == n1, "the CPU run launched a flash kernel")
+    set_flag("flash_attention_min_seq", 2048)
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
+    check(bool(np.isfinite(card_losses + cpu_losses).all())
+          and max(rel) <= 1e-4,
+          "long-context card %r vs CPU %r losses (rel %r > 1e-4)"
+          % (card_losses, cpu_losses, rel))
+    emit("longctx_parity", batch=1, seq=256, n_layer=2, dropout=0.0,
+         card_losses=card_losses, cpu_losses=cpu_losses, rel_err=rel,
+         tol=1e-4, k1_launches_card=4)
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -640,10 +1056,14 @@ def main():
     dev = torch.device("cuda", torch.cuda.current_device())
     row = kernel_phase(dev)
     xent_rows = xent_kernel_phase(dev)
+    flash_rows = flash_kernel_phase(dev)
     serve_phase(row)
     train_phase(xent_rows)
     train_parity_phase()
-    print(json.dumps({"kernels": [row] + xent_rows}), flush=True)
+    longctx_train_phase(flash_rows, amp=False)
+    longctx_train_phase(flash_rows, amp=True)
+    longctx_parity_phase()
+    print(json.dumps({"kernels": [row] + xent_rows + flash_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,12 +14,17 @@ Ported so far:
 * Fluid's static-graph training surface — ``Program``, :mod:`.layers`,
   :mod:`.optimizer` and :class:`Executor` — for the Transformer, whose
   softmax cross-entropy runs through a hand-written CUDA kernel pair
-  (:mod:`.ops.kernels.softmax_xent`). A Fluid script runs unchanged with::
+  (:mod:`.ops.kernels.softmax_xent`), and for the long-context causal LM,
+  whose attention runs through three hand-written flash-attention kernels
+  (:mod:`.ops.kernels.flash_attention`), in float32 or under
+  :mod:`.amp` (bfloat16 forward and backward, float32 master weights).
+  A Fluid script runs unchanged with::
 
       import paddle_tpu_torch as fluid
 """
 
 from . import (  # noqa: F401
+    amp,
     initializer,
     io,
     layers,
@@ -42,4 +47,4 @@ from .layers.layer_helper import ParamAttr  # noqa: F401
 __all__ = ["serving", "models", "CUDAPlace", "CPUPlace", "Program",
            "program_guard", "default_main_program", "default_startup_program",
            "layers", "optimizer", "initializer", "io", "Executor", "Scope",
-           "scope_guard", "global_scope", "unique_name", "ParamAttr"]
+           "scope_guard", "global_scope", "unique_name", "ParamAttr", "amp"]

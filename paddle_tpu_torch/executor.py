@@ -16,12 +16,19 @@ The port runs the same ops eagerly through the interpreter
 * every persistable var the step wrote goes back into the ``Scope``, and
   the fetches come back as numpy arrays (``return_numpy``) or tensors.
 
+Mixed precision (:mod:`.amp` sets ``program._amp_dtype``): the float32
+parameters and feeds are cast to that dtype for the forward, inside the
+autograd graph, so the gradients arrive in float32 on the float32 master
+weights, which the optimizer ops read and update. The loss is summed in
+float32. A run without a backward casts a copy of its inputs and writes
+back only what an op rewrote, in the dtype the scope held.
+
 Stochastic ops draw from a ``torch.Generator`` per op, seeded from (seed
 attr or ``program.random_seed``, step index, op position); the step index
 counts the runs of each program (``_next_step_index``).
 
 Left out against the JAX package: jit and ``CompiledProgram``, meshes,
-gradient accumulation, sparse gradients, AMP, ``run_steps``, the numerics
+gradient accumulation, sparse gradients, ``run_steps``, the numerics
 watchdog, the trace-time optimizer passes and py_readers.
 """
 
@@ -170,14 +177,31 @@ class Executor:
         bw = program._backward_info
         marker_idx = next((i for i, op in enumerate(ops)
                            if op.type == "backward_marker"), None)
+        amp_dtype = getattr(program, "_amp_dtype", None)
+        if amp_dtype is not None:
+            amp_dtype = to_torch_dtype(amp_dtype)
         if bw is None or marker_idx is None:
             env = dict(state)
             env.update(feeds)
+            if amp_dtype is not None:
+                # the ops see a cast copy; the float32 state survives an
+                # eval or fetch run as it was. Only what an op rewrote
+                # (another tensor under the name) goes back, in the
+                # state's dtype.
+                env = _amp_cast(env, amp_dtype)
+                before = dict(env)
             with torch.no_grad():
                 run_block_ops(ops, env, trace)
+            if amp_dtype is not None:
+                for n, held in state.items():
+                    val = env.get(n)
+                    if val is before.get(n):
+                        env[n] = held
+                    elif val is not None and val.dtype != held.dtype:
+                        env[n] = val.to(held.dtype)
         else:
             env = self._train_step(ops, marker_idx, bw, state, feeds, trace,
-                                   fetch_names)
+                                   fetch_names, amp_dtype)
 
         for n in state_names:
             val = env.get(n)
@@ -193,20 +217,23 @@ class Executor:
         return fetches
 
     @staticmethod
-    def _train_step(ops, marker_idx, bw, state, feeds, trace, fetch_names):
+    def _train_step(ops, marker_idx, bw, state, feeds, trace, fetch_names,
+                    amp_dtype=None):
         """Forward under autograd, ``torch.autograd.grad`` into the
         ``p@GRAD`` names, then the post-marker ops under ``no_grad``. The
         forward's activations leave the env once the gradients exist,
-        unless a fetch or a post-marker op reads them."""
+        unless a fetch or a post-marker op reads them. With ``amp_dtype``
+        the forward reads casts of the float32 leaves and feeds; the cast
+        is part of the graph, so each gradient is float32."""
         loss_name = bw["loss"]
         param_to_grad = bw["param_to_grad"]
         param_names = [p for p in param_to_grad if p in state]
         leaves = {n: state[n].detach().requires_grad_(True)
                   for n in param_names}
         env = dict(state)
-        env.update(leaves)
-        env.update(feeds)
         with torch.enable_grad():
+            env.update(_amp_cast(leaves, amp_dtype))
+            env.update(_amp_cast(feeds, amp_dtype))
             run_block_ops(ops[:marker_idx], env, trace)
             loss = torch.sum(env[loss_name].float())
             grads = torch.autograd.grad(
@@ -225,6 +252,15 @@ class Executor:
             run_block_ops(post_ops, env, trace,
                           offset=marker_idx + 1)
         return env
+
+
+def _amp_cast(tensors: Dict[str, torch.Tensor], dtype) -> Dict[str, Any]:
+    """``tensors`` with every float32 one cast to ``dtype`` (as they are
+    for ``dtype`` None)."""
+    if dtype is None:
+        return tensors
+    return {n: v.to(dtype) if isinstance(v, torch.Tensor)
+            and v.dtype == torch.float32 else v for n, v in tensors.items()}
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

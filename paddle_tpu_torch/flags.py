@@ -4,7 +4,7 @@ whitelist in python/paddle/fluid/__init__.py:128-160).
 
 Flags are read from ``FLAGS_*`` environment variables at import (the same
 variables the JAX package reads) and mutable at runtime via set_flag().
-Only the flags the ported serving path reads are defined. There is no
+Only the flags the ported paths read are defined. There is no
 ``strict_fused_attention``: the port never falls back from a kernel to its
 plain version on a CUDA tensor, so there is nothing for it to forbid.
 """
@@ -24,6 +24,14 @@ _DEFAULTS: Dict[str, Any] = {
                                      # kernel for CUDA tensors; "off" =
                                      # always gather ("interpret" has no
                                      # meaning here and raises)
+    "flash_attention_min_seq": 2048, # sdpa goes through the flash-attention
+                                     # kernels (ops/kernels/flash_attention.py)
+                                     # when max(Sq, Sk) reaches this, and is
+                                     # composed below it. A routing rule
+                                     # shared with the JAX package, so both
+                                     # send a program to the same kind of
+                                     # kernel; it depends on shapes only,
+                                     # never on the device.
 }
 
 _flags: Dict[str, Any] = {}

@@ -285,9 +285,10 @@ def causal_lm(token_ids, labels, vocab_size=32000, max_length=2048,
     """Decoder-only causal LM over the encoder blocks (pre-norm, gelu FFN,
     causal attention). Attention-probs dropout is 0 (the modern
     long-context recipe) — the long-context training configuration
-    (residual/embedding dropout stay on). The flash-attention kernels that
-    carry its attention in the JAX package are not ported yet. Returns
-    (logits, mean token cross-entropy loss)."""
+    (residual/embedding dropout stay on). From
+    ``FLAGS_flash_attention_min_seq`` tokens up its attention runs through
+    the flash-attention kernels (``ops/kernels/flash_attention.py``).
+    Returns (logits, mean token cross-entropy loss)."""
     x = embed_inputs(token_ids, vocab_size, d_model, max_length, "lm",
                      dropout_rate=dropout_rate, is_test=is_test)
     d_key = d_value = d_model // n_head

@@ -5,14 +5,17 @@
   attention implementation here shares (composed :func:`sdpa`,
   :func:`decode_attention`, :func:`verify_attention` and the paged-attention
   CUDA kernel), so masking cannot drift between them.
-* :func:`sdpa` — the composed scaled dot-product attention that prefill
-  and the ``scaled_dot_product_attention`` op run, with attention-probs
-  dropout. The JAX package routes it to its flash kernel only on a TPU,
-  from ``FLAGS_flash_attention_min_seq`` = 2048 up, and with dropout only
-  without segment ids; never at the serving prompts or the Transformer
-  training step (S = 256, segments, dropout 0.1), where it leaves the
-  product to XLA. Here it is left to ``torch.einsum``; the flash kernels
-  (K1a-c) come with the long-context training slice.
+* :func:`sdpa` — the scaled dot-product attention that prefill and the
+  ``scaled_dot_product_attention`` op run. From
+  ``FLAGS_flash_attention_min_seq`` up it goes through the flash-attention
+  kernels (:mod:`.kernels.flash_attention`, K1a-c): without dropout with
+  any bias and segment ids, with attention-probs dropout when there is
+  neither (the kernels then draw the mask themselves). Below the flag, and
+  for what the kernels do not take, it is composed from ``torch.einsum``
+  and materialises the [B, H, Sq, Sk] scores. The route depends on shapes,
+  dtypes and the flag, never on the device, so a CPU run walks the same
+  route through the kernels' plain versions. Both routes compute
+  ``softmax(q·kᵀ·sm_scale + bias)·v``.
 * :func:`decode_attention` / :func:`verify_attention` — single-position
   and verify-window attention over a gathered KV context: the plain path
   the paged kernel is held against.
@@ -24,6 +27,7 @@ import torch
 
 from ..core.registry import OpContext, register_op
 from ..flags import flags
+from .kernels import flash_attention as fa
 from .tensor_ops import keep_mask
 
 __all__ = ["neg_inf", "neg_inf_value", "paged_kernel_enabled", "sdpa",
@@ -61,11 +65,51 @@ def paged_kernel_enabled() -> bool:
                      % (flags.paged_attention_kernel,))
 
 
+def _flash_ok(q, k, causal) -> bool:
+    """Gate of the flash route: the longer sequence reaches
+    ``FLAGS_flash_attention_min_seq``, the kernels are built for the dtype
+    and the head width, and a causal mask comes with ``Sq == Sk`` (the
+    kernels align it top-left, the composed path bottom-right; the two
+    agree only there)."""
+    sq, d = q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    if causal and sq != sk:
+        return False
+    if max(sq, sk) < int(flags.flash_attention_min_seq):
+        return False
+    return d in fa.HEAD_DIMS and q.dtype in (torch.float32, torch.bfloat16)
+
+
+def _draw_seed(gen: torch.Generator) -> int:
+    """One int32 from the op's generator: the seed of the kernels' mask."""
+    return int(torch.randint(-2 ** 31, 2 ** 31, (1,), generator=gen,
+                             device=gen.device, dtype=torch.int64))
+
+
 def sdpa(q, k, v, bias=None, segment_ids_q=None, segment_ids_kv=None,
          causal=False, sm_scale=1.0, dropout_rate=0.0, dropout_rng=None):
     """Scaled dot-product attention over [B, H, S, D] tensors. With
     ``dropout_rate`` > 0 and a ``torch.Generator`` as ``dropout_rng``, the
-    probabilities are dropped (upscale_in_train) through a bool keep mask."""
+    probabilities are dropped (upscale_in_train): on the flash route by the
+    kernels' own mask, seeded from the generator, on the composed route
+    through a bool keep mask drawn from it."""
+    if _flash_ok(q, k, causal):
+        if dropout_rate == 0.0:
+            seg = None
+            if segment_ids_q is not None:
+                seg = fa.SegmentIds(segment_ids_q, segment_ids_kv)
+            ab = bias
+            if ab is not None:
+                ab = ab.to(q.dtype).expand(q.shape[0], q.shape[1],
+                                           q.shape[2], k.shape[2])
+            return fa.flash_attention(q, k, v, ab, seg, causal=causal,
+                                      sm_scale=sm_scale)
+        if (dropout_rng is not None and bias is None
+                and segment_ids_q is None and segment_ids_kv is None):
+            return fa.flash_attention(
+                q, k, v, causal=causal, sm_scale=sm_scale,
+                dropout_rate=dropout_rate,
+                dropout_seed=_draw_seed(dropout_rng))
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
     if bias is not None:
         scores = scores + bias

@@ -4,8 +4,7 @@
 Fluid equivalents: ``operators/mul_op.cc``, ``elementwise/*``,
 ``scale_op.cc``, ``mean_op.cc``, ``cast_op.cc``. Each is a few torch calls;
 the products go to cuBLAS through ``torch.tensordot`` (the JAX package
-leaves them to XLA: no Pallas kernel sits here). The AMP autocast rule of
-the JAX ``_elementwise`` is not ported (no AMP yet).
+leaves them to XLA: no Pallas kernel sits here).
 """
 
 from __future__ import annotations
@@ -36,6 +35,27 @@ def mul_op(ctx: OpContext):
 
 def _elementwise(ctx: OpContext, fn):
     x, y = ctx.input("X"), ctx.input("Y")
+    # AMP autocast: a mixed bf16/f32 binary op computes in the AMP dtype
+    # instead of promoting to f32. Without this, one f32 constant entering
+    # the residual stream (a positional-encoding table) upcasts every
+    # activation after it.
+    amp = getattr(getattr(ctx.trace, "program", None), "_amp_dtype", None)
+    if amp is not None:
+
+        def castable(slot):
+            # Only activations autocast; persistable vars (parameters,
+            # master weights, user state) keep their deliberate f32.
+            names = ctx.op.inputs.get(slot)
+            block = ctx.op.block
+            if not names or not block.has_var(names[0]):
+                return True
+            return not block.var(names[0]).persistable
+
+        adt = to_torch_dtype(amp)
+        if x.dtype == adt and y.dtype == torch.float32 and castable("Y"):
+            y = y.to(adt)
+        elif y.dtype == adt and x.dtype == torch.float32 and castable("X"):
+            x = x.to(adt)
     axis = ctx.attr("axis", -1)
     if x.shape != y.shape and axis != -1 and y.dim() < x.dim():
         # Fluid axis semantics: y's dims align with x's dims starting at axis.

@@ -15,6 +15,7 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch import serving
 from paddle_tpu_torch.flags import set_flag
 from paddle_tpu_torch.models import decoder_lm
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import softmax_xent as sx
 from paddle_tpu_torch.serving import kv_cache
@@ -32,6 +33,7 @@ def cuda():
         pytest.skip("needs a CUDA GPU")
     yield torch.device("cuda")
     set_flag("paged_attention_kernel", "auto")
+    set_flag("flash_attention_min_seq", 2048)
 
 
 def make_pool(seed, dev):
@@ -192,4 +194,150 @@ def test_softmax_xent_op_trains_through_the_kernels(cuda):
     losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
                             scope=scope)[0]) for _ in range(5)]
     assert (sx.LAUNCHES_FWD - f0, sx.LAUNCHES_BWD - b0) == (5, 5)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def flash_inputs(dev, dt, b, h, sq, sk, d, bias, seg, seed=0):
+    """q, k, v, do as transposed views of [B,S,H,D] tensors (the layout the
+    attention layer hands over), a bias broadcast over heads, sorted
+    segment ids."""
+    rng = np.random.RandomState(seed)
+
+    def t(s):
+        x = torch.as_tensor(rng.randn(b, s, h, d).astype(np.float32),
+                            device=dev)
+        return x.to(dt).transpose(1, 2)
+
+    q, k, v, do = t(sq), t(sk), t(sk), t(sq)
+    ab = None
+    if bias:
+        ab = torch.as_tensor(rng.randn(b, 1, sq, sk).astype(np.float32),
+                             device=dev).to(dt).expand(b, h, sq, sk)
+    ids = None
+    if seg:
+        ids = fa.SegmentIds(
+            torch.as_tensor(np.sort(rng.randint(0, 3, (b, sq))), device=dev),
+            torch.as_tensor(np.sort(rng.randint(0, 3, (b, sk))), device=dev))
+    return q, k, v, do, ab, ids
+
+
+FLASH_CASES = [
+    # b, h, sq, sk, d, causal, bias, seg, rate
+    (2, 3, 256, 256, 64, True, False, False, 0.0),
+    (2, 2, 200, 200, 64, True, True, True, 0.0),
+    (1, 2, 70, 333, 32, False, True, True, 0.0),
+    (1, 2, 333, 70, 128, False, False, False, 0.0),
+    (2, 2, 192, 192, 64, True, False, False, 0.1),
+    (1, 2, 100, 130, 32, False, False, False, 0.5),
+    (1, 1, 130, 130, 128, True, True, False, 0.0),
+]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,bias,seg,rate", FLASH_CASES)
+def test_flash_kernels_match_plain_versions(cuda, dt, b, h, sq, sk, d, causal,
+                                            bias, seg, rate):
+    """K1a/K1b/K1c against their plain versions on the same tensors:
+    float32 to 2e-5 (another summation order), bfloat16 to 2e-2 (outputs
+    rounded to bf16; p is rounded against a running maximum in the kernel
+    and against the final one in the plain version)."""
+    q, k, v, do, ab, ids = flash_inputs(cuda, dt, b, h, sq, sk, d, bias, seg)
+    sm, seed = d ** -0.5, 12345
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    n0 = (fa.LAUNCHES_FWD, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ)
+    o, lse = fa.flash_fwd(q, k, v, ab, ids, causal, sm, rate, seed)
+    want_o, want_lse = fa.flash_fwd_reference(q, k, v, ab, ids, causal, sm,
+                                              rate, seed)
+    torch.testing.assert_close(o.float(), want_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=1e-5)
+    assert h == 1 or o.stride() == q.stride()  # no copy on the way back
+    # both backward kernels from the plain forward's residuals
+    di = (want_o.float() * do.float()).sum(-1)
+    args = (q, k, v, ab, ids, want_lse, do, di, causal, sm, rate, seed)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    dq, dab = fa.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES_FWD - n0[0], fa.LAUNCHES_DKV - n0[1],
+            fa.LAUNCHES_DQ - n0[2]) == (1, 1, 1)
+    want_dk, want_dv = fa.flash_bwd_dkv_reference(*args)
+    want_dq, want_dab = fa.flash_bwd_dq_reference(*args)
+    for name, got, want in (("dk", dk, want_dk), ("dv", dv, want_dv),
+                            ("dq", dq, want_dq)):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol, msg=lambda m: name + ": " + m)
+    if bias:
+        torch.testing.assert_close(dab.float(), want_dab.float(), atol=tol,
+                                   rtol=tol)
+        dq2, none = fa.flash_bwd_dq(*args, need_dab=False)
+        assert none is None and torch.equal(dq2, dq)
+    else:
+        assert dab is None
+
+
+def test_flash_dropout_mask_is_the_plain_versions(cuda):
+    """With v = identity columns the forward's output is the dropped
+    probabilities themselves: exactly 0 where the plain mask drops, and
+    nowhere else."""
+    b, h, s, d = 2, 2, 128, 128
+    rng = np.random.RandomState(0)
+    q = torch.as_tensor(rng.randn(b, h, s, d).astype(np.float32), device=cuda)
+    k = torch.as_tensor(rng.randn(b, h, s, d).astype(np.float32), device=cuda)
+    v = torch.eye(s, d, device=cuda).expand(b, h, s, d).contiguous()
+    for rate, seed in ((0.1, 7), (0.5, -3), (0.9, 2 ** 31 - 1)):
+        o, _ = fa.flash_fwd(q, k, v, None, None, False, 0.05, rate, seed)
+        keep = fa.dropout_keep_mask(
+            rate, seed,
+            torch.arange(b, device=cuda)[:, None, None, None],
+            torch.arange(h, device=cuda)[None, :, None, None], 0, 0, (s, s),
+            cuda)
+        assert torch.equal(o != 0, keep)
+
+
+def test_flash_dead_rows_and_wrapper_rules(cuda):
+    q, k, v, do, _, _ = flash_inputs(cuda, torch.float32, 1, 2, 64, 64, 32,
+                                     False, False)
+    ids = fa.SegmentIds(torch.zeros(1, 64, dtype=torch.int64, device=cuda),
+                        torch.ones(1, 64, dtype=torch.int64, device=cuda))
+    ids.q[0, 10:] = 1  # rows 0..9 see nothing
+    o, lse = fa.flash_fwd(q, k, v, None, ids)
+    assert not o[:, :, :10].any() and bool(torch.isinf(lse[:, :, :10]).all())
+    want_o, want_lse = fa.flash_fwd_reference(q, k, v, None, ids)
+    torch.testing.assert_close(o, want_o, atol=2e-5, rtol=2e-5)
+    di = (o * do).sum(-1)
+    dq, _ = fa.flash_bwd_dq(q, k, v, None, ids, lse, do, di)
+    assert not dq[:, :, :10].any() and bool(torch.isfinite(dq).all())
+    with pytest.raises(ValueError, match="head widths"):
+        fa.flash_fwd(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(TypeError, match="flash kernels take"):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="unit last stride"):
+        fa.flash_fwd(*(t.transpose(2, 3)[:, :, :32] for t in (q, k, v)))
+
+
+def test_causal_lm_attention_trains_through_the_flash_kernels(cuda):
+    """A small causal LM with the flag at its sequence length launches
+    K1a, K1b and K1c once a layer a step."""
+    from paddle_tpu_torch.models import transformer as tfm
+
+    set_flag("flash_attention_min_seq", 128)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("ids", shape=[128], dtype="int64")
+        lbl = fluid.layers.data("lbl", shape=[128, 1], dtype="int64")
+        _, loss = tfm.causal_lm(ids, lbl, vocab_size=211, max_length=128,
+                                n_layer=2, n_head=2, d_model=64, d_inner=128,
+                                dropout_rate=0.0)
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {"ids": rng.randint(0, 211, (2, 128)).astype("int64"),
+            "lbl": rng.randint(0, 211, (2, 128, 1)).astype("int64")}
+    n0 = (fa.LAUNCHES_FWD, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ)
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(5)]
+    assert (fa.LAUNCHES_FWD - n0[0], fa.LAUNCHES_DKV - n0[1],
+            fa.LAUNCHES_DQ - n0[2]) == (10, 10, 10)
     assert np.isfinite(losses).all() and losses[-1] < losses[0]

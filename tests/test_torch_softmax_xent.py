@@ -5,7 +5,10 @@ and ``softmax_xent_reference_bwd``). It is held against the JAX Pallas
 kernel pair run by the Pallas interpreter (``fused_softmax_xent(...,
 interpret=True)``), loss and gradient, in float32 to 1e-6 (same math,
 another summation order) and with bfloat16 logits to 2e-2 (bf16 rounding
-of the gradient). Rows labelled ``ignore_index`` are held against the JAX
+of the gradient). In float32 each side is first held, at the same 1e-6, to
+the loss and gradient computed by numpy in float64 from the same inputs,
+so that a side that moves is named by the assertion that fails. Rows
+labelled ``ignore_index`` are held against the JAX
 op's composed ``_hard_label_xent``, which zeroes their loss and gradient.
 The CUDA kernels themselves are held against the plain version on the card
 by ``test_torch_cuda_kernels.py``.
@@ -42,6 +45,22 @@ def jax_pallas(logits, labels, g, smooth, dtype):
             np.asarray(dx.astype(jnp.float32)))
 
 
+def float64_truth(logits, labels, g, smooth):
+    """Loss [N,1] and dlogits [N,V] of the module docstring's formulas, by
+    numpy in float64 from the float32 inputs."""
+    x = logits.astype(np.float64)
+    n, v = x.shape
+    m = x.max(axis=-1, keepdims=True)
+    lse = m + np.log(np.exp(x - m).sum(axis=-1, keepdims=True))
+    onehot = np.zeros_like(x)
+    onehot[np.arange(n), labels] = 1.0
+    loss = lse - (1 - smooth) * (x * onehot).sum(-1, keepdims=True) \
+        - (smooth / v) * x.sum(-1, keepdims=True)
+    dx = g.astype(np.float64) * (np.exp(x - lse) - (1 - smooth) * onehot
+                                 - smooth / v)
+    return loss, dx
+
+
 def port(logits, labels, g, smooth, dtype, ignore_index=-100):
     x = torch.as_tensor(logits).to(dtype)
     lab = torch.as_tensor(labels)
@@ -61,6 +80,14 @@ def test_plain_version_matches_pallas_interpreter(n, v, smooth, dtype, tol):
                                     getattr(jnp, dtype))
     got_loss, got_dx = port(logits, labels, g, smooth,
                             getattr(torch, dtype))
+    if dtype == "float32":
+        true_loss, true_dx = float64_truth(logits, labels, g, smooth)
+        for side, loss, dx in (("port", got_loss, got_dx),
+                               ("pallas", want_loss, want_dx)):
+            np.testing.assert_allclose(loss, true_loss, rtol=tol, atol=tol,
+                                       err_msg=side + " loss vs float64")
+            np.testing.assert_allclose(dx, true_dx, rtol=tol, atol=tol,
+                                       err_msg=side + " dlogits vs float64")
     np.testing.assert_allclose(got_loss, want_loss, rtol=tol, atol=tol)
     np.testing.assert_allclose(got_dx, want_dx, rtol=tol, atol=tol)
 
