@@ -25,7 +25,14 @@ drives the ported paths through the entry points a user calls:
   and once under ``fluid.amp.decorate`` (bfloat16); every step must launch
   K1a, K1b and K1c once a layer and K2a, K2b once, the losses must be
   finite and fall, and at batch 1 x 256 tokens, 2 layers, dropout 0 the
-  card's losses must match the CPU's.
+  card's losses must match the CPU's;
+* CTR training: DeepFM as ``bench.py``'s ``bench_deepfm`` builds and feeds
+  it (V = 1e6, 26 fields, embedding 10, 13 dense features, deep layers
+  400-400-400, batch 1024) with ``is_sparse`` tables, once under Adam and
+  once under SGD; every Adam step must launch K4a twice (one a table) and
+  K2a, K2b once, every SGD step K4b twice, the losses must be finite and
+  fall; at V = 5e7 the sparse step must allocate no [V, D] gradient, and at
+  V = 1e4, batch 64 the card's losses and state must match the CPU's.
 
 Each phase prints one JSON line; any failed check exits non-zero. The line
 before the last holds every kernel's numbers, the last line the device.
@@ -46,6 +53,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12   # float32 outside the tensor cores
+SPIN_CYCLES = 1_000_000       # ~0.5 ms at the H100's 1.98 GHz boost clock
 
 # Transformer-base as bench.py's bench_transformer trains it
 TRAIN = dict(n_layer=6, d_model=512, n_head=8, d_inner=2048, seq=256,
@@ -57,6 +65,12 @@ LONGCTX = dict(vocab_size=32000, n_layer=12, n_head=16, d_model=1024,
                d_inner=4096)
 LONGCTX_BATCH, LONGCTX_SEQ = 8, 2048
 H100_BF16_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores
+
+# DeepFM as bench.py's bench_deepfm trains it
+CTR = dict(sparse_feature_dim=1_000_000, embedding_size=10, num_fields=26,
+           layer_sizes=(400, 400, 400))
+CTR_BATCH, CTR_DENSE = 1024, 13
+CTR_BIG_V = 50_000_000  # the largest V of bench.py's sweep one card holds
 
 
 def check(ok, msg):
@@ -84,16 +98,30 @@ def scaled_err(got, want, rtol, floor=1e-6):
                   / (rtol * want.abs() + floor)).max())
 
 
+def l2_flusher(dev):
+    """A function that evicts the 50 MB L2 by reading a 256 MB buffer. A
+    read leaves the L2 holding clean lines, so the timed launch after it
+    pays no write-back. (Zeroing a buffer instead leaves dirty lines whose
+    write-back lands in the next launch's time: a few microseconds, nothing
+    for a millisecond kernel, much of a microsecond one's.)"""
+    buf = torch.ones(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    return buf.sum
+
+
 def cuda_ms(fn, reps=30, flush=None):
     """Median device time of ``fn()`` in ms over ``reps`` launches, each
     timed by CUDA events, with ``flush()`` (an L2 eviction) run before each
-    launch outside the timed span."""
+    launch outside the timed span. A spin of ~0.5 ms on the card follows the
+    flush, so the host has enqueued the timed launch before the card
+    reaches it: the span holds the launch, not the host's Python around it
+    (which a microsecond kernel would otherwise measure)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -157,8 +185,7 @@ def kernel_phase(dev):
               "garbage beyond ctx_len moved the kernel output (%s)" % dt)
         errs[str(dt).replace("torch.", "")] = err
 
-    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    flush = scratch.zero_  # 256 MB > the 50 MB L2
+    flush = l2_flusher(dev)
     rows = (pt.long() * ps)[:, :, None] + torch.arange(ps, device=dev)
     rows = rows.reshape(b, -1)
     kg, vg = k32[rows].transpose(1, 2), v32[rows].transpose(1, 2)
@@ -166,6 +193,10 @@ def kernel_phase(dev):
             < ctx[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = cuda_ms(lambda: kern(q32, k32, v32), flush=flush)
+    # after a flush that writes (zeroing 256 MB), for comparison
+    dirty = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    ms_dirty = cuda_ms(lambda: kern(q32, k32, v32), flush=dirty.zero_)
+    del dirty
     plain_ms = cuda_ms(lambda: pa.gather_reference(q32, k32, v32, pt, ctx,
                                                    ps, sm_scale=sm),
                        flush=flush)
@@ -187,15 +218,15 @@ def kernel_phase(dev):
            "launches": None, "max_abs_err": errs["float32"], "ms": ms,
            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": library_ms}
+           "library_ms": library_ms, "ms_after_write_flush": ms_dirty}
     emit("kernel_vs_plain", kernel="paged_decode_attention",
          shape={"B": b, "H": h, "D": d, "page_size": ps,
                 "pages_per_slot": pps, "ctx_len": ctx_np.tolist()},
          max_abs_err=errs, tol={"float32": 1e-5, "bfloat16": 2e-2},
          poisoned_bit_identical=True, ms=ms, plain_ms=plain_ms,
          library_ms=library_ms, bound_ms=row["bound_ms"],
-         live_bytes=nbytes)
-    del scratch
+         live_bytes=nbytes, ms_after_write_flush=ms_dirty)
+    del flush
     return row
 
 
@@ -414,8 +445,7 @@ def xent_kernel_phase(dev):
                       "dlogits_abs": e_dx, "dlogits_scaled": e_scaled}
         del loss, lse, dx, want_loss, want_lse, want_dx
 
-    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    flush = scratch.zero_  # 256 MB > the 50 MB L2
+    flush = l2_flusher(dev)
     F = torch.nn.functional
     loss, lse = sx.softmax_xent_fwd(x32, lab, eps)
     fwd_ms = cuda_ms(lambda: sx.softmax_xent_fwd(x32, lab, eps), flush=flush)
@@ -433,7 +463,7 @@ def xent_kernel_phase(dev):
     g1 = g.reshape(-1)
     bwd_lib = cuda_ms(lambda: torch.autograd.grad(
         lib_loss, [xr], g1, retain_graph=True), flush=flush)
-    del xr, lib_loss, scratch
+    del xr, lib_loss, flush
 
     def row(name, fn_line, ms, plain, lib, nbytes, flops, err):
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -737,7 +767,7 @@ def flash_crossover(dev):
     from paddle_tpu_torch.flags import set_flag
     from paddle_tpu_torch.ops import attention_ops as ao
 
-    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = l2_flusher(dev)
     h, d = LONGCTX["n_head"], LONGCTX["d_model"] // LONGCTX["n_head"]
     rows = []
     for s in (512, 1024, 2048, 4096):
@@ -753,7 +783,7 @@ def flash_crossover(dev):
             ms = {}
             for route, min_seq in (("flash", 1), ("composed", 1 << 30)):
                 set_flag("flash_attention_min_seq", min_seq)
-                ms[route] = cuda_ms(fwd_bwd, reps=10, flush=scratch.zero_)
+                ms[route] = cuda_ms(fwd_bwd, reps=10, flush=flush)
             rows.append({"S": s, "B": b,
                          "dtype": str(dt).replace("torch.", ""),
                          "flash_ms": ms["flash"],
@@ -817,8 +847,7 @@ def flash_kernel_phase(dev):
         torch.cuda.empty_cache()
 
     # times: L2 flushed before each launch, median of 30
-    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    flush = scratch.zero_
+    flush = l2_flusher(dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -849,7 +878,7 @@ def flash_kernel_phase(dev):
         times[str(dt).replace("torch.", "")] = t
         del q, k, v, do, o, lse, di, args
         torch.cuda.empty_cache()
-    del scratch
+    del flush
 
     # least work, causal: S(S+1)/2 visible scores a head, two flops a
     # multiply-add; K1a does 2 products of width D per score, K1b 4, K1c 3.
@@ -1031,6 +1060,474 @@ def longctx_parity_phase():
     torch.cuda.empty_cache()
 
 
+def ctr_feed(batch=None, vocab=None):
+    """The fixed batch of bench.py's bench_deepfm (batch 1024, V = 1e6 by
+    default): RandomState(0) draws the ids, then the dense features, then
+    the labels."""
+    batch = batch or CTR_BATCH
+    vocab = vocab or CTR["sparse_feature_dim"]
+    num_fields = CTR["num_fields"]
+    rng = np.random.RandomState(0)
+    return {"ids": rng.randint(0, vocab, (batch, num_fields)).astype("int64"),
+            "dense": rng.rand(batch, CTR_DENSE).astype("float32"),
+            "label": rng.randint(0, 2, (batch, 1)).astype("int64")}
+
+
+def build_deepfm(fluid, vocab, opt="adam", is_sparse=True):
+    """``bench.py``'s ``bench_deepfm`` program, for the port's package, at
+    full width; ``opt`` is "adam" (Adam(1e-3), as the bench) or "sgd"."""
+    from paddle_tpu_torch.models import deepfm
+
+    cfg = dict(CTR, sparse_feature_dim=vocab)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("ids", shape=[cfg["num_fields"]],
+                                dtype="int64")
+        dense = fluid.layers.data("dense", shape=[CTR_DENSE])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        _, loss, auc = deepfm.deepfm(ids, dense, label, is_sparse=is_sparse,
+                                     **cfg)
+        (fluid.optimizer.Adam(learning_rate=1e-3) if opt == "adam"
+         else fluid.optimizer.SGD(learning_rate=1e-3)).minimize(loss)
+    return main, startup, loss, auc
+
+
+def sparse_err(got, want, old):
+    """Largest |got - want| / max(|want|, |old|): relative to the larger of
+    an element's values after and before the update (the plain version
+    stores m + (m_new - m) where the kernel stores m_new, one rounding
+    apart, which a value that cancels to near 0 would blow up)."""
+    scale = torch.maximum(want.abs(), old.abs()).clamp_min(1e-30)
+    return float(((got - want).abs() / scale).max())
+
+
+def row_sectors(ids, row_bytes):
+    """The 32-byte sectors that the rows at ``ids`` span in a table of
+    ``row_bytes``-wide rows."""
+    start = ids * row_bytes
+    return int(((start + row_bytes - 1) // 32 - start // 32 + 1).sum())
+
+
+# planted faults: K4a's source with one change each, built beside it
+SPARSE_FAULTS = {
+    "writes_pad_rows": (
+        "  if (id < 0 || id >= vocab) return;  // merge padding: touch "
+        "nothing\n  const long long k = id * d + t % d;\n"
+        "  const float g = rows[t];",
+        "  const long long k = (id >= vocab ? vocab - 1 : id) * d + t % d;\n"
+        "  const float g = rows[t];"),
+    "no_one_minus_beta1": ("__fmul_rn(one_minus_beta1, g)", "g"),
+}
+
+
+def build_sparse_faults():
+    """{fault: K4a entry point} of the planted-fault variants, built with
+    the kernels' own nvcc flags, one process each, in parallel."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import sparse_adam as sa
+
+    src = (_build.SRC_DIR / "sparse_adam.cu").read_text()
+    jobs = {}
+    for name, (old, new) in SPARSE_FAULTS.items():
+        check(src.count(old) == 1, "planted fault %s: its pattern is not in "
+              "sparse_adam.cu once" % name)
+        cu = _build.BUILD_DIR / ("sparse_adam_fault_%s.cu" % name)
+        cu.write_text(src.replace(old, new))
+        so = cu.with_suffix(".so")
+        jobs[name] = (subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), so)
+    fns = {}
+    for name, (proc, so) in jobs.items():
+        out, err = proc.communicate()
+        check(proc.returncode == 0, "planted fault %s did not build: %s%s"
+              % (name, out, err))
+        fns[name] = sa.bind(ctypes.CDLL(str(so)))[0]
+    return fns
+
+
+def ctr_xent_check(dev, flush):
+    """K2a/K2b at DeepFM's loss shape [1024, 2] (no smoothing): one 256-
+    thread block per two-element row. The loss to 1e-5 relative, dlogits
+    to 1e-6 absolute; times beside bound, plain version and library."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    F = torch.nn.functional
+    n, v = CTR_BATCH, 2
+    rng = np.random.RandomState(1)
+    x = torch.as_tensor((rng.randn(n, v) * 2).astype(np.float32), device=dev)
+    lab = torch.as_tensor(rng.randint(0, v, n).astype(np.int64), device=dev)
+    g = torch.as_tensor(rng.randn(n, 1).astype(np.float32), device=dev)
+    loss, lse = sx.softmax_xent_fwd(x, lab)
+    dx = sx.softmax_xent_bwd(x, lab, lse, g)
+    torch.cuda.synchronize()
+    want_loss, want_lse = sx.softmax_xent_reference(x, lab)
+    want_dx = sx.softmax_xent_reference_bwd(x, lab, want_lse, g)
+    e_loss, e_dx = rel_err(loss, want_loss), float((dx - want_dx).abs().max())
+    check(e_loss <= 1e-5, "K2a [1024, 2] loss rel err %g > 1e-5" % e_loss)
+    check(e_dx <= 1e-6, "K2b [1024, 2] dlogits abs err %g > 1e-6" % e_dx)
+    xr = x.detach().requires_grad_(True)
+    lib_loss = F.cross_entropy(xr, lab, reduction="none")
+    times = {
+        "fwd_ms": cuda_ms(lambda: sx.softmax_xent_fwd(x, lab), flush=flush),
+        "fwd_plain_ms": cuda_ms(lambda: sx.softmax_xent_reference(x, lab),
+                                flush=flush),
+        "fwd_library_ms": cuda_ms(lambda: F.cross_entropy(
+            x, lab, reduction="none"), flush=flush),
+        "bwd_ms": cuda_ms(lambda: sx.softmax_xent_bwd(x, lab, lse, g),
+                          flush=flush),
+        "bwd_plain_ms": cuda_ms(lambda: sx.softmax_xent_reference_bwd(
+            x, lab, lse, g), flush=flush),
+        "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(
+            lib_loss, [xr], g.reshape(-1), retain_graph=True), flush=flush)}
+    nv = n * v
+    times["fwd_bound_ms"] = (4 * nv + 16 * n) / H100_BYTES_PER_S * 1e3
+    times["bwd_bound_ms"] = (8 * nv + 16 * n) / H100_BYTES_PER_S * 1e3
+    emit("kernel_vs_plain", kernel="softmax_xent_ctr",
+         shape={"N": n, "V": v, "smooth": 0.0},
+         max_err={"loss_rel": e_loss, "dlogits_abs": e_dx},
+         tol={"loss_rel": 1e-5, "dlogits_abs": 1e-6}, **times)
+    return dict(times, max_err={"loss_rel": e_loss, "dlogits_abs": e_dx})
+
+
+def sparse_kernel_phase(dev):
+    """K4a/K4b against their plain versions at the CTR path's shapes:
+    tables [1e6, 10] and [1e6, 1], the ids of bench_deepfm's batch (1024 x
+    26 draws from RandomState(0)) merged on the card, with their padding
+    tail, and random gradient rows. p, m, v to 1e-6 of the larger of each
+    element's values after and before; every row no id names bit-equal,
+    row V-1 included (only padding ids clamp to it); planted faults (a
+    kernel that writes padding rows, one without the (1-β1) term) must
+    fail. Then times beside bound, plain version and library call, and
+    K2a/K2b at [1024, 2]."""
+    from paddle_tpu_torch.core.sparse import merge_rows
+    from paddle_tpu_torch.ops.kernels import sparse_adam as sa
+
+    vocab = CTR["sparse_feature_dim"]
+    ids = torch.as_tensor(ctr_feed()["ids"].reshape(-1), device=dev)
+    n = ids.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # lr_t of Adam(1e-3)'s first step: lr·sqrt(1-β2)/(1-β1)
+    lr_t = torch.tensor([1e-3 * (1 - 0.999) ** 0.5 / (1 - 0.9)], device=dev)
+    lr = torch.tensor([1e-3], device=dev)
+    faults = build_sparse_faults()
+    flush = l2_flusher(dev)
+    out = {}
+    for table, d in (("sparse_emb", CTR["embedding_size"]), ("sparse_w1", 1)):
+        rows = torch.randn(n, d, generator=gen, device=dev)
+        uniq, merged = merge_rows(ids, rows, vocab)
+        n_u = int((uniq < vocab).sum())
+        valid = uniq[:n_u]
+        touched = torch.zeros(vocab, dtype=torch.bool, device=dev)
+        touched[valid] = True
+        check(n_u < n and bool((uniq[n_u:] == vocab).all()),
+              "no padding tail in the merged ids")
+        olds = (torch.randn(vocab, d, generator=gen, device=dev) * d ** -0.5,
+                torch.randn(vocab, d, generator=gen, device=dev) * 1e-2,
+                torch.rand(vocab, d, generator=gen, device=dev) * 1e-4)
+        a0, s0 = sa.LAUNCHES_ADAM, sa.LAUNCHES_SGD
+        got = sa.sparse_adam_rows(*(t.clone() for t in olds), uniq, merged,
+                                  lr_t)
+        got_sgd = sa.sparse_sgd_rows(olds[0].clone(), uniq, merged, lr)
+        torch.cuda.synchronize()
+        check((sa.LAUNCHES_ADAM - a0, sa.LAUNCHES_SGD - s0) == (1, 1),
+              "K4a/K4b launch counters did not move")
+        want = sa.sparse_adam_rows_reference(*(t.clone() for t in olds),
+                                             uniq, merged, lr_t)
+        want_sgd = sa.sparse_sgd_rows_reference(olds[0].clone(), uniq, merged,
+                                                lr)
+        errs = {}
+        for name, g_, w_, o_ in zip(("p", "m", "v", "p_sgd"),
+                                    (*got, got_sgd), (*want, want_sgd),
+                                    (*olds, olds[0])):
+            e = sparse_err(g_, w_, o_)
+            check(e <= 1e-6, "K4 %s %s err %g > 1e-6 of max(|after|, "
+                  "|before|)" % (table, name, e))
+            check(torch.equal(g_[~touched], o_[~touched]),
+                  "K4 %s %s: a row no id names moved" % (table, name))
+            errs[name] = {"rel": e, "abs": float((g_ - w_).abs().max())}
+        if table == "sparse_emb":
+            args = (uniq, merged, lr_t, n, d, vocab,
+                    *sa.adam_constants(0.9, 0.999, 1e-8))
+            bad = [t.clone() for t in olds]
+            sa.launch(faults["writes_pad_rows"], dev, *bad, *args)
+            torch.cuda.synchronize()
+            check(not all(torch.equal(b[~touched], o[~touched])
+                          for b, o in zip(bad, olds)),
+                  "the untouched-rows check passes a kernel that writes "
+                  "padding rows")
+            bad = [t.clone() for t in olds]
+            sa.launch(faults["no_one_minus_beta1"], dev, *bad, *args)
+            torch.cuda.synchronize()
+            check(sparse_err(bad[1], want[1], olds[1]) > 1e-6,
+                  "the check passes a kernel without the (1-β1) term")
+        # times: tables updated in place on every launch, L2 flushed
+        p, m, v = (t.clone() for t in olds)
+        t = {"ms": cuda_ms(lambda: sa.sparse_adam_rows(p, m, v, uniq, merged,
+                                                       lr_t), flush=flush),
+             "plain_ms": cuda_ms(lambda: sa.sparse_adam_rows_reference(
+                 p, m, v, uniq, merged, lr_t), flush=flush),
+             "sgd_ms": cuda_ms(lambda: sa.sparse_sgd_rows(p, uniq, merged,
+                                                          lr), flush=flush),
+             "sgd_plain_ms": cuda_ms(lambda: sa.sparse_sgd_rows_reference(
+                 p, uniq, merged, lr), flush=flush)}
+        dirty = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+        t["ms_after_write_flush"] = cuda_ms(lambda: sa.sparse_adam_rows(
+            p, m, v, uniq, merged, lr_t), flush=dirty.zero_)
+        del dirty
+        # library yardsticks: torch.optim.SparseAdam on the coalesced sparse
+        # gradient, index_add_ with alpha = -lr
+        param = torch.nn.Parameter(olds[0].clone())
+        grad = torch.sparse_coo_tensor(valid[None], merged[:n_u],
+                                       (vocab, d), check_invariants=False
+                                       ).coalesce()
+        opt = torch.optim.SparseAdam([param], lr=1e-3)
+
+        def lib_adam():
+            param.grad = grad
+            opt.step()
+
+        t["library_ms"] = cuda_ms(lib_adam, flush=flush)
+        t["sgd_library_ms"] = cuda_ms(lambda: p.index_add_(
+            0, valid, merged[:n_u], alpha=-1e-3), flush=flush)
+        # least work: the ids read once (8 B each) and, per touched element,
+        # K4a reads p, m, v, g and writes p, m, v (28 B, ~11 flops), K4b
+        # reads p, g and writes p (12 B, 2 flops). The sector count is what
+        # the card moves for rows that lie at random: whole 32-byte sectors
+        # of p, m, v, the contiguous gradient rows and ids as they are.
+        elems = n_u * d
+        sectors = row_sectors(valid, 4 * d)
+        work = {"adam": (28 * elems + 8 * n, 11 * elems,
+                         6 * 32 * sectors + 4 * elems + 8 * n),
+                "sgd": (12 * elems + 8 * n, 2 * elems,
+                        2 * 32 * sectors + 4 * elems + 8 * n)}
+        for k, (nbytes, flops, sbytes) in work.items():
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            t_ops = flops / H100_F32_FLOP_PER_S * 1e3
+            pre = "" if k == "adam" else "sgd_"
+            t[pre + "bound_ms"] = max(t_bytes, t_ops)
+            t[pre + "bound_by"] = "bytes" if t_bytes >= t_ops \
+                else "operations"
+            t[pre + "bytes"] = nbytes
+            t[pre + "sector_bytes"] = sbytes
+            t[pre + "bound_sectors_ms"] = sbytes / H100_BYTES_PER_S * 1e3
+        emit("kernel_vs_plain", kernel="sparse_rows", table=table,
+             shape={"V": vocab, "D": d, "N": n, "distinct_ids": n_u,
+                    "row_v_minus_1_named": bool(touched[vocab - 1])},
+             max_err=errs, tol="1e-6 of max(|after|, |before|); untouched "
+             "rows bit-equal", planted_faults_rejected=table == "sparse_emb",
+             **t)
+        out[table] = dict(t, errs=errs, distinct_ids=n_u)
+        del p, m, v, olds, got, want, param, grad, opt
+        torch.cuda.empty_cache()
+    k2 = ctr_xent_check(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+
+    def row(name, line, pre, err_key):
+        emb, w1 = out["sparse_emb"], out["sparse_w1"]
+        return {"name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/sparse_adam.cu",
+                "replaces": "paddle_tpu/ops/pallas_kernels/sparse_adam.py:"
+                            + line,
+                "launches": None,
+                "max_abs_err": max(emb["errs"][k]["abs"] for k in err_key),
+                "ms": emb[pre + "ms"], "plain_ms": emb[pre + "plain_ms"],
+                "bound_ms": emb[pre + "bound_ms"],
+                "bound_by": emb[pre + "bound_by"],
+                "library_ms": emb[pre + "library_ms"],
+                "library_call": "torch.optim.SparseAdam.step()" if pre == ""
+                else "Tensor.index_add_(alpha=-lr)",
+                "shape": "[1e6, 10] table, N = %d ids" % ids.shape[0],
+                "bound_sectors_ms": emb[pre + "bound_sectors_ms"],
+                **({"ms_after_write_flush": emb["ms_after_write_flush"]}
+                   if pre == "" else {}),
+                "w1_table": {k: w1[pre + k] for k in (
+                    "ms", "plain_ms", "bound_ms", "library_ms",
+                    "bound_sectors_ms")}}
+
+    return [row("sparse_adam_rows", "235", "", ("p", "m", "v")),
+            row("sparse_sgd_rows", "301", "sgd_", ("p_sgd",))], k2
+
+
+def state_bytes(scope):
+    return sum(t.numel() * t.element_size() for t in scope.vars.values()
+               if isinstance(t, torch.Tensor))
+
+
+def ctr_run(fluid, vocab, opt="adam", is_sparse=True, warm=2, timed=6,
+            profile=None):
+    """DeepFM at full width through ``Executor.run``: ``warm`` steps, then
+    the launch counters set to 0 and ``timed`` steps on one fixed batch, each
+    ending with its loss and AUC on the host. Returns the phase's numbers."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+    from paddle_tpu_torch.ops.kernels import sparse_adam as sa
+
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    main, startup, loss, auc = build_deepfm(fluid, vocab, opt, is_sparse)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    feed = ctr_feed(vocab=vocab)
+    held = state_bytes(scope)
+    losses, aucs, secs = [], [], []
+    for i in range(warm + timed):
+        if i == warm:
+            torch.cuda.reset_peak_memory_stats()
+            sa.LAUNCHES_ADAM = sa.LAUNCHES_SGD = 0
+            sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+        t1 = time.perf_counter()
+        lv, av = exe.run(main, feed=feed, fetch_list=[loss, auc], scope=scope)
+        secs.append(time.perf_counter() - t1)
+        losses.append(float(lv))
+        aucs.append(float(av))
+    launches = {"k4a": sa.LAUNCHES_ADAM, "k4b": sa.LAUNCHES_SGD,
+                "k2a": sx.LAUNCHES_FWD, "k2b": sx.LAUNCHES_BWD}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(secs[warm:])) * 1e3
+    res = {"vocab": vocab, "optimizer": opt, "is_sparse": is_sparse,
+           "batch": CTR_BATCH, "steps": timed, "step_ms_median": step_ms,
+           "step_ms": [x * 1e3 for x in secs[warm:]],
+           "examples_per_s": CTR_BATCH / (step_ms / 1e3),
+           "peak_memory_bytes": peak, "state_bytes": held,
+           "baseline_bytes": base, "peak_minus_state_bytes": peak - held - base,
+           "losses": losses, "auc": aucs[-1], "launches": launches,
+           "setup_s": setup_s}
+    check(bool(np.isfinite(losses).all()), "non-finite DeepFM loss: %r"
+          % losses)
+    if profile:
+        train_profile_phase(exe, main, loss, feed, scope, phase=profile)
+    del scope, exe
+    torch.cuda.empty_cache()
+    return res
+
+
+def ctr_train_phase(k4_rows, xent_rows, k2_ctr):
+    """DeepFM at full width (V = 1e6, batch 1024, float32, TF32 off): Adam
+    and SGD runs of 2 warm-up and 6 timed steps, the Adam one profiled;
+    then the V = 5e7 sparse Adam step, which must allocate no [V, D]
+    gradient, and, as a finding, the dense (is_sparse=False) step at both
+    V."""
+    import paddle_tpu_torch as fluid
+
+    vocab = CTR["sparse_feature_dim"]
+    adam = ctr_run(fluid, vocab, "adam", profile="ctr_profile")
+    steps = adam["steps"]
+    check(adam["losses"][-1] < adam["losses"][0],
+          "DeepFM Adam loss did not fall: %r" % adam["losses"])
+    check(adam["launches"] == {"k4a": 2 * steps, "k4b": 0, "k2a": steps,
+                               "k2b": steps},
+          "DeepFM Adam launches %r over %d steps (want K4a 2, K2a/K2b 1 a "
+          "step)" % (adam["launches"], steps))
+    emit("ctr_train", config=CTR, **adam)
+    sgd = ctr_run(fluid, vocab, "sgd")
+    check(sgd["losses"][-1] < sgd["losses"][0],
+          "DeepFM SGD loss did not fall: %r" % sgd["losses"])
+    check(sgd["launches"] == {"k4a": 0, "k4b": 2 * steps, "k2a": steps,
+                              "k2b": steps},
+          "DeepFM SGD launches %r over %d steps (want K4b 2 a step)"
+          % (sgd["launches"], steps))
+    emit("ctr_train", config=CTR, **sgd)
+    k4_rows[0]["launches"] = adam["launches"]["k4a"]
+    k4_rows[1]["launches"] = sgd["launches"]["k4b"]
+    for row, key, n in zip(xent_rows, ("fwd", "bwd"),
+                           (adam["launches"]["k2a"], adam["launches"]["k2b"])):
+        row["ctr_shape"] = {"N": CTR_BATCH, "V": 2, "launches": n,
+                            **{k.replace(key + "_", ""): v
+                               for k, v in k2_ctr.items()
+                               if k.startswith(key + "_")}}
+
+    big = ctr_run(fluid, CTR_BIG_V, "adam")
+    check(big["launches"]["k4a"] == 2 * steps,
+          "V = 5e7: K4a launches %r" % big["launches"])
+    check(big["peak_minus_state_bytes"] < 1e9,
+          "V = 5e7 sparse step: peak %d B is %d B above the state's %d B "
+          "(a [V, D] gradient?)" % (big["peak_memory_bytes"],
+                                    big["peak_minus_state_bytes"],
+                                    big["state_bytes"]))
+    emit("ctr_train", config=dict(CTR, sparse_feature_dim=CTR_BIG_V),
+         step_ms_at_1e6=adam["step_ms_median"], **big)
+    for v in (vocab, CTR_BIG_V):
+        dense = ctr_run(fluid, v, "adam", is_sparse=False, timed=4)
+        emit("ctr_train_dense", config=dict(CTR, sparse_feature_dim=v),
+             sparse_step_ms=(adam if v == vocab else big)["step_ms_median"],
+             **dense)
+
+
+def ctr_parity_phase():
+    """DeepFM at full width but V = 1e4, batch 64: four Adam steps on the
+    card (K4a, K2) and four on the CPU (their plain versions) from one CPU
+    startup. Losses to 1e-5 relative; every parameter to 1e-5 absolute and
+    relative, the other state (Adam's moments span many decades) to 1e-5
+    relative plus 1e-5 of its largest |value|; the AUC histograms, whose
+    bucket is floor(4096·p), as counts: the same totals, each cumulative
+    count within 2 (a probability the devices round to either side of a
+    bucket edge moves one count to the next bucket)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import sparse_adam as sa
+
+    vocab, batch = 10_000, 64
+    main, startup, loss, _ = build_deepfm(fluid, vocab)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    arrays = {n: init.as_numpy(n) for n in init.vars}
+    feed = ctr_feed(batch, vocab)
+    card = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                     fluid.CUDAPlace(0))
+    a0 = sa.LAUNCHES_ADAM
+    card_losses, _ = train_steps(fluid.Executor(fluid.CUDAPlace(0)), main,
+                                 loss, feed, card, 4)
+    check(sa.LAUNCHES_ADAM - a0 == 8,
+          "the card run launched K4a %d times over 4 steps"
+          % (sa.LAUNCHES_ADAM - a0))
+    cpu = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                    fluid.CPUPlace())
+    cpu_losses, _ = train_steps(fluid.Executor(fluid.CPUPlace()), main, loss,
+                                feed, cpu, 4)
+    check(sa.LAUNCHES_ADAM - a0 == 8, "the CPU run launched K4a")
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
+    check(bool(np.isfinite(card_losses + cpu_losses).all())
+          and max(rel) <= 1e-5,
+          "DeepFM card %r vs CPU %r losses (rel %r > 1e-5)"
+          % (card_losses, cpu_losses, rel))
+    params = {p.name for p in main.all_parameters()}
+    worst, hist, bad = {}, {}, []
+    for n in sorted(arrays):
+        a, b = card.as_numpy(n), cpu.as_numpy(n)
+        if n.startswith("auc_stat"):
+            hist[n] = int(np.abs(np.cumsum(a) - np.cumsum(b)).max())
+            if a.sum() != b.sum() or hist[n] > 2:
+                bad.append(n)
+            continue
+        # a parameter within 1e-5 absolute (+ 1e-5 relative): 1 % of an
+        # Adam step (lr 1e-3), which moves a weight by up to lr whatever the
+        # size of its gradient, so a gradient that cancels to near 0 moves
+        # it by another share of lr on each device. Other state (moments,
+        # beta pows) within 1e-5 relative + 1e-5 of its largest |value|.
+        atol = 1e-5 if n in params else 1e-5 * float(np.abs(b).max())
+        err = float((np.abs(a - b) / np.maximum(
+            1e-5 * np.abs(b) + atol, 1e-30)).max())
+        worst[n] = err
+        if err > 1:
+            bad.append(n)
+    top = max(worst, key=worst.get)
+    emit("ctr_parity", vocab=vocab, batch=batch, card_losses=card_losses,
+         cpu_losses=cpu_losses, rel_err=rel, tol=1e-5, k4a_launches_card=8,
+         persistables=len(arrays), worst_state=top,
+         worst_state_of_bound=worst[top],
+         state_of_bound={n: e for n, e in worst.items() if e > 0.01},
+         auc_cumulative_moved=hist)
+    check(not bad, "card vs CPU state beyond its bound: %s"
+          % {n: worst.get(n, hist.get(n)) for n in bad})
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1057,13 +1554,17 @@ def main():
     row = kernel_phase(dev)
     xent_rows = xent_kernel_phase(dev)
     flash_rows = flash_kernel_phase(dev)
+    k4_rows, k2_ctr = sparse_kernel_phase(dev)
+    ctr_train_phase(k4_rows, xent_rows, k2_ctr)
+    ctr_parity_phase()
     serve_phase(row)
     train_phase(xent_rows)
     train_parity_phase()
     longctx_train_phase(flash_rows, amp=False)
     longctx_train_phase(flash_rows, amp=True)
     longctx_parity_phase()
-    print(json.dumps({"kernels": [row] + xent_rows + flash_rows}), flush=True)
+    print(json.dumps({"kernels": [row] + xent_rows + flash_rows + k4_rows}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

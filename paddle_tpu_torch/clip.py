@@ -114,6 +114,12 @@ def append_gradient_clip_ops(param_grads: List[Tuple]) -> List[Tuple]:
         if g is None:
             continue
         clip_attr = getattr(p, "gradient_clip_attr", None) or NullGradientClipAttr()
+        if getattr(p, "is_sparse_param", False) \
+                and not isinstance(clip_attr, NullGradientClipAttr):
+            raise NotImplementedError(
+                "gradient clipping of the is_sparse table %r is not ported: "
+                "its gradient is a SparseGrad (ids, rows); use "
+                "is_sparse=False or clip the other parameters" % p.name)
         clip_attr._process_context(context, p, g)
         clips.append((p, g, clip_attr))
 

@@ -13,6 +13,11 @@ The port runs the same ops eagerly through the interpreter
   ``p@GRAD`` name of ``program._backward_info["param_to_grad"]``;
 * the ops after the marker (regularizers, clipping, the optimizer's
   updates) run under ``torch.no_grad()``;
+* a parameter marked ``is_sparse_param`` (an ``is_sparse`` embedding
+  table) is no leaf: its lookup adds a zero "virtual rows" leaf [N, D] to
+  the rows it gathers and registers it in ``trace.sparse_rows``, and
+  ``p@GRAD`` becomes ``core.sparse.SparseGrad(ids, rows)``, the leaf's
+  [N, D] gradient, so no [V, D] gradient exists;
 * every persistable var the step wrote goes back into the ``Scope``, and
   the fetches come back as numpy arrays (``return_numpy``) or tensors.
 
@@ -28,8 +33,8 @@ attr or ``program.random_seed``, step index, op position); the step index
 counts the runs of each program (``_next_step_index``).
 
 Left out against the JAX package: jit and ``CompiledProgram``, meshes,
-gradient accumulation, sparse gradients, ``run_steps``, the numerics
-watchdog, the trace-time optimizer passes and py_readers.
+gradient accumulation, ``run_steps``, the numerics watchdog, the
+trace-time optimizer passes and py_readers.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from .core.framework import (Program, Variable, default_main_program,
                              grad_var_name)
 from .core.interpreter import run_block_ops
 from .core.place import resolve_device
+from .core.sparse import SparseGrad
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 
 __all__ = ["Executor", "global_scope", "scope_guard"]
@@ -64,7 +70,9 @@ def _mix_seed(seed: int, step: int, idx: int) -> int:
 
 class TraceContext:
     """Per-run state handed to the ops: test mode, device, the step index
-    and the op position that seed each stochastic op's generator."""
+    and the op position that seed each stochastic op's generator, and in a
+    training step the names of its sparse tables (``sparse_params``) with
+    the (ids, virtual rows leaf) their lookups register (``sparse_rows``)."""
 
     def __init__(self, program: Program, is_test: bool, device: torch.device,
                  step: int):
@@ -73,6 +81,8 @@ class TraceContext:
         self.device = device
         self.step = int(step)
         self.current_op_idx = 0
+        self.sparse_params = frozenset()
+        self.sparse_rows = {}
 
     def op_rng(self, ctx) -> torch.Generator:
         seed = ctx.attr("seed", 0) or self.program.random_seed
@@ -227,17 +237,28 @@ class Executor:
         is part of the graph, so each gradient is float32."""
         loss_name = bw["loss"]
         param_to_grad = bw["param_to_grad"]
-        param_names = [p for p in param_to_grad if p in state]
+        block = trace.program.global_block
+        sparse_names = [p for p in param_to_grad if p in state and getattr(
+            block._find_var_recursive(p), "is_sparse_param", False)]
+        param_names = [p for p in param_to_grad
+                       if p in state and p not in sparse_names]
         leaves = {n: state[n].detach().requires_grad_(True)
                   for n in param_names}
+        trace.sparse_params = frozenset(sparse_names)
         env = dict(state)
         with torch.enable_grad():
             env.update(_amp_cast(leaves, amp_dtype))
             env.update(_amp_cast(feeds, amp_dtype))
             run_block_ops(ops[:marker_idx], env, trace)
+            missing = [p for p in sparse_names if p not in trace.sparse_rows]
+            if missing:
+                raise ValueError("params marked is_sparse but never looked "
+                                 "up sparsely: %s" % missing)
+            virtuals = [trace.sparse_rows[p][1] for p in sparse_names]
             loss = torch.sum(env[loss_name].float())
             grads = torch.autograd.grad(
-                loss, [leaves[n] for n in param_names], allow_unused=True)
+                loss, [leaves[n] for n in param_names] + virtuals,
+                allow_unused=True)
         post_ops = ops[marker_idx + 1:]
         keep = set(state) | set(fetch_names) | {
             n for op in post_ops for n in op.input_arg_names}
@@ -246,6 +267,10 @@ class Executor:
         for n, g in zip(param_names, grads):
             env[param_to_grad[n]] = torch.zeros_like(state[n]) if g is None \
                 else g
+        for n, g in zip(sparse_names, grads[len(param_names):]):
+            ids, virt = trace.sparse_rows[n]
+            env[param_to_grad[n]] = SparseGrad(
+                ids, torch.zeros_like(virt) if g is None else g)
         env[bw.get("loss_grad") or grad_var_name(loss_name)] = \
             torch.ones_like(loss)
         with torch.no_grad():

@@ -1,4 +1,5 @@
-"""Models of the port: the serving workload's decoder LM and the
-Transformer / BERT / causal-LM program functions."""
+"""Models of the port: the serving workload's decoder LM, the
+Transformer / BERT / causal-LM program functions and the DeepFM CTR
+program function."""
 
-from . import decoder_lm, transformer  # noqa: F401
+from . import decoder_lm, deepfm, transformer  # noqa: F401

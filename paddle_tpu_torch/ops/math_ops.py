@@ -71,6 +71,11 @@ def elementwise_add(ctx):
     _elementwise(ctx, torch.add)
 
 
+@register_op("elementwise_sub")
+def elementwise_sub(ctx):
+    _elementwise(ctx, torch.sub)
+
+
 @register_op("elementwise_mul")
 def elementwise_mul(ctx):
     _elementwise(ctx, torch.mul)

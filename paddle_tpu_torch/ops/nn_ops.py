@@ -1,9 +1,10 @@
 # ported from paddle_tpu/ops/nn_ops.py
-"""NN ops of the training slice: softmax with cross-entropy, layer norm,
-embedding.
+"""NN ops of the training slices: softmax, softmax with cross-entropy,
+layer norm, embedding (dense and ``is_sparse``), AUC.
 
-Fluid equivalents: ``operators/softmax_with_cross_entropy_op.cc``,
-``layer_norm_op.cc``, ``lookup_table_op.cc``.
+Fluid equivalents: ``operators/softmax_op.cc``,
+``softmax_with_cross_entropy_op.cc``, ``layer_norm_op.cc``,
+``lookup_table_op.cc``, ``metrics/auc_op.cc``.
 
 ``softmax_with_cross_entropy`` with hard labels goes through the fused
 softmax cross-entropy wrapper (:mod:`.kernels.softmax_xent`): the CUDA
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.dtypes import to_torch_dtype
 from ..core.registry import OpContext, register_op
 from .kernels.softmax_xent import softmax_xent
 
@@ -89,22 +91,90 @@ def layer_norm_op(ctx: OpContext):
         ctx.set_output("Variance", var.reshape(-1))
 
 
+@register_op("softmax")
+def softmax_op(ctx: OpContext):
+    ctx.set_output("Out", torch.softmax(ctx.input("X"),
+                                        dim=ctx.attr("axis", -1)))
+
+
 @register_op("lookup_table", "lookup_table_v2")
 def lookup_table_op(ctx: OpContext):
     """Reference: operators/lookup_table_op.cc. Ids [..., 1] int → [..., D].
 
-    Dense gather, differentiable in the table. Ids are clamped to the table
-    for the gather; negative ids and ``padding_idx`` give zero rows. The
-    sparse (``is_sparse``) gradient path of the JAX package is not ported
-    yet: the table's gradient here is dense."""
+    Ids are clamped to the table for the gather; negative ids and
+    ``padding_idx`` give zero rows. Dense mode is a gather differentiable
+    in the table.
+
+    ``is_sparse=True`` in a training step (the executor names the step's
+    sparse tables in ``trace.sparse_params``) is the SelectedRows gradient
+    path (core/sparse.py): the rows are gathered from the detached table
+    and a zero "virtual rows" leaf [N, D] that requires grad is added to
+    them, so the backward yields an O(N·D) rows gradient and no [V, D]
+    gradient ever exists. The op registers (ids, leaf) under the table's
+    name in ``trace.sparse_rows``; the ids facing the optimizer map ids
+    < 0 (their output rows are zeroed, so their gradient rows are 0) to V,
+    the merge padding id, so the row updates drop them instead of decaying
+    row 0's moments. A ``padding_idx`` row keeps its id: its gradient row is
+    0 and its moments decay lazily, as in the reference."""
     w = ctx.input("W")
     ids = ctx.input("Ids")
     if ids.dim() > 1 and ids.shape[-1] == 1 and ctx.op.type == "lookup_table":
         ids = ids.reshape(ids.shape[:-1])
     ids = ids.long()
     padding_idx = ctx.attr("padding_idx", -1)
-    out = F.embedding(ids.clamp(0, w.shape[0] - 1), w)
+    vocab, dim = w.shape
+    w_name = ctx.op.inputs["W"][0]
+    if ctx.attr("is_sparse", False) and w_name in getattr(
+            ctx.trace, "sparse_params", ()):
+        sparse_rows = ctx.trace.sparse_rows
+        if w_name in sparse_rows:
+            raise NotImplementedError(
+                "sparse embedding table %r is looked up more than once in one "
+                "program — use is_sparse=False for shared tables" % w_name)
+        flat_raw = ids.reshape(-1)
+        flat = flat_raw.clamp(0, vocab - 1)
+        amp = getattr(ctx.trace.program, "_amp_dtype", None)
+        vdt = to_torch_dtype(amp) if amp is not None \
+            and w.dtype == torch.float32 else w.dtype
+        virt = torch.zeros((flat.shape[0], dim), dtype=vdt, device=w.device,
+                           requires_grad=True)
+        sparse_rows[w_name] = (torch.where(flat_raw < 0, vocab, flat), virt)
+        out = (w.detach()[flat].to(vdt) + virt).reshape(
+            tuple(ids.shape) + (dim,))
+    else:
+        out = F.embedding(ids.clamp(0, vocab - 1), w)
     keep = ids >= 0
     if padding_idx is not None and padding_idx >= 0:
         keep = keep & (ids != padding_idx)
     ctx.set_output("Out", torch.where(keep[..., None], out, 0.0))
+
+
+@register_op("auc")
+def auc_op(ctx: OpContext):
+    """Streaming AUC via histogram stats (reference:
+    operators/metrics/auc_op.cc). The persistable ``StatPos``/``StatNeg``
+    histograms take this batch's 0/1 counts (``index_add``, exact in
+    float32 below 2^24 per bucket) and are written back as
+    ``StatPosOut``/``StatNegOut``."""
+    preds = ctx.input("Predict")
+    label = ctx.input("Label").reshape(-1)
+    stat_pos, stat_neg = ctx.input("StatPos"), ctx.input("StatNeg")
+    num_buckets = stat_pos.shape[-1]
+    pos_prob = preds[:, 1] if preds.dim() == 2 and preds.shape[1] == 2 \
+        else preds.reshape(-1)
+    bucket = (pos_prob.detach() * num_buckets).long().clamp(
+        0, num_buckets - 1)
+    is_pos = (label > 0).to(stat_pos.dtype)
+    new_pos = stat_pos.reshape(-1).index_add(0, bucket, is_pos)
+    new_neg = stat_neg.reshape(-1).index_add(0, bucket, 1 - is_pos)
+    # AUC = P(score_pos > score_neg): for each neg bucket, count positives in
+    # strictly higher buckets plus half the same-bucket ties.
+    tot_pos = new_pos.sum()
+    pos_above = tot_pos - torch.cumsum(new_pos, 0)
+    auc_sum = torch.sum(new_neg * (pos_above + new_pos * 0.5))
+    tot_neg = new_neg.sum()
+    pairs = tot_pos * tot_neg
+    auc = torch.where(pairs > 0, auc_sum / pairs.clamp_min(1.0), 0.0)
+    ctx.set_output("AUC", auc.float())
+    ctx.set_output("StatPosOut", new_pos.reshape(stat_pos.shape))
+    ctx.set_output("StatNegOut", new_neg.reshape(stat_neg.shape))

@@ -1,5 +1,5 @@
 # ported from paddle_tpu/ops/tensor_ops.py
-"""Tensor manipulation, fill, and random ops of the training slice.
+"""Tensor manipulation, fill, and random ops of the training slices.
 
 Fluid equivalents live across ``operators/reshape_op.cc``,
 ``fill_constant_op.cc``, ``uniform_random_op.cc``, ``dropout_op.cc`` etc.
@@ -15,6 +15,8 @@ Initial weights are carried across as arrays (``paddle_tpu_torch.io``).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -83,6 +85,11 @@ def split_op(ctx: OpContext):
     ctx.set_outputs("Out", outs)
 
 
+@register_op("concat")
+def concat_op(ctx: OpContext):
+    ctx.set_output("Out", torch.cat(ctx.inputs("X"), dim=ctx.attr("axis", 0)))
+
+
 # -- fill / init ops ----------------------------------------------------------
 
 
@@ -92,6 +99,11 @@ def fill_constant_op(ctx: OpContext):
     ctx.set_output("Out", torch.full(list(ctx.attr("shape", [])),
                                      ctx.attr("value", 0.0), dtype=dtype,
                                      device=ctx.device))
+
+
+@register_op("fill_zeros_like")
+def fill_zeros_like_op(ctx: OpContext):
+    ctx.set_output("Out", torch.zeros_like(ctx.input("X")))
 
 
 @register_op("assign_value")
@@ -133,6 +145,26 @@ def gaussian_random_op(ctx: OpContext):
     z = torch.randn(shape, generator=ctx.rng(), dtype=torch.float32,
                     device=ctx.device)
     ctx.set_output("Out", (mean + std * z).to(dtype))
+
+
+# erf(±2/√2): the normal CDF at ±2 standard deviations, mapped to [-1, 1]
+_ERF_2 = math.erf(2.0 / math.sqrt(2.0))
+
+
+@register_op("truncated_gaussian_random")
+def truncated_gaussian_random_op(ctx: OpContext):
+    """mean + std·z with z standard normal truncated to [-2, 2], as the JAX
+    package draws it (``jax.random.truncated_normal(key, -2, 2)``), by the
+    inverse CDF: u uniform in (erf(-√2), erf(√2)), z = √2·erfinv(u). The
+    draw happens in place on the run's device from the op's generator, so
+    a [5e7, 10] table never passes through the host or a second buffer."""
+    shape = list(ctx.attr("shape"))
+    dtype = to_torch_dtype(ctx.attr("dtype", "float32"))
+    mean, std = ctx.attr("mean", 0.0), ctx.attr("std", 1.0)
+    z = torch.empty(shape, dtype=torch.float32, device=ctx.device)
+    z.uniform_(-_ERF_2, _ERF_2, generator=ctx.rng())
+    z.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    ctx.set_output("Out", z.mul_(std).add_(mean).to(dtype))
 
 
 def keep_mask(shape, p, generator, device):

@@ -57,6 +57,12 @@ def append_regularization_ops(parameters_and_grads, regularization=None):
             params_and_grads.append((param, grad))
             continue
         regularizer = getattr(param, "regularizer", None) or regularization
+        if regularizer is not None and getattr(param, "is_sparse_param",
+                                               False):
+            raise NotImplementedError(
+                "weight decay of the is_sparse table %r is not ported: its "
+                "gradient is a SparseGrad (ids, rows); use is_sparse=False "
+                "or regularize the other parameters" % param.name)
         if regularizer is not None:
             block = grad.block
             grad = regularizer.append_regularization_op(param, grad, block) or grad

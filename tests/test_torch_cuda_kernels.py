@@ -18,6 +18,7 @@ from paddle_tpu_torch.models import decoder_lm
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+from paddle_tpu_torch.ops.kernels import sparse_adam as sa
 from paddle_tpu_torch.serving import kv_cache
 
 SLOTS, H, D, PS, PPS, NUM_PAGES = 5, 2, 16, 8, 8, 24
@@ -341,3 +342,106 @@ def test_causal_lm_attention_trains_through_the_flash_kernels(cuda):
     assert (fa.LAUNCHES_FWD - n0[0], fa.LAUNCHES_DKV - n0[1],
             fa.LAUNCHES_DQ - n0[2]) == (10, 10, 10)
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def sparse_case(dev, vocab, d, n, seed):
+    """Tables with nonzero moments, ids with duplicates and a padding id
+    (the lookup's id for an id < 0), merged as the optimizer ops merge
+    them; row V-1 is named only by the clamped padding ids."""
+    from paddle_tpu_torch.core.sparse import merge_rows
+
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    raw = rng.randint(0, vocab - 1, n).astype(np.int64)
+    raw[: n // 4] = raw[n // 4: 2 * (n // 4)]
+    raw[-1] = vocab  # a padding id from the lookup (an id < 0 there)
+    p = t(rng.randn(vocab, d).astype(np.float32))
+    m = t((rng.randn(vocab, d) * 0.1).astype(np.float32))
+    v = t((np.abs(rng.randn(vocab, d)) * 0.01).astype(np.float32))
+    uniq, merged = merge_rows(t(raw), t(rng.randn(n, d).astype(np.float32)),
+                              vocab)
+    return (p, m, v), uniq, merged
+
+
+@pytest.mark.parametrize("vocab,d,n", [(1000, 10, 300), (5000, 1, 700),
+                                       (64, 7, 200)])
+def test_sparse_row_kernels_match_plain_versions(cuda, vocab, d, n):
+    """K4a and K4b against their plain versions on the same merged rows:
+    every element within 1e-6 of the larger of its values before and after
+    (the plain version stores m + (m_new - m) where the kernel stores
+    m_new), untouched rows bit-equal, row V-1 included, which only a
+    padding id clamps to."""
+    (p, m, v), uniq, merged = sparse_case(cuda, vocab, d, n, vocab + d)
+    lr_t = torch.tensor([3e-3], device=cuda)
+    touched = torch.zeros(vocab, dtype=torch.bool, device=cuda)
+    touched[uniq[uniq < vocab]] = True
+    assert not touched[vocab - 1]
+    a0 = sa.LAUNCHES_ADAM
+    got = sa.sparse_adam_rows(p.clone(), m.clone(), v.clone(), uniq, merged,
+                              lr_t)
+    want = sa.sparse_adam_rows_reference(p.clone(), m.clone(), v.clone(),
+                                         uniq, merged, lr_t)
+    torch.cuda.synchronize()
+    assert sa.LAUNCHES_ADAM == a0 + 1
+    for g, w, old in zip(got, want, (p, m, v)):
+        scale = torch.maximum(w.abs(), old.abs()).clamp_min(1e-30)
+        assert float(((g - w).abs() / scale).max()) <= 1e-6
+        assert torch.equal(g[~touched], old[~touched])
+        assert not torch.equal(g[touched], old[touched])
+    s0 = sa.LAUNCHES_SGD
+    got = sa.sparse_sgd_rows(p.clone(), uniq, merged, lr_t)
+    want = sa.sparse_sgd_rows_reference(p.clone(), uniq, merged, lr_t)
+    torch.cuda.synchronize()
+    assert sa.LAUNCHES_SGD == s0 + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got[~touched], p[~touched])
+
+
+def test_sparse_row_kernel_wrapper_rules(cuda):
+    """The wrappers take float32 tables and int64 ids and raise on others;
+    they update in place and return the tables they were given."""
+    (p, m, v), uniq, merged = sparse_case(cuda, 100, 4, 50, 1)
+    out = sa.sparse_adam_rows(p, m, v, uniq, merged, 1e-3)
+    assert out[0] is p and out[1] is m and out[2] is v
+    assert sa.sparse_sgd_rows(p, uniq, merged, 1e-3) is p
+    with pytest.raises(TypeError):
+        sa.sparse_sgd_rows(p.double(), uniq, merged.double(), 1e-3)
+    with pytest.raises(TypeError):
+        sa.sparse_sgd_rows(p, uniq.int(), merged, 1e-3)
+    with pytest.raises(ValueError):
+        sa.sparse_sgd_rows(p.t(), uniq, merged, 1e-3)
+
+
+def test_deepfm_trains_through_the_row_kernels(cuda):
+    """A small DeepFM with Adam launches K4a twice a step (the [V, E] and
+    [V, 1] tables) and K2a/K2b once, with SGD K4b twice; losses fall."""
+    from paddle_tpu_torch.models import deepfm
+
+    for opt, counter in (("adam", "LAUNCHES_ADAM"), ("sgd", "LAUNCHES_SGD")):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            ids = fluid.layers.data("ids", shape=[8], dtype="int64")
+            dense = fluid.layers.data("dense", shape=[13])
+            label = fluid.layers.data("label", shape=[1], dtype="int64")
+            _, loss, _ = deepfm.deepfm(ids, dense, label,
+                                       sparse_feature_dim=1000,
+                                       embedding_size=4, num_fields=8,
+                                       layer_sizes=(16, 16))
+            (fluid.optimizer.Adam(1e-2) if opt == "adam"
+             else fluid.optimizer.SGD(1e-1)).minimize(loss)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        rng = np.random.RandomState(0)
+        feed = {"ids": rng.randint(0, 1000, (32, 8)).astype("int64"),
+                "dense": rng.rand(32, 13).astype("float32"),
+                "label": rng.randint(0, 2, (32, 1)).astype("int64")}
+        k0, f0 = getattr(sa, counter), sx.LAUNCHES_FWD
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0]) for _ in range(5)]
+        assert getattr(sa, counter) - k0 == 10
+        assert sx.LAUNCHES_FWD - f0 == 5
+        assert np.isfinite(losses).all() and losses[-1] < losses[0]

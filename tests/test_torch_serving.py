@@ -173,7 +173,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.models.transformer, "
             "paddle_tpu_torch.ops.kernels.softmax_xent, "
             "paddle_tpu_torch.amp, "
-            "paddle_tpu_torch.ops.kernels.flash_attention; "
+            "paddle_tpu_torch.ops.kernels.flash_attention, "
+            "paddle_tpu_torch.core.sparse, "
+            "paddle_tpu_torch.ops.kernels.sparse_adam, "
+            "paddle_tpu_torch.models.deepfm; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']; "
             "assert not bad, bad")
@@ -196,7 +199,9 @@ def test_port_sources_name_no_jax_import():
     assert len(files) > 15
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"paddle_tpu_torch/amp.py",
-            "paddle_tpu_torch/ops/kernels/flash_attention.py"} <= names
+            "paddle_tpu_torch/ops/kernels/flash_attention.py",
+            "paddle_tpu_torch/ops/kernels/sparse_adam.py",
+            "paddle_tpu_torch/models/deepfm.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]

@@ -169,8 +169,77 @@ def _np(x):
     return np.asarray(x)
 
 
+def two_class(rng, n):
+    """[n, 2] class probabilities, as DeepFM's softmax head gives them."""
+    p = rng.rand(n).astype(np.float32)
+    return np.stack([1 - p, p], 1)
+
+
+# the ops DeepFM adds, held to 1e-6: each is one torch call against one
+# jnp call, so the two should round alike
+CTR_CASES = [
+    ("square", "square", dict(X=f32(R(60), 3, 5)), {}, {"Out": 1}, ["X"],
+     "Out"),
+    ("elementwise_sub", "elementwise_sub",
+     dict(X=f32(R(61), 4, 6), Y=f32(R(62), 4, 6)), dict(axis=-1),
+     {"Out": 1}, ["X", "Y"], "Out"),
+    ("elementwise_sub_axis1", "elementwise_sub",
+     dict(X=f32(R(63), 2, 3, 4), Y=f32(R(64), 3)), dict(axis=1),
+     {"Out": 1}, ["X", "Y"], "Out"),
+    ("softmax", "softmax", dict(X=f32(R(65), 6, 2) * 3), dict(axis=-1),
+     {"Out": 1}, ["X"], "Out"),
+    ("softmax_axis1", "softmax", dict(X=f32(R(66), 2, 5, 3)), dict(axis=1),
+     {"Out": 1}, ["X"], "Out"),
+    ("fill_zeros_like", "fill_zeros_like", dict(X=f32(R(67), 3, 4)), {},
+     {"Out": 1}, [], None),
+    ("sgd", "sgd",
+     dict(Param=f32(R(68), 5, 3), Grad=f32(R(69), 5, 3),
+          LearningRate=np.array([0.05], np.float32)), {},
+     {"ParamOut": 1}, [], None),
+    ("auc", "auc",
+     dict(Predict=two_class(R(70), 64),
+          Label=R(71).randint(0, 2, (64, 1)).astype(np.int64),
+          StatPos=R(72).randint(0, 3, (1, 33)).astype(np.float32),
+          StatNeg=R(73).randint(0, 3, (1, 33)).astype(np.float32)),
+     dict(curve="ROC", num_thresholds=32),
+     {"AUC": 1, "StatPosOut": 1, "StatNegOut": 1}, [], None),
+]
+
+
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_op_matches_jax(case):
+    check_op_matches_jax(case, TOL)
+
+
+@pytest.mark.parametrize("case", CTR_CASES, ids=[c[0] for c in CTR_CASES])
+def test_ctr_op_matches_jax(case):
+    check_op_matches_jax(case, 1e-6)
+
+
+def test_concat_matches_jax():
+    xs = [f32(R(74 + i), 2, k, 3) for i, k in enumerate((1, 4, 2))]
+    ct = f32(R(77), 2, 7, 3)
+    outs = []
+    for fw, reg, env_of, trace in (
+            (jfw, jreg, jnp.asarray, JaxTrace(False)),
+            (tfw, treg, lambda a: torch.tensor(a, requires_grad=True),
+             TraceContext(tfw.Program(), False, torch.device("cpu"), 0))):
+        op = fw.Operator(fw.Program().global_block, "concat",
+                         attrs={"axis": 1})
+        op.inputs = {"X": ["x%d" % i for i in range(3)]}
+        op.outputs = {"Out": ["out"]}
+        env = {"x%d" % i: env_of(x) for i, x in enumerate(xs)}
+        reg.get_op_impl("concat")(reg.OpContext(op, env, trace))
+        outs.append((env, env["out"]))
+    (_, want), (tenv, got) = outs
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    grads = torch.autograd.grad(got, [tenv["x%d" % i] for i in range(3)],
+                                torch.tensor(ct))
+    for g, (a, b) in zip(grads, ((0, 1), (1, 5), (5, 7))):
+        np.testing.assert_array_equal(g.numpy(), ct[:, a:b])
+
+
+def check_op_matches_jax(case, tol):
     _, op_type, inputs, attrs, outs, wrt, gslot = case
     want = jax_run(op_type, inputs, outs, attrs)
     got = port_run(op_type, inputs, outs, attrs)
@@ -179,7 +248,7 @@ def test_op_matches_jax(case):
             w, g = np.asarray(w), _np(g)
             assert g.shape == w.shape, (slot, g.shape, w.shape)
             if np.issubdtype(w.dtype, np.floating):
-                np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL,
+                np.testing.assert_allclose(g, w, rtol=tol, atol=tol,
                                            err_msg=slot)
             else:
                 np.testing.assert_array_equal(g, w, err_msg=slot)
@@ -201,8 +270,8 @@ def test_op_matches_jax(case):
     tgrads = torch.autograd.grad(out, [leaves[s] for s in wrt],
                                  torch.as_tensor(ct))
     for s, jg, tg in zip(wrt, jgrads, tgrads):
-        np.testing.assert_allclose(_np(tg), np.asarray(jg), rtol=TOL,
-                                   atol=TOL, err_msg="d%s" % s)
+        np.testing.assert_allclose(_np(tg), np.asarray(jg), rtol=tol,
+                                   atol=tol, err_msg="d%s" % s)
 
 
 @pytest.mark.parametrize("op_type,attrs,check", [
@@ -210,6 +279,8 @@ def test_op_matches_jax(case):
                             max=1.5), "uniform"),
     ("gaussian_random", dict(shape=[200, 300], dtype="float32", mean=0.25,
                              std=2.0), "gaussian"),
+    ("truncated_gaussian_random", dict(shape=[200, 300], dtype="float32",
+                                       mean=0.25, std=2.0), "truncated"),
 ])
 def test_random_op_distribution_matches_jax(op_type, attrs, check):
     want = np.asarray(jax_run(op_type, {}, {"Out": 1}, attrs)["Out"][0])
@@ -223,6 +294,12 @@ def test_random_op_distribution_matches_jax(op_type, attrs, check):
     if check == "uniform":
         assert got.min() >= -0.5 and got.max() < 1.5
         assert want.min() >= -0.5 and want.max() < 1.5
+    if check == "truncated":
+        # mean ± 2 std, and the std of a standard normal cut at ±2
+        for x in (got, want):
+            assert x.min() >= 0.25 - 4.0 and x.max() <= 0.25 + 4.0
+            assert x.min() < 0.25 - 3.9 and x.max() > 0.25 + 3.9
+        assert abs(got.std() - 2.0 * 0.87962566) < 0.02
     # 60,000 draws: the means agree to a few standard errors
     assert abs(got.mean() - want.mean()) < 0.03
     assert abs(got.std() - want.std()) < 0.03
