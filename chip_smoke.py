@@ -25,7 +25,7 @@ drives the ported paths through the entry points a user calls:
   and once under ``fluid.amp.decorate`` (bfloat16); every step must launch
   K1a, K1b and K1c once a layer and K2a, K2b once, the losses must be
   finite and fall, and at batch 1 x 256 tokens, 2 layers, dropout 0 the
-  card's losses must match the CPU's;
+  card's losses must match the CPU's, in float32 and under AMP;
 * CTR training: DeepFM as ``bench.py``'s ``bench_deepfm`` builds and feeds
   it (V = 1e6, 26 fields, embedding 10, 13 dense features, deep layers
   400-400-400, batch 1024) with ``is_sparse`` tables, once under Adam and
@@ -88,14 +88,29 @@ def rel_err(got, want):
                   / want.abs().clamp_min(1e-6)).max())
 
 
-def scaled_err(got, want, rtol, floor=1e-6):
-    """Largest |got - want| / (rtol·|want| + floor·max |want| of its row);
-    at most 1 passes. Relative per element, so a term far below a row's
-    largest value cannot hide; the row floor covers only elements that
-    cancel to about 0."""
-    floor = (floor * want.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-30)
+def scaled_err(got, want, rtol, floor=1e-6, scale=None):
+    """Largest |got - want| / (rtol·|want| + floor·scale); at most 1
+    passes. ``scale`` is max |want| of each row unless given. Relative per
+    element, so a term far below a row's largest value cannot hide; the
+    floor covers only elements that cancel to about 0."""
+    if scale is None:
+        scale = want.abs().amax(dim=-1, keepdim=True)
+    floor = (floor * scale).clamp_min(1e-30)
     return float(((got.float() - want).abs()
                   / (rtol * want.abs() + floor)).max())
+
+
+def flash_err(got, want, rtol, floor):
+    """``scaled_err`` of a [B,H,S,D] flash output whose row floor is at
+    least 1e-3 of its head's largest |want|. A row that sees one position
+    (causal row 0, the first row of a segment) has dp = di, so ds and dq
+    are 0 in exact arithmetic and a rounding residue in any finite one, at
+    3e-8 to 1e-7 of the head's scale: another summation order, even a
+    float64 one, moves it by all of itself. Every other row keeps its own
+    floor."""
+    row = want.abs().amax(dim=-1, keepdim=True)
+    head = row.amax(dim=-2, keepdim=True)
+    return scaled_err(got, want, rtol, floor, torch.maximum(row, 1e-3 * head))
 
 
 def l2_flusher(dev):
@@ -727,7 +742,7 @@ def flash_check(name, dt, q, k, v, do, ab, ids, causal, sm, rate, seed):
         pairs.append(("dab", dab, want_dab))
     for out, got, want in pairs:
         check(got.dtype == dt, "%s %s dtype %s" % (name, out, got.dtype))
-        e = scaled_err(got, want.float(), rtol, floor)
+        e = flash_err(got, want.float(), rtol, floor)
         check(e <= 1, "%s %s %s err %g of its bound (%g |want| + %g row max)"
               % (name, dname, out, e, rtol, floor))
         errs[out] = float((got.float() - want.float()).abs().max())
@@ -754,9 +769,9 @@ def flash_planted_faults(dev):
     bad_dq, _ = fa.flash_bwd_dq_reference(q, k, v, None, None, lse, do,
                                           torch.zeros_like(di), True, sm)
     for rtol, floor in FLASH_TOL.values():
-        check(scaled_err(bad_o, want_o, rtol, floor) > 1,
+        check(flash_err(bad_o, want_o, rtol, floor) > 1,
               "the flash check passes a causal mask off by one")
-        check(scaled_err(bad_dq, want_dq, rtol, floor) > 1,
+        check(flash_err(bad_dq, want_dq, rtol, floor) > 1,
               "the flash check passes a ds without its - di")
 
 
@@ -795,12 +810,49 @@ def flash_crossover(dev):
          fwd_plus_bwd=rows)
 
 
+def flash_sass_hmma():
+    """HMMA instructions in each kernel of the built flash library, from
+    ``cuobjdump -sass`` (the toolkit's, beside nvcc): every instantiation of
+    the bfloat16 forward and dQ kernels (one a head width) must hold some;
+    the FMA kernels hold none. Returns {kernel and its mangled template
+    arguments: count}."""
+    import re
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    check(tool.exists(), "no cuobjdump beside nvcc at %s" % tool)
+    lib = _build._lib_path(_build.SRC_DIR / "flash_attention.cu")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    hmma = {}
+    for full, n in counts.items():
+        m = re.search(r"\d(flash_\w+?_kernel)I", full)  # <length><name>I
+        if m:
+            hmma[full[m.start(1):]] = n
+    for kern in ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel"):
+        mine = {k: n for k, n in hmma.items() if k.startswith(kern + "I")}
+        check(len(mine) == 3 and all(mine.values()),
+              "%s: HMMA counts %r (want one instantiation a head width, each "
+              "on the tensor cores)" % (kern, mine))
+    return hmma
+
+
 def flash_kernel_phase(dev):
     """K1a/K1b/K1c against their plain versions: at the long-context
     training shape [8,16,2048,64], causal, in float32 and bfloat16, and at
     small shapes that cover bias, segment ids, ragged Sq != Sk, dropout and
-    head widths 32 and 128. Then their times beside bound, plain version
-    and library call."""
+    head widths 32 and 128; the dropout mask bit for bit in both dtypes;
+    HMMA in the SASS of the bfloat16 forward and dQ kernels. Then their
+    times beside bound, plain version and library call."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     b, s = LONGCTX_BATCH, LONGCTX_SEQ
@@ -829,14 +881,17 @@ def flash_kernel_phase(dev):
     # the dropout mask itself: with v = identity columns the output is the
     # dropped probabilities, 0 exactly where the plain mask drops
     n = 128
-    q, k, _, _, _, _ = flash_inputs(dev, torch.float32, 2, 2, n, n, n, 9)
-    eye = torch.eye(n, device=dev).expand(2, 2, n, n).contiguous()
-    o, _ = fa.flash_fwd(q, k, eye, None, None, False, 0.05, 0.1, -12345)
     keep = fa.dropout_keep_mask(
         0.1, -12345, torch.arange(2, device=dev)[:, None, None, None],
         torch.arange(2, device=dev)[None, :, None, None], 0, 0, (n, n), dev)
-    check(torch.equal(o != 0, keep), "the kernel's dropout mask differs "
-          "from the plain version's")
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, _, _, _, _ = flash_inputs(dev, dt, 2, 2, n, n, n, 9)
+        eye = torch.eye(n, device=dev, dtype=dt).expand(2, 2, n, n)
+        o, _ = fa.flash_fwd(q, k, eye.contiguous(), None, None, False, 0.05,
+                            0.1, -12345)
+        check(torch.equal(o != 0, keep), "the kernel's dropout mask differs "
+              "from the plain version's (%s)" % dt)
+    hmma = flash_sass_hmma()
 
     path_errs = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -904,6 +959,7 @@ def flash_kernel_phase(dev):
             ("dkv", "flash_attention_bwd_dkv", "1061", "dk"),
             ("dq", "flash_attention_bwd_dq", "1428", "dq")):
         bound_ms, by = bound(kern, 4, H100_F32_FLOP_PER_S)
+        bf16_bound_ms = bound(kern, 2, H100_BF16_FLOP_PER_S)[0]
         lib = "library_fwd" if kern == "fwd" else "library_bwd"
         rows.append({
             "name": name, "route": "cuda",
@@ -917,15 +973,19 @@ def flash_kernel_phase(dev):
             "library_call": "scaled_dot_product_attention(is_causal=True)"
                             + ("" if kern == "fwd" else " backward, whole"),
             "bf16_ms": bf16[kern],
-            "bf16_bound_ms": bound(kern, 2, H100_BF16_FLOP_PER_S)[0],
+            "bf16_bound_ms": bf16_bound_ms,
+            "bf16_bound_share": bf16_bound_ms / bf16[kern],
             "bf16_library_ms": bf16[lib],
-            "bf16_max_abs_err": path_errs["bfloat16"][out]})
+            "bf16_max_abs_err": path_errs["bfloat16"][out],
+            "design": "fma f32",
+            "bf16_design": "fma f32" if kern == "dkv" else "mma.sync bf16"})
     emit("kernel_vs_plain", kernel="flash_attention",
          shape={"B": b, "H": h, "S": s, "D": d, "causal": True},
          tol={k_: {"rtol": r, "row_floor": f}
               for k_, (r, f) in FLASH_TOL.items()},
          max_abs_err=path_errs, small_shapes=small_errs,
-         planted_faults_rejected=True, dropout_mask_bit_equal=True,
+         planted_faults_rejected=True,
+         dropout_mask_bit_equal=["float32", "bfloat16"], sass_hmma=hmma,
          ms=times, gflop={k_: w[0] / 1e9 for k_, w in work.items()})
     flash_crossover(dev)
     return rows
@@ -1024,39 +1084,43 @@ def longctx_parity_phase():
     """The causal LM at full width, 2 layers, batch 1 x 256 tokens, dropout
     0, with the flash route taken from 128 tokens: two steps on the card
     (the kernels) and two on the CPU (their plain versions) from the same
-    startup state. Float32, TF32 off; losses to 1e-4 relative."""
+    startup state, in float32 (TF32 off; losses to 1e-4 relative) and
+    under AMP (the bfloat16 kernels, the tensor-core K1a/K1c among them;
+    losses to 2e-2 relative, the CPU tests' bound for bfloat16 AMP)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.flags import set_flag
 
     set_flag("flash_attention_min_seq", 128)
-    main, startup, loss = build_causal_lm(fluid, 256, amp=False, dropout=0.0,
-                                          n_layer=2)
-    feed = longctx_feed(1, 256)
-    card = fluid.Scope()
-    exe = fluid.Executor(fluid.CUDAPlace(0))
-    exe.run(startup, scope=card)
-    arrays = {n: card.as_numpy(n) for n in card.vars}
-    n0 = flash_launches()
-    card_losses, _ = train_steps(exe, main, loss, feed, card, 2)
-    n1 = flash_launches()
-    check(tuple(a - b for a, b in zip(n1, n0)) == (4, 4, 4),
-          "the card run launched K1a/K1b/K1c %r -> %r over 2 steps of 2 "
-          "layers" % (n0, n1))
-    cpu = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
-                                    fluid.CPUPlace())
-    cpu_losses, _ = train_steps(fluid.Executor(fluid.CPUPlace()), main, loss,
-                                feed, cpu, 2)
-    check(flash_launches() == n1, "the CPU run launched a flash kernel")
+    for amp, tol in ((False, 1e-4), (True, 2e-2)):
+        main, startup, loss = build_causal_lm(fluid, 256, amp=amp,
+                                              dropout=0.0, n_layer=2)
+        feed = longctx_feed(1, 256)
+        card = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=card)
+        arrays = {n: card.as_numpy(n) for n in card.vars}
+        n0 = flash_launches()
+        card_losses, _ = train_steps(exe, main, loss, feed, card, 2)
+        n1 = flash_launches()
+        check(tuple(a - b for a, b in zip(n1, n0)) == (4, 4, 4),
+              "the card run launched K1a/K1b/K1c %r -> %r over 2 steps of 2 "
+              "layers (amp %s)" % (n0, n1, amp))
+        cpu = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                        fluid.CPUPlace())
+        cpu_losses, _ = train_steps(fluid.Executor(fluid.CPUPlace()), main,
+                                    loss, feed, cpu, 2)
+        check(flash_launches() == n1, "the CPU run launched a flash kernel")
+        rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
+        check(bool(np.isfinite(card_losses + cpu_losses).all())
+              and max(rel) <= tol,
+              "long-context card %r vs CPU %r losses (rel %r > %g, amp %s)"
+              % (card_losses, cpu_losses, rel, tol, amp))
+        emit("longctx_parity", mode="bfloat16_amp" if amp else "float32",
+             batch=1, seq=256, n_layer=2, dropout=0.0,
+             card_losses=card_losses, cpu_losses=cpu_losses, rel_err=rel,
+             tol=tol, k1_launches_card=4)
+        del card, cpu
     set_flag("flash_attention_min_seq", 2048)
-    rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
-    check(bool(np.isfinite(card_losses + cpu_losses).all())
-          and max(rel) <= 1e-4,
-          "long-context card %r vs CPU %r losses (rel %r > 1e-4)"
-          % (card_losses, cpu_losses, rel))
-    emit("longctx_parity", batch=1, seq=256, n_layer=2, dropout=0.0,
-         card_losses=card_losses, cpu_losses=cpu_losses, rel_err=rel,
-         tol=1e-4, k1_launches_card=4)
-    del card, cpu
     torch.cuda.empty_cache()
 
 

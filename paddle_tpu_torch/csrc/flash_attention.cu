@@ -21,18 +21,25 @@
 // A row with no visible position (segment ids only) gives o = 0 and
 // lse = +inf, hence p = 0 and no gradient.
 //
-// Rounding: q, k, v, do are read as float32 or bfloat16 and widened; every
-// sum is float32. With bfloat16 inputs p is rounded to bfloat16 before
-// p . v and p^T . do, and ds * sm_scale before its two products, where the
-// Pallas kernels cast to the input type.
+// Rounding: every sum is float32. With bfloat16 inputs p is rounded to
+// bfloat16 before p . v and p^T . do, and ds * sm_scale before its two
+// products, where the Pallas kernels cast to the input type.
 //
 // Bound: arithmetic. At the training shape [8,16,2048,64], causal, the
 // forward is 4*B*H*S^2*D/2 = 68.7 GFLOP against 268 MB of q, k, v, o in
 // float32: 1.03 ms at the card's 67 TFLOP/s of plain float32 against
-// 0.08 ms of memory traffic. K1b does twice the forward's products, K1c one
-// and a half times.
+// 0.08 ms of memory traffic; in bfloat16 0.0695 ms at the tensor cores'
+// 989 TFLOP/s against 0.04 ms of memory traffic. K1b does twice the
+// forward's products, K1c one and a half times.
 //
-// Design. The Pallas grid walks the kv tiles (K1a, K1c) or the q tiles
+// Two families of kernels:
+//   float32 (K1a, K1b, K1c) and bfloat16 K1b: register-tiled FMA loops
+//     over float32 tiles in shared memory (flash_fwd_kernel,
+//     flash_dkv_kernel, flash_dq_kernel);
+//   bfloat16 K1a and K1c: tensor-core kernels (flash_fwd_bf16_kernel,
+//     flash_dq_bf16_kernel), described after the FMA family.
+//
+// Design of the FMA family. The Pallas grid walks the kv tiles (K1a, K1c) or the q tiles
 // (K1b) in order and carries the softmax state or the dk/dv sums in VMEM
 // scratch from one grid step to the next. A GPU has no ordered grid, so one
 // thread block owns one 64-row tile of (b, h) and loops over the other
@@ -47,11 +54,40 @@
 // 4 x D/16 outputs each. The tensors come with their strides (last stride
 // 1), so the [B,S,H,D] views the attention layer hands over are read in
 // place rather than copied, and ragged ends are masked by index: any Sq and
-// Sk, D of 32, 64 or 128. Tensor-core products (mma.sync, wgmma) and TMA
-// staging are later work: this version is bound by its shared-memory reads
+// Sk, D of 32, 64 or 128. This family is bound by its shared-memory reads
 // and the float32 FMA rate. Measured at the training shape on an H100 80GB
 // HBM3 at 700 W (chip_smoke.py): 5.10 / 6.34 / 6.30 ms in float32 and
 // 5.16 / 6.48 / 7.30 ms in bfloat16 for K1a / K1b / K1c.
+//
+// Design of the tensor-core family (FlashAttention-2's shape on mma.sync).
+// The grid, the loop over the kv tiles and the causal order are the FMA
+// family's. A block of 4 warps owns 64 * MT q rows (a warp 16 * MT of them)
+// and walks kv tiles of 64 columns; both kernels launch with MT = 1 and ask
+// for as many blocks an SM as their registers allow (fwd_min_blocks,
+// dq_min_blocks), the choice flash_variants.py measures against 128-row
+// tiles and other block counts. Q (and dO for K1c) stay in shared
+// memory as bfloat16, read in place from their strided views by 16-byte
+// cp.async copies; K and V go through a two-stage ring, the next tile's
+// copies in flight while the current one computes. Rows at or beyond Sq/Sk
+// are zero-filled by the copy itself (src-size 0). A tile's rows are
+// XOR-swizzled in 16-byte chunks, so the 8 rows an ldmatrix phase reads lie
+// in 8 different bank groups. Products are mma.sync m16n8k16 bf16 -> f32:
+// S = Q . K^T and (K1c) dP = dO . V^T read K and V by ldmatrix, O += P . V
+// and (K1c) dQ += dS . K by ldmatrix.trans, so one K and one V tile serve
+// all products. P and dS never touch shared memory: the f32 accumulator of
+// two adjacent n8 tiles, packed to bf16x2, is the A operand of the next k16
+// product. A row's 64 scores of a tile lie in the 4 lanes of a quad, so its
+// maximum and sum take two shuffles. Scale, bias, masks and dropout apply
+// per accumulator element from its (row, col) through the FMA family's
+// ScoreCtx::score and p_and_ds; a tile that no mask, bias, dropout (K1c) or
+// ragged edge reaches only scales. Their exponentials take the SFU's
+// ex2.approx (__expf, a few ulp): p is rounded to bfloat16 before its
+// product, and the log-sum-exp moves by ~1e-6. The loads need 16-byte aligned bases and
+// strides; the wrapper hands over an aligned copy of an operand that misses
+// it, and the launch refuses one that still does. Measured at the training
+// shape on an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.433 ms for K1a
+// and 0.474 ms for K1c in bfloat16, 16 % and 22 % of their bounds (5.16
+// and 7.30 ms as FMA loops).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -273,11 +309,12 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// The number of kv tiles a q tile starting at q0 visits.
-__device__ __forceinline__ int kv_tiles(int sk, int causal, int q0) {
+// The number of kv tiles a q tile of `rows` rows starting at q0 visits.
+__device__ __forceinline__ int kv_tiles(int sk, int causal, int q0,
+                                        int rows = kTile) {
   const int n = (sk + kTile - 1) / kTile;
   if (!causal) return n;
-  const int diag = (q0 + kTile - 1) / kTile + 1;  // tiles with k0 <= last row
+  const int diag = (q0 + rows - 1) / kTile + 1;  // tiles with k0 <= last row
   return diag < n ? diag : n;
 }
 
@@ -598,6 +635,499 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
   }
 }
 
+// ------------------------------------------- bfloat16 on the tensor cores --
+// K1a and K1c in bfloat16 (the design note at the top of the file).
+constexpr int kMmaThreads = 128;  // 4 warps; a warp owns 16 * MT q rows
+constexpr int kBc = kTile;        // columns of a kv tile
+constexpr int kNt = kBc / 8;      // n8 tiles of a kv tile
+
+// Blocks an SM must hold at once, which caps a thread's registers at
+// 65536 / (128 n). More blocks hide the latency of one block's barriers
+// and exponentials behind another's products, until the cap spills:
+// flash_variants.py times the neighbouring counts. At D = 128 the
+// accumulators need more registers than 3 or 4 blocks leave.
+constexpr int fwd_min_blocks(int d) { return d <= 64 ? 4 : 2; }
+constexpr int dq_min_blocks(int d) { return d <= 64 ? 3 : 2; }
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes from global to shared memory, past L1; zeros where !in (src-size
+// 0 reads nothing).
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Element offset of 16-byte chunk `chunk` of row `row` in a swizzled
+// [rows][D] bf16 tile. The 8 consecutive rows one ldmatrix phase reads at a
+// fixed logical chunk land in 8 different 16-byte bank groups: the chunk
+// index is XORed with the row (D >= 64, rows of 128 or 256 bytes) or with
+// the row pair (D = 32, rows of 64 bytes, two to a 128-byte line).
+template <int D>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  if constexpr (D == 32) return row * D + ((chunk ^ ((row >> 1) & 3)) << 3);
+  return row * D + ((chunk ^ (row & 7)) << 3);
+}
+
+// Rows [row0, row0 + ROWS) of a bf16 matrix with row stride `row_stride`
+// into a swizzled tile, asynchronously; rows at or beyond `rows` read as 0.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
+                                                long long row_stride,
+                                                int row0, int rows) {
+  constexpr int C = D / 8;  // 16-byte chunks a row
+  static_assert(ROWS * C % kMmaThreads == 0, "whole rounds of copies");
+#pragma unroll
+  for (int it = 0; it < ROWS * C / kMmaThreads; ++it) {
+    const int i = threadIdx.x + it * kMmaThreads;
+    const int r = i / C, c = i % C, gr = row0 + r;
+    const bool in = gr < rows;
+    cp_async_16(smem_addr(dst + swz<D>(r, c)),
+                in ? src + gr * row_stride + c * 8 : src, in);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The A fragment of the 16 x 16 block at rows r0.., columns 16 kk.. of a
+// row-major tile.
+template <int D>
+__device__ __forceinline__ void ldsm_a(const bf16* tile, int r0, int kk,
+                                       uint32_t (&a)[4]) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(smem_addr(tile + swz<D>(r0 + (lane & 15), 2 * kk + (lane >> 4))),
+          a);
+}
+// B fragments of B = tile^T for the two n8 tiles of rows n0..n0 + 15 of a
+// [n][k] tile, k columns 16 kk..: {b[0], b[1]} of n tile n0 / 8, {b[2],
+// b[3]} of the next.
+template <int D>
+__device__ __forceinline__ void ldsm_b(const bf16* tile, int n0, int kk,
+                                       uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(smem_addr(tile + swz<D>(n0 + (lane & 7) + ((lane >> 4) << 3),
+                                  2 * kk + ((lane >> 3) & 1))),
+          b);
+}
+// B fragments of B = tile for k rows k0..k0 + 15 of a [k][n] tile, n
+// columns 16 nn..: {b[0], b[1]} of n tile 2 nn, {b[2], b[3]} of the next.
+template <int D>
+__device__ __forceinline__ void ldsm_bt(const bf16* tile, int k0, int nn,
+                                        uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_trans(
+      smem_addr(tile + swz<D>(k0 + (lane & 15), 2 * nn + (lane >> 4))), b);
+}
+
+// c += a . b on the tensor cores, m16n8k16, bf16 operands, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A warp's accumulators. Element e of c[mt][nt] is row 16 mt + g + 8 (e/2)
+// of the warp's rows and column 8 nt + 2 t + e%2 of the tile, for lane
+// 4 g + t.
+template <int MT>
+using ScoreFrag = float[MT][kNt][4];
+
+// c = A . B^T over D: the warp's 16 * MT rows from r0 of A [rows][D]
+// against the 64 rows of B [64][D], both swizzled tiles.
+template <int D, int MT>
+__device__ __forceinline__ void mma_abt(const bf16* A, int r0, const bf16* B,
+                                        ScoreFrag<MT>& c) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) ldsm_a<D>(A, r0 + 16 * mt, kk, a[mt]);
+#pragma unroll
+    for (int np = 0; np < kNt / 2; ++np) {
+      uint32_t b[4];
+      ldsm_b<D>(B, 16 * np, kk, b);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(c[mt][2 * np], a[mt], b[0], b[1]);
+        mma_bf16(c[mt][2 * np + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// acc += P . B: P the warp's [16 MT][64] accumulators, rounded here to
+// bf16 and used as A operands where they lie (the accumulators of n tiles
+// 2 kc and 2 kc + 1 are the A fragment of k16 step kc), B [64][D] swizzled.
+template <int D, int MT>
+__device__ __forceinline__ void mma_pb(const ScoreFrag<MT>& pf, const bf16* B,
+                                       float (&acc)[MT][D / 8][4]) {
+#pragma unroll
+  for (int kc = 0; kc < kBc / 16; ++kc) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      a[mt][0] = pack_bf16(pf[mt][2 * kc][0], pf[mt][2 * kc][1]);
+      a[mt][1] = pack_bf16(pf[mt][2 * kc][2], pf[mt][2 * kc][3]);
+      a[mt][2] = pack_bf16(pf[mt][2 * kc + 1][0], pf[mt][2 * kc + 1][1]);
+      a[mt][3] = pack_bf16(pf[mt][2 * kc + 1][2], pf[mt][2 * kc + 1][3]);
+    }
+#pragma unroll
+    for (int nn = 0; nn < D / 16; ++nn) {
+      uint32_t b[4];
+      ldsm_bt<D>(B, 16 * kc, nn, b);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(acc[mt][2 * nn], a[mt], b[0], b[1]);
+        mma_bf16(acc[mt][2 * nn + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The segment ids of a lane's 16 columns of the tile at k0.
+__device__ __forceinline__ void kv_ids(const ScoreCtx<bf16>& sc, int col0,
+                                       int (&id)[kNt][2]) {
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = col0 + 8 * nt + j;
+      id[nt][j] = (sc.seg_kv != nullptr && col < sc.sk) ? sc.seg_kv[col] : 0;
+    }
+}
+
+// Whether the tile at k0 needs only the scale for the rows from wrow0 on:
+// no bias, no segment ids, no column beyond Sk and, causal, none above the
+// diagonal.
+__device__ __forceinline__ bool plain_tile(const ScoreCtx<bf16>& sc, int k0,
+                                           int wrow0) {
+  return sc.ab == nullptr && sc.seg_q == nullptr && k0 + kBc <= sc.sk &&
+         !(sc.causal && k0 + kBc - 1 > wrow0);
+}
+
+// ------------------------------------------------------- K1a, bfloat16 -----
+template <int D, int MT>
+__global__ void __launch_bounds__(kMmaThreads, fwd_min_blocks(D))
+    flash_fwd_bf16_kernel(FlashParams p) {
+  constexpr int BR = 64 * MT, DT = D / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BR][D]
+  bf16* Ks = Qs + BR * D;                         // [2][64][D]
+  bf16* Vs = Ks + 2 * kBc * D;                    // [2][64][D]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * BR, wr0 = 16 * MT * warp;  // wr0: the warp's rows
+  const int row0 = q0 + wr0 + g;  // row of element 0 of c[0][*]
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
+  const ScoreCtx<bf16> sc(p, b, h);
+  const int n_kt = kv_tiles(p.sk, p.causal, q0, BR);
+
+  load_tile_async<D, BR>(Qs, q, p.q_st[2], q0, p.sq);
+  load_tile_async<D, kBc>(Ks, k, p.k_st[2], 0, p.sk);
+  load_tile_async<D, kBc>(Vs, v, p.v_st[2], 0, p.sk);
+  cp_async_commit();
+
+  float m[MT][2], l[MT][2], acc[MT][DT][4];
+  int id_q[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = row0 + 16 * mt + 8 * hi;
+      m[mt][hi] = -INFINITY;
+      l[mt][hi] = 0.f;
+      id_q[mt][hi] =
+          (sc.seg_q != nullptr && row < p.sq) ? sc.seg_q[row] : 0;
+    }
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][dt][e] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBc;
+    if (kt + 1 < n_kt) {  // the next tile's copies fly while this computes
+      const int nx = ((kt + 1) & 1) * kBc * D;
+      load_tile_async<D, kBc>(Ks + nx, k, p.k_st[2], k0 + kBc, p.sk);
+      load_tile_async<D, kBc>(Vs + nx, v, p.v_st[2], k0 + kBc, p.sk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q) has landed
+    __syncthreads();
+    const bf16* Kt = Ks + (kt & 1) * kBc * D;
+    const bf16* Vt = Vs + (kt & 1) * kBc * D;
+
+    float s[MT][kNt][4];
+    mma_abt<D, MT>(Qs, wr0, Kt, s);
+    if (plain_tile(sc, k0, q0 + wr0)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][nt][e] *= p.sm_scale;
+    } else {
+      int id_kv[kNt][2];
+      kv_ids(sc, k0 + 2 * t, id_kv);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[mt][nt][e] = sc.score(s[mt][nt][e], row0 + 16 * mt + 8 * (e >> 1),
+                                    k0 + 8 * nt + 2 * t + (e & 1),
+                                    id_q[mt][e >> 1], id_kv[nt][e & 1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+          mx = fmaxf(mx, fmaxf(s[mt][nt][2 * hi], s[mt][nt][2 * hi + 1]));
+        // every tile holds column k0 < Sk, so the row's maximum is finite
+        const float m_new = fmaxf(m[mt][hi], quad_max(mx));
+        const float alpha = __expf(m[mt][hi] - m_new);
+        const int row = row0 + 16 * mt + 8 * hi;
+        float rs = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float pij = __expf(s[mt][nt][2 * hi + j] - m_new);
+            rs += pij;  // the statistics see no dropout
+            if (p.dropout)
+              pij = dropout_keep(p.seed, b, h, row, k0 + 8 * nt + 2 * t + j,
+                                 p.threshold)
+                        ? pij * p.keep_scale
+                        : 0.f;
+            s[mt][nt][2 * hi + j] = pij;
+          }
+        l[mt][hi] = l[mt][hi] * alpha + rs;  // the lane's 16 columns
+        m[mt][hi] = m_new;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          acc[mt][dt][2 * hi] *= alpha;
+          acc[mt][dt][2 * hi + 1] *= alpha;
+        }
+      }
+    mma_pb<D, MT>(s, Vt, acc);
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+
+  bf16* o = static_cast<bf16*>(p.o) + b * p.o_st[0] + h * p.o_st[1];
+  float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = row0 + 16 * mt + 8 * hi;
+      const float lt = quad_sum(l[mt][hi]);
+      // a row whose every visited position was masked: its maximum is the
+      // mask value itself
+      const bool dead = m[mt][hi] < 0.5f * kMaskValue;
+      const float inv = dead ? 0.f : 1.f / lt;
+      if (row < p.sq) {
+        bf16* orow = o + static_cast<long long>(row) * p.o_st[2] + 2 * t;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * dt) =
+              __floats2bfloat162_rn(acc[mt][dt][2 * hi] * inv,
+                                    acc[mt][dt][2 * hi + 1] * inv);
+        if (t == 0) lse[row] = dead ? INFINITY : m[mt][hi] + logf(lt);
+      }
+    }
+}
+
+// ------------------------------------------------------- K1c, bfloat16 -----
+template <int D, int MT>
+__global__ void __launch_bounds__(kMmaThreads, dq_min_blocks(D))
+    flash_dq_bf16_kernel(FlashParams p) {
+  constexpr int BR = 64 * MT, DT = D / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BR][D]
+  bf16* dOs = Qs + BR * D;                        // [BR][D]
+  bf16* Ks = dOs + BR * D;                        // [2][64][D]
+  bf16* Vs = Ks + 2 * kBc * D;                    // [2][64][D]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * BR, wr0 = 16 * MT * warp;
+  const int row0 = q0 + wr0 + g;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
+  const bf16* dout =
+      static_cast<const bf16*>(p.dout) + b * p.do_st[0] + h * p.do_st[1];
+  const float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
+  const float* di = p.di + (static_cast<long long>(b) * p.h + h) * p.sq;
+  bf16* dab = p.dab ? static_cast<bf16*>(p.dab) +
+                          (static_cast<long long>(b) * p.h + h) * p.sq * p.sk
+                    : nullptr;
+  const ScoreCtx<bf16> sc(p, b, h);
+  const int n_kt = kv_tiles(p.sk, p.causal, q0, BR);
+
+  load_tile_async<D, BR>(Qs, q, p.q_st[2], q0, p.sq);
+  load_tile_async<D, BR>(dOs, dout, p.do_st[2], q0, p.sq);
+  load_tile_async<D, kBc>(Ks, k, p.k_st[2], 0, p.sk);
+  load_tile_async<D, kBc>(Vs, v, p.v_st[2], 0, p.sk);
+  cp_async_commit();
+
+  float lse_r[MT][2], di_r[MT][2], dq[MT][DT][4];
+  int id_q[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = row0 + 16 * mt + 8 * hi;
+      // a row beyond Sq gets lse = +inf, so its p is 0
+      lse_r[mt][hi] = row < p.sq ? lse[row] : INFINITY;
+      di_r[mt][hi] = row < p.sq ? di[row] : 0.f;
+      id_q[mt][hi] =
+          (sc.seg_q != nullptr && row < p.sq) ? sc.seg_q[row] : 0;
+    }
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[mt][dt][e] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBc;
+    if (kt + 1 < n_kt) {
+      const int nx = ((kt + 1) & 1) * kBc * D;
+      load_tile_async<D, kBc>(Ks + nx, k, p.k_st[2], k0 + kBc, p.sk);
+      load_tile_async<D, kBc>(Vs + nx, v, p.v_st[2], k0 + kBc, p.sk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + (kt & 1) * kBc * D;
+    const bf16* Vt = Vs + (kt & 1) * kBc * D;
+
+    float s[MT][kNt][4], dp[MT][kNt][4];
+    mma_abt<D, MT>(Qs, wr0, Kt, s);
+    mma_abt<D, MT>(dOs, wr0, Vt, dp);
+    // s becomes ds * sm_scale, the A operand of dq += ds . k
+    if (!p.dropout && plain_tile(sc, k0, q0 + wr0)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pij =
+                __expf(s[mt][nt][e] * p.sm_scale - lse_r[mt][e >> 1]);
+            s[mt][nt][e] =
+                pij * (dp[mt][nt][e] - di_r[mt][e >> 1]) * p.sm_scale;
+          }
+    } else {
+      int id_kv[kNt][2];
+      kv_ids(sc, k0 + 2 * t, id_kv);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = row0 + 16 * mt + 8 * (e >> 1);
+            const int col = k0 + 8 * nt + 2 * t + (e & 1);
+            const PAndDs r = p_and_ds<bf16>(
+                p, sc, s[mt][nt][e], dp[mt][nt][e], lse_r[mt][e >> 1],
+                di_r[mt][e >> 1], b, h, row, col, id_q[mt][e >> 1],
+                id_kv[nt][e & 1]);
+            if (dab != nullptr && row < p.sq && col < p.sk)
+              store(&dab[static_cast<long long>(row) * p.sk + col], r.ds);
+            s[mt][nt][e] = r.ds * p.sm_scale;
+          }
+    }
+    mma_pb<D, MT>(s, Kt, dq);
+    __syncthreads();
+  }
+
+  // causal: the bias gradient of the tiles above the diagonal is 0
+  const int col0 = n_kt * kBc;
+  if (dab != nullptr && col0 < p.sk) {
+    const int w = p.sk - col0;
+    for (int i = threadIdx.x; i < BR * w; i += kMmaThreads) {
+      const int row = q0 + i / w;
+      if (row < p.sq)
+        store(&dab[static_cast<long long>(row) * p.sk + col0 + i % w], 0.f);
+    }
+  }
+  bf16* dq_out = static_cast<bf16*>(p.dq) + b * p.dq_st[0] + h * p.dq_st[1];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = row0 + 16 * mt + 8 * hi;
+      if (row < p.sq) {
+        bf16* drow = dq_out + static_cast<long long>(row) * p.dq_st[2] + 2 * t;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt)
+          *reinterpret_cast<__nv_bfloat162*>(drow + 8 * dt) =
+              __floats2bfloat162_rn(dq[mt][dt][2 * hi], dq[mt][dt][2 * hi + 1]);
+      }
+    }
+}
+
 // ------------------------------------------------------------ launchers ---
 constexpr size_t fwd_smem(int d) {
   return sizeof(float) * (2 * kTile * (d + 4) + kTile * d + kTile * kPitchS);
@@ -609,59 +1139,89 @@ constexpr size_t dkv_smem(int d) {
 constexpr size_t dq_smem(int d) {
   return sizeof(float) * (4 * kTile * (d + 4) + kTile * kPitchS);
 }
+// the tensor-core kernels: q (and do) tiles of br rows, two K and two V
+// stages of 64 rows, all bf16
+constexpr size_t fwd_bf16_smem(int br, int d) {
+  return sizeof(bf16) * (br + 4 * kBc) * d;
+}
+constexpr size_t dq_bf16_smem(int br, int d) {
+  return sizeof(bf16) * (2 * br + 4 * kBc) * d;
+}
 
 // Above 48 KB a block's shared memory has to be asked for; a launch that
 // is refused shows only in cudaGetLastError().
 template <typename Kernel>
 int launch(Kernel kernel, const FlashParams& p, int tiles, size_t smem,
-           cudaStream_t st) {
+           int threads, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(tiles, p.h, p.b);
-  kernel<<<grid, kThreads, smem, st>>>(p);
+  kernel<<<grid, threads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 enum Which { kFwd, kDkv, kDq };
 
-template <typename T, int D>
-int launch_one(Which which, const FlashParams& p, cudaStream_t st) {
-  const int q_tiles = (p.sq + kTile - 1) / kTile;
-  const int kv_tiles_n = (p.sk + kTile - 1) / kTile;
-  switch (which) {
-    case kFwd:
-      return launch(flash_fwd_kernel<T, D>, p, q_tiles, fwd_smem(D), st);
-    case kDkv:
-      return launch(flash_dkv_kernel<T, D>, p, kv_tiles_n, dkv_smem(D), st);
-    default:
-      return launch(flash_dq_kernel<T, D>, p, q_tiles, dq_smem(D), st);
-  }
+// The 16-byte copies of the tensor-core kernels need an aligned base and,
+// where a dimension has more than one index, strides of whole 16 bytes.
+bool copy_aligned(const void* ptr, const long long (&st)[3], int b, int h,
+                  int rows) {
+  constexpr long long kElems = 16 / sizeof(bf16);
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
+         (b == 1 || st[0] % kElems == 0) && (h == 1 || st[1] % kElems == 0) &&
+         (rows == 1 || st[2] % kElems == 0);
 }
 
-template <typename T>
-int launch_d(Which which, const FlashParams& p, cudaStream_t st) {
-  switch (p.d) {
-    case 32:
-      return launch_one<T, 32>(which, p, st);
-    case 64:
-      return launch_one<T, 64>(which, p, st);
-    case 128:
-      return launch_one<T, 128>(which, p, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+constexpr int tiles_of(int rows, int br) { return (rows + br - 1) / br; }
+
+template <int D>
+int launch_one(Which which, const FlashParams& p, cudaStream_t st) {
+  if (p.dtype == 0) {
+    switch (which) {
+      case kFwd:
+        return launch(flash_fwd_kernel<float, D>, p, tiles_of(p.sq, kTile),
+                      fwd_smem(D), kThreads, st);
+      case kDkv:
+        return launch(flash_dkv_kernel<float, D>, p, tiles_of(p.sk, kTile),
+                      dkv_smem(D), kThreads, st);
+      default:
+        return launch(flash_dq_kernel<float, D>, p, tiles_of(p.sq, kTile),
+                      dq_smem(D), kThreads, st);
+    }
   }
+  if (which == kDkv)
+    return launch(flash_dkv_kernel<bf16, D>, p, tiles_of(p.sk, kTile),
+                  dkv_smem(D), kThreads, st);
+  if (!copy_aligned(p.q, p.q_st, p.b, p.h, p.sq) ||
+      !copy_aligned(p.k, p.k_st, p.b, p.h, p.sk) ||
+      !copy_aligned(p.v, p.v_st, p.b, p.h, p.sk) ||
+      (which == kDq && !copy_aligned(p.dout, p.do_st, p.b, p.h, p.sq)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  // 64-row q tiles (MT = 1) for both: more blocks fit an SM
+  if (which == kFwd)
+    return launch(flash_fwd_bf16_kernel<D, 1>, p, tiles_of(p.sq, 64),
+                  fwd_bf16_smem(64, D), kMmaThreads, st);
+  return launch(flash_dq_bf16_kernel<D, 1>, p, tiles_of(p.sq, 64),
+                dq_bf16_smem(64, D), kMmaThreads, st);
 }
 
 int dispatch(Which which, const FlashParams* p, void* stream) {
   if (p == nullptr || p->b < 1 || p->h < 1 || p->sq < 1 || p->sk < 1 ||
-      p->h > 65535 || p->b > 65535)
+      p->h > 65535 || p->b > 65535 || (p->dtype != 0 && p->dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p->dtype == 0) return launch_d<float>(which, *p, st);
-  if (p->dtype == 1) return launch_d<__nv_bfloat16>(which, *p, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (p->d) {
+    case 32:
+      return launch_one<32>(which, *p, st);
+    case 64:
+      return launch_one<64>(which, *p, st);
+    case 128:
+      return launch_one<128>(which, *p, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace

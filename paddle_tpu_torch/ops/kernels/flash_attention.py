@@ -40,6 +40,12 @@ Layout: q, k, v, do may be any strided view with a unit last stride (the
 attention layer hands over transposed ``[B, S, H, D]`` tensors); the
 kernels read them in place, and the outputs are allocated with the layout
 of the tensor they belong to, so the layer's transpose back is free.
+
+In bfloat16, K1a and K1c run on the tensor cores (``mma.sync``) and load
+their operands with 16-byte ``cp.async`` copies; K1b and every float32
+kernel are FMA loops. A bfloat16 view whose base or strides miss 16 bytes
+goes to K1a/K1c as an aligned copy (:func:`_staged`); the attention layer's
+views never do.
 """
 
 from __future__ import annotations
@@ -53,8 +59,8 @@ __all__ = ["flash_attention", "FlashAttention", "SegmentIds",
            "dropout_keep_mask", "dropout_threshold", "flash_fwd",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_reference",
            "flash_bwd_dkv_reference", "flash_bwd_dq_reference",
-           "MASK_VALUE", "HEAD_DIMS", "LAUNCHES_FWD", "LAUNCHES_DKV",
-           "LAUNCHES_DQ"]
+           "MASK_VALUE", "HEAD_DIMS", "bind", "LAUNCHES_FWD",
+           "LAUNCHES_DKV", "LAUNCHES_DQ"]
 
 LAUNCHES_FWD = 0  # K1a launches since import (or since a caller reset it)
 LAUNCHES_DKV = 0  # K1b launches
@@ -93,18 +99,23 @@ class _Params(ctypes.Structure):
            ("keep_scale", ctypes.c_float), ("sm_scale", ctypes.c_float)])
 
 
+def bind(lib):
+    """The three entry points (K1a, K1b, K1c) of a loaded build of
+    ``csrc/flash_attention.cu``, typed for ctypes."""
+    fns = (lib.flash_attention_fwd, lib.flash_attention_bwd_dkv,
+           lib.flash_attention_bwd_dq)
+    for fn in fns:
+        fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fns
+
+
 def _kernels():
     global _fns
     if _fns is None:
         from . import _build
 
-        lib = _build.load("flash_attention")
-        fns = (lib.flash_attention_fwd, lib.flash_attention_bwd_dkv,
-               lib.flash_attention_bwd_dq)
-        for fn in fns:
-            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _fns = fns
+        _fns = bind(_build.load("flash_attention"))
     return _fns
 
 
@@ -305,6 +316,27 @@ def _check_cuda(q, named):
                              % (name, t.stride()))
 
 
+def _cp_async_ok(t):
+    """Whether the bfloat16 tensor-core kernels (K1a, K1c) can copy ``t``
+    in place with their 16-byte ``cp.async`` loads: its base address and
+    its batch, head and row strides (those of dimensions with more than one
+    index) are whole multiples of 16 bytes. A contiguous tensor, the
+    ``[B,S,H,D]`` transpose and a head slice of a fused qkv projection
+    pass; a view offset by one element does not."""
+    per16 = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or s % per16 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _staged(t):
+    """``t`` where :func:`_cp_async_ok`, else a fresh contiguous copy of it,
+    which the allocator aligns. The copy runs on the card and feeds the
+    same kernel: it is no path to the plain version."""
+    if _cp_async_ok(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _like(t):
     """An empty tensor of t's shape and dtype, laid out [B,S,H,D] under a
     transposed view when t is, else contiguous."""
@@ -369,6 +401,8 @@ def flash_fwd(q, k, v, ab=None, segment_ids=None, causal=False,
     _check_cuda(q, (("q", q), ("k", k), ("v", v), ("ab", ab)))
     o = _like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        q, k, v = _staged(q), _staged(k), _staged(v)
     _launch(0, q, k, v, ab, _seg32(segment_ids), causal, sm_scale,
             dropout_rate, dropout_seed, o=o, lse=lse)
     LAUNCHES_FWD += 1
@@ -427,6 +461,8 @@ def flash_bwd_dq(q, k, v, ab, segment_ids, lse, do, di, causal=False,
     dq = _like(q)
     dab = None if ab is None or not need_dab else torch.empty(
         ab.shape, dtype=ab.dtype, device=ab.device)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = _staged(q), _staged(k), _staged(v), _staged(do)
     _launch(2, q, k, v, ab, _seg32(segment_ids), causal, sm_scale,
             dropout_rate, dropout_seed, lse=lse.float().contiguous(),
             dout=do, di=di.float().contiguous(), dq=dq, dab=dab)

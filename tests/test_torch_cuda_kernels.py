@@ -275,15 +275,16 @@ def test_flash_kernels_match_plain_versions(cuda, dt, b, h, sq, sk, d, causal,
         assert dab is None
 
 
-def test_flash_dropout_mask_is_the_plain_versions(cuda):
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_dropout_mask_is_the_plain_versions(cuda, dt):
     """With v = identity columns the forward's output is the dropped
     probabilities themselves: exactly 0 where the plain mask drops, and
     nowhere else."""
     b, h, s, d = 2, 2, 128, 128
     rng = np.random.RandomState(0)
-    q = torch.as_tensor(rng.randn(b, h, s, d).astype(np.float32), device=cuda)
-    k = torch.as_tensor(rng.randn(b, h, s, d).astype(np.float32), device=cuda)
-    v = torch.eye(s, d, device=cuda).expand(b, h, s, d).contiguous()
+    q, k = (torch.as_tensor(rng.randn(b, h, s, d).astype(np.float32),
+                            device=cuda).to(dt) for _ in range(2))
+    v = torch.eye(s, d, device=cuda, dtype=dt).expand(b, h, s, d).contiguous()
     for rate, seed in ((0.1, 7), (0.5, -3), (0.9, 2 ** 31 - 1)):
         o, _ = fa.flash_fwd(q, k, v, None, None, False, 0.05, rate, seed)
         keep = fa.dropout_keep_mask(
@@ -292,6 +293,87 @@ def test_flash_dropout_mask_is_the_plain_versions(cuda):
             torch.arange(h, device=cuda)[None, :, None, None], 0, 0, (s, s),
             cuda)
         assert torch.equal(o != 0, keep)
+
+
+def bf16_fwd_dq(q, k, v, do, ab, ids, causal, rate=0.0, seed=0):
+    """bfloat16 K1a and K1c (the tensor-core kernels) against their plain
+    versions on the same tensors: o, dq and dab to 2e-2 (bf16 outputs; p
+    and ds rounded to bf16 before their products), lse to 2e-5 + 1e-5
+    relative, the same rows dead. Returns the kernels' (o, lse, dq, dab)."""
+    sm = q.shape[-1] ** -0.5
+    n0 = (fa.LAUNCHES_FWD, fa.LAUNCHES_DQ)
+    o, lse = fa.flash_fwd(q, k, v, ab, ids, causal, sm, rate, seed)
+    want_o, want_lse = fa.flash_fwd_reference(q, k, v, ab, ids, causal, sm,
+                                              rate, seed)
+    di = (want_o.float() * do.float()).sum(-1)
+    args = (q, k, v, ab, ids, want_lse, do, di, causal, sm, rate, seed)
+    dq, dab = fa.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES_FWD - n0[0], fa.LAUNCHES_DQ - n0[1]) == (1, 1)
+    want_dq, want_dab = fa.flash_bwd_dq_reference(*args)
+    live = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), live)
+    torch.testing.assert_close(lse[live], want_lse[live], atol=2e-5,
+                               rtol=1e-5)
+    pairs = [("o", o, want_o), ("dq", dq, want_dq)]
+    if ab is not None:
+        pairs.append(("dab", dab, want_dab))
+    for name, got, want in pairs:
+        assert got.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2, msg=lambda m: name + ": " + m)
+    return o, lse, dq, dab
+
+
+LENS = (1, 63, 64, 65, 127, 129)  # about the 64-column kv tile
+BF16_SHAPES = [(s, s) for s in LENS] + [(1, 129), (129, 1), (63, 65),
+                                        (65, 127), (127, 64), (129, 63)]
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("sq,sk", BF16_SHAPES)
+def test_bf16_tensor_core_kernels_at_ragged_lengths(cuda, sq, sk, d):
+    """Any Sq and Sk about a tile edge, both head widths the main path does
+    not take; causal too where Sq == Sk."""
+    for causal in ((False, True) if sq == sk else (False,)):
+        q, k, v, do, _, _ = flash_inputs(cuda, torch.bfloat16, 2, 2, sq, sk,
+                                         d, False, False, seed=sq * 997 + sk)
+        bf16_fwd_dq(q, k, v, do, None, None, causal)
+
+
+def test_bf16_tensor_core_kernels_with_a_row_that_sees_nothing(cuda):
+    """Segment ids: rows 0..9 see no position, so o = 0, lse = +inf and
+    dq = 0 there; the other rows match the plain version."""
+    q, k, v, do, _, _ = flash_inputs(cuda, torch.bfloat16, 1, 2, 100, 100,
+                                     64, False, False, seed=5)
+    ids = fa.SegmentIds(torch.zeros(1, 100, dtype=torch.int64, device=cuda),
+                        torch.ones(1, 100, dtype=torch.int64, device=cuda))
+    ids.q[0, 10:] = 1
+    ids.q[0, 60:] = 2
+    ids.kv[0, 50:] = 2
+    o, lse, dq, _ = bf16_fwd_dq(q, k, v, do, None, ids, False)
+    assert not o[:, :, :10].any() and bool(torch.isinf(lse[:, :, :10]).all())
+    assert not dq[:, :, :10].any() and bool(torch.isfinite(dq).all())
+    assert bool(torch.isfinite(lse[:, :, 10:]).all())
+
+
+def test_bf16_unaligned_view_takes_the_copy(cuda):
+    """A q view one element off 16 bytes goes to the kernels as an aligned
+    copy, with the copy's results; the launch itself refuses the view."""
+    b, h, s, d = 1, 2, 96, 64
+    q, k, v, do, _, _ = flash_inputs(cuda, torch.bfloat16, b, h, s, s, d,
+                                     False, False, seed=8)
+    flat = torch.empty(b * h * s * d + 1, dtype=torch.bfloat16, device=cuda)
+    q_off = flat[1:].view(b, h, s, d)
+    q_off.copy_(q)
+    assert not fa._cp_async_ok(q_off) and fa._cp_async_ok(q)
+    o, lse, dq, _ = bf16_fwd_dq(q_off, k, v, do, None, None, True)
+    o_al, _, dq_al, _ = bf16_fwd_dq(q, k, v, do, None, None, True)
+    assert torch.equal(o, o_al) and torch.equal(dq, dq_al)
+    with pytest.raises(RuntimeError, match="cudaError_t 716"):
+        fa._launch(0, q_off, k, v, None, (None, None), True, 0.125, 0.0, 0,
+                   o=torch.empty_like(q_off),
+                   lse=torch.empty(b, h, s, device=cuda))
 
 
 def test_flash_dead_rows_and_wrapper_rules(cuda):

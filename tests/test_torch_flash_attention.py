@@ -335,6 +335,34 @@ def test_wrapper_device_rule_checks_and_launch_counts():
         tfa.flash_fwd(q, k, v, dropout_rate=1.0)
 
 
+def _bf16_view(kind, b=2, h=4, s=16, d=32):
+    """A [B,H,S,D] bfloat16 view of the kind the wrappers may be handed."""
+    bf = torch.bfloat16
+    if kind == "contiguous":
+        return torch.randn(b, h, s, d).to(bf)
+    if kind == "bshd_transpose":  # the attention layer's head view
+        return torch.randn(b, s, h, d).to(bf).transpose(1, 2)
+    if kind == "fused_qkv_slice":  # k of one [B,S,3·H·D] projection
+        qkv = torch.randn(b, s, 3 * h * d).to(bf)
+        return qkv[:, :, h * d:2 * h * d].view(b, s, h, d).transpose(1, 2)
+    flat = torch.randn(b * h * s * d + 1).to(bf)  # one element off
+    return flat[1:].view(b, h, s, d)
+
+
+@pytest.mark.parametrize("kind,aligned", [
+    ("contiguous", True), ("bshd_transpose", True),
+    ("fused_qkv_slice", True), ("offset_by_one_element", False)])
+def test_bf16_kernels_copy_only_views_off_16_bytes(kind, aligned):
+    """The bfloat16 tensor-core kernels load with 16-byte copies: a view
+    whose base or strides miss 16 bytes is handed over as an aligned copy
+    with the same values, every other view as it is."""
+    t = _bf16_view(kind)
+    assert tfa._cp_async_ok(t) is aligned
+    staged = tfa._staged(t)
+    assert (staged is t) is aligned
+    assert tfa._cp_async_ok(staged) and torch.equal(staged, t)
+
+
 @pytest.mark.parametrize("approximate", [False, True])
 def test_gelu_op_matches_jax(approximate):
     rng = np.random.RandomState(0)
