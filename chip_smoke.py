@@ -682,11 +682,13 @@ def train_parity_phase():
 FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 1e-2)}
 
 
-def flash_inputs(dev, dt, b, h, sq, sk, d, seed, bias=False, seg=False):
+def flash_inputs(dev, dt, b, h, sq, sk, d, seed, bias=False, seg=False,
+                 ab_dtype=None):
     """q, k, v, do as the attention op receives them: q, k, v are the head
     views of one fused [B,S,3·H·D] projection (when Sq == Sk), do a
-    transposed [B,S,H,D] tensor; a bias broadcast over heads; sorted
-    segment ids shared by q and kv."""
+    transposed [B,S,H,D] tensor; a bias broadcast over heads, of dtype
+    ``ab_dtype`` (q's by default); sorted segment ids shared by q and
+    kv."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -701,7 +703,10 @@ def flash_inputs(dev, dt, b, h, sq, sk, d, seed, bias=False, seg=False):
         q = randn(b, sq, h, d).transpose(1, 2)
         k, v = (randn(b, sk, h, d).transpose(1, 2) for _ in range(2))
     do = randn(b, sq, h, d).transpose(1, 2)
-    ab = randn(b, 1, sq, sk).expand(b, h, sq, sk) if bias else None
+    ab = None
+    if bias:
+        ab = torch.randn(b, 1, sq, sk, generator=gen, device=dev).to(
+            ab_dtype or dt).expand(b, h, sq, sk)
     ids = None
     if seg:
         base = torch.randint(0, 3, (b, max(sq, sk)), generator=gen,
@@ -741,7 +746,8 @@ def flash_check(name, dt, q, k, v, do, ab, ids, causal, sm, rate, seed):
     if ab is not None:
         pairs.append(("dab", dab, want_dab))
     for out, got, want in pairs:
-        check(got.dtype == dt, "%s %s dtype %s" % (name, out, got.dtype))
+        want_dt = ab.dtype if out == "dab" else dt  # dab in the bias's dtype
+        check(got.dtype == want_dt, "%s %s dtype %s" % (name, out, got.dtype))
         e = flash_err(got, want.float(), rtol, floor)
         check(e <= 1, "%s %s %s err %g of its bound (%g |want| + %g row max)"
               % (name, dname, out, e, rtol, floor))
@@ -750,8 +756,9 @@ def flash_check(name, dt, q, k, v, do, ab, ids, causal, sm, rate, seed):
 
 
 def flash_planted_faults(dev):
-    """The check must reject a causal mask off by one and a ds without its
-    − di, in both dtypes' tolerances (the bfloat16 one is the looser)."""
+    """The check must reject a causal mask off by one, a ds without its
+    − di, and dk, dv whose loop over the q tiles stops one tile early, in
+    both dtypes' tolerances (the bfloat16 one is the looser)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     b, h, s, d = 2, 4, 256, 64
@@ -768,11 +775,21 @@ def flash_planted_faults(dev):
     # ds = p·dp, the row term left out
     bad_dq, _ = fa.flash_bwd_dq_reference(q, k, v, None, None, lse, do,
                                           torch.zeros_like(di), True, sm)
+    want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, None, None, lse,
+                                                  do, di, True, sm)
+    # the last 64 q rows left out of dk and dv
+    n = s - 64
+    bad_dk, bad_dv = fa.flash_bwd_dkv_reference(
+        q[:, :, :n], k, v, None, None, lse[:, :, :n], do[:, :, :n],
+        di[:, :, :n], True, sm)
     for rtol, floor in FLASH_TOL.values():
         check(flash_err(bad_o, want_o, rtol, floor) > 1,
               "the flash check passes a causal mask off by one")
         check(flash_err(bad_dq, want_dq, rtol, floor) > 1,
               "the flash check passes a ds without its - di")
+        check(flash_err(bad_dk, want_dk, rtol, floor) > 1
+              and flash_err(bad_dv, want_dv, rtol, floor) > 1,
+              "the flash check passes dk, dv without the last q tile")
 
 
 def flash_crossover(dev):
@@ -813,8 +830,9 @@ def flash_crossover(dev):
 def flash_sass_hmma():
     """HMMA instructions in each kernel of the built flash library, from
     ``cuobjdump -sass`` (the toolkit's, beside nvcc): every instantiation of
-    the bfloat16 forward and dQ kernels (one a head width) must hold some;
-    the FMA kernels hold none. Returns {kernel and its mangled template
+    the bfloat16 forward, dK/dV and dQ kernels (one a head width and bias
+    type: bfloat16 or none, float32) must hold some; the float32 FMA kernels
+    must hold none. Returns {kernel and its mangled template
     arguments: count}."""
     import re
     from pathlib import Path
@@ -838,11 +856,17 @@ def flash_sass_hmma():
         m = re.search(r"\d(flash_\w+?_kernel)I", full)  # <length><name>I
         if m:
             hmma[full[m.start(1):]] = n
-    for kern in ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel"):
+    for kern in ("flash_fwd_bf16_kernel", "flash_dkv_bf16_kernel",
+                 "flash_dq_bf16_kernel"):
         mine = {k: n for k, n in hmma.items() if k.startswith(kern + "I")}
-        check(len(mine) == 3 and all(mine.values()),
-              "%s: HMMA counts %r (want one instantiation a head width, each "
-              "on the tensor cores)" % (kern, mine))
+        check(len(mine) == 6 and all(mine.values()),
+              "%s: HMMA counts %r (want one instantiation a head width and "
+              "bias type, each on the tensor cores)" % (kern, mine))
+    for kern in ("flash_fwd_kernel", "flash_dkv_kernel", "flash_dq_kernel"):
+        mine = {k: n for k, n in hmma.items() if k.startswith(kern + "I")}
+        check(len(mine) == 3 and not any(mine.values()),
+              "%s: HMMA counts %r (want the float32 FMA loop at each head "
+              "width)" % (kern, mine))
     return hmma
 
 
@@ -850,9 +874,10 @@ def flash_kernel_phase(dev):
     """K1a/K1b/K1c against their plain versions: at the long-context
     training shape [8,16,2048,64], causal, in float32 and bfloat16, and at
     small shapes that cover bias, segment ids, ragged Sq != Sk, dropout and
-    head widths 32 and 128; the dropout mask bit for bit in both dtypes;
-    HMMA in the SASS of the bfloat16 forward and dQ kernels. Then their
-    times beside bound, plain version and library call."""
+    head widths 32 and 128, and a float32 bias under bfloat16 q, k, v; the
+    dropout mask bit for bit in both dtypes; HMMA in the SASS of the three
+    bfloat16 kernels. Then their times beside bound, plain version and
+    library call."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     b, s = LONGCTX_BATCH, LONGCTX_SEQ
@@ -878,6 +903,19 @@ def flash_kernel_phase(dev):
             small_errs.append({"case": small[i],
                                "dtype": str(dt).replace("torch.", ""),
                                "max_abs_err": errs})
+    # a float32 bias under bfloat16 q, k, v: all three kernels read it as
+    # float32, and K1c returns dab in float32
+    f32_bias = [  # b, h, sq, sk, d, causal, seg
+        (2, 4, 200, 200, 64, True, True),
+        (1, 2, 70, 333, 32, False, False),
+    ]
+    for i, (b_, h_, sq, sk, d_, causal, seg) in enumerate(f32_bias):
+        x = flash_inputs(dev, torch.bfloat16, b_, h_, sq, sk, d_, 200 + i,
+                         True, seg, ab_dtype=torch.float32)
+        errs = flash_check("flash float32 bias %d" % i, torch.bfloat16, *x,
+                           causal, d_ ** -0.5, 0.0, 0)
+        small_errs.append({"case": f32_bias[i], "dtype": "bfloat16",
+                           "bias_dtype": "float32", "max_abs_err": errs})
     # the dropout mask itself: with v = identity columns the output is the
     # dropped probabilities, 0 exactly where the plain mask drops
     n = 128
@@ -977,8 +1015,7 @@ def flash_kernel_phase(dev):
             "bf16_bound_share": bf16_bound_ms / bf16[kern],
             "bf16_library_ms": bf16[lib],
             "bf16_max_abs_err": path_errs["bfloat16"][out],
-            "design": "fma f32",
-            "bf16_design": "fma f32" if kern == "dkv" else "mma.sync bf16"})
+            "design": "fma f32", "bf16_design": "mma.sync bf16"})
     emit("kernel_vs_plain", kernel="flash_attention",
          shape={"B": b, "H": h, "S": s, "D": d, "causal": True},
          tol={k_: {"rtol": r, "row_floor": f}
@@ -1025,9 +1062,11 @@ def flash_launches():
 
 
 def longctx_train_phase(flash_rows, amp):
-    """The causal LM at full width and depth, batch 8 x 2048 tokens: 2
-    warm-up and 6 timed steps on one fixed batch, in float32 (TF32 off) or
-    under ``fluid.amp.decorate``."""
+    """The causal LM at full width and depth, batch 8 x 2048 tokens, in
+    float32 (TF32 off) or under ``fluid.amp.decorate``, on one fixed batch:
+    warm-up steps until two in a row agree within 10 % (at least 2, at most
+    6; their times on a line of their own), then 6 timed steps, their
+    median the step time."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import softmax_xent as sx
@@ -1042,7 +1081,13 @@ def longctx_train_phase(flash_rows, amp):
     n_weights = sum(int(np.prod(p.shape)) for p in main.all_parameters())
     feed = longctx_feed(LONGCTX_BATCH, LONGCTX_SEQ)
     torch.cuda.reset_peak_memory_stats()
-    warm, _ = train_steps(exe, main, loss, feed, scope, 2)
+    warm, warm_secs = train_steps(exe, main, loss, feed, scope, 2)
+    while (len(warm) < 6 and abs(warm_secs[-1] - warm_secs[-2])
+           > 0.1 * min(warm_secs[-2:])):
+        lv, sec = train_steps(exe, main, loss, feed, scope, 1)
+        warm += lv
+        warm_secs += sec
+    emit("longctx_warmup", mode=mode, step_ms=[x * 1e3 for x in warm_secs])
     fa.LAUNCHES_FWD = fa.LAUNCHES_DKV = fa.LAUNCHES_DQ = 0
     sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
     losses, secs = train_steps(exe, main, loss, feed, scope, 6)

@@ -32,19 +32,27 @@ from . import (  # noqa: F401
     optimizer,
     serving,
 )
+from .backward import append_backward, calc_gradient, gradients  # noqa: F401
 from .core import unique_name  # noqa: F401
 from .core.framework import (  # noqa: F401
     Program,
+    Variable,
     default_main_program,
     default_startup_program,
+    name_scope,
     program_guard,
+    test_mode,
 )
-from .core.place import CPUPlace, CUDAPlace  # noqa: F401
+from .core.place import CPUPlace, CUDAPlace, TPUPlace  # noqa: F401
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .executor import Executor  # noqa: F401
-from .layers.layer_helper import ParamAttr  # noqa: F401
+from .flags import flags, get_flag, set_flag  # noqa: F401
+from .layers.layer_helper import ParamAttr, WeightNormParamAttr  # noqa: F401
 
-__all__ = ["serving", "models", "CUDAPlace", "CPUPlace", "Program",
-           "program_guard", "default_main_program", "default_startup_program",
-           "layers", "optimizer", "initializer", "io", "Executor", "Scope",
-           "scope_guard", "global_scope", "unique_name", "ParamAttr", "amp"]
+__all__ = ["serving", "models", "CUDAPlace", "CPUPlace", "TPUPlace",
+           "Program", "Variable", "program_guard", "default_main_program",
+           "default_startup_program", "name_scope", "test_mode", "layers",
+           "optimizer", "initializer", "io", "Executor", "Scope",
+           "scope_guard", "global_scope", "unique_name", "ParamAttr",
+           "WeightNormParamAttr", "amp", "flags", "get_flag", "set_flag",
+           "append_backward", "gradients", "calc_gradient"]

@@ -3,8 +3,9 @@
 
 In the JAX package ``CUDAPlace`` is only an alias of ``TPUPlace``
 (paddle_tpu/__init__.py). Here it is a real CUDA device:
-``CUDAPlace(i)`` returns ``torch.device("cuda", i)``, and ``CPUPlace()``
-returns ``torch.device("cpu")``, so a place can be handed to any tensor
+``CUDAPlace(i)`` returns ``torch.device("cuda", i)`` (``TPUPlace`` is its
+alias, the mirror of the JAX package's), and ``CPUPlace()`` returns
+``torch.device("cpu")``, so a place can be handed to any tensor
 call that takes a device.
 
 :func:`resolve_device` is the one rule every entry point of the port
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["CPUPlace", "CUDAPlace", "resolve_device"]
+__all__ = ["CPUPlace", "CUDAPlace", "TPUPlace", "resolve_device"]
 
 
 def CPUPlace() -> torch.device:
@@ -27,6 +28,11 @@ def CPUPlace() -> torch.device:
 
 def CUDAPlace(device_id: int = 0) -> torch.device:
     return torch.device("cuda", int(device_id))
+
+
+# A Fluid script written for the JAX package names its accelerator
+# ``TPUPlace``; here that accelerator is the card.
+TPUPlace = CUDAPlace
 
 
 def resolve_device(device=None) -> torch.device:

@@ -14,10 +14,13 @@
 //   K1c dq = (ds * sm_scale) . k, and ds itself as the bias gradient
 // with di = rowsum(o * do), which the caller computes. The scale comes
 // before the bias, as in the composed attention of both packages (the
-// Pallas kernels add the bias first). Dropout drops the normalised
-// probabilities and leaves the statistics alone; the keep mask is a hash of
-// (seed, b, h, q position, k position), the same uint32 arithmetic as the
-// Pallas kernels' _dropout_keep_tile, so the three kernels redraw one mask.
+// Pallas kernels add the bias first). The bias is float32 or q's type
+// (ab_dtype), read in its own type and added in float32 as the Pallas
+// kernels read theirs; K1c writes ds in the bias's type. Dropout drops the
+// normalised probabilities and leaves the statistics alone; the keep mask
+// is a hash of (seed, b, h, q position, k position), the same uint32
+// arithmetic as the Pallas kernels' _dropout_keep_tile, so the three
+// kernels redraw one mask.
 // A row with no visible position (segment ids only) gives o = 0 and
 // lse = +inf, hence p = 0 and no gradient.
 //
@@ -33,11 +36,12 @@
 // forward's products, K1c one and a half times.
 //
 // Two families of kernels:
-//   float32 (K1a, K1b, K1c) and bfloat16 K1b: register-tiled FMA loops
-//     over float32 tiles in shared memory (flash_fwd_kernel,
-//     flash_dkv_kernel, flash_dq_kernel);
-//   bfloat16 K1a and K1c: tensor-core kernels (flash_fwd_bf16_kernel,
-//     flash_dq_bf16_kernel), described after the FMA family.
+//   float32 (K1a, K1b, K1c): register-tiled FMA loops over float32 tiles
+//     in shared memory (flash_fwd_kernel, flash_dkv_kernel,
+//     flash_dq_kernel);
+//   bfloat16 (K1a, K1b, K1c): tensor-core kernels (flash_fwd_bf16_kernel,
+//     flash_dkv_bf16_kernel, flash_dq_bf16_kernel), described after the
+//     FMA family.
 //
 // Design of the FMA family. The Pallas grid walks the kv tiles (K1a, K1c) or the q tiles
 // (K1b) in order and carries the softmax state or the dk/dv sums in VMEM
@@ -56,19 +60,23 @@
 // place rather than copied, and ragged ends are masked by index: any Sq and
 // Sk, D of 32, 64 or 128. This family is bound by its shared-memory reads
 // and the float32 FMA rate. Measured at the training shape on an H100 80GB
-// HBM3 at 700 W (chip_smoke.py): 5.10 / 6.34 / 6.30 ms in float32 and
-// 5.16 / 6.48 / 7.30 ms in bfloat16 for K1a / K1b / K1c.
+// HBM3 at 700 W (chip_smoke.py): 4.96 / 6.05 / 6.02 ms for K1a / K1b / K1c
+// in float32 (6.33 ms for K1b in bfloat16, where it ran until it had a
+// tensor-core kernel).
 //
 // Design of the tensor-core family (FlashAttention-2's shape on mma.sync).
-// The grid, the loop over the kv tiles and the causal order are the FMA
-// family's. A block of 4 warps owns 64 * MT q rows (a warp 16 * MT of them)
-// and walks kv tiles of 64 columns; both kernels launch with MT = 1 and ask
-// for as many blocks an SM as their registers allow (fwd_min_blocks,
-// dq_min_blocks), the choice flash_variants.py measures against 128-row
-// tiles and other block counts. Q (and dO for K1c) stay in shared
-// memory as bfloat16, read in place from their strided views by 16-byte
-// cp.async copies; K and V go through a two-stage ring, the next tile's
-// copies in flight while the current one computes. Rows at or beyond Sq/Sk
+// The grid, the loop over the other sequence and the causal order are the
+// FMA family's. In K1a and K1c a block of 4 warps owns 64 * MT q rows (a
+// warp 16 * MT of them) and walks kv tiles of 64 columns; K1b is the same
+// shape turned around (a block owns 16 kv rows a warp and walks q tiles of
+// 64, its own note below). All three launch 64-row tiles on 4 warps and
+// ask for as many blocks an SM as their registers allow (fwd_min_blocks,
+// dkv_min_blocks, dq_min_blocks), the choice flash_variants.py measures
+// against 128-row tiles and other block counts. The owned tile (Q, and dO
+// for K1c; K and V for K1b) stays in shared memory as bfloat16, read in
+// place from its strided view by 16-byte cp.async copies; the walked one
+// goes through a two-stage ring, the next tile's copies in flight while
+// the current one computes. Rows at or beyond Sq/Sk
 // are zero-filled by the copy itself (src-size 0). A tile's rows are
 // XOR-swizzled in 16-byte chunks, so the 8 rows an ldmatrix phase reads lie
 // in 8 different bank groups. Products are mma.sync m16n8k16 bf16 -> f32:
@@ -79,15 +87,15 @@
 // product. A row's 64 scores of a tile lie in the 4 lanes of a quad, so its
 // maximum and sum take two shuffles. Scale, bias, masks and dropout apply
 // per accumulator element from its (row, col) through the FMA family's
-// ScoreCtx::score and p_and_ds; a tile that no mask, bias, dropout (K1c) or
-// ragged edge reaches only scales. Their exponentials take the SFU's
+// ScoreCtx::score and p_and_ds; a tile that no mask, bias, dropout (K1b,
+// K1c) or ragged edge reaches only scales. Their exponentials take the SFU's
 // ex2.approx (__expf, a few ulp): p is rounded to bfloat16 before its
 // product, and the log-sum-exp moves by ~1e-6. The loads need 16-byte aligned bases and
 // strides; the wrapper hands over an aligned copy of an operand that misses
 // it, and the launch refuses one that still does. Measured at the training
-// shape on an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.433 ms for K1a
-// and 0.474 ms for K1c in bfloat16, 16 % and 22 % of their bounds (5.16
-// and 7.30 ms as FMA loops).
+// shape on an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.432 ms for K1a,
+// 0.626 ms for K1b and 0.470 ms for K1c in bfloat16, 16 %, 22 % and 22 %
+// of their bounds (5.16, 6.33 and 7.30 ms as FMA loops).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,7 +112,7 @@ struct FlashParams {
   const void* q;
   const void* k;
   const void* v;
-  const void* ab;      // bias in the q/k/v type, or null
+  const void* ab;      // bias of type ab_dtype, or null
   const int* seg_q;    // [B,Sq] int32, or null
   const int* seg_kv;   // [B,Sk] int32, or null
   void* o;             // K1a out
@@ -114,12 +122,14 @@ struct FlashParams {
   void* dq;            // K1c out
   void* dk;            // K1b out
   void* dv;            // K1b out
-  void* dab;           // K1c out, contiguous [B,H,Sq,Sk], or null
+  void* dab;           // K1c out, contiguous [B,H,Sq,Sk] of type ab_dtype,
+                       // or null
   long long q_st[3], k_st[3], v_st[3], ab_st[3], o_st[3], do_st[3], dq_st[3],
       dk_st[3], dv_st[3];
   int b, h, sq, sk, d;
   int causal;
   int dtype;           // 0 = float32, 1 = bfloat16
+  int ab_dtype;        // the bias's: 0 = float32, 1 = bfloat16 (dtype 1 only)
   int dropout;         // 0 = none
   unsigned int seed, threshold;  // keep where hash >= threshold
   float keep_scale;    // 1 / (1 - rate)
@@ -133,6 +143,8 @@ constexpr int kTile = 64;        // rows of a q tile and of a kv tile
 constexpr int kPitchS = kTile + 4;  // pitch of a 64x64 score tile
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
+using bf16 = __nv_bfloat16;
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -140,15 +152,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
-}
-// x rounded to T and widened again: where the product's operand has type T.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 // The keep mask of _dropout_keep_tile: a splitmix32-style hash of the
@@ -165,17 +168,16 @@ __device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t b,
   return x >= threshold;
 }
 
-// dst[r][c] = src[row0 + r][c] widened to float, zero beyond `rows`.
-template <typename T, int D, int PITCH>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// dst[r][c] = src[row0 + r][c], zero beyond `rows`.
+template <int D, int PITCH>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long row_stride, int row0,
                                           int rows) {
   for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int gr = row0 + r;
     dst[r * PITCH + c] =
-        gr < rows ? to_float(src[static_cast<long long>(gr) * row_stride + c])
-                  : 0.f;
+        gr < rows ? src[static_cast<long long>(gr) * row_stride + c] : 0.f;
   }
 }
 
@@ -258,10 +260,14 @@ __device__ __forceinline__ void acc_tile(const float* P, const float* Bm,
   }
 }
 
-// Everything one score needs besides q . k^T: scale, bias, the masks.
-template <typename T>
+// Everything one score needs besides q . k^T: scale, bias, the masks. AB
+// is the bias's element type (float32, or bfloat16 under bfloat16 q, k,
+// v): the bias is read in its own type and added in float32, as the Pallas
+// kernels read theirs. The launch picks AB from ab_dtype, so a kernel
+// without a bias is the one for a bias of its own type.
+template <typename AB>
 struct ScoreCtx {
-  const T* ab;          // bias of this (b, h), or null
+  const AB* ab;         // bias of this (b, h), or null
   long long ab_row;     // its row stride
   const int* seg_q;     // ids of this batch row, or null
   const int* seg_kv;
@@ -269,7 +275,7 @@ struct ScoreCtx {
   float sm_scale;
 
   __device__ __forceinline__ ScoreCtx(const FlashParams& p, int b, int h)
-      : ab(p.ab ? static_cast<const T*>(p.ab) + b * p.ab_st[0] +
+      : ab(p.ab ? static_cast<const AB*>(p.ab) + b * p.ab_st[0] +
                       h * p.ab_st[1]
                 : nullptr),
         ab_row(p.ab_st[2]),
@@ -319,7 +325,7 @@ __device__ __forceinline__ int kv_tiles(int sk, int causal, int q0,
 }
 
 // ---------------------------------------------------------------- K1a -----
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
   constexpr int DV = D / 16, PQ = D + 4;
   extern __shared__ __align__(16) float smem[];
@@ -333,12 +339,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
   const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * kTile;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
-  const T* k = static_cast<const T*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
-  const T* v = static_cast<const T*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
-  const ScoreCtx<T> sc(p, b, h);
+  const float* q =
+      static_cast<const float*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
+  const float* k =
+      static_cast<const float*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
+  const float* v =
+      static_cast<const float*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
+  const ScoreCtx<float> sc(p, b, h);
 
-  load_tile<T, D, PQ>(Qs, q, p.q_st[2], q0, p.sq);
+  load_tile<D, PQ>(Qs, q, p.q_st[2], q0, p.sq);
   float m[4], l[4], acc[4][DV];
   int id_q[4];
 #pragma unroll
@@ -355,8 +364,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the last tile's reads are done
-    load_tile<T, D, PQ>(Ks, k, p.k_st[2], k0, p.sk);
-    load_tile<T, D, D>(Vs, v, p.v_st[2], k0, p.sk);
+    load_tile<D, PQ>(Ks, k, p.k_st[2], k0, p.sk);
+    load_tile<D, D>(Vs, v, p.v_st[2], k0, p.sk);
     __syncthreads();
     float s[4][4];
     dot_tile<D>(Qs, Ks, ty, tx, s);
@@ -388,7 +397,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
           pij = dropout_keep(p.seed, b, h, row, col, p.threshold)
                     ? pij * p.keep_scale
                     : 0.f;
-        Ps[(ty + 16 * i) * kPitchS + tx + 16 * j] = round_to<T>(pij);
+        Ps[(ty + 16 * i) * kPitchS + tx + 16 * j] = pij;
       }
       l[i] = l[i] * alpha + rs;  // this thread's 4 columns; summed at the end
       m[i] = m_new;
@@ -399,7 +408,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
     acc_tile<DV, D>(Ps, Vs, ty, tx, acc);
   }
 
-  T* o = static_cast<T*>(p.o) + b * p.o_st[0] + h * p.o_st[1];
+  float* o = static_cast<float*>(p.o) + b * p.o_st[0] + h * p.o_st[1];
   float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -425,9 +434,9 @@ struct PAndDs {
   float pd;  // p after dropout (the operand of dv)
   float ds;  // p * (dropout'(dp) - di)
 };
-template <typename T>
+template <typename AB>
 __device__ __forceinline__ PAndDs p_and_ds(const FlashParams& p,
-                                           const ScoreCtx<T>& sc, float qk,
+                                           const ScoreCtx<AB>& sc, float qk,
                                            float dp, float lse, float di,
                                            int b, int h, int row, int col,
                                            int id_q, int id_kv) {
@@ -445,7 +454,7 @@ __device__ __forceinline__ PAndDs p_and_ds(const FlashParams& p,
 }
 
 // ---------------------------------------------------------------- K1b -----
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   constexpr int DV = D / 16, PQ = D + 4;
   extern __shared__ __align__(16) float smem[];
@@ -461,17 +470,20 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   // causal: the first kv tiles walk the most q tiles, and start first
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * kTile;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
-  const T* k = static_cast<const T*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
-  const T* v = static_cast<const T*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
-  const T* dout =
-      static_cast<const T*>(p.dout) + b * p.do_st[0] + h * p.do_st[1];
+  const float* q =
+      static_cast<const float*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
+  const float* k =
+      static_cast<const float*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
+  const float* v =
+      static_cast<const float*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.do_st[0] + h * p.do_st[1];
   const float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
   const float* di = p.di + (static_cast<long long>(b) * p.h + h) * p.sq;
-  const ScoreCtx<T> sc(p, b, h);
+  const ScoreCtx<float> sc(p, b, h);
 
-  load_tile<T, D, PQ>(Ks, k, p.k_st[2], k0, p.sk);
-  load_tile<T, D, PQ>(Vs, v, p.v_st[2], k0, p.sk);
+  load_tile<D, PQ>(Ks, k, p.k_st[2], k0, p.sk);
+  load_tile<D, PQ>(Vs, v, p.v_st[2], k0, p.sk);
   int id_kv[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -490,8 +502,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   for (int qt = p.causal ? kt : 0; qt < n_qt; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the last tile's reads are done
-    load_tile<T, D, PQ>(Qs, q, p.q_st[2], q0, p.sq);
-    load_tile<T, D, PQ>(dOs, dout, p.do_st[2], q0, p.sq);
+    load_tile<D, PQ>(Qs, q, p.q_st[2], q0, p.sq);
+    load_tile<D, PQ>(dOs, dout, p.do_st[2], q0, p.sq);
     if (tid < kTile) {
       const int row = q0 + tid;
       // a row beyond Sq gets lse = +inf, so its p is 0
@@ -509,11 +521,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int cj = tx + 16 * j;
-        const PAndDs e = p_and_ds<T>(p, sc, s[i][j], dp[i][j], lse_s[r],
+        const PAndDs e = p_and_ds(p, sc, s[i][j], dp[i][j], lse_s[r],
                                      di_s[r], b, h, row, k0 + cj, id_q,
                                      id_kv[j]);
-        PT[cj * kPitchS + r] = round_to<T>(e.pd);
-        dST[cj * kPitchS + r] = round_to<T>(e.ds * p.sm_scale);
+        PT[cj * kPitchS + r] = e.pd;
+        dST[cj * kPitchS + r] = e.ds * p.sm_scale;
       }
     }
     __syncthreads();
@@ -521,8 +533,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
     acc_tile<DV, PQ>(dST, Qs, ty, tx, dk);
   }
 
-  T* dk_out = static_cast<T*>(p.dk) + b * p.dk_st[0] + h * p.dk_st[1];
-  T* dv_out = static_cast<T*>(p.dv) + b * p.dv_st[0] + h * p.dv_st[1];
+  float* dk_out = static_cast<float*>(p.dk) + b * p.dk_st[0] + h * p.dk_st[1];
+  float* dv_out = static_cast<float*>(p.dv) + b * p.dv_st[0] + h * p.dv_st[1];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty + 16 * i;
@@ -539,7 +551,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
 }
 
 // ---------------------------------------------------------------- K1c -----
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
   constexpr int DV = D / 16, PQ = D + 4;
   extern __shared__ __align__(16) float smem[];
@@ -552,20 +564,23 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
   const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * kTile;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
-  const T* k = static_cast<const T*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
-  const T* v = static_cast<const T*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
-  const T* dout =
-      static_cast<const T*>(p.dout) + b * p.do_st[0] + h * p.do_st[1];
+  const float* q =
+      static_cast<const float*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
+  const float* k =
+      static_cast<const float*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
+  const float* v =
+      static_cast<const float*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.do_st[0] + h * p.do_st[1];
   const float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
   const float* di = p.di + (static_cast<long long>(b) * p.h + h) * p.sq;
-  T* dab = p.dab ? static_cast<T*>(p.dab) +
+  float* dab = p.dab ? static_cast<float*>(p.dab) +
                        (static_cast<long long>(b) * p.h + h) * p.sq * p.sk
                  : nullptr;
-  const ScoreCtx<T> sc(p, b, h);
+  const ScoreCtx<float> sc(p, b, h);
 
-  load_tile<T, D, PQ>(Qs, q, p.q_st[2], q0, p.sq);
-  load_tile<T, D, PQ>(dOs, dout, p.do_st[2], q0, p.sq);
+  load_tile<D, PQ>(Qs, q, p.q_st[2], q0, p.sq);
+  load_tile<D, PQ>(dOs, dout, p.do_st[2], q0, p.sq);
   float lse_r[4], di_r[4], dq[4][DV];
   int id_q[4];
 #pragma unroll
@@ -582,8 +597,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the last tile's reads are done
-    load_tile<T, D, PQ>(Ks, k, p.k_st[2], k0, p.sk);
-    load_tile<T, D, PQ>(Vs, v, p.v_st[2], k0, p.sk);
+    load_tile<D, PQ>(Ks, k, p.k_st[2], k0, p.sk);
+    load_tile<D, PQ>(Vs, v, p.v_st[2], k0, p.sk);
     __syncthreads();
     float s[4][4], dp[4][4];
     dot_tile<D>(Qs, Ks, ty, tx, s);
@@ -600,12 +615,12 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int cj = tx + 16 * j, col = k0 + cj;
-        const PAndDs e = p_and_ds<T>(p, sc, s[i][j], dp[i][j], lse_r[i],
+        const PAndDs e = p_and_ds(p, sc, s[i][j], dp[i][j], lse_r[i],
                                      di_r[i], b, h, row, col, id_q[i],
                                      id_kv[j]);
         if (dab != nullptr && row < p.sq && col < p.sk)
           store(&dab[static_cast<long long>(row) * p.sk + col], e.ds);
-        dS[r * kPitchS + cj] = round_to<T>(e.ds * p.sm_scale);
+        dS[r * kPitchS + cj] = e.ds * p.sm_scale;
       }
     }
     __syncthreads();
@@ -622,7 +637,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
         store(&dab[static_cast<long long>(row) * p.sk + col], 0.f);
     }
   }
-  T* dq_out = static_cast<T*>(p.dq) + b * p.dq_st[0] + h * p.dq_st[1];
+  float* dq_out = static_cast<float*>(p.dq) + b * p.dq_st[0] + h * p.dq_st[1];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
@@ -636,7 +651,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
 }
 
 // ------------------------------------------- bfloat16 on the tensor cores --
-// K1a and K1c in bfloat16 (the design note at the top of the file).
+// K1a, K1b and K1c in bfloat16 (the design note at the top of the file).
 constexpr int kMmaThreads = 128;  // 4 warps; a warp owns 16 * MT q rows
 constexpr int kBc = kTile;        // columns of a kv tile
 constexpr int kNt = kBc / 8;      // n8 tiles of a kv tile
@@ -648,8 +663,7 @@ constexpr int kNt = kBc / 8;      // n8 tiles of a kv tile
 // accumulators need more registers than 3 or 4 blocks leave.
 constexpr int fwd_min_blocks(int d) { return d <= 64 ? 4 : 2; }
 constexpr int dq_min_blocks(int d) { return d <= 64 ? 3 : 2; }
-
-using bf16 = __nv_bfloat16;
+constexpr int dkv_min_blocks(int d) { return d <= 64 ? 2 : 1; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -683,16 +697,17 @@ __device__ __forceinline__ int swz(int row, int chunk) {
 }
 
 // Rows [row0, row0 + ROWS) of a bf16 matrix with row stride `row_stride`
-// into a swizzled tile, asynchronously; rows at or beyond `rows` read as 0.
-template <int D, int ROWS>
+// into a swizzled tile, asynchronously, by a block of THREADS threads;
+// rows at or beyond `rows` read as 0.
+template <int D, int ROWS, int THREADS = kMmaThreads>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
                                                 long long row_stride,
                                                 int row0, int rows) {
   constexpr int C = D / 8;  // 16-byte chunks a row
-  static_assert(ROWS * C % kMmaThreads == 0, "whole rounds of copies");
+  static_assert(ROWS * C % THREADS == 0, "whole rounds of copies");
 #pragma unroll
-  for (int it = 0; it < ROWS * C / kMmaThreads; ++it) {
-    const int i = threadIdx.x + it * kMmaThreads;
+  for (int it = 0; it < ROWS * C / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
     const int r = i / C, c = i % C, gr = row0 + r;
     const bool in = gr < rows;
     cp_async_16(smem_addr(dst + swz<D>(r, c)),
@@ -833,29 +848,32 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The segment ids of a lane's 16 columns of the tile at k0.
-__device__ __forceinline__ void kv_ids(const ScoreCtx<bf16>& sc, int col0,
-                                       int (&id)[kNt][2]) {
+// The segment ids (seg, of n positions, or null) of a lane's 16 columns
+// of a 64-column tile: columns col0 + 8 nt + j, col0 = the tile's first
+// plus 2 t.
+__device__ __forceinline__ void tile_ids(const int* seg, int n, int col0,
+                                         int (&id)[kNt][2]) {
 #pragma unroll
   for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = col0 + 8 * nt + j;
-      id[nt][j] = (sc.seg_kv != nullptr && col < sc.sk) ? sc.seg_kv[col] : 0;
+      id[nt][j] = (seg != nullptr && col < n) ? seg[col] : 0;
     }
 }
 
 // Whether the tile at k0 needs only the scale for the rows from wrow0 on:
 // no bias, no segment ids, no column beyond Sk and, causal, none above the
 // diagonal.
-__device__ __forceinline__ bool plain_tile(const ScoreCtx<bf16>& sc, int k0,
+template <typename AB>
+__device__ __forceinline__ bool plain_tile(const ScoreCtx<AB>& sc, int k0,
                                            int wrow0) {
   return sc.ab == nullptr && sc.seg_q == nullptr && k0 + kBc <= sc.sk &&
          !(sc.causal && k0 + kBc - 1 > wrow0);
 }
 
 // ------------------------------------------------------- K1a, bfloat16 -----
-template <int D, int MT>
+template <int D, int MT, typename AB>
 __global__ void __launch_bounds__(kMmaThreads, fwd_min_blocks(D))
     flash_fwd_bf16_kernel(FlashParams p) {
   constexpr int BR = 64 * MT, DT = D / 8;
@@ -872,7 +890,7 @@ __global__ void __launch_bounds__(kMmaThreads, fwd_min_blocks(D))
   const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
   const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
   const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
-  const ScoreCtx<bf16> sc(p, b, h);
+  const ScoreCtx<AB> sc(p, b, h);
   const int n_kt = kv_tiles(p.sk, p.causal, q0, BR);
 
   load_tile_async<D, BR>(Qs, q, p.q_st[2], q0, p.sq);
@@ -922,7 +940,7 @@ __global__ void __launch_bounds__(kMmaThreads, fwd_min_blocks(D))
           for (int e = 0; e < 4; ++e) s[mt][nt][e] *= p.sm_scale;
     } else {
       int id_kv[kNt][2];
-      kv_ids(sc, k0 + 2 * t, id_kv);
+      tile_ids(sc.seg_kv, sc.sk, k0 + 2 * t, id_kv);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -996,7 +1014,7 @@ __global__ void __launch_bounds__(kMmaThreads, fwd_min_blocks(D))
 }
 
 // ------------------------------------------------------- K1c, bfloat16 -----
-template <int D, int MT>
+template <int D, int MT, typename AB>
 __global__ void __launch_bounds__(kMmaThreads, dq_min_blocks(D))
     flash_dq_bf16_kernel(FlashParams p) {
   constexpr int BR = 64 * MT, DT = D / 8;
@@ -1018,10 +1036,10 @@ __global__ void __launch_bounds__(kMmaThreads, dq_min_blocks(D))
       static_cast<const bf16*>(p.dout) + b * p.do_st[0] + h * p.do_st[1];
   const float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
   const float* di = p.di + (static_cast<long long>(b) * p.h + h) * p.sq;
-  bf16* dab = p.dab ? static_cast<bf16*>(p.dab) +
-                          (static_cast<long long>(b) * p.h + h) * p.sq * p.sk
-                    : nullptr;
-  const ScoreCtx<bf16> sc(p, b, h);
+  AB* dab = p.dab ? static_cast<AB*>(p.dab) +
+                        (static_cast<long long>(b) * p.h + h) * p.sq * p.sk
+                  : nullptr;
+  const ScoreCtx<AB> sc(p, b, h);
   const int n_kt = kv_tiles(p.sk, p.causal, q0, BR);
 
   load_tile_async<D, BR>(Qs, q, p.q_st[2], q0, p.sq);
@@ -1080,7 +1098,7 @@ __global__ void __launch_bounds__(kMmaThreads, dq_min_blocks(D))
           }
     } else {
       int id_kv[kNt][2];
-      kv_ids(sc, k0 + 2 * t, id_kv);
+      tile_ids(sc.seg_kv, sc.sk, k0 + 2 * t, id_kv);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -1089,7 +1107,7 @@ __global__ void __launch_bounds__(kMmaThreads, dq_min_blocks(D))
           for (int e = 0; e < 4; ++e) {
             const int row = row0 + 16 * mt + 8 * (e >> 1);
             const int col = k0 + 8 * nt + 2 * t + (e & 1);
-            const PAndDs r = p_and_ds<bf16>(
+            const PAndDs r = p_and_ds(
                 p, sc, s[mt][nt][e], dp[mt][nt][e], lse_r[mt][e >> 1],
                 di_r[mt][e >> 1], b, h, row, col, id_q[mt][e >> 1],
                 id_kv[nt][e & 1]);
@@ -1128,6 +1146,162 @@ __global__ void __launch_bounds__(kMmaThreads, dq_min_blocks(D))
     }
 }
 
+// ------------------------------------------------------- K1b, bfloat16 -----
+// The forward's products turned around: a block of WARPS warps owns 16 *
+// WARPS kv rows (a warp 16 of them) and walks the q tiles of 64 rows, so a
+// fragment's row is a kv position and its column a q position. K and V
+// stay in shared memory; Q, dO and the tile's lse and di go through the
+// two-stage ring. Per q tile a warp computes S^T = K . Q^T and dP^T =
+// V . dO^T (K and V as A operands, Q and dO by ldmatrix), then P^T and
+// dS^T element by element, then dV += dropout(P^T) . dO and dK += (dS^T *
+// scale) . Q with dO and Q by ldmatrix.trans: each Q and dO tile serves two
+// products, and P^T and dS^T never leave registers. A q position's lse and
+// di are per column, so they come from shared memory, not from the quad.
+template <int D, int WARPS, typename AB>
+__global__ void __launch_bounds__(32 * WARPS, dkv_min_blocks(D))
+    flash_dkv_bf16_kernel(FlashParams p) {
+  constexpr int BKV = 16 * WARPS, NTH = 32 * WARPS, DT = D / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BKV][D]
+  bf16* Vs = Ks + BKV * D;                        // [BKV][D]
+  bf16* Qs = Vs + BKV * D;                        // [2][64][D]
+  bf16* dOs = Qs + 2 * kBc * D;                   // [2][64][D]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * kBc * D);  // [2][64]
+  float* di_s = lse_s + 2 * kBc;                                // [2][64]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // causal: the first kv tiles walk the most q tiles, and start first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BKV, wk0 = k0 + 16 * warp;  // the warp's rows
+  const int row0 = wk0 + g;  // kv row of element 0 of a fragment
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
+  const bf16* dout =
+      static_cast<const bf16*>(p.dout) + b * p.do_st[0] + h * p.do_st[1];
+  const float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
+  const float* di = p.di + (static_cast<long long>(b) * p.h + h) * p.sq;
+  const ScoreCtx<AB> sc(p, b, h);
+  const int n_qt = (p.sq + kBc - 1) / kBc;
+  const int qt0 = p.causal ? k0 / kBc : 0;  // causal: rows before k0 see none
+
+  load_tile_async<D, BKV, NTH>(Ks, k, p.k_st[2], k0, p.sk);
+  load_tile_async<D, BKV, NTH>(Vs, v, p.v_st[2], k0, p.sk);
+  if (qt0 < n_qt) {
+    load_tile_async<D, kBc, NTH>(Qs, q, p.q_st[2], qt0 * kBc, p.sq);
+    load_tile_async<D, kBc, NTH>(dOs, dout, p.do_st[2], qt0 * kBc, p.sq);
+  }
+  cp_async_commit();
+  if (threadIdx.x < kBc) {
+    // a row at or beyond Sq gets lse = +inf, so its p is 0
+    const int row = qt0 * kBc + threadIdx.x;
+    lse_s[threadIdx.x] = row < p.sq ? lse[row] : INFINITY;
+    di_s[threadIdx.x] = row < p.sq ? di[row] : 0.f;
+  }
+  int id_kv[2];
+  float dk[1][DT][4], dv[1][DT][4];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = row0 + 8 * hi;
+    id_kv[hi] = (sc.seg_kv != nullptr && row < p.sk) ? sc.seg_kv[row] : 0;
+  }
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[0][dt][e] = dv[0][dt][e] = 0.f;
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * kBc, st = (qt - qt0) & 1;
+    // the next tile's copies fly while this one computes; its lse and di
+    // wait in registers until this tile's reads are done
+    float lse_nx = INFINITY, di_nx = 0.f;
+    if (qt + 1 < n_qt) {
+      const int nx = (st ^ 1) * kBc * D;
+      load_tile_async<D, kBc, NTH>(Qs + nx, q, p.q_st[2], q0 + kBc, p.sq);
+      load_tile_async<D, kBc, NTH>(dOs + nx, dout, p.do_st[2], q0 + kBc, p.sq);
+      const int row = q0 + kBc + threadIdx.x;
+      if (threadIdx.x < kBc && row < p.sq) {
+        lse_nx = lse[row];
+        di_nx = di[row];
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and K, V) has landed
+    __syncthreads();
+    const bf16* Qt = Qs + st * kBc * D;
+    const bf16* dOt = dOs + st * kBc * D;
+    const float* lse_t = lse_s + st * kBc;
+    const float* di_t = di_s + st * kBc;
+
+    // s becomes dropout(p)^T, the A operand of dv += p^T . do, and dp
+    // becomes (ds * sm_scale)^T, that of dk += ds^T . q
+    float s[1][kNt][4], dp[1][kNt][4];
+    mma_abt<D, 1>(Ks, wk0 - k0, Qt, s);
+    mma_abt<D, 1>(Vs, wk0 - k0, dOt, dp);
+    // only the scale: no bias, segment ids or dropout, no q row beyond Sq,
+    // no kv row beyond Sk and, causal, no kv row after the tile's first q
+    if (!p.dropout && sc.ab == nullptr && sc.seg_q == nullptr &&
+        q0 + kBc <= p.sq && wk0 + 16 <= p.sk &&
+        !(p.causal && wk0 + 15 > q0)) {
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        const int c = 8 * nt + 2 * t;  // the lane's first q row of the n8
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(di_t + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pij =
+              __expf(s[0][nt][e] * p.sm_scale - ((e & 1) ? l2.y : l2.x));
+          dp[0][nt][e] =
+              pij * (dp[0][nt][e] - ((e & 1) ? d2.y : d2.x)) * p.sm_scale;
+          s[0][nt][e] = pij;
+        }
+      }
+    } else {
+      int id_q[kNt][2];
+      tile_ids(sc.seg_q, p.sq, q0 + 2 * t, id_q);
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * nt + 2 * t + (e & 1);  // q row in the tile
+          const PAndDs r = p_and_ds(p, sc, s[0][nt][e], dp[0][nt][e],
+                                    lse_t[c], di_t[c], b, h, q0 + c,
+                                    row0 + 8 * (e >> 1), id_q[nt][e & 1],
+                                    id_kv[e >> 1]);
+          s[0][nt][e] = r.pd;
+          dp[0][nt][e] = r.ds * p.sm_scale;
+        }
+    }
+    mma_pb<D, 1>(s, dOt, dv);
+    mma_pb<D, 1>(dp, Qt, dk);
+    if (qt + 1 < n_qt && threadIdx.x < kBc) {
+      lse_s[(st ^ 1) * kBc + threadIdx.x] = lse_nx;
+      di_s[(st ^ 1) * kBc + threadIdx.x] = di_nx;
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  cp_async_wait<0>();  // a block with no q tile still has K and V in flight
+
+  bf16* dk_out = static_cast<bf16*>(p.dk) + b * p.dk_st[0] + h * p.dk_st[1];
+  bf16* dv_out = static_cast<bf16*>(p.dv) + b * p.dv_st[0] + h * p.dv_st[1];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = row0 + 8 * hi;
+    if (row < p.sk) {
+      bf16* krow = dk_out + static_cast<long long>(row) * p.dk_st[2] + 2 * t;
+      bf16* vrow = dv_out + static_cast<long long>(row) * p.dv_st[2] + 2 * t;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        *reinterpret_cast<__nv_bfloat162*>(krow + 8 * dt) =
+            __floats2bfloat162_rn(dk[0][dt][2 * hi], dk[0][dt][2 * hi + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * dt) =
+            __floats2bfloat162_rn(dv[0][dt][2 * hi], dv[0][dt][2 * hi + 1]);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------ launchers ---
 constexpr size_t fwd_smem(int d) {
   return sizeof(float) * (2 * kTile * (d + 4) + kTile * d + kTile * kPitchS);
@@ -1146,6 +1320,11 @@ constexpr size_t fwd_bf16_smem(int br, int d) {
 }
 constexpr size_t dq_bf16_smem(int br, int d) {
   return sizeof(bf16) * (2 * br + 4 * kBc) * d;
+}
+// K1b: a K and a V tile of bkv rows, two Q and two dO stages of 64 rows,
+// two stages of the q tile's lse and di
+constexpr size_t dkv_bf16_smem(int bkv, int d) {
+  return sizeof(bf16) * (2 * bkv + 4 * kBc) * d + sizeof(float) * 4 * kBc;
 }
 
 // Above 48 KB a block's shared memory has to be asked for; a launch that
@@ -1176,40 +1355,51 @@ bool copy_aligned(const void* ptr, const long long (&st)[3], int b, int h,
 
 constexpr int tiles_of(int rows, int br) { return (rows + br - 1) / br; }
 
+// The bfloat16 kernels with a bias of element type AB (bf16 without one).
+template <int D, typename AB>
+int launch_bf16(Which which, const FlashParams& p, cudaStream_t st) {
+  if (!copy_aligned(p.q, p.q_st, p.b, p.h, p.sq) ||
+      !copy_aligned(p.k, p.k_st, p.b, p.h, p.sk) ||
+      !copy_aligned(p.v, p.v_st, p.b, p.h, p.sk) ||
+      (which != kFwd && !copy_aligned(p.dout, p.do_st, p.b, p.h, p.sq)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  // 64-row tiles (MT = 1, 4 warps) for all three: more blocks fit an SM
+  if (which == kFwd)
+    return launch(flash_fwd_bf16_kernel<D, 1, AB>, p, tiles_of(p.sq, 64),
+                  fwd_bf16_smem(64, D), kMmaThreads, st);
+  if (which == kDkv)
+    return launch(flash_dkv_bf16_kernel<D, 4, AB>, p, tiles_of(p.sk, 64),
+                  dkv_bf16_smem(64, D), 128, st);
+  return launch(flash_dq_bf16_kernel<D, 1, AB>, p, tiles_of(p.sq, 64),
+                dq_bf16_smem(64, D), kMmaThreads, st);
+}
+
 template <int D>
 int launch_one(Which which, const FlashParams& p, cudaStream_t st) {
   if (p.dtype == 0) {
     switch (which) {
       case kFwd:
-        return launch(flash_fwd_kernel<float, D>, p, tiles_of(p.sq, kTile),
+        return launch(flash_fwd_kernel<D>, p, tiles_of(p.sq, kTile),
                       fwd_smem(D), kThreads, st);
       case kDkv:
-        return launch(flash_dkv_kernel<float, D>, p, tiles_of(p.sk, kTile),
+        return launch(flash_dkv_kernel<D>, p, tiles_of(p.sk, kTile),
                       dkv_smem(D), kThreads, st);
       default:
-        return launch(flash_dq_kernel<float, D>, p, tiles_of(p.sq, kTile),
+        return launch(flash_dq_kernel<D>, p, tiles_of(p.sq, kTile),
                       dq_smem(D), kThreads, st);
     }
   }
-  if (which == kDkv)
-    return launch(flash_dkv_kernel<bf16, D>, p, tiles_of(p.sk, kTile),
-                  dkv_smem(D), kThreads, st);
-  if (!copy_aligned(p.q, p.q_st, p.b, p.h, p.sq) ||
-      !copy_aligned(p.k, p.k_st, p.b, p.h, p.sk) ||
-      !copy_aligned(p.v, p.v_st, p.b, p.h, p.sk) ||
-      (which == kDq && !copy_aligned(p.dout, p.do_st, p.b, p.h, p.sq)))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  // 64-row q tiles (MT = 1) for both: more blocks fit an SM
-  if (which == kFwd)
-    return launch(flash_fwd_bf16_kernel<D, 1>, p, tiles_of(p.sq, 64),
-                  fwd_bf16_smem(64, D), kMmaThreads, st);
-  return launch(flash_dq_bf16_kernel<D, 1>, p, tiles_of(p.sq, 64),
-                dq_bf16_smem(64, D), kMmaThreads, st);
+  // a float32 bias under bfloat16 q, k, v has kernels of its own, so the
+  // bias's type costs a launch without one nothing
+  if (p.ab != nullptr && p.ab_dtype == 0)
+    return launch_bf16<D, float>(which, p, st);
+  return launch_bf16<D, bf16>(which, p, st);
 }
 
 int dispatch(Which which, const FlashParams* p, void* stream) {
   if (p == nullptr || p->b < 1 || p->h < 1 || p->sq < 1 || p->sk < 1 ||
-      p->h > 65535 || p->b > 65535 || (p->dtype != 0 && p->dtype != 1))
+      p->h > 65535 || p->b > 65535 || (p->dtype != 0 && p->dtype != 1) ||
+      (p->ab_dtype != 0 && p->ab_dtype != p->dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (p->d) {

@@ -15,7 +15,10 @@
   and materialises the [B, H, Sq, Sk] scores. The route depends on shapes,
   dtypes and the flag, never on the device, so a CPU run walks the same
   route through the kernels' plain versions. Both routes compute
-  ``softmax(q·kᵀ·sm_scale + bias)·v``.
+  ``softmax(q·kᵀ·sm_scale + bias)·v``. A float32 bias under bfloat16
+  q, k, v is read as float32 on both: the composed route then returns
+  float32 (the scores promote), the flash route q's dtype, as in the JAX
+  package.
 * :func:`decode_attention` / :func:`verify_attention` — single-position
   and verify-window attention over a gathered KV context: the plain path
   the paged kernel is held against.
@@ -100,8 +103,12 @@ def sdpa(q, k, v, bias=None, segment_ids_q=None, segment_ids_kv=None,
                 seg = fa.SegmentIds(segment_ids_q, segment_ids_kv)
             ab = bias
             if ab is not None:
-                ab = ab.to(q.dtype).expand(q.shape[0], q.shape[1],
-                                           q.shape[2], k.shape[2])
+                # the kernels read a bias of q's dtype or a float32 one (as
+                # the Pallas kernels read theirs: in its own dtype, added
+                # in float32)
+                if ab.dtype != q.dtype:
+                    ab = ab.float()
+                ab = ab.expand(q.shape[0], q.shape[1], q.shape[2], k.shape[2])
             return fa.flash_attention(q, k, v, ab, seg, causal=causal,
                                       sm_scale=sm_scale)
         if (dropout_rng is not None and bias is None
@@ -127,7 +134,10 @@ def sdpa(q, k, v, bias=None, segment_ids_q=None, segment_ids_kv=None,
     if dropout_rate > 0.0 and dropout_rng is not None:
         keep = keep_mask(probs.shape, dropout_rate, dropout_rng, probs.device)
         probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_rate)), 0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+    # a float32 bias under bfloat16 q, k promotes the scores, the softmax
+    # and the output to float32, as jnp's promotion does in the JAX package
+    dt = torch.promote_types(probs.dtype, v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(dt), v.to(dt))
 
 
 def decode_attention(q, ctx_k, ctx_v, ctx_len, sm_scale=1.0):

@@ -41,11 +41,15 @@ attention layer hands over transposed ``[B, S, H, D]`` tensors); the
 kernels read them in place, and the outputs are allocated with the layout
 of the tensor they belong to, so the layer's transpose back is free.
 
-In bfloat16, K1a and K1c run on the tensor cores (``mma.sync``) and load
-their operands with 16-byte ``cp.async`` copies; K1b and every float32
-kernel are FMA loops. A bfloat16 view whose base or strides miss 16 bytes
-goes to K1a/K1c as an aligned copy (:func:`_staged`); the attention layer's
+In bfloat16, K1a, K1b and K1c run on the tensor cores (``mma.sync``) and
+load their operands with 16-byte ``cp.async`` copies; every float32 kernel
+is an FMA loop. A bfloat16 view whose base or strides miss 16 bytes goes to
+the kernels as an aligned copy (:func:`_staged`); the attention layer's
 views never do.
+
+The bias ``ab`` has q's dtype, or float32 under bfloat16 q, k, v: the
+kernels read it in its own dtype and add it in float32, as the Pallas
+kernels do, and K1c returns ``dab`` in the bias's dtype.
 """
 
 from __future__ import annotations
@@ -94,7 +98,8 @@ class _Params(ctypes.Structure):
         + [(n + "_st", _Strides) for n in
            ("q", "k", "v", "ab", "o", "do", "dq", "dk", "dv")]
         + [(n, ctypes.c_int) for n in
-           ("b", "h", "sq", "sk", "d", "causal", "dtype", "dropout")]
+           ("b", "h", "sq", "sk", "d", "causal", "dtype", "ab_dtype",
+            "dropout")]
         + [("seed", ctypes.c_uint), ("threshold", ctypes.c_uint),
            ("keep_scale", ctypes.c_float), ("sm_scale", ctypes.c_float)])
 
@@ -275,9 +280,10 @@ def _check(q, k, v, ab, segment_ids, dropout_rate):
         if tuple(ab.shape) != (b, h, sq, sk):
             raise ValueError("ab must be [%d,%d,%d,%d], got shape %s"
                              % (b, h, sq, sk, tuple(ab.shape)))
-        if ab.dtype != q.dtype:
-            raise TypeError("ab must have q's dtype %s, got %s"
-                            % (q.dtype, ab.dtype))
+        if ab.dtype != q.dtype and not (q.dtype == torch.bfloat16
+                                        and ab.dtype == torch.float32):
+            raise TypeError("ab must have q's dtype %s (or float32 under "
+                            "bfloat16), got %s" % (q.dtype, ab.dtype))
         tensors.append(("ab", ab))
     if segment_ids is not None:
         if tuple(segment_ids.q.shape) != (b, sq) \
@@ -317,7 +323,7 @@ def _check_cuda(q, named):
 
 
 def _cp_async_ok(t):
-    """Whether the bfloat16 tensor-core kernels (K1a, K1c) can copy ``t``
+    """Whether the bfloat16 tensor-core kernels (K1a-c) can copy ``t``
     in place with their 16-byte ``cp.async`` loads: its base address and
     its batch, head and row strides (those of dimensions with more than one
     index) are whole multiples of 16 bytes. A contiguous tensor, the
@@ -374,6 +380,7 @@ def _launch(which, q, k, v, ab, seg, causal, sm_scale, dropout_rate,
     p.b, p.h, p.sq, p.sk, p.d = b, h, sq, k.shape[2], d
     p.causal = int(bool(causal))
     p.dtype = _DTYPE_CODE[q.dtype]
+    p.ab_dtype = p.dtype if ab is None else _DTYPE_CODE[ab.dtype]
     p.dropout = int(dropout_rate > 0.0)
     p.seed = int(dropout_seed or 0) & _U32
     p.threshold = dropout_threshold(dropout_rate)
@@ -437,6 +444,8 @@ def flash_bwd_dkv(q, k, v, ab, segment_ids, lse, do, di, causal=False,
                                        dropout_seed)
     _check_cuda(q, (("q", q), ("k", k), ("v", v), ("ab", ab), ("do", do)))
     dk, dv = _like(k), _like(v)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = _staged(q), _staged(k), _staged(v), _staged(do)
     _launch(1, q, k, v, ab, _seg32(segment_ids), causal, sm_scale,
             dropout_rate, dropout_seed, lse=lse.float().contiguous(),
             dout=do, di=di.float().contiguous(), dk=dk, dv=dv)

@@ -198,10 +198,10 @@ def test_softmax_xent_op_trains_through_the_kernels(cuda):
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
-def flash_inputs(dev, dt, b, h, sq, sk, d, bias, seg, seed=0):
+def flash_inputs(dev, dt, b, h, sq, sk, d, bias, seg, seed=0, ab_dtype=None):
     """q, k, v, do as transposed views of [B,S,H,D] tensors (the layout the
-    attention layer hands over), a bias broadcast over heads, sorted
-    segment ids."""
+    attention layer hands over), a bias broadcast over heads (of dtype
+    ``ab_dtype``, q's by default), sorted segment ids."""
     rng = np.random.RandomState(seed)
 
     def t(s):
@@ -213,7 +213,8 @@ def flash_inputs(dev, dt, b, h, sq, sk, d, bias, seg, seed=0):
     ab = None
     if bias:
         ab = torch.as_tensor(rng.randn(b, 1, sq, sk).astype(np.float32),
-                             device=dev).to(dt).expand(b, h, sq, sk)
+                             device=dev).to(ab_dtype or dt).expand(
+                                 b, h, sq, sk)
     ids = None
     if seg:
         ids = fa.SegmentIds(
@@ -295,34 +296,39 @@ def test_flash_dropout_mask_is_the_plain_versions(cuda, dt):
         assert torch.equal(o != 0, keep)
 
 
-def bf16_fwd_dq(q, k, v, do, ab, ids, causal, rate=0.0, seed=0):
-    """bfloat16 K1a and K1c (the tensor-core kernels) against their plain
-    versions on the same tensors: o, dq and dab to 2e-2 (bf16 outputs; p
-    and ds rounded to bf16 before their products), lse to 2e-5 + 1e-5
-    relative, the same rows dead. Returns the kernels' (o, lse, dq, dab)."""
+def bf16_kernels(q, k, v, do, ab, ids, causal, rate=0.0, seed=0):
+    """bfloat16 K1a, K1b and K1c (the tensor-core kernels) against their
+    plain versions on the same tensors: o, dk, dv, dq and dab to 2e-2 (bf16
+    outputs; p and ds rounded to bf16 before their products), lse to 2e-5
+    + 1e-5 relative, the same rows dead; dab in the bias's dtype. Returns
+    the kernels' (o, lse, dk, dv, dq, dab)."""
     sm = q.shape[-1] ** -0.5
-    n0 = (fa.LAUNCHES_FWD, fa.LAUNCHES_DQ)
+    n0 = (fa.LAUNCHES_FWD, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ)
     o, lse = fa.flash_fwd(q, k, v, ab, ids, causal, sm, rate, seed)
     want_o, want_lse = fa.flash_fwd_reference(q, k, v, ab, ids, causal, sm,
                                               rate, seed)
     di = (want_o.float() * do.float()).sum(-1)
     args = (q, k, v, ab, ids, want_lse, do, di, causal, sm, rate, seed)
+    dk, dv = fa.flash_bwd_dkv(*args)
     dq, dab = fa.flash_bwd_dq(*args)
     torch.cuda.synchronize()
-    assert (fa.LAUNCHES_FWD - n0[0], fa.LAUNCHES_DQ - n0[1]) == (1, 1)
+    assert (fa.LAUNCHES_FWD - n0[0], fa.LAUNCHES_DKV - n0[1],
+            fa.LAUNCHES_DQ - n0[2]) == (1, 1, 1)
+    want_dk, want_dv = fa.flash_bwd_dkv_reference(*args)
     want_dq, want_dab = fa.flash_bwd_dq_reference(*args)
     live = torch.isfinite(want_lse)
     assert torch.equal(torch.isfinite(lse), live)
     torch.testing.assert_close(lse[live], want_lse[live], atol=2e-5,
                                rtol=1e-5)
-    pairs = [("o", o, want_o), ("dq", dq, want_dq)]
+    pairs = [("o", o, want_o), ("dk", dk, want_dk), ("dv", dv, want_dv),
+             ("dq", dq, want_dq)]
     if ab is not None:
         pairs.append(("dab", dab, want_dab))
     for name, got, want in pairs:
-        assert got.dtype == torch.bfloat16, name
+        assert got.dtype == (ab.dtype if name == "dab" else torch.bfloat16)
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2, msg=lambda m: name + ": " + m)
-    return o, lse, dq, dab
+    return o, lse, dk, dv, dq, dab
 
 
 LENS = (1, 63, 64, 65, 127, 129)  # about the 64-column kv tile
@@ -338,12 +344,25 @@ def test_bf16_tensor_core_kernels_at_ragged_lengths(cuda, sq, sk, d):
     for causal in ((False, True) if sq == sk else (False,)):
         q, k, v, do, _, _ = flash_inputs(cuda, torch.bfloat16, 2, 2, sq, sk,
                                          d, False, False, seed=sq * 997 + sk)
-        bf16_fwd_dq(q, k, v, do, None, None, causal)
+        bf16_kernels(q, k, v, do, None, None, causal)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg", [
+    (2, 2, 200, 200, 64, True, True), (1, 2, 70, 333, 32, False, False),
+    (1, 2, 129, 63, 128, False, True), (1, 1, 130, 130, 128, True, False)])
+def test_bf16_kernels_read_a_float32_bias(cuda, b, h, sq, sk, d, causal, seg):
+    """A float32 bias under bfloat16 q, k, v, read as float32 by all three
+    kernels as by their plain versions; K1c returns dab in float32."""
+    x = flash_inputs(cuda, torch.bfloat16, b, h, sq, sk, d, True, seg,
+                     seed=sq + sk, ab_dtype=torch.float32)
+    *_, dab = bf16_kernels(*x, causal)
+    assert dab.dtype == torch.float32
 
 
 def test_bf16_tensor_core_kernels_with_a_row_that_sees_nothing(cuda):
     """Segment ids: rows 0..9 see no position, so o = 0, lse = +inf and
-    dq = 0 there; the other rows match the plain version."""
+    dq = 0 there, and kv rows 50..99 of segment 2 get their gradients from
+    q rows 60..99 alone; the other rows match the plain version."""
     q, k, v, do, _, _ = flash_inputs(cuda, torch.bfloat16, 1, 2, 100, 100,
                                      64, False, False, seed=5)
     ids = fa.SegmentIds(torch.zeros(1, 100, dtype=torch.int64, device=cuda),
@@ -351,15 +370,17 @@ def test_bf16_tensor_core_kernels_with_a_row_that_sees_nothing(cuda):
     ids.q[0, 10:] = 1
     ids.q[0, 60:] = 2
     ids.kv[0, 50:] = 2
-    o, lse, dq, _ = bf16_fwd_dq(q, k, v, do, None, ids, False)
+    o, lse, dk, dv, dq, _ = bf16_kernels(q, k, v, do, None, ids, False)
     assert not o[:, :, :10].any() and bool(torch.isinf(lse[:, :, :10]).all())
     assert not dq[:, :, :10].any() and bool(torch.isfinite(dq).all())
+    assert bool(torch.isfinite(dk).all()) and bool(torch.isfinite(dv).all())
     assert bool(torch.isfinite(lse[:, :, 10:]).all())
 
 
 def test_bf16_unaligned_view_takes_the_copy(cuda):
-    """A q view one element off 16 bytes goes to the kernels as an aligned
-    copy, with the copy's results; the launch itself refuses the view."""
+    """A q view one element off 16 bytes goes to the three kernels as an
+    aligned copy, with the copy's results; the launch itself refuses the
+    view, in the forward and in K1b."""
     b, h, s, d = 1, 2, 96, 64
     q, k, v, do, _, _ = flash_inputs(cuda, torch.bfloat16, b, h, s, s, d,
                                      False, False, seed=8)
@@ -367,13 +388,18 @@ def test_bf16_unaligned_view_takes_the_copy(cuda):
     q_off = flat[1:].view(b, h, s, d)
     q_off.copy_(q)
     assert not fa._cp_async_ok(q_off) and fa._cp_async_ok(q)
-    o, lse, dq, _ = bf16_fwd_dq(q_off, k, v, do, None, None, True)
-    o_al, _, dq_al, _ = bf16_fwd_dq(q, k, v, do, None, None, True)
-    assert torch.equal(o, o_al) and torch.equal(dq, dq_al)
+    got = bf16_kernels(q_off, k, v, do, None, None, True)
+    want = bf16_kernels(q, k, v, do, None, None, True)
+    for name, a, a_al in zip(("o", "lse", "dk", "dv", "dq"), got, want):
+        assert torch.equal(a, a_al), name
+    lse = torch.empty(b, h, s, device=cuda)
     with pytest.raises(RuntimeError, match="cudaError_t 716"):
         fa._launch(0, q_off, k, v, None, (None, None), True, 0.125, 0.0, 0,
-                   o=torch.empty_like(q_off),
-                   lse=torch.empty(b, h, s, device=cuda))
+                   o=torch.empty_like(q_off), lse=lse)
+    with pytest.raises(RuntimeError, match="cudaError_t 716"):
+        fa._launch(1, q_off, k, v, None, (None, None), True, 0.125, 0.0, 0,
+                   lse=lse, dout=do, di=torch.zeros_like(lse),
+                   dk=torch.empty_like(k), dv=torch.empty_like(v))
 
 
 def test_flash_dead_rows_and_wrapper_rules(cuda):

@@ -363,6 +363,128 @@ def test_bf16_kernels_copy_only_views_off_16_bytes(kind, aligned):
     assert tfa._cp_async_ok(staged) and torch.equal(staged, t)
 
 
+# -- a float32 bias under bfloat16 q, k, v ------------------------------------
+
+
+def bf16_scaled_err(got, want):
+    """Largest |got − want| / (2e-2·|want| + 1e-6·row max |want|): the bf16
+    check scale of the port's chip checks; at most 1 passes."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    row = np.abs(want).max(axis=-1, keepdims=True)
+    return float((np.abs(got - want)
+                  / (2e-2 * np.abs(want) + 1e-6 * row + 1e-30)).max())
+
+
+def f32_bias_inputs(seed=21):
+    """bfloat16 q, k, v, do [1, 2, 128, 64] and a float32 bias of std 8,
+    whose rounding to bfloat16 would move a score by up to 0.03."""
+    x = make(1, 2, 128, 128, 64, True, False, seed=seed)
+    for n in ("q", "k", "v", "do"):
+        x[n] = np.array(jnp.asarray(x[n], jnp.bfloat16).astype(jnp.float32))
+    x["ab"] = x["ab"] * 8.0
+    return x
+
+
+def bf16(a):
+    return torch.as_tensor(a).to(torch.bfloat16)
+
+
+def test_composed_sdpa_promotes_under_a_float32_bias():
+    """bfloat16 q, k, v with a float32 bias: the JAX package's composed
+    ``sdpa`` promotes the scores, the softmax and the output to float32;
+    the port's does the same, where it used to raise."""
+    x = f32_bias_inputs()
+    want = jao.sdpa(*(jnp.asarray(x[n], jnp.bfloat16) for n in "qkv"),
+                    jnp.asarray(x["ab"]), causal=True, sm_scale=SM)
+    got = tao.sdpa(*(bf16(x[n]) for n in "qkv"), t(x["ab"]), causal=True,
+                   sm_scale=SM)
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    assert bf16_scaled_err(got, want) <= 1
+    # a bias in q's own dtype keeps the bfloat16 path
+    same = tao.sdpa(*(bf16(x[n]) for n in "qkv"), bf16(x["ab"]), causal=True,
+                    sm_scale=SM)
+    assert same.dtype == torch.bfloat16
+
+
+def head_err(got, want):
+    """Largest |got − want| over the largest |want| of the head."""
+    got = np.asarray(torch.as_tensor(got).float(), np.float64)
+    want = np.asarray(jnp.asarray(want, jnp.float32), np.float64)
+    head = np.abs(want).max(axis=(-2, -1), keepdims=True)
+    return float((np.abs(got - want) / head).max())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_versions_read_a_float32_bias_as_the_pallas_kernels(causal):
+    """The plain K1a/K1b/K1c with bfloat16 q, k, v and a float32 bias
+    against the Pallas kernels in the interpreter, which read the bias in
+    its own dtype and add it in float32; ``dab`` comes back float32.
+
+    Tolerance: 1.5e-2 of the head's largest value. Both sides round p and
+    ds·scale to bfloat16 before their products (against another maximum)
+    and round o, dq, dk, dv to bfloat16, and each lies up to ~1 % of that
+    value from a float64 truth. A bias of std 8 makes the softmax peaked, so
+    many dq rows cancel to about 0 and an element-wise relative bound does
+    not apply. The bias rounded to bfloat16 first puts o 2.3–2.6 % off,
+    which the bound rejects."""
+    x = f32_bias_inputs(seed=22 + causal)
+    jq, jk, jv, jdo = (jnp.asarray(x[n], jnp.bfloat16)
+                       for n in ("q", "k", "v", "do"))
+
+    def f(q, k, v, ab):
+        return jfa.flash_attention(q, k, v, ab, None, causal=causal,
+                                   sm_scale=SM)
+
+    want_o, vjp = jax.vjp(f, jq, jk, jv, jax_bias(x))
+    want = vjp(jdo)
+    leaves = [bf16(x[n]).requires_grad_(True) for n in ("q", "k", "v")]
+    ab = t(x["ab"]).requires_grad_(True)
+    o = tfa.flash_attention(*leaves, ab, causal=causal, sm_scale=SM)
+    got = torch.autograd.grad(o, leaves + [ab], bf16(x["do"]))
+    assert o.dtype == torch.bfloat16 and got[3].dtype == torch.float32
+    assert head_err(o.detach(), want_o) <= 1.5e-2, "o"
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert head_err(g, w) <= 1.5e-2, name
+    # d/d(bias / SM) = SM · d/d bias
+    assert head_err(got[3], np.asarray(want[3], np.float32) / SM) <= 1.5e-2
+    rounded, _ = tfa.flash_fwd(*(a.detach() for a in leaves), bf16(x["ab"]),
+                               causal=causal, sm_scale=SM)
+    assert head_err(rounded, want_o) > 1.5e-2
+
+
+def test_flash_route_reads_a_float32_bias_in_float32():
+    """The flash route of ``sdpa`` with bfloat16 q, k, v and a float32
+    bias of std 8 returns q's dtype, within 2e-2 of a float64 truth that
+    uses the float32 bias. Rounding the bias to bfloat16 first put it 0.094
+    off."""
+    x = f32_bias_inputs(seed=24)
+    set_flag("flash_attention_min_seq", 128)
+    calls = {"n": 0}
+    orig = tfa.flash_fwd_reference
+
+    def spy(*a, **kw):
+        calls["n"] += 1
+        assert a[3].dtype == torch.float32  # the bias as it was handed over
+        return orig(*a, **kw)
+
+    tfa.flash_fwd_reference = spy
+    try:
+        got = tao.sdpa(*(bf16(x[n]) for n in "qkv"), t(x["ab"]), causal=True,
+                       sm_scale=SM)
+    finally:
+        tfa.flash_fwd_reference = orig
+    assert calls["n"] == 1 and got.dtype == torch.bfloat16
+    q, k, v, ab = (torch.as_tensor(x[n], dtype=torch.float64)
+                   for n in ("q", "k", "v", "ab"))
+    s = q @ k.transpose(-1, -2) * SM + ab
+    s = s.masked_fill(~torch.ones(128, 128, dtype=torch.bool).tril(),
+                      float("-inf"))
+    truth = torch.softmax(s, dim=-1) @ v
+    assert float((got.double() - truth).abs().max()) <= 2e-2
+    with pytest.raises(TypeError, match="float32 under bfloat16"):
+        tfa.flash_fwd(*(t(x[n]) for n in "qkv"), bf16(x["ab"]))
+
+
 @pytest.mark.parametrize("approximate", [False, True])
 def test_gelu_op_matches_jax(approximate):
     rng = np.random.RandomState(0)

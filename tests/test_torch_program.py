@@ -10,6 +10,11 @@ and optimizer are copies, and its shape inference (ops run on ``meta``
 tensors) must give every var the JAX package's shape.
 """
 
+import importlib
+
+import pytest
+import torch
+
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
 from paddle_tpu.models import transformer as jtfm
@@ -65,3 +70,38 @@ def test_transformer_program_structure_matches():
     jvars = {v.name: v.shape for v in jm.list_vars()}
     tvars = {v.name: v.shape for v in tm.list_vars()}
     assert tvars == jvars
+
+
+# names the JAX package exports at its top level, with the port's module
+# that defines each
+TOP_LEVEL = [("flags", "flags"), ("get_flag", "flags"), ("set_flag", "flags"),
+             ("append_backward", "backward"), ("gradients", "backward"),
+             ("calc_gradient", "backward"), ("Variable", "core.framework"),
+             ("name_scope", "core.framework"), ("test_mode", "core.framework"),
+             ("WeightNormParamAttr", "layers.layer_helper"),
+             ("TPUPlace", "core.place")]
+
+
+@pytest.mark.parametrize("name,module", TOP_LEVEL)
+def test_top_level_names_of_the_reference(name, module):
+    """A Fluid script written for the JAX package finds the name on
+    ``import paddle_tpu_torch as fluid``: the object its module defines,
+    listed in ``__all__``."""
+    assert hasattr(jfluid, name)
+    defined = getattr(importlib.import_module("paddle_tpu_torch." + module),
+                      name)
+    assert getattr(tfluid, name) is defined and name in tfluid.__all__
+
+
+def test_tpu_place_names_the_card_and_flags_read_and_set():
+    """``fluid.TPUPlace(0)`` is the first card, as ``fluid.CUDAPlace(0)`` is
+    in the JAX package; building the place touches no device."""
+    assert tfluid.TPUPlace is tfluid.CUDAPlace
+    assert tfluid.TPUPlace(0) == torch.device("cuda", 0)
+    n = tfluid.get_flag("flash_attention_min_seq")
+    assert isinstance(n, int) and n == tfluid.flags.flash_attention_min_seq
+    tfluid.set_flag("flash_attention_min_seq", n + 1)
+    try:
+        assert tfluid.flags.flash_attention_min_seq == n + 1
+    finally:
+        tfluid.set_flag("flash_attention_min_seq", n)
