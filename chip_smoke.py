@@ -680,6 +680,10 @@ def train_parity_phase():
 # plain version; elements that cancel are held to a share of their row's
 # largest value.
 FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 1e-2)}
+# what each float32 kernel is built from (csrc/flash_attention.cu)
+F32_DESIGN = {"fwd": "fma f32, 4x8 register tiles, cp.async ring",
+              "dkv": "fma f32",
+              "dq": "fma f32, 4x8 register tiles, cp.async ring"}
 
 
 def flash_inputs(dev, dt, b, h, sq, sk, d, seed, bias=False, seg=False,
@@ -828,12 +832,13 @@ def flash_crossover(dev):
 
 
 def flash_sass_hmma():
-    """HMMA instructions in each kernel of the built flash library, from
-    ``cuobjdump -sass`` (the toolkit's, beside nvcc): every instantiation of
-    the bfloat16 forward, dK/dV and dQ kernels (one a head width and bias
-    type: bfloat16 or none, float32) must hold some; the float32 FMA kernels
-    must hold none. Returns {kernel and its mangled template
-    arguments: count}."""
+    """Tensor-core instructions (HMMA, and Hopper's HGMMA) in each kernel of
+    the built flash library, from ``cuobjdump -sass`` (the toolkit's,
+    beside nvcc): every instantiation of the bfloat16 forward, dK/dV and dQ
+    kernels (one a head width and bias type: bfloat16 or none, float32)
+    must hold HMMA; the float32 kernels (FFMA tiles, FMA loop) must hold
+    neither. Returns ({kernel and its mangled template arguments: HMMA
+    count}, {the same: HGMMA count})."""
     import re
     from pathlib import Path
 
@@ -848,14 +853,16 @@ def flash_sass_hmma():
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            counts[name] = 0
-        elif name is not None and re.search(r"\bHMMA\b", line):
-            counts[name] += 1
-    hmma = {}
-    for full, n in counts.items():
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += bool(re.search(r"\bHMMA\b", line))
+            counts[name][1] += bool(re.search(r"\bHGMMA\b", line))
+    hmma, hgmma = {}, {}
+    for full, (n, ng) in counts.items():
         m = re.search(r"\d(flash_\w+?_kernel)I", full)  # <length><name>I
         if m:
             hmma[full[m.start(1):]] = n
+            hgmma[full[m.start(1):]] = ng
     for kern in ("flash_fwd_bf16_kernel", "flash_dkv_bf16_kernel",
                  "flash_dq_bf16_kernel"):
         mine = {k: n for k, n in hmma.items() if k.startswith(kern + "I")}
@@ -863,11 +870,12 @@ def flash_sass_hmma():
               "%s: HMMA counts %r (want one instantiation a head width and "
               "bias type, each on the tensor cores)" % (kern, mine))
     for kern in ("flash_fwd_kernel", "flash_dkv_kernel", "flash_dq_kernel"):
-        mine = {k: n for k, n in hmma.items() if k.startswith(kern + "I")}
-        check(len(mine) == 3 and not any(mine.values()),
-              "%s: HMMA counts %r (want the float32 FMA loop at each head "
-              "width)" % (kern, mine))
-    return hmma
+        mine = {k: (n, hgmma[k]) for k, n in hmma.items()
+                if k.startswith(kern + "I")}
+        check(len(mine) == 3 and not any(any(c) for c in mine.values()),
+              "%s: (HMMA, HGMMA) counts %r (want full float32 on FFMA at "
+              "each head width)" % (kern, mine))
+    return hmma, hgmma
 
 
 def flash_kernel_phase(dev):
@@ -876,8 +884,9 @@ def flash_kernel_phase(dev):
     small shapes that cover bias, segment ids, ragged Sq != Sk, dropout and
     head widths 32 and 128, and a float32 bias under bfloat16 q, k, v; the
     dropout mask bit for bit in both dtypes; HMMA in the SASS of the three
-    bfloat16 kernels. Then their times beside bound, plain version and
-    library call."""
+    bfloat16 kernels, neither HMMA nor HGMMA in the float32 ones; a float32
+    q view off 16 bytes, which K1a and K1c take as an aligned copy. Then
+    their times beside bound, plain version and library call."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     b, s = LONGCTX_BATCH, LONGCTX_SEQ
@@ -929,7 +938,18 @@ def flash_kernel_phase(dev):
                             0.1, -12345)
         check(torch.equal(o != 0, keep), "the kernel's dropout mask differs "
               "from the plain version's (%s)" % dt)
-    hmma = flash_sass_hmma()
+    hmma, hgmma = flash_sass_hmma()
+    # a float32 q view one element off 16 bytes: K1a and K1c get an aligned
+    # copy (on the card), K1b reads the view in place
+    x = list(flash_inputs(dev, torch.float32, 1, 2, 96, 96, 64, 300))
+    flat = torch.empty(x[0].numel() + 1, device=dev)
+    x[0] = flat[1:].view(x[0].shape).copy_(x[0])
+    check(not fa._cp_async_ok(x[0]), "the unaligned q view is aligned")
+    errs = flash_check("flash unaligned q", torch.float32, *x, True,
+                       64 ** -0.5, 0.0, 0)
+    small_errs.append({"case": (1, 2, 96, 96, 64, True, False, False, 0.0),
+                       "dtype": "float32", "q_view": "off 16 bytes",
+                       "max_abs_err": errs})
 
     path_errs = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -1014,8 +1034,9 @@ def flash_kernel_phase(dev):
             "bf16_bound_ms": bf16_bound_ms,
             "bf16_bound_share": bf16_bound_ms / bf16[kern],
             "bf16_library_ms": bf16[lib],
+            "bound_share": bound_ms / f32[kern],
             "bf16_max_abs_err": path_errs["bfloat16"][out],
-            "design": "fma f32", "bf16_design": "mma.sync bf16"})
+            "design": F32_DESIGN[kern], "bf16_design": "mma.sync bf16"})
     emit("kernel_vs_plain", kernel="flash_attention",
          shape={"B": b, "H": h, "S": s, "D": d, "causal": True},
          tol={k_: {"rtol": r, "row_floor": f}
@@ -1023,6 +1044,7 @@ def flash_kernel_phase(dev):
          max_abs_err=path_errs, small_shapes=small_errs,
          planted_faults_rejected=True,
          dropout_mask_bit_equal=["float32", "bfloat16"], sass_hmma=hmma,
+         sass_hgmma=hgmma,
          ms=times, gflop={k_: w[0] / 1e9 for k_, w in work.items()})
     flash_crossover(dev)
     return rows

@@ -1,21 +1,23 @@
-"""A/B of the bfloat16 tensor-core flash kernels (K1a, K1b, K1c) on the card.
+"""A/B of the flash kernels (K1a, K1b, K1c) on the card, in both dtypes.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 flash_variants.py
 
 It builds variants of ``paddle_tpu_torch/csrc/flash_attention.cu`` that
-differ from it in one design constant each (the rows of the tile a block
-owns, the blocks an SM must hold, which caps a thread's registers), all
-with ``nvcc`` at once, into the git-ignored
-``paddle_tpu_torch/build/variants/``. Each variant's forward, dK/dV and dQ
-are held against their plain versions with
+differ from it in one design constant each (bfloat16: the rows of the tile
+a block owns, the blocks an SM must hold, which caps a thread's registers;
+float32 K1a and K1c: the rows of a thread's register tile, the threads of
+a block and so the rows of its q tile), all with ``nvcc`` at once, into
+the git-ignored ``paddle_tpu_torch/build/variants/``. Each variant's
+forward, dK/dV and dQ are held against their plain versions with
 ``chip_smoke.py``'s check and timed at the long-context training shape
-[8, 16, 2048, 64], causal, as ``chip_smoke.py`` times them (L2 flushed,
-median of 30), in turns: every variant, then every variant again in the
-reverse order. It prints the card's name and power limit, what ptxas
-reports for each variant's D = 64 kernels without a bias (registers,
-spills), then one JSON line per variant with both rounds' times in ms.
+[8, 16, 2048, 64], causal, in float32 (keys ``f32_*``) and bfloat16, as
+``chip_smoke.py`` times them (L2 flushed, median of 30), in turns: every
+variant, then every variant again in the reverse order. It prints the
+card's name and power limit, what ptxas reports for each variant's D = 64
+kernels (the bfloat16 ones without a bias: registers, spills), then one
+JSON line per variant with both rounds' times in ms.
 Exits non-zero without a CUDA device or when a variant fails its check.
 
     python3 flash_variants.py --against DIR [--steps]
@@ -56,6 +58,24 @@ DKV_128_ROWS = (DKV_LAUNCH, DKV_LAUNCH.replace("<D, 4, AB>", "<D, 8, AB>")
                 .replace("(64, D), 128", "(128, D), 256"))
 
 
+# float32 K1a and K1c: <D, rows a thread owns, threads>; a q tile has
+# threads / 8 * rows rows
+F32_FWD_LAUNCH = ("launch(flash_fwd_kernel<D, 4, 128>, p, tiles_of(p.sq, 64),"
+                  "\n                    fwd_smem(64, D), 128")
+F32_DQ_LAUNCH = ("launch(flash_dq_kernel<D, 4, 128>, p, tiles_of(p.sq, 64),"
+                 "\n                  dq_smem(64, D), 128")
+
+
+def f32_tile(launch, rows, threads):
+    """``launch`` with ``rows`` q rows a thread (4 x 8 or 8 x 8 scores) on
+    ``threads`` threads."""
+    br = threads // 8 * rows
+    return (launch, launch.replace("<D, 4, 128>", "<D, %d, %d>" % (rows,
+                                                                 threads))
+            .replace("(p.sq, 64)", "(p.sq, %d)" % br)
+            .replace("(64, D), 128", "(%d, D), %d" % (br, threads)))
+
+
 def rows128(launch):
     return (launch.replace("<D, 1, AB>", "<D, 2, AB>").replace("(p.sq, 64)",
                                                                "(p.sq, 128)")
@@ -78,12 +98,20 @@ VARIANTS = {
     "dkv_128_rows_1_block": [DKV_128_ROWS,
                              (DKV_BLOCKS, DKV_BLOCKS.replace("? 2", "? 1"))],
     "dkv_128_rows_2_blocks": [DKV_128_ROWS],
+    # float32 (the source: 64 q rows, 4 x 8 scores a thread, 128 threads,
+    # two blocks an SM by shared memory)
+    "f32_fwd_8x8_64_rows_64_threads": [f32_tile(F32_FWD_LAUNCH, 8, 64)],
+    "f32_fwd_8x8_128_rows": [f32_tile(F32_FWD_LAUNCH, 8, 128)],
+    "f32_fwd_128_rows_256_threads": [f32_tile(F32_FWD_LAUNCH, 4, 256)],
+    "f32_dq_8x8_64_rows_64_threads": [f32_tile(F32_DQ_LAUNCH, 8, 64)],
+    "f32_dq_8x8_128_rows": [f32_tile(F32_DQ_LAUNCH, 8, 128)],
+    "f32_dq_128_rows_256_threads": [f32_tile(F32_DQ_LAUNCH, 4, 256)],
 }
 
 
 def build(_build):
-    """{variant: (loaded library, ptxas lines of its D = 64 bf16
-    kernels)}, every variant compiled at once."""
+    """{variant: (loaded library, ptxas lines of its D = 64 kernels, the
+    bf16 ones without a bias)}, every variant compiled at once."""
     src = (_build.SRC_DIR / "flash_attention.cu").read_text()
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
@@ -111,9 +139,11 @@ def build(_build):
         lines = (o + e).splitlines()
         ptxas = []
         for i, line in enumerate(lines):
-            # the kernels without a bias (its type bf16), D = 64
-            kern = re.search(r"\d(flash_\w+_bf16_kernel)ILi64ELi\d+E13__nv_"
-                             r"bfloat16E", line)
+            # D = 64: the float32 kernels, the bf16 ones without a bias
+            # (its type bf16)
+            kern = re.search(r"\d(flash_\w+?_kernel)ILi64E", line)
+            if kern and "bf16" in kern[1] and "13__nv_bfloat16E" not in line:
+                kern = None
             if "Compiling entry" in line and kern:
                 used = lines[i + 3].split(":")[-1].strip()
                 ptxas.append("%s: %s; %s" % (kern[1], used,
@@ -206,39 +236,51 @@ def main():
     b, s = cs.LONGCTX_BATCH, cs.LONGCTX_SEQ
     h, d = cs.LONGCTX["n_head"], cs.LONGCTX["d_model"] // cs.LONGCTX["n_head"]
     sm = d ** -0.5
-    rtol, floor = cs.FLASH_TOL["bfloat16"]
-    q, k, v, do, _, _ = cs.flash_inputs(dev, torch.bfloat16, b, h, s, s, d, 0)
-    want_o, lse = fa.flash_fwd_reference(q, k, v, None, None, True, sm)
-    di = (want_o.float() * do.float()).sum(-1)
-    want_dq, _ = fa.flash_bwd_dq_reference(q, k, v, None, None, lse, do, di,
-                                           True, sm)
-    want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, None, None, lse,
-                                                  do, di, True, sm)
+    cases = {}  # dtype: (inputs, plain outputs)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do, _, _ = cs.flash_inputs(dev, dt, b, h, s, s, d, 0)
+        want_o, lse = fa.flash_fwd_reference(q, k, v, None, None, True, sm)
+        di = (want_o.float() * do.float()).sum(-1)
+        want_dq, _ = fa.flash_bwd_dq_reference(q, k, v, None, None, lse, do,
+                                               di, True, sm)
+        want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, None, None,
+                                                      lse, do, di, True, sm)
+        cases[dt] = ((q, k, v, lse, do, di),
+                     (want_o, want_dq, want_dk, want_dv))
+        torch.cuda.empty_cache()
     flush = cs.l2_flusher(dev)
     times = {name: [] for name in libs}
     try:
         for name in list(libs) + list(reversed(list(libs))):
             fa._fns = fa.bind(libs[name][0])
-            o, _ = fa.flash_fwd(q, k, v, None, None, True, sm)
-            dq, _ = fa.flash_bwd_dq(q, k, v, None, None, lse, do, di, True,
-                                    sm)
-            dk, dv = fa.flash_bwd_dkv(q, k, v, None, None, lse, do, di, True,
-                                      sm)
-            torch.cuda.synchronize()
-            errs = [cs.flash_err(got, want.float(), rtol, floor)
-                    for got, want in ((o, want_o), (dq, want_dq),
-                                      (dk, want_dk), (dv, want_dv))]
-            cs.check(max(errs) <= 1, "variant %s: o, dq, dk, dv err %r of "
-                     "the bound" % (name, errs))
-            times[name].append({
-                "fwd_ms": cs.cuda_ms(lambda: fa.flash_fwd(
-                    q, k, v, None, None, True, sm), flush=flush),
-                "dq_ms": cs.cuda_ms(lambda: fa.flash_bwd_dq(
-                    q, k, v, None, None, lse, do, di, True, sm), flush=flush),
-                "dkv_ms": cs.cuda_ms(lambda: fa.flash_bwd_dkv(
-                    q, k, v, None, None, lse, do, di, True, sm), flush=flush),
-                "fwd_dropout_0.1_ms": cs.cuda_ms(lambda: fa.flash_fwd(
-                    q, k, v, None, None, True, sm, 0.1, 5), flush=flush)})
+            run = {}
+            for dt, ((q, k, v, lse, do, di), wants) in cases.items():
+                rtol, floor = cs.FLASH_TOL[str(dt).replace("torch.", "")]
+                o, _ = fa.flash_fwd(q, k, v, None, None, True, sm)
+                dq, _ = fa.flash_bwd_dq(q, k, v, None, None, lse, do, di,
+                                        True, sm)
+                dk, dv = fa.flash_bwd_dkv(q, k, v, None, None, lse, do, di,
+                                          True, sm)
+                torch.cuda.synchronize()
+                errs = [cs.flash_err(got, want.float(), rtol, floor)
+                        for got, want in zip((o, dq, dk, dv), wants)]
+                cs.check(max(errs) <= 1, "variant %s %s: o, dq, dk, dv err "
+                         "%r of the bound" % (name, dt, errs))
+                del o, dq, dk, dv
+                pre = "f32_" if dt == torch.float32 else ""
+                run.update({
+                    pre + "fwd_ms": cs.cuda_ms(lambda: fa.flash_fwd(
+                        q, k, v, None, None, True, sm), flush=flush),
+                    pre + "dq_ms": cs.cuda_ms(lambda: fa.flash_bwd_dq(
+                        q, k, v, None, None, lse, do, di, True, sm),
+                        flush=flush),
+                    pre + "dkv_ms": cs.cuda_ms(lambda: fa.flash_bwd_dkv(
+                        q, k, v, None, None, lse, do, di, True, sm),
+                        flush=flush),
+                    pre + "fwd_dropout_0.1_ms": cs.cuda_ms(
+                        lambda: fa.flash_fwd(q, k, v, None, None, True, sm,
+                                             0.1, 5), flush=flush)})
+            times[name].append(run)
     finally:
         fa._fns = None
     for name, runs in times.items():

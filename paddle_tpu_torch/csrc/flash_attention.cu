@@ -35,38 +35,76 @@
 // 989 TFLOP/s against 0.04 ms of memory traffic. K1b does twice the
 // forward's products, K1c one and a half times.
 //
-// Two families of kernels:
-//   float32 (K1a, K1b, K1c): register-tiled FMA loops over float32 tiles
-//     in shared memory (flash_fwd_kernel, flash_dkv_kernel,
-//     flash_dq_kernel);
+// Three families of kernels:
+//   float32 K1a, K1c: register-blocked FFMA tiles fed by a cp.async ring
+//     (flash_fwd_kernel, flash_dq_kernel);
+//   float32 K1b: a register-tiled FMA loop over float32 tiles in shared
+//     memory (flash_dkv_kernel);
 //   bfloat16 (K1a, K1b, K1c): tensor-core kernels (flash_fwd_bf16_kernel,
-//     flash_dkv_bf16_kernel, flash_dq_bf16_kernel), described after the
-//     FMA family.
+//     flash_dkv_bf16_kernel, flash_dq_bf16_kernel).
 //
-// Design of the FMA family. The Pallas grid walks the kv tiles (K1a, K1c) or the q tiles
-// (K1b) in order and carries the softmax state or the dk/dv sums in VMEM
-// scratch from one grid step to the next. A GPU has no ordered grid, so one
-// thread block owns one 64-row tile of (b, h) and loops over the other
-// sequence itself, its state in registers: K1a and K1c own a q tile and walk
-// the kv tiles, K1b owns a kv tile and walks the q tiles. No block adds into
-// another's output, so there are no atomics and a result is the same from
-// run to run. Causal tiles above the diagonal are never visited (the loop
-// bounds stop there), and K1a/K1c start their longest blocks first.
-// Each product is a 64x64 (or 64xD) register-tiled FMA loop over float32
-// tiles in shared memory, read 16 bytes at a time with row pitches that
-// keep those reads free of bank conflicts; 256 threads hold 4x4 scores and
-// 4 x D/16 outputs each. The tensors come with their strides (last stride
-// 1), so the [B,S,H,D] views the attention layer hands over are read in
-// place rather than copied, and ragged ends are masked by index: any Sq and
-// Sk, D of 32, 64 or 128. This family is bound by its shared-memory reads
-// and the float32 FMA rate. Measured at the training shape on an H100 80GB
-// HBM3 at 700 W (chip_smoke.py): 4.96 / 6.05 / 6.02 ms for K1a / K1b / K1c
-// in float32 (6.33 ms for K1b in bfloat16, where it ran until it had a
-// tensor-core kernel).
+// What all share. The Pallas grid walks the kv tiles (K1a, K1c) or the q
+// tiles (K1b) in order and carries the softmax state or the dk/dv sums in
+// VMEM scratch from one grid step to the next. A GPU has no ordered grid,
+// so one thread block owns one tile of (b, h) and loops over the other
+// sequence itself, its state in registers: K1a and K1c own a q tile and
+// walk the kv tiles of 64, K1b owns a kv tile and walks the q tiles. No
+// block adds into another's output, so there are no atomics and a result
+// is the same from run to run. Causal tiles above the diagonal are never
+// visited (the loop bounds stop there), and K1a/K1c start their longest
+// blocks first. The tensors come with their strides (last stride 1), so
+// the [B,S,H,D] views the attention layer hands over are read in place
+// rather than copied, and ragged ends are masked by index: any Sq and Sk,
+// D of 32, 64 or 128.
+//
+// Design of the float32 FFMA tiles (K1a, K1c). Full float32 products on
+// the FMA units, no tensor-core instruction: the bound is the card's
+// 67 TFLOP/s of FFMA, and what stands between a kernel and it is the
+// shared-memory instructions that feed each FMA, the barriers, and the
+// work per score. A block of 128 threads owns 64 q rows; a thread owns 4
+// of them (ty + 16 i) and 8 columns of each 64-column kv tile (tx + 8 j),
+// so 8 adjacent lanes share a row and its maximum and sum take three
+// shuffles. Every tile is row-major with a pitch of D + 4 floats, an odd
+// number of 16-byte chunks: a product reads both operands along d as
+// float4, and the 8 rows tx + 8 j that a warp reads at one d, like its 4
+// q rows, fall into different bank groups. So S = Q . K^T (and in K1c
+// dP = dO . V^T) costs 12 float4 reads per 128 FMAs, and O += P . V (dQ +=
+// dS . K) reads a P row as float4 along k and 8 adjacent chunks of the V
+// (K) row: 12 per 128 as well, against 8 per 64 in the K1b loop. One K
+// layout serves both of K1c's reads, so K is staged once, not also
+// transposed; nothing needs a transposing store, and every operand comes
+// by 16-byte cp.async copies straight into its tile (rows at or beyond
+// Sq/Sk zero-filled by src-size 0). K and V go through a two-stage ring
+// (K1c: two K stages and one V stage, refilled as soon as dP is done, so
+// that its 105 KB at D = 64 leave two blocks an SM), the next tile's
+// copies in flight while the current one computes, with two barriers a
+// tile. P (K1a) and dS (K1c) pass through a [64][72] tile, whose pitch
+// puts a warp's 4 rows 8 banks apart for both the scalar stores and the
+// float4 reads. A tile that no bias, segment id, ragged edge or causal
+// diagonal reaches only scales; the others go through ScoreCtx::score or
+// p_and_ds. The exponentials are ex2.approx of (s - m) * log2(e), the
+// difference taken first so that a masked score cannot overflow (K1c's
+// masked tiles keep expf). Warps an SM decided the tile, as in the bf16
+// kernels (flash_variants.py on an H100 80GB HBM3 at 700 W, D = 64): the
+// source, 8 warps an SM by 105 KB of shared memory (K1a 210 registers,
+// K1c 254, no spill), ran K1a / K1c in 2.36-2.38 / 3.11-3.13 ms; 128 rows
+// on 256 threads, 8 warps in one block, 2.35-2.42 / 3.26; 8 x 8 tiles,
+// 4 warps an SM, 2.86-2.95 / 4.29 on 128 threads (128 rows; K1c spills
+// 140 bytes) and 3.45-3.47 / 4.80 on 64 (64 rows). Measured at the
+// training shape (chip_smoke.py, same card): 2.374 ms for K1a and
+// 3.123 ms for K1c, 43 % and 49 % of their bounds, against 4.96 and
+// 6.02 ms for the FMA loops they replace.
+//
+// Design of the float32 FMA loop (K1b). Each product is a 64x64 (or 64xD)
+// register-tiled FMA loop over float32 tiles in shared memory, read 16
+// bytes at a time with row pitches that keep those reads free of bank
+// conflicts; 256 threads hold 4x4 scores and 4 x D/16 outputs each, the
+// tiles loaded by scalar reads between two barriers. Measured at the
+// training shape (chip_smoke.py): 6.05 ms in float32.
 //
 // Design of the tensor-core family (FlashAttention-2's shape on mma.sync).
-// The grid, the loop over the other sequence and the causal order are the
-// FMA family's. In K1a and K1c a block of 4 warps owns 64 * MT q rows (a
+// The grid, the loop over the other sequence and the causal order are
+// those above. In K1a and K1c a block of 4 warps owns 64 * MT q rows (a
 // warp 16 * MT of them) and walks kv tiles of 64 columns; K1b is the same
 // shape turned around (a block owns 16 kv rows a warp and walks q tiles of
 // 64, its own note below). All three launch 64-row tiles on 4 warps and
@@ -86,7 +124,7 @@
 // two adjacent n8 tiles, packed to bf16x2, is the A operand of the next k16
 // product. A row's 64 scores of a tile lie in the 4 lanes of a quad, so its
 // maximum and sum take two shuffles. Scale, bias, masks and dropout apply
-// per accumulator element from its (row, col) through the FMA family's
+// per accumulator element from its (row, col) through
 // ScoreCtx::score and p_and_ds; a tile that no mask, bias, dropout (K1b,
 // K1c) or ragged edge reaches only scales. Their exponentials take the SFU's
 // ex2.approx (__expf, a few ulp): p is rounded to bfloat16 before its
@@ -303,18 +341,6 @@ struct ScoreCtx {
   }
 };
 
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o, 16));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o, 16);
-  return x;
-}
-
 // The number of kv tiles a q tile of `rows` rows starting at q0 visits.
 __device__ __forceinline__ int kv_tiles(int sk, int causal, int q0,
                                         int rows = kTile) {
@@ -322,110 +348,6 @@ __device__ __forceinline__ int kv_tiles(int sk, int causal, int q0,
   if (!causal) return n;
   const int diag = (q0 + rows - 1) / kTile + 1;  // tiles with k0 <= last row
   return diag < n ? diag : n;
-}
-
-// ---------------------------------------------------------------- K1a -----
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
-  constexpr int DV = D / 16, PQ = D + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;               // [64][D + 4]
-  float* Ks = Qs + kTile * PQ;    // [64][D + 4]
-  float* Vs = Ks + kTile * PQ;    // [64][D]
-  float* Ps = Vs + kTile * D;     // [64][68]
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  // causal: the tiles nearest the end walk the most kv tiles; start them
-  // first
-  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kTile;
-  const float* q =
-      static_cast<const float*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
-  const float* k =
-      static_cast<const float*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
-  const float* v =
-      static_cast<const float*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
-  const ScoreCtx<float> sc(p, b, h);
-
-  load_tile<D, PQ>(Qs, q, p.q_st[2], q0, p.sq);
-  float m[4], l[4], acc[4][DV];
-  int id_q[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-    const int row = q0 + ty + 16 * i;
-    id_q[i] = (sc.seg_q != nullptr && row < p.sq) ? sc.seg_q[row] : 0;
-#pragma unroll
-    for (int c = 0; c < DV; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_kt = kv_tiles(p.sk, p.causal, q0);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the last tile's reads are done
-    load_tile<D, PQ>(Ks, k, p.k_st[2], k0, p.sk);
-    load_tile<D, D>(Vs, v, p.v_st[2], k0, p.sk);
-    __syncthreads();
-    float s[4][4];
-    dot_tile<D>(Qs, Ks, ty, tx, s);
-    int id_kv[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx + 16 * j;
-      id_kv[j] = (sc.seg_kv != nullptr && col < p.sk) ? sc.seg_kv[col] : 0;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = sc.score(s[i][j], row, k0 + tx + 16 * j, id_q[i], id_kv[j]);
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // every tile holds column k0 < Sk, so the row's maximum is finite
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float pij = expf(s[i][j] - m_new);
-        rs += pij;  // the statistics see no dropout
-        if (p.dropout)
-          pij = dropout_keep(p.seed, b, h, row, col, p.threshold)
-                    ? pij * p.keep_scale
-                    : 0.f;
-        Ps[(ty + 16 * i) * kPitchS + tx + 16 * j] = pij;
-      }
-      l[i] = l[i] * alpha + rs;  // this thread's 4 columns; summed at the end
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DV; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    acc_tile<DV, D>(Ps, Vs, ty, tx, acc);
-  }
-
-  float* o = static_cast<float*>(p.o) + b * p.o_st[0] + h * p.o_st[1];
-  float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    const float lt = half_warp_sum(l[i]);
-    // a row whose every visited position was masked: its maximum is the
-    // mask value itself
-    const bool dead = m[i] < 0.5f * kMaskValue;
-    const float inv = dead ? 0.f : 1.f / lt;
-    if (row < p.sq) {
-#pragma unroll
-      for (int c = 0; c < DV; ++c)
-        store(&o[static_cast<long long>(row) * p.o_st[2] + tx * DV + c],
-              acc[i][c] * inv);
-      if (tx == 0) lse[row] = dead ? INFINITY : m[i] + logf(lt);
-    }
-  }
 }
 
 // p, and the gradient ds of the masked score, of one element in the
@@ -546,106 +468,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
         store(&dv_out[static_cast<long long>(row) * p.dv_st[2] + tx * DV + c],
               dv[i][c]);
       }
-    }
-  }
-}
-
-// ---------------------------------------------------------------- K1c -----
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
-  constexpr int DV = D / 16, PQ = D + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                // [64][D + 4]
-  float* dOs = Qs + kTile * PQ;    // [64][D + 4]
-  float* Ks = dOs + kTile * PQ;    // [64][D + 4]
-  float* Vs = Ks + kTile * PQ;     // [64][D + 4]
-  float* dS = Vs + kTile * PQ;     // [q][kv], pitch 68: ds * scale
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kTile;
-  const float* q =
-      static_cast<const float*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
-  const float* k =
-      static_cast<const float*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
-  const float* v =
-      static_cast<const float*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
-  const float* dout =
-      static_cast<const float*>(p.dout) + b * p.do_st[0] + h * p.do_st[1];
-  const float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
-  const float* di = p.di + (static_cast<long long>(b) * p.h + h) * p.sq;
-  float* dab = p.dab ? static_cast<float*>(p.dab) +
-                       (static_cast<long long>(b) * p.h + h) * p.sq * p.sk
-                 : nullptr;
-  const ScoreCtx<float> sc(p, b, h);
-
-  load_tile<D, PQ>(Qs, q, p.q_st[2], q0, p.sq);
-  load_tile<D, PQ>(dOs, dout, p.do_st[2], q0, p.sq);
-  float lse_r[4], di_r[4], dq[4][DV];
-  int id_q[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < p.sq ? lse[row] : INFINITY;
-    di_r[i] = row < p.sq ? di[row] : 0.f;
-    id_q[i] = (sc.seg_q != nullptr && row < p.sq) ? sc.seg_q[row] : 0;
-#pragma unroll
-    for (int c = 0; c < DV; ++c) dq[i][c] = 0.f;
-  }
-
-  const int n_kt = kv_tiles(p.sk, p.causal, q0);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the last tile's reads are done
-    load_tile<D, PQ>(Ks, k, p.k_st[2], k0, p.sk);
-    load_tile<D, PQ>(Vs, v, p.v_st[2], k0, p.sk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile<D>(Qs, Ks, ty, tx, s);
-    dot_tile<D>(dOs, Vs, ty, tx, dp);
-    int id_kv[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx + 16 * j;
-      id_kv[j] = (sc.seg_kv != nullptr && col < p.sk) ? sc.seg_kv[col] : 0;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cj = tx + 16 * j, col = k0 + cj;
-        const PAndDs e = p_and_ds(p, sc, s[i][j], dp[i][j], lse_r[i],
-                                     di_r[i], b, h, row, col, id_q[i],
-                                     id_kv[j]);
-        if (dab != nullptr && row < p.sq && col < p.sk)
-          store(&dab[static_cast<long long>(row) * p.sk + col], e.ds);
-        dS[r * kPitchS + cj] = e.ds * p.sm_scale;
-      }
-    }
-    __syncthreads();
-    acc_tile<DV, PQ>(dS, Ks, ty, tx, dq);
-  }
-
-  // causal: the bias gradient of the tiles above the diagonal is 0
-  if (dab != nullptr) {
-    const int col0 = n_kt * kTile;
-    for (int r = ty; r < kTile; r += 16) {
-      const int row = q0 + r;
-      if (row >= p.sq) break;
-      for (int col = col0 + tx; col < p.sk; col += 16)
-        store(&dab[static_cast<long long>(row) * p.sk + col], 0.f);
-    }
-  }
-  float* dq_out = static_cast<float*>(p.dq) + b * p.dq_st[0] + h * p.dq_st[1];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row < p.sq) {
-#pragma unroll
-      for (int c = 0; c < DV; ++c)
-        store(&dq_out[static_cast<long long>(row) * p.dq_st[2] + tx * DV + c],
-              dq[i][c]);
     }
   }
 }
@@ -1302,16 +1124,412 @@ __global__ void __launch_bounds__(32 * WARPS, dkv_min_blocks(D))
   }
 }
 
+// ------------------------------------------- float32 K1a and K1c, FFMA -----
+// Register-blocked tiles fed by a cp.async ring (the design note at the top
+// of the file). A block of NT threads is TY = NT / 8 rows of 8 threads; a
+// thread owns q rows ty + TY i (i < MT) and, of a 64-column kv tile, the
+// columns tx + 8 j (j < 8): MT x 8 scores. The 8 threads of a row are 8
+// adjacent lanes of one warp.
+constexpr int kRowLanes = 8;         // threads that share a q row
+constexpr int kPitchP = kTile + 8;   // pitch of a P or dS tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the SFU (ex2.approx, 2 ulp); -inf gives 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The maximum and the sum over the 8 lanes of a row.
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = kRowLanes / 2; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = kRowLanes / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Rows [row0, row0 + ROWS) of a float32 matrix with row stride `row_stride`
+// into a row-major [ROWS][D + 4] tile, asynchronously, by a block of NT
+// threads; rows at or beyond `rows` read as 0.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile_f32_async(float* dst,
+                                                    const float* src,
+                                                    long long row_stride,
+                                                    int row0, int rows) {
+  constexpr int C = D / 4;  // 16-byte chunks a row
+  static_assert(ROWS * C % NT == 0, "whole rounds of copies");
+#pragma unroll
+  for (int it = 0; it < ROWS * C / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    const int r = i / C, c = i % C, gr = row0 + r;
+    const bool in = gr < rows;
+    cp_async_16(smem_addr(dst + r * (D + 4) + 4 * c),
+                in ? src + gr * row_stride + 4 * c : src, in);
+  }
+}
+
+// c[i][j] = sum_d A[ty + TY i][d] * B[tx + 8 j][d]: MT rows of A against 8
+// of the 64 rows of B, both row-major of pitch D + 4. Per 4 d a thread reads
+// 8 + MT float4 for 32 MT FMAs. The pitch is an odd number of 16-byte
+// chunks, so a warp's 8 rows tx + 8 j of B (j fixed) and its 4 rows of A
+// lie in different bank groups.
+template <int D, int MT, int TY>
+__device__ __forceinline__ void ffma_abt(const float* A, const float* B,
+                                         int ty, int tx, float (&c)[MT][8]) {
+  constexpr int P = D + 4;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 b[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      b[j] = *reinterpret_cast<const float4*>(B + (tx + 8 * j) * P + d);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(A + (ty + TY * i) * P + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[i][j] = fmaf(a.x, b[j].x, c[i][j]);
+        c[i][j] = fmaf(a.y, b[j].y, c[i][j]);
+        c[i][j] = fmaf(a.z, b[j].z, c[i][j]);
+        c[i][j] = fmaf(a.w, b[j].w, c[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][4 m + e] += sum_k Pm[ty + TY i][k] * B[k][4 tx + 32 m + e] over
+// the 64 k of a tile: Pm row-major of pitch kPitchP, B row-major of pitch
+// D + 4. Per 4 k a thread reads MT + D / 8 float4 for MT * D / 2 FMAs; a
+// warp's reads of B at one k are 8 adjacent chunks, its 4 rows of Pm lie 8
+// banks apart.
+template <int D, int MT, int TY>
+__device__ __forceinline__ void ffma_pb(const float* Pm, const float* B,
+                                        int ty, int tx,
+                                        float (&acc)[MT][D / 8]) {
+  constexpr int PB = D + 4, M = D / 32;
+#pragma unroll 2
+  for (int k = 0; k < kTile; k += 4) {
+    float4 pv[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(Pm + (ty + TY * i) * kPitchP +
+                                               k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float4 bv[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        bv[m] = *reinterpret_cast<const float4*>(B + (k + kk) * PB + 4 * tx +
+                                                 32 * m);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float pk = kk == 0 ? pv[i].x
+                         : kk == 1 ? pv[i].y
+                         : kk == 2 ? pv[i].z
+                                   : pv[i].w;
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          acc[i][4 * m] = fmaf(pk, bv[m].x, acc[i][4 * m]);
+          acc[i][4 * m + 1] = fmaf(pk, bv[m].y, acc[i][4 * m + 1]);
+          acc[i][4 * m + 2] = fmaf(pk, bv[m].z, acc[i][4 * m + 2]);
+          acc[i][4 * m + 3] = fmaf(pk, bv[m].w, acc[i][4 * m + 3]);
+        }
+      }
+    }
+  }
+}
+
+// The segment ids (seg, of n positions, or null) of a thread's 8 columns
+// tx + 8 j of the kv tile at k0.
+__device__ __forceinline__ void row_ids(const int* seg, int n, int k0, int tx,
+                                        int (&id)[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = k0 + tx + 8 * j;
+    id[j] = (seg != nullptr && col < n) ? seg[col] : 0;
+  }
+}
+
+// ---------------------------------------------------------- K1a, float32 --
+template <int D, int MT, int NT>
+__global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
+  constexpr int TY = NT / kRowLanes, BR = TY * MT, P = D + 4, DC = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                // [BR][D + 4]
+  float* Ks = Qs + BR * P;         // [2][64][D + 4]
+  float* Vs = Ks + 2 * kTile * P;  // [2][64][D + 4]
+  float* Ps = Vs + 2 * kTile * P;  // [BR][kPitchP]: dropout(p)
+  const int ty = threadIdx.x / kRowLanes, tx = threadIdx.x % kRowLanes;
+  // causal: the tiles nearest the end walk the most kv tiles; start them
+  // first
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * BR;
+  const float* q =
+      static_cast<const float*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
+  const float* k =
+      static_cast<const float*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
+  const float* v =
+      static_cast<const float*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
+  const ScoreCtx<float> sc(p, b, h);
+  const int n_kt = kv_tiles(p.sk, p.causal, q0, BR);
+
+  load_tile_f32_async<D, BR, NT>(Qs, q, p.q_st[2], q0, p.sq);
+  load_tile_f32_async<D, kTile, NT>(Ks, k, p.k_st[2], 0, p.sk);
+  load_tile_f32_async<D, kTile, NT>(Vs, v, p.v_st[2], 0, p.sk);
+  cp_async_commit();
+
+  float m[MT], l[MT], acc[MT][DC];
+  int id_q[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int row = q0 + ty + TY * i;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    id_q[i] = (sc.seg_q != nullptr && row < p.sq) ? sc.seg_q[row] : 0;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile has landed; every thread is done with the
+                      // last one, its stage and P
+    if (kt + 1 < n_kt) {  // the next tile's copies fly while this computes
+      const int nx = ((kt + 1) & 1) * kTile * P;
+      load_tile_f32_async<D, kTile, NT>(Ks + nx, k, p.k_st[2], k0 + kTile,
+                                        p.sk);
+      load_tile_f32_async<D, kTile, NT>(Vs + nx, v, p.v_st[2], k0 + kTile,
+                                        p.sk);
+      cp_async_commit();
+    }
+    const float* Kt = Ks + (kt & 1) * kTile * P;
+    const float* Vt = Vs + (kt & 1) * kTile * P;
+
+    float s[MT][8];
+    ffma_abt<D, MT, TY>(Qs, Kt, ty, tx, s);
+    if (plain_tile(sc, k0, q0)) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] *= p.sm_scale;
+    } else {
+      int id_kv[8];
+      row_ids(sc.seg_kv, p.sk, k0, tx, id_kv);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          s[i][j] = sc.score(s[i][j], q0 + ty + TY * i, k0 + tx + 8 * j,
+                             id_q[i], id_kv[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int row = q0 + ty + TY * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, s[i][j]);
+      // every tile holds column k0 < Sk, so the row's maximum is finite;
+      // the difference is taken before the factor log2(e), so that a
+      // masked score cannot overflow
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = exp2_approx((m[i] - m_new) * kLog2e);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float pij = exp2_approx((s[i][j] - m_new) * kLog2e);
+        rs += pij;  // the statistics see no dropout
+        if (p.dropout)
+          pij = dropout_keep(p.seed, b, h, row, k0 + tx + 8 * j, p.threshold)
+                    ? pij * p.keep_scale
+                    : 0.f;
+        Ps[(ty + TY * i) * kPitchP + tx + 8 * j] = pij;
+      }
+      l[i] = l[i] * alpha + rs;  // this thread's 8 columns; summed at the end
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();  // P is whole
+    ffma_pb<D, MT, TY>(Ps, Vt, ty, tx, acc);
+  }
+
+  float* o = static_cast<float*>(p.o) + b * p.o_st[0] + h * p.o_st[1];
+  float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int row = q0 + ty + TY * i;
+    const float lt = row_sum(l[i]);
+    // a row whose every visited position was masked: its maximum is the
+    // mask value itself
+    const bool dead = m[i] < 0.5f * kMaskValue;
+    const float inv = dead ? 0.f : 1.f / lt;
+    if (row < p.sq) {
+      float* orow = o + static_cast<long long>(row) * p.o_st[2] + 4 * tx;
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        store(&orow[32 * (c / 4) + c % 4], acc[i][c] * inv);
+      if (tx == 0) lse[row] = dead ? INFINITY : m[i] + logf(lt);
+    }
+  }
+}
+
+// ---------------------------------------------------------- K1c, float32 --
+// K is row-major like every tile here, which serves both of its reads:
+// S = Q . K^T reads 8 rows at one d (as B of ffma_abt), dQ += dS . K one row
+// at 32 adjacent d (as B of ffma_pb). V is read only by dP = dO . V^T, so
+// it has one stage, refilled once every thread has read it.
+template <int D, int MT, int NT>
+__global__ void __launch_bounds__(NT) flash_dq_kernel(FlashParams p) {
+  constexpr int TY = NT / kRowLanes, BR = TY * MT, P = D + 4, DC = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                 // [BR][D + 4]
+  float* dOs = Qs + BR * P;         // [BR][D + 4]
+  float* Ks = dOs + BR * P;         // [2][64][D + 4]
+  float* Vs = Ks + 2 * kTile * P;   // [64][D + 4]
+  float* dSs = Vs + kTile * P;      // [BR][kPitchP]: ds * sm_scale
+  const int ty = threadIdx.x / kRowLanes, tx = threadIdx.x % kRowLanes;
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * BR;
+  const float* q =
+      static_cast<const float*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
+  const float* k =
+      static_cast<const float*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
+  const float* v =
+      static_cast<const float*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.do_st[0] + h * p.do_st[1];
+  const float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
+  const float* di = p.di + (static_cast<long long>(b) * p.h + h) * p.sq;
+  float* dab = p.dab ? static_cast<float*>(p.dab) +
+                           (static_cast<long long>(b) * p.h + h) * p.sq * p.sk
+                     : nullptr;
+  const ScoreCtx<float> sc(p, b, h);
+  const int n_kt = kv_tiles(p.sk, p.causal, q0, BR);
+
+  load_tile_f32_async<D, BR, NT>(Qs, q, p.q_st[2], q0, p.sq);
+  load_tile_f32_async<D, BR, NT>(dOs, dout, p.do_st[2], q0, p.sq);
+  load_tile_f32_async<D, kTile, NT>(Ks, k, p.k_st[2], 0, p.sk);
+  load_tile_f32_async<D, kTile, NT>(Vs, v, p.v_st[2], 0, p.sk);
+  cp_async_commit();
+
+  float lse_r[MT], di_r[MT], dq[MT][DC];
+  int id_q[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int row = q0 + ty + TY * i;
+    // a row beyond Sq gets lse = +inf, so its p is 0
+    lse_r[i] = row < p.sq ? lse[row] : INFINITY;
+    di_r[i] = row < p.sq ? di[row] : 0.f;
+    id_q[i] = (sc.seg_q != nullptr && row < p.sq) ? sc.seg_q[row] : 0;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dq[i][c] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    cp_async_wait<0>();
+    __syncthreads();  // K and V of this tile have landed; every thread is
+                      // done with the last tile's K stage and dS
+    if (kt + 1 < n_kt) {
+      load_tile_f32_async<D, kTile, NT>(Ks + ((kt + 1) & 1) * kTile * P, k,
+                                        p.k_st[2], k0 + kTile, p.sk);
+      cp_async_commit();
+    }
+    const float* Kt = Ks + (kt & 1) * kTile * P;
+
+    float s[MT][8], dp[MT][8];
+    ffma_abt<D, MT, TY>(Qs, Kt, ty, tx, s);
+    ffma_abt<D, MT, TY>(dOs, Vs, ty, tx, dp);
+    // s becomes ds * sm_scale, the operand of dq += ds . k
+    if (!p.dropout && plain_tile(sc, k0, q0)) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float pij =
+              exp2_approx((s[i][j] * p.sm_scale - lse_r[i]) * kLog2e);
+          s[i][j] = pij * (dp[i][j] - di_r[i]) * p.sm_scale;
+        }
+    } else {
+      int id_kv[8];
+      row_ids(sc.seg_kv, p.sk, k0, tx, id_kv);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int row = q0 + ty + TY * i, col = k0 + tx + 8 * j;
+          const PAndDs e = p_and_ds(p, sc, s[i][j], dp[i][j], lse_r[i],
+                                    di_r[i], b, h, row, col, id_q[i],
+                                    id_kv[j]);
+          if (dab != nullptr && row < p.sq && col < p.sk)
+            store(&dab[static_cast<long long>(row) * p.sk + col], e.ds);
+          s[i][j] = e.ds * p.sm_scale;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        dSs[(ty + TY * i) * kPitchP + tx + 8 * j] = s[i][j];
+    __syncthreads();  // dS is whole, and every thread is done with V
+    if (kt + 1 < n_kt) {  // V's next copies fly during dq += ds . k
+      load_tile_f32_async<D, kTile, NT>(Vs, v, p.v_st[2], k0 + kTile, p.sk);
+      cp_async_commit();
+    }
+    ffma_pb<D, MT, TY>(dSs, Kt, ty, tx, dq);
+  }
+
+  // causal: the bias gradient of the tiles above the diagonal is 0
+  const int col0 = n_kt * kTile;
+  if (dab != nullptr && col0 < p.sk) {
+    const int w = p.sk - col0;
+    for (int i = threadIdx.x; i < BR * w; i += NT) {
+      const int row = q0 + i / w;
+      if (row < p.sq)
+        store(&dab[static_cast<long long>(row) * p.sk + col0 + i % w], 0.f);
+    }
+  }
+  float* dq_out = static_cast<float*>(p.dq) + b * p.dq_st[0] + h * p.dq_st[1];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int row = q0 + ty + TY * i;
+    if (row < p.sq) {
+      float* drow = dq_out + static_cast<long long>(row) * p.dq_st[2] + 4 * tx;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) store(&drow[32 * (c / 4) + c % 4], dq[i][c]);
+    }
+  }
+}
+
 // ------------------------------------------------------------ launchers ---
-constexpr size_t fwd_smem(int d) {
-  return sizeof(float) * (2 * kTile * (d + 4) + kTile * d + kTile * kPitchS);
+// float32 K1a: a q tile of br rows, two K and two V stages of 64 rows, all
+// of pitch d + 4, and P
+constexpr size_t fwd_smem(int br, int d) {
+  return sizeof(float) * ((br + 4 * kTile) * (d + 4) + br * kPitchP);
 }
 constexpr size_t dkv_smem(int d) {
   return sizeof(float) *
          (4 * kTile * (d + 4) + 2 * kTile * kPitchS + 2 * kTile);
 }
-constexpr size_t dq_smem(int d) {
-  return sizeof(float) * (4 * kTile * (d + 4) + kTile * kPitchS);
+// float32 K1c: q and do tiles of br rows, two K stages and one V of 64 rows,
+// all of pitch d + 4, and dS
+constexpr size_t dq_smem(int br, int d) {
+  return sizeof(float) * ((2 * br + 3 * kTile) * (d + 4) + br * kPitchP);
 }
 // the tensor-core kernels: q (and do) tiles of br rows, two K and two V
 // stages of 64 rows, all bf16
@@ -1343,14 +1561,25 @@ int launch(Kernel kernel, const FlashParams& p, int tiles, size_t smem,
 
 enum Which { kFwd, kDkv, kDq };
 
-// The 16-byte copies of the tensor-core kernels need an aligned base and,
-// where a dimension has more than one index, strides of whole 16 bytes.
+// The 16-byte copies need an aligned base and, where a dimension has more
+// than one index, strides of whole 16 bytes, in elements of type T.
+template <typename T>
 bool copy_aligned(const void* ptr, const long long (&st)[3], int b, int h,
                   int rows) {
-  constexpr long long kElems = 16 / sizeof(bf16);
+  constexpr long long kElems = 16 / sizeof(T);
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
          (b == 1 || st[0] % kElems == 0) && (h == 1 || st[1] % kElems == 0) &&
          (rows == 1 || st[2] % kElems == 0);
+}
+
+// Whether the operands kernel `which` copies by cp.async (q, k, v, and do
+// in the backward kernels) meet copy_aligned.
+template <typename T>
+bool operands_aligned(Which which, const FlashParams& p) {
+  return copy_aligned<T>(p.q, p.q_st, p.b, p.h, p.sq) &&
+         copy_aligned<T>(p.k, p.k_st, p.b, p.h, p.sk) &&
+         copy_aligned<T>(p.v, p.v_st, p.b, p.h, p.sk) &&
+         (which == kFwd || copy_aligned<T>(p.dout, p.do_st, p.b, p.h, p.sq));
 }
 
 constexpr int tiles_of(int rows, int br) { return (rows + br - 1) / br; }
@@ -1358,10 +1587,7 @@ constexpr int tiles_of(int rows, int br) { return (rows + br - 1) / br; }
 // The bfloat16 kernels with a bias of element type AB (bf16 without one).
 template <int D, typename AB>
 int launch_bf16(Which which, const FlashParams& p, cudaStream_t st) {
-  if (!copy_aligned(p.q, p.q_st, p.b, p.h, p.sq) ||
-      !copy_aligned(p.k, p.k_st, p.b, p.h, p.sk) ||
-      !copy_aligned(p.v, p.v_st, p.b, p.h, p.sk) ||
-      (which != kFwd && !copy_aligned(p.dout, p.do_st, p.b, p.h, p.sq)))
+  if (!operands_aligned<bf16>(which, p))
     return static_cast<int>(cudaErrorMisalignedAddress);
   // 64-row tiles (MT = 1, 4 warps) for all three: more blocks fit an SM
   if (which == kFwd)
@@ -1377,17 +1603,19 @@ int launch_bf16(Which which, const FlashParams& p, cudaStream_t st) {
 template <int D>
 int launch_one(Which which, const FlashParams& p, cudaStream_t st) {
   if (p.dtype == 0) {
-    switch (which) {
-      case kFwd:
-        return launch(flash_fwd_kernel<D>, p, tiles_of(p.sq, kTile),
-                      fwd_smem(D), kThreads, st);
-      case kDkv:
-        return launch(flash_dkv_kernel<D>, p, tiles_of(p.sk, kTile),
-                      dkv_smem(D), kThreads, st);
-      default:
-        return launch(flash_dq_kernel<D>, p, tiles_of(p.sq, kTile),
-                      dq_smem(D), kThreads, st);
-    }
+    // K1b keeps its scalar loads; K1a and K1c copy by cp.async
+    if (which == kDkv)
+      return launch(flash_dkv_kernel<D>, p, tiles_of(p.sk, kTile),
+                    dkv_smem(D), kThreads, st);
+    if (!operands_aligned<float>(which, p))
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    // 64-row q tiles of 4 x 8 scores a thread on 128 threads: two blocks an
+    // SM (flash_variants.py)
+    if (which == kFwd)
+      return launch(flash_fwd_kernel<D, 4, 128>, p, tiles_of(p.sq, 64),
+                    fwd_smem(64, D), 128, st);
+    return launch(flash_dq_kernel<D, 4, 128>, p, tiles_of(p.sq, 64),
+                  dq_smem(64, D), 128, st);
   }
   // a float32 bias under bfloat16 q, k, v has kernels of its own, so the
   // bias's type costs a launch without one nothing

@@ -41,11 +41,11 @@ attention layer hands over transposed ``[B, S, H, D]`` tensors); the
 kernels read them in place, and the outputs are allocated with the layout
 of the tensor they belong to, so the layer's transpose back is free.
 
-In bfloat16, K1a, K1b and K1c run on the tensor cores (``mma.sync``) and
-load their operands with 16-byte ``cp.async`` copies; every float32 kernel
-is an FMA loop. A bfloat16 view whose base or strides miss 16 bytes goes to
-the kernels as an aligned copy (:func:`_staged`); the attention layer's
-views never do.
+In bfloat16, K1a, K1b and K1c run on the tensor cores (``mma.sync``); in
+float32, K1a and K1c are register-blocked FFMA tiles and K1b an FMA loop.
+Every kernel but float32 K1b loads its operands with 16-byte ``cp.async``
+copies, and a view whose base or strides miss 16 bytes goes to it as an
+aligned copy (:func:`_staged`); the attention layer's views never do.
 
 The bias ``ab`` has q's dtype, or float32 under bfloat16 q, k, v: the
 kernels read it in its own dtype and add it in float32, as the Pallas
@@ -323,12 +323,13 @@ def _check_cuda(q, named):
 
 
 def _cp_async_ok(t):
-    """Whether the bfloat16 tensor-core kernels (K1a-c) can copy ``t``
-    in place with their 16-byte ``cp.async`` loads: its base address and
-    its batch, head and row strides (those of dimensions with more than one
-    index) are whole multiples of 16 bytes. A contiguous tensor, the
-    ``[B,S,H,D]`` transpose and a head slice of a fused qkv projection
-    pass; a view offset by one element does not."""
+    """Whether the kernels that load by 16-byte ``cp.async`` copies (K1a-c
+    in bfloat16, K1a and K1c in float32) can copy ``t`` in place: its base
+    address and its batch, head and row strides (those of dimensions with
+    more than one index) are whole multiples of 16 bytes, that is of 8
+    bfloat16 or 4 float32 elements. A contiguous tensor, the ``[B,S,H,D]``
+    transpose and a head slice of a fused qkv projection pass; a view
+    offset by one element does not."""
     per16 = 16 // t.element_size()
     return t.data_ptr() % 16 == 0 and all(
         n == 1 or s % per16 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]))
@@ -408,8 +409,7 @@ def flash_fwd(q, k, v, ab=None, segment_ids=None, causal=False,
     _check_cuda(q, (("q", q), ("k", k), ("v", v), ("ab", ab)))
     o = _like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    if q.dtype == torch.bfloat16:
-        q, k, v = _staged(q), _staged(k), _staged(v)
+    q, k, v = _staged(q), _staged(k), _staged(v)
     _launch(0, q, k, v, ab, _seg32(segment_ids), causal, sm_scale,
             dropout_rate, dropout_seed, o=o, lse=lse)
     LAUNCHES_FWD += 1
@@ -444,7 +444,7 @@ def flash_bwd_dkv(q, k, v, ab, segment_ids, lse, do, di, causal=False,
                                        dropout_seed)
     _check_cuda(q, (("q", q), ("k", k), ("v", v), ("ab", ab), ("do", do)))
     dk, dv = _like(k), _like(v)
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16:  # float32 K1b reads by scalar loads
         q, k, v, do = _staged(q), _staged(k), _staged(v), _staged(do)
     _launch(1, q, k, v, ab, _seg32(segment_ids), causal, sm_scale,
             dropout_rate, dropout_seed, lse=lse.float().contiguous(),
@@ -470,8 +470,7 @@ def flash_bwd_dq(q, k, v, ab, segment_ids, lse, do, di, causal=False,
     dq = _like(q)
     dab = None if ab is None or not need_dab else torch.empty(
         ab.shape, dtype=ab.dtype, device=ab.device)
-    if q.dtype == torch.bfloat16:
-        q, k, v, do = _staged(q), _staged(k), _staged(v), _staged(do)
+    q, k, v, do = _staged(q), _staged(k), _staged(v), _staged(do)
     _launch(2, q, k, v, ab, _seg32(segment_ids), causal, sm_scale,
             dropout_rate, dropout_seed, lse=lse.float().contiguous(),
             dout=do, di=di.float().contiguous(), dq=dq, dab=dab)

@@ -296,13 +296,15 @@ def test_flash_dropout_mask_is_the_plain_versions(cuda, dt):
         assert torch.equal(o != 0, keep)
 
 
-def bf16_kernels(q, k, v, do, ab, ids, causal, rate=0.0, seed=0):
-    """bfloat16 K1a, K1b and K1c (the tensor-core kernels) against their
-    plain versions on the same tensors: o, dk, dv, dq and dab to 2e-2 (bf16
-    outputs; p and ds rounded to bf16 before their products), lse to 2e-5
-    + 1e-5 relative, the same rows dead; dab in the bias's dtype. Returns
-    the kernels' (o, lse, dk, dv, dq, dab)."""
+def check_flash_kernels(q, k, v, do, ab, ids, causal, rate=0.0, seed=0):
+    """K1a, K1b and K1c against their plain versions on the same tensors:
+    in bfloat16 (the tensor-core kernels) o, dk, dv, dq and dab to 2e-2
+    (bf16 outputs; p and ds rounded to bf16 before their products), in
+    float32 (the FFMA tile kernels) to 2e-5 (another summation order); lse
+    to 2e-5 + 1e-5 relative, the same rows dead; dab in the bias's dtype.
+    Returns the kernels' (o, lse, dk, dv, dq, dab)."""
     sm = q.shape[-1] ** -0.5
+    tol = 2e-5 if q.dtype == torch.float32 else 2e-2
     n0 = (fa.LAUNCHES_FWD, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ)
     o, lse = fa.flash_fwd(q, k, v, ab, ids, causal, sm, rate, seed)
     want_o, want_lse = fa.flash_fwd_reference(q, k, v, ab, ids, causal, sm,
@@ -325,26 +327,28 @@ def bf16_kernels(q, k, v, do, ab, ids, causal, rate=0.0, seed=0):
     if ab is not None:
         pairs.append(("dab", dab, want_dab))
     for name, got, want in pairs:
-        assert got.dtype == (ab.dtype if name == "dab" else torch.bfloat16)
-        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
-                                   rtol=2e-2, msg=lambda m: name + ": " + m)
+        assert got.dtype == (ab.dtype if name == "dab" else q.dtype)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol, msg=lambda m: name + ": " + m)
     return o, lse, dk, dv, dq, dab
 
 
 LENS = (1, 63, 64, 65, 127, 129)  # about the 64-column kv tile
-BF16_SHAPES = [(s, s) for s in LENS] + [(1, 129), (129, 1), (63, 65),
-                                        (65, 127), (127, 64), (129, 63)]
+RAGGED_SHAPES = [(s, s) for s in LENS] + [(1, 129), (129, 1), (63, 65),
+                                          (65, 127), (127, 64), (129, 63)]
+DTYPES = [torch.float32, torch.bfloat16]
 
 
+@pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("d", [32, 128])
-@pytest.mark.parametrize("sq,sk", BF16_SHAPES)
-def test_bf16_tensor_core_kernels_at_ragged_lengths(cuda, sq, sk, d):
+@pytest.mark.parametrize("sq,sk", RAGGED_SHAPES)
+def test_flash_kernels_at_ragged_lengths(cuda, sq, sk, d, dt):
     """Any Sq and Sk about a tile edge, both head widths the main path does
     not take; causal too where Sq == Sk."""
     for causal in ((False, True) if sq == sk else (False,)):
-        q, k, v, do, _, _ = flash_inputs(cuda, torch.bfloat16, 2, 2, sq, sk,
-                                         d, False, False, seed=sq * 997 + sk)
-        bf16_kernels(q, k, v, do, None, None, causal)
+        q, k, v, do, _, _ = flash_inputs(cuda, dt, 2, 2, sq, sk, d, False,
+                                         False, seed=sq * 997 + sk)
+        check_flash_kernels(q, k, v, do, None, None, causal)
 
 
 @pytest.mark.parametrize("b,h,sq,sk,d,causal,seg", [
@@ -355,51 +359,61 @@ def test_bf16_kernels_read_a_float32_bias(cuda, b, h, sq, sk, d, causal, seg):
     kernels as by their plain versions; K1c returns dab in float32."""
     x = flash_inputs(cuda, torch.bfloat16, b, h, sq, sk, d, True, seg,
                      seed=sq + sk, ab_dtype=torch.float32)
-    *_, dab = bf16_kernels(*x, causal)
+    *_, dab = check_flash_kernels(*x, causal)
     assert dab.dtype == torch.float32
 
 
-def test_bf16_tensor_core_kernels_with_a_row_that_sees_nothing(cuda):
+@pytest.mark.parametrize("dt", DTYPES)
+def test_flash_kernels_with_a_row_that_sees_nothing(cuda, dt):
     """Segment ids: rows 0..9 see no position, so o = 0, lse = +inf and
     dq = 0 there, and kv rows 50..99 of segment 2 get their gradients from
     q rows 60..99 alone; the other rows match the plain version."""
-    q, k, v, do, _, _ = flash_inputs(cuda, torch.bfloat16, 1, 2, 100, 100,
-                                     64, False, False, seed=5)
+    q, k, v, do, _, _ = flash_inputs(cuda, dt, 1, 2, 100, 100, 64, False,
+                                     False, seed=5)
     ids = fa.SegmentIds(torch.zeros(1, 100, dtype=torch.int64, device=cuda),
                         torch.ones(1, 100, dtype=torch.int64, device=cuda))
     ids.q[0, 10:] = 1
     ids.q[0, 60:] = 2
     ids.kv[0, 50:] = 2
-    o, lse, dk, dv, dq, _ = bf16_kernels(q, k, v, do, None, ids, False)
+    o, lse, dk, dv, dq, _ = check_flash_kernels(q, k, v, do, None, ids, False)
     assert not o[:, :, :10].any() and bool(torch.isinf(lse[:, :, :10]).all())
     assert not dq[:, :, :10].any() and bool(torch.isfinite(dq).all())
     assert bool(torch.isfinite(dk).all()) and bool(torch.isfinite(dv).all())
     assert bool(torch.isfinite(lse[:, :, 10:]).all())
 
 
-def test_bf16_unaligned_view_takes_the_copy(cuda):
-    """A q view one element off 16 bytes goes to the three kernels as an
-    aligned copy, with the copy's results; the launch itself refuses the
-    view, in the forward and in K1b."""
+@pytest.mark.parametrize("dt", DTYPES)
+def test_unaligned_view_takes_the_copy(cuda, dt):
+    """A q view one element off 16 bytes goes to the kernels that copy by
+    cp.async as an aligned copy, with the copy's results; the launch itself
+    refuses the view: in the forward and in K1b in bfloat16, in the forward
+    and in K1c in float32, where K1b reads it in place by scalar loads."""
     b, h, s, d = 1, 2, 96, 64
-    q, k, v, do, _, _ = flash_inputs(cuda, torch.bfloat16, b, h, s, s, d,
-                                     False, False, seed=8)
-    flat = torch.empty(b * h * s * d + 1, dtype=torch.bfloat16, device=cuda)
+    q, k, v, do, _, _ = flash_inputs(cuda, dt, b, h, s, s, d, False, False,
+                                     seed=8)
+    flat = torch.empty(b * h * s * d + 1, dtype=dt, device=cuda)
     q_off = flat[1:].view(b, h, s, d)
     q_off.copy_(q)
     assert not fa._cp_async_ok(q_off) and fa._cp_async_ok(q)
-    got = bf16_kernels(q_off, k, v, do, None, None, True)
-    want = bf16_kernels(q, k, v, do, None, None, True)
+    got = check_flash_kernels(q_off, k, v, do, None, None, True)
+    want = check_flash_kernels(q, k, v, do, None, None, True)
     for name, a, a_al in zip(("o", "lse", "dk", "dv", "dq"), got, want):
         assert torch.equal(a, a_al), name
     lse = torch.empty(b, h, s, device=cuda)
     with pytest.raises(RuntimeError, match="cudaError_t 716"):
         fa._launch(0, q_off, k, v, None, (None, None), True, 0.125, 0.0, 0,
                    o=torch.empty_like(q_off), lse=lse)
+    bwd = dict(lse=lse, dout=do, di=torch.zeros_like(lse))
+    k1b = (1, dict(dk=torch.empty_like(k), dv=torch.empty_like(v)))
+    k1c = (2, dict(dq=torch.empty_like(q)))
+    refused, in_place = (k1c, k1b) if dt == torch.float32 else (k1b, None)
     with pytest.raises(RuntimeError, match="cudaError_t 716"):
-        fa._launch(1, q_off, k, v, None, (None, None), True, 0.125, 0.0, 0,
-                   lse=lse, dout=do, di=torch.zeros_like(lse),
-                   dk=torch.empty_like(k), dv=torch.empty_like(v))
+        fa._launch(refused[0], q_off, k, v, None, (None, None), True, 0.125,
+                   0.0, 0, **bwd, **refused[1])
+    if in_place is not None:
+        fa._launch(in_place[0], q_off, k, v, None, (None, None), True, 0.125,
+                   0.0, 0, **bwd, **in_place[1])
+        torch.cuda.synchronize()
 
 
 def test_flash_dead_rows_and_wrapper_rules(cuda):

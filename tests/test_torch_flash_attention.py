@@ -335,28 +335,35 @@ def test_wrapper_device_rule_checks_and_launch_counts():
         tfa.flash_fwd(q, k, v, dropout_rate=1.0)
 
 
-def _bf16_view(kind, b=2, h=4, s=16, d=32):
-    """A [B,H,S,D] bfloat16 view of the kind the wrappers may be handed."""
-    bf = torch.bfloat16
+def _view(kind, dt, b=2, h=4, s=16, d=32):
+    """A [B,H,S,D] view of dtype ``dt`` of the kind the wrappers may be
+    handed."""
     if kind == "contiguous":
-        return torch.randn(b, h, s, d).to(bf)
+        return torch.randn(b, h, s, d).to(dt)
     if kind == "bshd_transpose":  # the attention layer's head view
-        return torch.randn(b, s, h, d).to(bf).transpose(1, 2)
+        return torch.randn(b, s, h, d).to(dt).transpose(1, 2)
     if kind == "fused_qkv_slice":  # k of one [B,S,3·H·D] projection
-        qkv = torch.randn(b, s, 3 * h * d).to(bf)
+        qkv = torch.randn(b, s, 3 * h * d).to(dt)
         return qkv[:, :, h * d:2 * h * d].view(b, s, h, d).transpose(1, 2)
-    flat = torch.randn(b * h * s * d + 1).to(bf)  # one element off
+    flat = torch.randn(b * h * s * d + 1).to(dt)  # one element off
     return flat[1:].view(b, h, s, d)
 
 
-@pytest.mark.parametrize("kind,aligned", [
-    ("contiguous", True), ("bshd_transpose", True),
-    ("fused_qkv_slice", True), ("offset_by_one_element", False)])
-def test_bf16_kernels_copy_only_views_off_16_bytes(kind, aligned):
-    """The bfloat16 tensor-core kernels load with 16-byte copies: a view
-    whose base or strides miss 16 bytes is handed over as an aligned copy
-    with the same values, every other view as it is."""
-    t = _bf16_view(kind)
+_VIEWS = [("contiguous", True), ("bshd_transpose", True),
+          ("fused_qkv_slice", True), ("offset_by_one_element", False)]
+
+
+@pytest.mark.parametrize("kind,aligned,dt", [
+    pytest.param(kind, aligned, dt,
+                 id=("" if dt == torch.bfloat16 else "float32-")
+                 + "%s-%s" % (kind, aligned))
+    for dt in (torch.bfloat16, torch.float32) for kind, aligned in _VIEWS])
+def test_bf16_kernels_copy_only_views_off_16_bytes(kind, aligned, dt):
+    """The kernels that load with 16-byte copies (K1a-c in bfloat16, K1a
+    and K1c in float32: 8 or 4 elements to 16 bytes): a view whose base or
+    strides miss 16 bytes is handed over as an aligned copy with the same
+    values, every other view as it is."""
+    t = _view(kind, dt)
     assert tfa._cp_async_ok(t) is aligned
     staged = tfa._staged(t)
     assert (staged is t) is aligned
