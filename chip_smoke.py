@@ -147,10 +147,20 @@ def cuda_ms(fn, reps=30, flush=None):
     return float(np.median(times))
 
 
+# chunk sizes of K3 held against the plain version and timed (the source's
+# is paged_attention.CHUNK_ROWS)
+CHUNK_SIZES = (32, 64, 128, 256)
+K3_DESIGN = "context split in chunks, one block a (chunk, head, slot), " \
+    "16-byte loads, partials merged in chunk order in the same launch"
+
+
 def kernel_phase(dev):
     """K3 against its plain version at the serving shapes: B=16 slots,
     H=12, D=64, page_size 16, 64 pages a slot, pages scrambled over the
-    pool, ragged ctx_len from 1 to 1024."""
+    pool, ragged ctx_len from 1 to 1024; two launches on the same inputs
+    bit-equal; a tail case (one slot at ctx 1024, fifteen at 1); then the
+    times beside bound, plain version and library call, and the kernel at
+    other chunk sizes."""
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
     rng = np.random.RandomState(0)
@@ -181,8 +191,8 @@ def kernel_phase(dev):
     k_bad[~live_t] = 1e4 * randn(int((~live).sum()), h, d)
     v_bad[~live_t] = -1e4
 
-    def kern(q, k, v):
-        return pa.paged_decode_attention(q, k, v, pt, ctx, page_size=ps,
+    def kern(q, k, v, ctx_=ctx):
+        return pa.paged_decode_attention(q, k, v, pt, ctx_, page_size=ps,
                                          sm_scale=sm)
 
     errs = {}
@@ -198,7 +208,31 @@ def kernel_phase(dev):
         poisoned = kern(q, k_bad.to(dt), v_bad.to(dt))
         check(torch.equal(poisoned, got),
               "garbage beyond ctx_len moved the kernel output (%s)" % dt)
+        check(torch.equal(kern(q, k, v), got),
+              "two launches on the same inputs differ (%s)" % dt)
         errs[str(dt).replace("torch.", "")] = err
+    # the tail: one slot walks 1024 rows, the other fifteen one each
+    tail_np = np.asarray([pps * ps] + [1] * (b - 1), np.int32)
+    tail = torch.as_tensor(tail_np, device=dev)
+    tail_errs = {}
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q, k, v = (t.to(dt) for t in (q32, k32, v32))
+        got = kern(q, k, v, tail)
+        torch.cuda.synchronize()
+        want = pa.gather_reference(q.float(), k.float(), v.float(), pt, tail,
+                                   ps, sm_scale=sm)
+        err = float((got.float() - want).abs().max())
+        check(torch.allclose(got.float(), want, atol=tol, rtol=tol),
+              "tail case (%s) max_abs_err %g > %g" % (dt, err, tol))
+        tail_errs[str(dt).replace("torch.", "")] = err
+    # every chunk size timed below is held against the plain version too
+    want32 = pa.gather_reference(q32, k32, v32, pt, ctx, ps, sm_scale=sm)
+    for rows_ in CHUNK_SIZES:
+        got = pa._launch(q32, k32, v32, pt, ctx, ps, sm, rows_)
+        torch.cuda.synchronize()
+        check(torch.allclose(got, want32, atol=1e-5, rtol=1e-5),
+              "chunks of %d rows: max_abs_err %g" % (
+                  rows_, float((got - want32).abs().max())))
 
     flush = l2_flusher(dev)
     rows = (pt.long() * ps)[:, :, None] + torch.arange(ps, device=dev)
@@ -218,29 +252,51 @@ def kernel_phase(dev):
     library_ms = cuda_ms(lambda: sdpa(q32[:, :, None], kg, vg,
                                       attn_mask=mask, scale=sm),
                          flush=flush)
+    chunk_ms = {rows_: cuda_ms(lambda: pa._launch(q32, k32, v32, pt, ctx, ps,
+                                                  sm, rows_), flush=flush)
+                for rows_ in CHUNK_SIZES}
+    tail_chunk_ms = {rows_: cuda_ms(lambda: pa._launch(
+        q32, k32, v32, pt, tail, ps, sm, rows_), flush=flush)
+        for rows_ in CHUNK_SIZES}
+    tail_plain_ms = cuda_ms(lambda: pa.gather_reference(
+        q32, k32, v32, pt, tail, ps, sm_scale=sm), flush=flush)
+
     # least work: each live K/V row read once, q read once, out written once,
     # the page-table entries of live pages and ctx_len read once
-    live_rows = int(ctx_np.sum())
-    live_pages = int((-(-ctx_np // ps)).sum())
-    nbytes = 4 * (2 * live_rows * h * d + 2 * b * h * d) \
-        + 4 * (live_pages + b)
-    flops = 4 * live_rows * h * d
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOP_PER_S * 1e3
+    def bound(ctx_np_):
+        live_rows = int(ctx_np_.sum())
+        live_pages = int((-(-ctx_np_ // ps)).sum())
+        nbytes = 4 * (2 * live_rows * h * d + 2 * b * h * d) \
+            + 4 * (live_pages + b)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = 4 * live_rows * h * d / H100_F32_FLOP_PER_S * 1e3
+        return nbytes, max(t_bytes, t_ops), \
+            "bytes" if t_bytes >= t_ops else "operations"
+
+    nbytes, bound_ms, bound_by = bound(ctx_np)
+    tail_bound_ms = bound(tail_np)[1]
     row = {"name": "paged_decode_attention", "route": "cuda",
            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-           "replaces": "paddle_tpu/ops/pallas_kernels/paged_attention.py:121",
+           "replaces": "paddle_tpu/ops/pallas_kernels/paged_attention.py:198",
            "launches": None, "max_abs_err": errs["float32"], "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": library_ms, "ms_after_write_flush": ms_dirty}
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, "ms_after_write_flush": ms_dirty,
+           "design": K3_DESIGN, "chunk_rows": pa.CHUNK_ROWS,
+           "ms_by_chunk_rows": chunk_ms,
+           "tail": {"ctx_len": "1024 and fifteen of 1",
+                    "ms": tail_chunk_ms[pa.CHUNK_ROWS],
+                    "plain_ms": tail_plain_ms, "bound_ms": tail_bound_ms,
+                    "max_abs_err": tail_errs,
+                    "ms_by_chunk_rows": tail_chunk_ms}}
     emit("kernel_vs_plain", kernel="paged_decode_attention",
          shape={"B": b, "H": h, "D": d, "page_size": ps,
                 "pages_per_slot": pps, "ctx_len": ctx_np.tolist()},
          max_abs_err=errs, tol={"float32": 1e-5, "bfloat16": 2e-2},
-         poisoned_bit_identical=True, ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, bound_ms=row["bound_ms"],
-         live_bytes=nbytes, ms_after_write_flush=ms_dirty)
+         poisoned_bit_identical=True, two_launches_bit_equal=True, ms=ms,
+         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+         live_bytes=nbytes, ms_after_write_flush=ms_dirty,
+         chunk_rows=pa.CHUNK_ROWS, ms_by_chunk_rows=chunk_ms,
+         tail=row["tail"])
     del flush
     return row
 
@@ -682,7 +738,7 @@ def train_parity_phase():
 FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 1e-2)}
 # what each float32 kernel is built from (csrc/flash_attention.cu)
 F32_DESIGN = {"fwd": "fma f32, 4x8 register tiles, cp.async ring",
-              "dkv": "fma f32",
+              "dkv": "fma f32, 4x8 register tiles, cp.async ring, lean",
               "dq": "fma f32, 4x8 register tiles, cp.async ring"}
 
 
@@ -836,7 +892,7 @@ def flash_sass_hmma():
     the built flash library, from ``cuobjdump -sass`` (the toolkit's,
     beside nvcc): every instantiation of the bfloat16 forward, dK/dV and dQ
     kernels (one a head width and bias type: bfloat16 or none, float32)
-    must hold HMMA; the float32 kernels (FFMA tiles, FMA loop) must hold
+    must hold HMMA; the float32 kernels (FFMA tiles) must hold
     neither. Returns ({kernel and its mangled template arguments: HMMA
     count}, {the same: HGMMA count})."""
     import re
@@ -885,7 +941,7 @@ def flash_kernel_phase(dev):
     head widths 32 and 128, and a float32 bias under bfloat16 q, k, v; the
     dropout mask bit for bit in both dtypes; HMMA in the SASS of the three
     bfloat16 kernels, neither HMMA nor HGMMA in the float32 ones; a float32
-    q view off 16 bytes, which K1a and K1c take as an aligned copy. Then
+    q view off 16 bytes, which K1a, K1b and K1c take as an aligned copy. Then
     their times beside bound, plain version and library call."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -939,8 +995,8 @@ def flash_kernel_phase(dev):
         check(torch.equal(o != 0, keep), "the kernel's dropout mask differs "
               "from the plain version's (%s)" % dt)
     hmma, hgmma = flash_sass_hmma()
-    # a float32 q view one element off 16 bytes: K1a and K1c get an aligned
-    # copy (on the card), K1b reads the view in place
+    # a float32 q view one element off 16 bytes: the kernels get an aligned
+    # copy (on the card)
     x = list(flash_inputs(dev, torch.float32, 1, 2, 96, 96, 64, 300))
     flat = torch.empty(x[0].numel() + 1, device=dev)
     x[0] = flat[1:].view(x[0].shape).copy_(x[0])

@@ -8,7 +8,9 @@ It builds variants of ``paddle_tpu_torch/csrc/flash_attention.cu`` that
 differ from it in one design constant each (bfloat16: the rows of the tile
 a block owns, the blocks an SM must hold, which caps a thread's registers;
 float32 K1a and K1c: the rows of a thread's register tile, the threads of
-a block and so the rows of its q tile), all with ``nvcc`` at once, into
+a block and so the rows of its q tile; float32 K1b: the same for its kv
+tile, and the lean layout of one dO stage and one tile for P^T and dS^T,
+which halves its shared memory), all with ``nvcc`` at once, into
 the git-ignored ``paddle_tpu_torch/build/variants/``. Each variant's
 forward, dK/dV and dQ are held against their plain versions with
 ``chip_smoke.py``'s check and timed at the long-context training shape
@@ -20,14 +22,15 @@ kernels (the bfloat16 ones without a bias: registers, spills), then one
 JSON line per variant with both rounds' times in ms.
 Exits non-zero without a CUDA device or when a variant fails its check.
 
-    python3 flash_variants.py --against DIR [--steps]
+    python3 flash_variants.py --against DIR [--steps] [--serve]
 
 times this checkout against another one (``DIR``, say the parent commit
 unpacked with ``git archive``) on the same card, in turns: DIR, this, this,
 DIR, each in a process of its own started in its checkout, which builds
 that checkout's kernels and times its K1a/K1b/K1c at the same shape in
 float32 and bfloat16 (one JSON line a turn) and, with ``--steps``, runs its
-``chip_smoke.py`` long-context training phases (float32 and AMP).
+``chip_smoke.py`` long-context training phases (float32 and AMP); with
+``--serve``, its ``chip_smoke.py`` K3 phase and serving phases.
 """
 
 from __future__ import annotations
@@ -76,6 +79,25 @@ def f32_tile(launch, rows, threads):
             .replace("(64, D), 128", "(%d, D), %d" % (br, threads)))
 
 
+# float32 K1b: <D, kv rows a thread owns, threads, lean>; a block owns
+# threads / 8 * rows kv rows; lean: one dO stage and one tile for P^T, dS^T
+F32_DKV_LAUNCH = ("flash_dkv_kernel<D, 4, 128, true>, p,\n"
+                  "                      tiles_of(p.sk, 64), "
+                  "dkv_smem(64, D, true), 128")
+
+
+def f32_dkv(rows, threads, lean):
+    """The float32 K1b launch (D = 32 and 64) with ``rows`` kv rows a
+    thread on ``threads`` threads, ``lean`` or not."""
+    bkv = threads // 8 * rows
+    return (F32_DKV_LAUNCH,
+            "flash_dkv_kernel<D, %d, %d, %s>, p,\n"
+            "                      tiles_of(p.sk, %d), "
+            "dkv_smem(%d, D, %s), %d"
+            % (rows, threads, str(lean).lower(), bkv, bkv,
+               str(lean).lower(), threads))
+
+
 def rows128(launch):
     return (launch.replace("<D, 1, AB>", "<D, 2, AB>").replace("(p.sq, 64)",
                                                                "(p.sq, 128)")
@@ -106,6 +128,12 @@ VARIANTS = {
     "f32_dq_8x8_64_rows_64_threads": [f32_tile(F32_DQ_LAUNCH, 8, 64)],
     "f32_dq_8x8_128_rows": [f32_tile(F32_DQ_LAUNCH, 8, 128)],
     "f32_dq_128_rows_256_threads": [f32_tile(F32_DQ_LAUNCH, 4, 256)],
+    # float32 K1b (the source: 64 kv rows, 4 x 8 scores a thread, 128
+    # threads, lean, 106 KB: two blocks an SM)
+    "f32_dkv_2x8_256": [f32_dkv(2, 256, False)],
+    "f32_dkv_2x8_256_lean": [f32_dkv(2, 256, True)],
+    "f32_dkv_4x8_256_128_rows": [f32_dkv(4, 256, False)],
+    "f32_dkv_4x8_128": [f32_dkv(4, 128, False)],
 }
 
 
@@ -152,11 +180,12 @@ def build(_build):
     return libs
 
 
-def time_checkout(label, steps):
+def time_checkout(label, steps, serve):
     """K1a/K1b/K1c of the checkout in the working directory at the
     long-context shape, causal, in float32 and bfloat16, timed as
     ``chip_smoke.py`` times them; with ``steps``, that checkout's
-    long-context training phases too."""
+    long-context training phases too; with ``serve``, its K3 and serving
+    phases."""
     sys.path.insert(0, os.getcwd())  # that checkout's port, not this one's
     import chip_smoke as cs
     from paddle_tpu_torch.ops.kernels import _build
@@ -189,17 +218,20 @@ def time_checkout(label, steps):
         rows = [{}, {}, {}]
         cs.longctx_train_phase(rows, amp=False)
         cs.longctx_train_phase(rows, amp=True)
+    if serve:
+        cs.serve_phase(cs.kernel_phase(dev))
     return 0
 
 
-def against(other, steps):
+def against(other, steps, serve):
     """This checkout and ``other`` in turns: other, this, this, other."""
     here = os.path.dirname(os.path.abspath(__file__))
     for label, root in (("other", other), ("this", here), ("this", here),
                         ("other", other)):
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         "--time-checkout", label]
-                       + (["--steps"] if steps else []),
+                       + (["--steps"] if steps else [])
+                       + (["--serve"] if serve else []),
                        cwd=root, check=True)
     return 0
 
@@ -210,6 +242,8 @@ def main():
                     help="time this checkout against the one in DIR")
     ap.add_argument("--steps", action="store_true",
                     help="with --against: the long-context steps too")
+    ap.add_argument("--serve", action="store_true",
+                    help="with --against: the K3 and serving phases too")
     ap.add_argument("--time-checkout", metavar="LABEL",
                     help=argparse.SUPPRESS)  # one turn of --against
     args = ap.parse_args()
@@ -218,12 +252,13 @@ def main():
               "needs a CUDA GPU", file=sys.stderr)
         return 1
     if args.time_checkout:
-        return time_checkout(args.time_checkout, args.steps)
+        return time_checkout(args.time_checkout, args.steps, args.serve)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     if args.against:
-        return against(os.path.abspath(args.against), args.steps)
+        return against(os.path.abspath(args.against), args.steps,
+                       args.serve)
     import chip_smoke as cs
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa

@@ -35,11 +35,9 @@
 // 989 TFLOP/s against 0.04 ms of memory traffic. K1b does twice the
 // forward's products, K1c one and a half times.
 //
-// Three families of kernels:
-//   float32 K1a, K1c: register-blocked FFMA tiles fed by a cp.async ring
-//     (flash_fwd_kernel, flash_dq_kernel);
-//   float32 K1b: a register-tiled FMA loop over float32 tiles in shared
-//     memory (flash_dkv_kernel);
+// Two families of kernels:
+//   float32 (K1a, K1b, K1c): register-blocked FFMA tiles fed by a cp.async
+//     ring (flash_fwd_kernel, flash_dkv_kernel, flash_dq_kernel);
 //   bfloat16 (K1a, K1b, K1c): tensor-core kernels (flash_fwd_bf16_kernel,
 //     flash_dkv_bf16_kernel, flash_dq_bf16_kernel).
 //
@@ -57,50 +55,57 @@
 // rather than copied, and ragged ends are masked by index: any Sq and Sk,
 // D of 32, 64 or 128.
 //
-// Design of the float32 FFMA tiles (K1a, K1c). Full float32 products on
-// the FMA units, no tensor-core instruction: the bound is the card's
-// 67 TFLOP/s of FFMA, and what stands between a kernel and it is the
-// shared-memory instructions that feed each FMA, the barriers, and the
-// work per score. A block of 128 threads owns 64 q rows; a thread owns 4
-// of them (ty + 16 i) and 8 columns of each 64-column kv tile (tx + 8 j),
-// so 8 adjacent lanes share a row and its maximum and sum take three
+// Design of the float32 FFMA tiles. Full float32 products on the FMA
+// units, no tensor-core instruction: the bound is the card's 67 TFLOP/s of
+// FFMA, and what stands between a kernel and it is the shared-memory
+// instructions that feed each FMA, the barriers, and the work per score.
+// In K1a and K1c a block of 128 threads owns 64 q rows; a thread owns 4 of
+// them (ty + 16 i) and 8 columns of each 64-column kv tile (tx + 8 j), so
+// 8 adjacent lanes share a row and its maximum and sum take three
 // shuffles. Every tile is row-major with a pitch of D + 4 floats, an odd
 // number of 16-byte chunks: a product reads both operands along d as
 // float4, and the 8 rows tx + 8 j that a warp reads at one d, like its 4
 // q rows, fall into different bank groups. So S = Q . K^T (and in K1c
 // dP = dO . V^T) costs 12 float4 reads per 128 FMAs, and O += P . V (dQ +=
 // dS . K) reads a P row as float4 along k and 8 adjacent chunks of the V
-// (K) row: 12 per 128 as well, against 8 per 64 in the K1b loop. One K
-// layout serves both of K1c's reads, so K is staged once, not also
-// transposed; nothing needs a transposing store, and every operand comes
-// by 16-byte cp.async copies straight into its tile (rows at or beyond
-// Sq/Sk zero-filled by src-size 0). K and V go through a two-stage ring
-// (K1c: two K stages and one V stage, refilled as soon as dP is done, so
-// that its 105 KB at D = 64 leave two blocks an SM), the next tile's
-// copies in flight while the current one computes, with two barriers a
-// tile. P (K1a) and dS (K1c) pass through a [64][72] tile, whose pitch
-// puts a warp's 4 rows 8 banks apart for both the scalar stores and the
-// float4 reads. A tile that no bias, segment id, ragged edge or causal
-// diagonal reaches only scales; the others go through ScoreCtx::score or
-// p_and_ds. The exponentials are ex2.approx of (s - m) * log2(e), the
-// difference taken first so that a masked score cannot overflow (K1c's
-// masked tiles keep expf). Warps an SM decided the tile, as in the bf16
-// kernels (flash_variants.py on an H100 80GB HBM3 at 700 W, D = 64): the
-// source, 8 warps an SM by 105 KB of shared memory (K1a 210 registers,
-// K1c 254, no spill), ran K1a / K1c in 2.36-2.38 / 3.11-3.13 ms; 128 rows
-// on 256 threads, 8 warps in one block, 2.35-2.42 / 3.26; 8 x 8 tiles,
-// 4 warps an SM, 2.86-2.95 / 4.29 on 128 threads (128 rows; K1c spills
-// 140 bytes) and 3.45-3.47 / 4.80 on 64 (64 rows). Measured at the
-// training shape (chip_smoke.py, same card): 2.374 ms for K1a and
-// 3.123 ms for K1c, 43 % and 49 % of their bounds, against 4.96 and
-// 6.02 ms for the FMA loops they replace.
+// (K) row: 12 per 128 as well. One K layout serves both of K1c's reads, so
+// K is staged once, not also transposed; nothing needs a transposing
+// store, and every operand comes by 16-byte cp.async copies straight into
+// its tile (rows at or beyond Sq/Sk zero-filled by src-size 0). K and V go
+// through a two-stage ring (K1c: two K stages and one V stage, refilled as
+// soon as dP is done, so that its 105 KB at D = 64 leave two blocks an
+// SM), the next tile's copies in flight while the current one computes,
+// with two barriers a tile. P (K1a) and dS (K1c) pass through a [64][72]
+// tile, whose pitch puts a warp's 4 rows 8 banks apart for both the
+// scalar stores and the float4 reads. A tile that no bias, segment id,
+// ragged edge or causal diagonal reaches only scales; the others go
+// through ScoreCtx::score or p_and_ds. The exponentials are ex2.approx of
+// (s - m) * log2(e), the difference taken first so that a masked score
+// cannot overflow (K1c's masked tiles keep expf). Warps an SM decided the
+// tile, as in the bf16 kernels (flash_variants.py on an H100 80GB HBM3 at
+// 700 W, D = 64): the source, 8 warps an SM by 105 KB of shared memory
+// (K1a 210 registers, K1c 254, no spill), ran K1a / K1c in 2.36-2.38 /
+// 3.11-3.13 ms; 128 rows on 256 threads, 8 warps in one block, 2.35-2.42
+// / 3.26; 8 x 8 tiles, 4 warps an SM, 2.86-2.95 / 4.29 on 128 threads
+// (128 rows; K1c spills 140 bytes) and 3.45-3.47 / 4.80 on 64 (64 rows).
+// Measured at the training shape (chip_smoke.py, same card): 2.374 ms for
+// K1a and 3.123 ms for K1c, 43 % and 49 % of their bounds, against 4.96
+// and 6.02 ms for the FMA loops they replaced.
 //
-// Design of the float32 FMA loop (K1b). Each product is a 64x64 (or 64xD)
-// register-tiled FMA loop over float32 tiles in shared memory, read 16
-// bytes at a time with row pitches that keep those reads free of bank
-// conflicts; 256 threads hold 4x4 scores and 4 x D/16 outputs each, the
-// tiles loaded by scalar reads between two barriers. Measured at the
-// training shape (chip_smoke.py): 6.05 ms in float32.
+// K1b is K1c's shape turned around (its own note at the kernel): a block
+// owns 64 kv rows and walks the q tiles, a thread holds 4 kv rows x 8 q
+// columns of S^T and dP^T and 4 rows of both accumulators, dK and dV (246
+// registers at D = 64, no spill). Lean, it keeps one dO stage and one tile
+// for P^T and then dS^T, 106 KB at D = 64, so two blocks of 4 warps share
+// an SM. flash_variants.py (same card, D = 64): the source 3.99 ms; 4 x 8
+// on 256 threads over 128 kv rows (214 KB, one block of 8 warps, 254
+// registers) 4.26; 4 x 8 on 128 threads with two dO stages and separate
+// P^T and dS^T tiles (142 KB, one block of 4 warps) 4.69; 2 x 8 on 256
+// threads, 8 warps in one block, 5.89 with two dO stages (190 registers)
+// and 6.00 lean: the 2 x 8 tile reads 10 float4 per 64 FMAs, the 4 x 8
+// tile 12 per 128. Measured at the training shape (chip_smoke.py, same
+// card): 3.982 ms, 52 % of its bound, against 6.05-6.11 ms for the FMA
+// loop it replaced and 5.52 ms for the library's whole backward.
 //
 // Design of the tensor-core family (FlashAttention-2's shape on mma.sync).
 // The grid, the loop over the other sequence and the causal order are
@@ -176,9 +181,7 @@ struct FlashParams {
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kTile = 64;        // rows of a q tile and of a kv tile
-constexpr int kPitchS = kTile + 4;  // pitch of a 64x64 score tile
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
 using bf16 = __nv_bfloat16;
@@ -204,98 +207,6 @@ __device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t b,
   x = (x ^ (x >> 15)) * 0x846CA68Bu;
   x ^= x >> 16;
   return x >= threshold;
-}
-
-// dst[r][c] = src[row0 + r][c], zero beyond `rows`.
-template <int D, int PITCH>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long row_stride, int row0,
-                                          int rows) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int gr = row0 + r;
-    dst[r * PITCH + c] =
-        gr < rows ? src[static_cast<long long>(gr) * row_stride + c] : 0.f;
-  }
-}
-
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d]: a 64x64 tile of
-// A . B^T, 4x4 per thread. Both pitches are D + 4, so the 16-byte reads of
-// the 8 threads of a quarter warp fall into different banks.
-template <int D>
-__device__ __forceinline__ void dot_tile(const float* A, const float* Bm,
-                                         int ty, int tx, float (&acc)[4][4]) {
-  constexpr int P = D + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * P + d]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(&Bm[(tx + 16 * j) * P + d]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-      }
-  }
-}
-
-template <int DV>
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[DV]) {
-  if constexpr (DV == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x;
-    out[1] = t.y;
-  } else {
-#pragma unroll
-    for (int c = 0; c < DV; c += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + c);
-      out[c] = t.x;
-      out[c + 1] = t.y;
-      out[c + 2] = t.z;
-      out[c + 3] = t.w;
-    }
-  }
-}
-
-// acc[i][c] += sum_k P[ty + 16 i][k] * B[k][tx * DV + c] over the 64 values
-// of k: a 64 x D tile of P . B, 4 x DV per thread (DV = D / 16).
-template <int DV, int PB>
-__device__ __forceinline__ void acc_tile(const float* P, const float* Bm,
-                                         int ty, int tx,
-                                         float (&acc)[4][DV]) {
-#pragma unroll 2
-  for (int k = 0; k < kTile; k += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = *reinterpret_cast<const float4*>(&P[(ty + 16 * i) * kPitchS + k]);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float bv[DV];
-      load_vec<DV>(&Bm[(k + kk) * PB + tx * DV], bv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pk = kk == 0 ? p[i].x
-                         : kk == 1 ? p[i].y
-                         : kk == 2 ? p[i].z
-                                   : p[i].w;
-#pragma unroll
-        for (int c = 0; c < DV; ++c) acc[i][c] = fmaf(pk, bv[c], acc[i][c]);
-      }
-    }
-  }
 }
 
 // Everything one score needs besides q . k^T: scale, bias, the masks. AB
@@ -373,103 +284,6 @@ __device__ __forceinline__ PAndDs p_and_ds(const FlashParams& p,
   }
   r.ds = pij * (dp - di);
   return r;
-}
-
-// ---------------------------------------------------------------- K1b -----
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
-  constexpr int DV = D / 16, PQ = D + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                   // [64][D + 4]
-  float* Vs = Ks + kTile * PQ;        // [64][D + 4]
-  float* Qs = Vs + kTile * PQ;        // [64][D + 4]
-  float* dOs = Qs + kTile * PQ;       // [64][D + 4]
-  float* PT = dOs + kTile * PQ;       // [kv][q], pitch 68: dropout(p)^T
-  float* dST = PT + kTile * kPitchS;  // [kv][q], pitch 68: (ds * scale)^T
-  float* lse_s = dST + kTile * kPitchS;  // [64]
-  float* di_s = lse_s + kTile;           // [64]
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  // causal: the first kv tiles walk the most q tiles, and start first
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * kTile;
-  const float* q =
-      static_cast<const float*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
-  const float* k =
-      static_cast<const float*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
-  const float* v =
-      static_cast<const float*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
-  const float* dout =
-      static_cast<const float*>(p.dout) + b * p.do_st[0] + h * p.do_st[1];
-  const float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
-  const float* di = p.di + (static_cast<long long>(b) * p.h + h) * p.sq;
-  const ScoreCtx<float> sc(p, b, h);
-
-  load_tile<D, PQ>(Ks, k, p.k_st[2], k0, p.sk);
-  load_tile<D, PQ>(Vs, v, p.v_st[2], k0, p.sk);
-  int id_kv[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = k0 + tx + 16 * j;
-    id_kv[j] = (sc.seg_kv != nullptr && col < p.sk) ? sc.seg_kv[col] : 0;
-  }
-  // this thread's outputs: kv rows ty + 16 i, columns tx * DV + c
-  float dk[4][DV], dv[4][DV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DV; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  const int n_qt = (p.sq + kTile - 1) / kTile;
-  // causal: rows before k0 see none of this tile
-  for (int qt = p.causal ? kt : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the last tile's reads are done
-    load_tile<D, PQ>(Qs, q, p.q_st[2], q0, p.sq);
-    load_tile<D, PQ>(dOs, dout, p.do_st[2], q0, p.sq);
-    if (tid < kTile) {
-      const int row = q0 + tid;
-      // a row beyond Sq gets lse = +inf, so its p is 0
-      lse_s[tid] = row < p.sq ? lse[row] : INFINITY;
-      di_s[tid] = row < p.sq ? di[row] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile<D>(Qs, Ks, ty, tx, s);
-    dot_tile<D>(dOs, Vs, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, row = q0 + r;
-      const int id_q = (sc.seg_q != nullptr && row < p.sq) ? sc.seg_q[row] : 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cj = tx + 16 * j;
-        const PAndDs e = p_and_ds(p, sc, s[i][j], dp[i][j], lse_s[r],
-                                     di_s[r], b, h, row, k0 + cj, id_q,
-                                     id_kv[j]);
-        PT[cj * kPitchS + r] = e.pd;
-        dST[cj * kPitchS + r] = e.ds * p.sm_scale;
-      }
-    }
-    __syncthreads();
-    acc_tile<DV, PQ>(PT, dOs, ty, tx, dv);
-    acc_tile<DV, PQ>(dST, Qs, ty, tx, dk);
-  }
-
-  float* dk_out = static_cast<float*>(p.dk) + b * p.dk_st[0] + h * p.dk_st[1];
-  float* dv_out = static_cast<float*>(p.dv) + b * p.dv_st[0] + h * p.dv_st[1];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row < p.sk) {
-#pragma unroll
-      for (int c = 0; c < DV; ++c) {
-        store(&dk_out[static_cast<long long>(row) * p.dk_st[2] + tx * DV + c],
-              dk[i][c]);
-        store(&dv_out[static_cast<long long>(row) * p.dv_st[2] + tx * DV + c],
-              dv[i][c]);
-      }
-    }
-  }
 }
 
 // ------------------------------------------- bfloat16 on the tensor cores --
@@ -1516,15 +1330,197 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(FlashParams p) {
   }
 }
 
+// ---------------------------------------------------------- K1b, float32 --
+// K1c's tiles turned around: a block of NT threads owns BKV = NT / 8 * MT kv
+// rows and walks the q tiles of 64 rows from the first one that sees them; a
+// thread owns kv rows ty + TY i and, of a q tile, the columns tx + 8 j. So
+// S^T = K . Q^T and dP^T = V . dO^T are ffma_abt with K, V as A and Q, dO as
+// B, and dV += P^T . dO and dK += dS^T . Q are ffma_pb over a [BKV][kPitchP]
+// tile: no operand needs a transposing store. K and V are copied once; Q, dO
+// and the q tile's lse and di go through a two-stage ring (lse and di are
+// per column here, so they come from shared memory, not from registers).
+// LEAN keeps one dO stage, refilled once dV's product is done, and one tile
+// for P^T and then dS^T: 106 KB at D = 64 instead of 142, and at D = 128 the
+// only layout that fits.
+template <int D, int MT, int NT, bool LEAN>
+__global__ void __launch_bounds__(NT) flash_dkv_kernel(FlashParams p) {
+  constexpr int TY = NT / kRowLanes, BKV = TY * MT, P = D + 4, DC = D / 8;
+  static_assert(NT >= kTile, "a thread for each lse and di of a q tile");
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                               // [BKV][D + 4]
+  float* Vs = Ks + BKV * P;                       // [BKV][D + 4]
+  float* Qs = Vs + BKV * P;                       // [2][64][D + 4]
+  float* dOs = Qs + 2 * kTile * P;                // [1 or 2][64][D + 4]
+  float* PTs = dOs + (LEAN ? 1 : 2) * kTile * P;  // [BKV][kPitchP]
+  float* dSTs = LEAN ? PTs : PTs + BKV * kPitchP;  // [BKV][kPitchP]
+  float* lse_s = dSTs + BKV * kPitchP;            // [2][64]
+  float* di_s = lse_s + 2 * kTile;                // [2][64]
+  const int ty = threadIdx.x / kRowLanes, tx = threadIdx.x % kRowLanes;
+  // causal: the first kv tiles walk the most q tiles, and start first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BKV;
+  const float* q =
+      static_cast<const float*>(p.q) + b * p.q_st[0] + h * p.q_st[1];
+  const float* k =
+      static_cast<const float*>(p.k) + b * p.k_st[0] + h * p.k_st[1];
+  const float* v =
+      static_cast<const float*>(p.v) + b * p.v_st[0] + h * p.v_st[1];
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.do_st[0] + h * p.do_st[1];
+  const float* lse = p.lse + (static_cast<long long>(b) * p.h + h) * p.sq;
+  const float* di = p.di + (static_cast<long long>(b) * p.h + h) * p.sq;
+  const ScoreCtx<float> sc(p, b, h);
+  const int n_qt = (p.sq + kTile - 1) / kTile;
+  const int qt0 = p.causal ? k0 / kTile : 0;  // rows before k0 see none
+
+  load_tile_f32_async<D, BKV, NT>(Ks, k, p.k_st[2], k0, p.sk);
+  load_tile_f32_async<D, BKV, NT>(Vs, v, p.v_st[2], k0, p.sk);
+  if (qt0 < n_qt) {
+    load_tile_f32_async<D, kTile, NT>(Qs, q, p.q_st[2], qt0 * kTile, p.sq);
+    load_tile_f32_async<D, kTile, NT>(dOs, dout, p.do_st[2], qt0 * kTile,
+                                      p.sq);
+  }
+  cp_async_commit();
+  if (threadIdx.x < kTile) {
+    // a row at or beyond Sq gets lse = +inf, so its p is 0
+    const int row = qt0 * kTile + threadIdx.x;
+    lse_s[threadIdx.x] = row < p.sq ? lse[row] : INFINITY;
+    di_s[threadIdx.x] = row < p.sq ? di[row] : 0.f;
+  }
+  int id_kv[MT];
+  float dk[MT][DC], dv[MT][DC];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int row = k0 + ty + TY * i;
+    id_kv[i] = (sc.seg_kv != nullptr && row < p.sk) ? sc.seg_kv[row] : 0;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
+  }
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * kTile, st = (qt - qt0) & 1;
+    const bool next = qt + 1 < n_qt;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile has landed, its lse and di are in; every
+                      // thread is done with the last tile
+    // the next tile's copies fly while this one computes; its lse and di
+    // wait in registers until this tile's reads are done
+    float lse_nx = INFINITY, di_nx = 0.f;
+    if (next) {
+      load_tile_f32_async<D, kTile, NT>(Qs + (st ^ 1) * kTile * P, q,
+                                        p.q_st[2], q0 + kTile, p.sq);
+      if constexpr (!LEAN)
+        load_tile_f32_async<D, kTile, NT>(dOs + (st ^ 1) * kTile * P, dout,
+                                          p.do_st[2], q0 + kTile, p.sq);
+      cp_async_commit();
+      const int row = q0 + kTile + threadIdx.x;
+      if (threadIdx.x < kTile && row < p.sq) {
+        lse_nx = lse[row];
+        di_nx = di[row];
+      }
+    }
+    const float* Qt = Qs + st * kTile * P;
+    const float* dOt = LEAN ? dOs : dOs + st * kTile * P;
+    const float* lse_t = lse_s + st * kTile;
+    const float* di_t = di_s + st * kTile;
+
+    // s becomes dropout(p)^T, the operand of dv += p^T . do, and dp
+    // becomes (ds * sm_scale)^T, that of dk += ds^T . q
+    float s[MT][8], dp[MT][8];
+    ffma_abt<D, MT, TY>(Ks, Qt, ty, tx, s);
+    ffma_abt<D, MT, TY>(Vs, dOt, ty, tx, dp);
+    // only the scale: no bias, segment ids or dropout, no q row beyond Sq,
+    // no kv row beyond Sk and, causal, no kv row after the tile's first q
+    if (!p.dropout && sc.ab == nullptr && sc.seg_q == nullptr &&
+        q0 + kTile <= p.sq && k0 + BKV <= p.sk &&
+        !(p.causal && k0 + BKV - 1 > q0)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float lse_j = lse_t[tx + 8 * j], di_j = di_t[tx + 8 * j];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const float pij =
+              exp2_approx((s[i][j] * p.sm_scale - lse_j) * kLog2e);
+          dp[i][j] = pij * (dp[i][j] - di_j) * p.sm_scale;
+          s[i][j] = pij;
+        }
+      }
+    } else {
+      int id_q[8];
+      row_ids(sc.seg_q, p.sq, q0, tx, id_q);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = tx + 8 * j;  // the q row in the tile
+          const PAndDs e =
+              p_and_ds(p, sc, s[i][j], dp[i][j], lse_t[c], di_t[c], b, h,
+                       q0 + c, k0 + ty + TY * i, id_q[j], id_kv[i]);
+          s[i][j] = e.pd;
+          dp[i][j] = e.ds * p.sm_scale;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = (ty + TY * i) * kPitchP + tx + 8 * j;
+        PTs[e] = s[i][j];
+        if constexpr (!LEAN) dSTs[e] = dp[i][j];
+      }
+    __syncthreads();  // P^T (and dS^T) whole
+    ffma_pb<D, MT, TY>(PTs, dOt, ty, tx, dv);
+    if constexpr (LEAN) {
+      __syncthreads();  // every thread is done with P^T and dO
+      if (next) {  // dO's next copies fly during dk += ds^T . q
+        load_tile_f32_async<D, kTile, NT>(dOs, dout, p.do_st[2], q0 + kTile,
+                                          p.sq);
+        cp_async_commit();
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dSTs[(ty + TY * i) * kPitchP + tx + 8 * j] = dp[i][j];
+      __syncthreads();  // dS^T whole
+    }
+    ffma_pb<D, MT, TY>(dSTs, Qt, ty, tx, dk);
+    if (next && threadIdx.x < kTile) {
+      lse_s[(st ^ 1) * kTile + threadIdx.x] = lse_nx;
+      di_s[(st ^ 1) * kTile + threadIdx.x] = di_nx;
+    }
+  }
+  cp_async_wait<0>();  // a block with no q tile still has K and V in flight
+
+  float* dk_out = static_cast<float*>(p.dk) + b * p.dk_st[0] + h * p.dk_st[1];
+  float* dv_out = static_cast<float*>(p.dv) + b * p.dv_st[0] + h * p.dv_st[1];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int row = k0 + ty + TY * i;
+    if (row < p.sk) {
+      float* krow = dk_out + static_cast<long long>(row) * p.dk_st[2] + 4 * tx;
+      float* vrow = dv_out + static_cast<long long>(row) * p.dv_st[2] + 4 * tx;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        store(&krow[32 * (c / 4) + c % 4], dk[i][c]);
+        store(&vrow[32 * (c / 4) + c % 4], dv[i][c]);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------ launchers ---
 // float32 K1a: a q tile of br rows, two K and two V stages of 64 rows, all
 // of pitch d + 4, and P
 constexpr size_t fwd_smem(int br, int d) {
   return sizeof(float) * ((br + 4 * kTile) * (d + 4) + br * kPitchP);
 }
-constexpr size_t dkv_smem(int d) {
-  return sizeof(float) *
-         (4 * kTile * (d + 4) + 2 * kTile * kPitchS + 2 * kTile);
+// float32 K1b: a K and a V tile of bkv rows, two Q stages and one (lean) or
+// two dO stages of 64 rows, all of pitch d + 4, one (lean) or two [bkv]
+// [kPitchP] tiles for P^T and dS^T, and two stages of lse and di
+constexpr size_t dkv_smem(int bkv, int d, bool lean) {
+  return sizeof(float) * ((2 * bkv + (lean ? 3 : 4) * kTile) * (d + 4) +
+                          (lean ? 1 : 2) * bkv * kPitchP + 4 * kTile);
 }
 // float32 K1c: q and do tiles of br rows, two K stages and one V of 64 rows,
 // all of pitch d + 4, and dS
@@ -1603,12 +1599,19 @@ int launch_bf16(Which which, const FlashParams& p, cudaStream_t st) {
 template <int D>
 int launch_one(Which which, const FlashParams& p, cudaStream_t st) {
   if (p.dtype == 0) {
-    // K1b keeps its scalar loads; K1a and K1c copy by cp.async
-    if (which == kDkv)
-      return launch(flash_dkv_kernel<D>, p, tiles_of(p.sk, kTile),
-                    dkv_smem(D), kThreads, st);
     if (!operands_aligned<float>(which, p))
       return static_cast<int>(cudaErrorMisalignedAddress);
+    if (which == kDkv) {
+      // 64 kv rows of 4 x 8 scores a thread on 128 threads, lean: two
+      // blocks an SM (flash_variants.py); at D = 128 the two accumulators
+      // of 4 x 16 would spill, so 2 x 16 on 256 threads
+      if constexpr (D == 128)
+        return launch(flash_dkv_kernel<D, 2, 256, true>, p,
+                      tiles_of(p.sk, 64), dkv_smem(64, D, true), 256, st);
+      else
+        return launch(flash_dkv_kernel<D, 4, 128, true>, p,
+                      tiles_of(p.sk, 64), dkv_smem(64, D, true), 128, st);
+    }
     // 64-row q tiles of 4 x 8 scores a thread on 128 threads: two blocks an
     // SM (flash_variants.py)
     if (which == kFwd)

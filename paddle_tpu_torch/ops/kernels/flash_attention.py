@@ -42,10 +42,10 @@ kernels read them in place, and the outputs are allocated with the layout
 of the tensor they belong to, so the layer's transpose back is free.
 
 In bfloat16, K1a, K1b and K1c run on the tensor cores (``mma.sync``); in
-float32, K1a and K1c are register-blocked FFMA tiles and K1b an FMA loop.
-Every kernel but float32 K1b loads its operands with 16-byte ``cp.async``
-copies, and a view whose base or strides miss 16 bytes goes to it as an
-aligned copy (:func:`_staged`); the attention layer's views never do.
+float32 they are register-blocked FFMA tiles. Every kernel loads its
+operands with 16-byte ``cp.async`` copies, and a view whose base or strides
+miss 16 bytes goes to it as an aligned copy (:func:`_staged`); the
+attention layer's views never do.
 
 The bias ``ab`` has q's dtype, or float32 under bfloat16 q, k, v: the
 kernels read it in its own dtype and add it in float32, as the Pallas
@@ -323,11 +323,11 @@ def _check_cuda(q, named):
 
 
 def _cp_async_ok(t):
-    """Whether the kernels that load by 16-byte ``cp.async`` copies (K1a-c
-    in bfloat16, K1a and K1c in float32) can copy ``t`` in place: its base
-    address and its batch, head and row strides (those of dimensions with
-    more than one index) are whole multiples of 16 bytes, that is of 8
-    bfloat16 or 4 float32 elements. A contiguous tensor, the ``[B,S,H,D]``
+    """Whether the kernels, which load by 16-byte ``cp.async`` copies (K1a-c
+    in both dtypes), can copy ``t`` in place: its base address and its
+    batch, head and row strides (those of dimensions with more than one
+    index) are whole multiples of 16 bytes, that is of 8 bfloat16 or 4
+    float32 elements. A contiguous tensor, the ``[B,S,H,D]``
     transpose and a head slice of a fused qkv projection pass; a view
     offset by one element does not."""
     per16 = 16 // t.element_size()
@@ -444,8 +444,7 @@ def flash_bwd_dkv(q, k, v, ab, segment_ids, lse, do, di, causal=False,
                                        dropout_seed)
     _check_cuda(q, (("q", q), ("k", k), ("v", v), ("ab", ab), ("do", do)))
     dk, dv = _like(k), _like(v)
-    if q.dtype == torch.bfloat16:  # float32 K1b reads by scalar loads
-        q, k, v, do = _staged(q), _staged(k), _staged(v), _staged(do)
+    q, k, v, do = _staged(q), _staged(k), _staged(v), _staged(do)
     _launch(1, q, k, v, ab, _seg32(segment_ids), causal, sm_scale,
             dropout_rate, dropout_seed, lse=lse.float().contiguous(),
             dout=do, di=di.float().contiguous(), dk=dk, dv=dv)

@@ -68,6 +68,46 @@ def test_kernel_matches_plain_version(cuda):
         torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_kernel_splits_long_contexts(cuda, dt):
+    """Slots of several chunks (CHUNK_ROWS rows each): the kernel against
+    its plain version and its chunked plain version, two launches
+    bit-equal, the arrival counters back at 0 after each, other chunk sizes
+    through the same launch, and a slot with no live row giving 0."""
+    rng = np.random.RandomState(3)
+    b, h, d, ps, pps = 4, 3, 64, 16, 16
+    rows = pps * ps
+    pt = torch.as_tensor(np.stack([rng.permutation(b * pps)[s::b]
+                                   for s in range(b)]).astype(np.int32),
+                         device=cuda)
+    ctx = torch.as_tensor([0, 1, rows, pa.CHUNK_ROWS + 3], dtype=torch.int32,
+                          device=cuda)
+
+    def t(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32),
+                               device=cuda).to(dt)
+
+    q, k, v = t(b, h, d), t(b * pps * ps, h, d), t(b * pps * ps, h, d)
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    got = pa.paged_decode_attention(q, k, v, pt, ctx, page_size=ps,
+                                    sm_scale=d ** -0.5)
+    again = pa.paged_decode_attention(q, k, v, pt, ctx, page_size=ps,
+                                      sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and not got[0].any()
+    assert not any(c.any() for c in pa._counters.values())
+    want = pa.gather_reference(q.float(), k.float(), v.float(), pt, ctx, ps,
+                               sm_scale=d ** -0.5)
+    chunked = pa.chunked_reference(q.float(), k.float(), v.float(), pt, ctx,
+                                   ps, d ** -0.5)
+    torch.testing.assert_close(got[1:].float(), want[1:], atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), chunked, atol=tol, rtol=tol)
+    for chunk_rows in (16, 100, rows):
+        other = pa._launch(q, k, v, pt, ctx, ps, d ** -0.5, chunk_rows)
+        torch.testing.assert_close(other.float(), chunked, atol=tol,
+                                   rtol=tol)
+
+
 def test_garbage_beyond_ctx_len_moves_no_output_bit(cuda):
     q, k, v, pt = make_pool(1, cuda)
     ctx = torch.as_tensor(CTX, dtype=torch.int32, device=cuda)
@@ -384,10 +424,10 @@ def test_flash_kernels_with_a_row_that_sees_nothing(cuda, dt):
 
 @pytest.mark.parametrize("dt", DTYPES)
 def test_unaligned_view_takes_the_copy(cuda, dt):
-    """A q view one element off 16 bytes goes to the kernels that copy by
-    cp.async as an aligned copy, with the copy's results; the launch itself
-    refuses the view: in the forward and in K1b in bfloat16, in the forward
-    and in K1c in float32, where K1b reads it in place by scalar loads."""
+    """A q view one element off 16 bytes goes to the kernels, which copy by
+    cp.async, as an aligned copy, with the copy's results; the launch itself
+    refuses the view: in the forward and in K1b in bfloat16, in the forward,
+    K1b and K1c in float32."""
     b, h, s, d = 1, 2, 96, 64
     q, k, v, do, _, _ = flash_inputs(cuda, dt, b, h, s, s, d, False, False,
                                      seed=8)
@@ -406,14 +446,10 @@ def test_unaligned_view_takes_the_copy(cuda, dt):
     bwd = dict(lse=lse, dout=do, di=torch.zeros_like(lse))
     k1b = (1, dict(dk=torch.empty_like(k), dv=torch.empty_like(v)))
     k1c = (2, dict(dq=torch.empty_like(q)))
-    refused, in_place = (k1c, k1b) if dt == torch.float32 else (k1b, None)
-    with pytest.raises(RuntimeError, match="cudaError_t 716"):
-        fa._launch(refused[0], q_off, k, v, None, (None, None), True, 0.125,
-                   0.0, 0, **bwd, **refused[1])
-    if in_place is not None:
-        fa._launch(in_place[0], q_off, k, v, None, (None, None), True, 0.125,
-                   0.0, 0, **bwd, **in_place[1])
-        torch.cuda.synchronize()
+    for which, outs in ((k1b, k1c) if dt == torch.float32 else (k1b,)):
+        with pytest.raises(RuntimeError, match="cudaError_t 716"):
+            fa._launch(which, q_off, k, v, None, (None, None), True, 0.125,
+                       0.0, 0, **bwd, **outs)
 
 
 def test_flash_dead_rows_and_wrapper_rules(cuda):

@@ -359,10 +359,10 @@ _VIEWS = [("contiguous", True), ("bshd_transpose", True),
                  + "%s-%s" % (kind, aligned))
     for dt in (torch.bfloat16, torch.float32) for kind, aligned in _VIEWS])
 def test_bf16_kernels_copy_only_views_off_16_bytes(kind, aligned, dt):
-    """The kernels that load with 16-byte copies (K1a-c in bfloat16, K1a
-    and K1c in float32: 8 or 4 elements to 16 bytes): a view whose base or
-    strides miss 16 bytes is handed over as an aligned copy with the same
-    values, every other view as it is."""
+    """The kernels load with 16-byte copies (K1a, K1b and K1c, in bfloat16
+    8 elements to 16 bytes, in float32 4): a view whose base or strides
+    miss 16 bytes is handed over as an aligned copy with the same values,
+    every other view as it is."""
     t = _view(kind, dt)
     assert tfa._cp_async_ok(t) is aligned
     staged = tfa._staged(t)

@@ -160,3 +160,91 @@ def test_interpret_flag_has_no_meaning_here():
 
     with pytest.raises(ValueError):
         attention_ops.paged_kernel_enabled()
+
+
+# -- the kernel's split over the context, in plain PyTorch -------------------
+#
+# The CUDA kernel cuts each slot's live rows into chunks of CHUNK_ROWS rows,
+# one block a chunk, and merges the chunks' (m, l, acc) in chunk order.
+# chunked_reference is that arithmetic; it is held here against the JAX
+# kernel (interpret mode) and the gather path on a pool whose slots hold
+# four chunks each.
+
+LONG_PPS = 4 * tpa.CHUNK_ROWS // PS  # pages a slot: four chunks of rows
+LONG_PAGES = SLOTS * LONG_PPS
+
+LONG_CTX = {
+    "chunks_beyond_ctx": [1, 7, tpa.CHUNK_ROWS + 6, 2 * tpa.CHUNK_ROWS, 33],
+    "ctx_1": [1, 1, 1, 1, 1],
+    "ctx_max": [LONG_PPS * PS] * SLOTS,
+    "slot_with_ctx_0": [0, 5, LONG_PPS * PS, tpa.CHUNK_ROWS,
+                        tpa.CHUNK_ROWS + 1],
+}
+
+
+def make_long_pool(seed):
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(LONG_PAGES)
+    pt = np.stack([perm[s::SLOTS] for s in range(SLOTS)]).astype(np.int32)
+    k = rng.randn(LONG_PAGES * PS, H, D).astype(np.float32)
+    v = rng.randn(LONG_PAGES * PS, H, D).astype(np.float32)
+    q = rng.randn(SLOTS, H, D).astype(np.float32)
+    return q, k, v, pt
+
+
+def chunked(q, k, v, pt, ctx, chunk_rows=tpa.CHUNK_ROWS):
+    return tpa.chunked_reference(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+        torch.as_tensor(pt), torch.as_tensor(ctx), PS, SM,
+        chunk_rows).numpy()
+
+
+@pytest.mark.parametrize("pattern", sorted(LONG_CTX))
+def test_chunked_split_matches_jax_kernel_and_gather(pattern):
+    """At the wrapper's chunk size, to 1e-6. A slot with no live row gives
+    0, as the JAX kernel does; the gather paths (both packages') average v
+    there, so they are compared on the live slots."""
+    q, k, v, pt = make_long_pool(7)
+    ctx = np.asarray(LONG_CTX[pattern], np.int32)
+    got = chunked(q, k, v, pt, ctx)
+    args = tuple(map(jnp.asarray, (q, k, v, pt, ctx)))
+    kern = np.asarray(jpa.paged_decode_attention(
+        *args, page_size=PS, sm_scale=SM, block_pages=4, interpret=True))
+    gath = np.asarray(jpa.gather_reference(*args, PS, sm_scale=SM))
+    live = ctx > 0
+    np.testing.assert_allclose(got, kern, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[live], gath[live], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[live], port(q, k, v, pt, ctx)[live],
+                               rtol=1e-6, atol=1e-6)
+    assert not got[~live].any()
+
+
+def test_chunked_split_ignores_a_poisoned_pool():
+    q, k, v, pt = make_long_pool(8)
+    ctx = np.asarray(LONG_CTX["chunks_beyond_ctx"], np.int32)
+    clean = chunked(q, k, v, pt, ctx)
+    flat = pt.repeat(PS, axis=1) * PS + np.tile(np.arange(PS), LONG_PPS)
+    live = np.zeros(LONG_PAGES * PS, bool)
+    for s in range(SLOTS):
+        live[flat[s, :ctx[s]]] = True
+    k_bad, v_bad = k.copy(), v.copy()
+    k_bad[~live] = 1e4
+    v_bad[~live] = np.nan
+    np.testing.assert_array_equal(chunked(q, k_bad, v_bad, pt, ctx), clean)
+
+
+def test_chunk_plan_and_chunk_sizes():
+    """The grid's chunk count covers the longest context the page table
+    holds; the split's result does not depend on the chunk size beyond
+    rounding."""
+    assert tpa.chunk_plan(LONG_PPS, PS) == 4
+    assert tpa.chunk_plan(64, 16) == 1024 // tpa.CHUNK_ROWS
+    assert tpa.chunk_plan(3, 16, 40) == 2 and tpa.chunk_plan(1, 1, 64) == 1
+    with pytest.raises(ValueError):
+        tpa.chunk_plan(4, 16, 0)
+    q, k, v, pt = make_long_pool(9)
+    ctx = np.asarray(LONG_CTX["chunks_beyond_ctx"], np.int32)
+    whole = chunked(q, k, v, pt, ctx, chunk_rows=LONG_PPS * PS)
+    for rows in (1, 16, 48, tpa.CHUNK_ROWS):
+        np.testing.assert_allclose(chunked(q, k, v, pt, ctx, rows), whole,
+                                   rtol=1e-6, atol=1e-6)
