@@ -6,8 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``
 (one process per source, all at once) and holds each kernel against its
-plain PyTorch version on the card at its main path's shapes. Then it
-drives the ported paths through the entry points a user calls:
+plain PyTorch version on the card at its main path's shapes, timing each
+by CUDA events (``ms``) and by CUPTI (``device_ms``) beside an empty
+launch timed like them (``launch_floor_ms``). Then it drives the ported
+paths through the entry points a user calls:
 
 * serving: a GPT-2-small-width ``DecoderLM`` (seeded random weights)
   through ``ServingEngine.submit``/``run``; decode attention must go
@@ -31,8 +33,9 @@ drives the ported paths through the entry points a user calls:
   400-400-400, batch 1024) with ``is_sparse`` tables, once under Adam and
   once under SGD; every Adam step must launch K4a twice (one a table) and
   K2a, K2b once, every SGD step K4b twice, the losses must be finite and
-  fall; at V = 5e7 the sparse step must allocate no [V, D] gradient, and at
-  V = 1e4, batch 64 the card's losses and state must match the CPU's.
+  fall; at V = 5e7 the same under Adam and SGD, and the sparse step must
+  allocate no [V, D] gradient; at V = 1e4, batch 64 the card's losses and
+  state must match the CPU's.
 
 Each phase prints one JSON line; any failed check exits non-zero. The line
 before the last holds every kernel's numbers, the last line the device.
@@ -44,6 +47,7 @@ a CUDA device.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -147,6 +151,55 @@ def cuda_ms(fn, reps=30, flush=None):
     return float(np.median(times))
 
 
+def device_ms(fn, kernel, reps=30, flush=None, sessions=6):
+    """Median device duration in ms of the kernel whose name matches the
+    regular expression ``kernel`` (case ignored) over ``reps`` calls of
+    ``fn()``, each after ``flush()`` and the spin as in ``cuda_ms``: the
+    CUPTI activity records of torch.profiler, so the kernel's own time on
+    the card, with neither launch latency nor event cost. Each call must
+    launch that kernel once. The profiler sometimes drops records of a
+    microsecond kernel, and a session that lost some read up to 20 % low,
+    so only a session with all ``reps`` records counts: one that lost any
+    is run again, up to ``sessions`` in all, and if none is whole the
+    result is None (null in the JSON lines), with the shortfall on
+    stderr."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pat = re.compile(kernel, re.I)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush()
+                torch.cuda._sleep(SPIN_CYCLES)
+                fn()
+            torch.cuda.synchronize()
+        durs = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and pat.search(e.name)]
+        check(len(durs) <= reps, "device_ms: %d kernels named like %r in %d "
+              "calls" % (len(durs), kernel, reps))
+        if len(durs) == reps:
+            return float(np.median(durs)) / 1e3
+        counts.append(len(durs))
+    print("device_ms: no whole session of %r: %s records of %d in %d "
+          "sessions" % (kernel, counts, reps, sessions), file=sys.stderr,
+          flush=True)
+    return None
+
+
+def launch_floor_ms(flush):
+    """``cuda_ms`` of the smallest launch (``torch.cuda._sleep(0)``, one
+    thread that returns at once), timed exactly as the kernels are: what
+    launch latency and the two events cost a kernel that does nothing."""
+    return cuda_ms(lambda: torch.cuda._sleep(0), flush=flush)
+
+
 # chunk sizes of K3 held against the plain version and timed (the source's
 # is paged_attention.CHUNK_ROWS)
 CHUNK_SIZES = (32, 64, 128, 256)
@@ -242,6 +295,10 @@ def kernel_phase(dev):
             < ctx[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = cuda_ms(lambda: kern(q32, k32, v32), flush=flush)
+    dev_ms = device_ms(lambda: kern(q32, k32, v32), r"paged_attn_kernel",
+                       flush=flush)
+    tail_dev_ms = device_ms(lambda: kern(q32, k32, v32, tail),
+                            r"paged_attn_kernel", flush=flush)
     # after a flush that writes (zeroing 256 MB), for comparison
     dirty = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     ms_dirty = cuda_ms(lambda: kern(q32, k32, v32), flush=dirty.zero_)
@@ -279,13 +336,14 @@ def kernel_phase(dev):
            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
            "replaces": "paddle_tpu/ops/pallas_kernels/paged_attention.py:198",
            "launches": None, "max_abs_err": errs["float32"], "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms, "ms_after_write_flush": ms_dirty,
+           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "ms_after_write_flush": ms_dirty,
            "design": K3_DESIGN, "chunk_rows": pa.CHUNK_ROWS,
            "ms_by_chunk_rows": chunk_ms,
            "tail": {"ctx_len": "1024 and fifteen of 1",
                     "ms": tail_chunk_ms[pa.CHUNK_ROWS],
-                    "plain_ms": tail_plain_ms, "bound_ms": tail_bound_ms,
+                    "device_ms": tail_dev_ms, "plain_ms": tail_plain_ms, "bound_ms": tail_bound_ms,
                     "max_abs_err": tail_errs,
                     "ms_by_chunk_rows": tail_chunk_ms}}
     emit("kernel_vs_plain", kernel="paged_decode_attention",
@@ -293,7 +351,7 @@ def kernel_phase(dev):
                 "pages_per_slot": pps, "ctx_len": ctx_np.tolist()},
          max_abs_err=errs, tol={"float32": 1e-5, "bfloat16": 2e-2},
          poisoned_bit_identical=True, two_launches_bit_equal=True, ms=ms,
-         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+         device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
          live_bytes=nbytes, ms_after_write_flush=ms_dirty,
          chunk_rows=pa.CHUNK_ROWS, ms_by_chunk_rows=chunk_ms,
          tail=row["tail"])
@@ -520,12 +578,16 @@ def xent_kernel_phase(dev):
     F = torch.nn.functional
     loss, lse = sx.softmax_xent_fwd(x32, lab, eps)
     fwd_ms = cuda_ms(lambda: sx.softmax_xent_fwd(x32, lab, eps), flush=flush)
+    fwd_dev = device_ms(lambda: sx.softmax_xent_fwd(x32, lab, eps),
+                        r"xent_fwd_kernel", flush=flush)
     fwd_plain = cuda_ms(lambda: sx.softmax_xent_reference(x32, lab, eps),
                         flush=flush)
     fwd_lib = cuda_ms(lambda: F.cross_entropy(
         x32, lab, reduction="none", label_smoothing=eps), flush=flush)
     bwd_ms = cuda_ms(lambda: sx.softmax_xent_bwd(x32, lab, lse, g, eps),
                      flush=flush)
+    bwd_dev = device_ms(lambda: sx.softmax_xent_bwd(x32, lab, lse, g, eps),
+                        r"xent_bwd_kernel", flush=flush)
     bwd_plain = cuda_ms(lambda: sx.softmax_xent_reference_bwd(
         x32, lab, lse, g, eps), flush=flush)
     xr = x32.detach().requires_grad_(True)
@@ -536,7 +598,7 @@ def xent_kernel_phase(dev):
         lib_loss, [xr], g1, retain_graph=True), flush=flush)
     del xr, lib_loss, flush
 
-    def row(name, fn_line, ms, plain, lib, nbytes, flops, err):
+    def row(name, fn_line, ms, dev, plain, lib, nbytes, flops, err):
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = flops / H100_F32_FLOP_PER_S * 1e3
         return {"name": name, "route": "cuda",
@@ -544,7 +606,8 @@ def xent_kernel_phase(dev):
                 "replaces": "paddle_tpu/ops/pallas_kernels/softmax_xent.py:"
                             + fn_line,
                 "launches": None, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+                "device_ms": dev, "plain_ms": plain,
+                "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": lib}
 
@@ -553,9 +616,10 @@ def xent_kernel_phase(dev):
     # dlogits. Operations: K2a an exp, a max, 2 adds and a compare per
     # element; K2b an exp, a sub, a compare, a sub and a mul.
     nv = n * v
-    rows = [row("softmax_xent_fwd", "164", fwd_ms, fwd_plain, fwd_lib,
-                4 * nv + 8 * n + 8 * n, 5 * nv, errs["float32"]["loss_abs"]),
-            row("softmax_xent_bwd", "208", bwd_ms, bwd_plain, bwd_lib,
+    rows = [row("softmax_xent_fwd", "164", fwd_ms, fwd_dev, fwd_plain,
+                fwd_lib, 4 * nv + 8 * n + 8 * n, 5 * nv,
+                errs["float32"]["loss_abs"]),
+            row("softmax_xent_bwd", "208", bwd_ms, bwd_dev, bwd_plain, bwd_lib,
                 8 * nv + 8 * n + 8 * n, 5 * nv,
                 errs["float32"]["dlogits_abs"])]
     emit("kernel_vs_plain", kernel="softmax_xent",
@@ -563,9 +627,10 @@ def xent_kernel_phase(dev):
          max_err=errs, tol={"float32": {"loss_rel": 1e-5, "dlogits_abs": 1e-6},
                             "bfloat16": {"loss_rel": 1e-5,
                                          "dlogits_scaled": 1.0}},
-         fwd={"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": fwd_lib,
-              "bound_ms": rows[0]["bound_ms"]},
-         bwd={"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
+         fwd={"ms": fwd_ms, "device_ms": fwd_dev, "plain_ms": fwd_plain,
+              "library_ms": fwd_lib, "bound_ms": rows[0]["bound_ms"]},
+         bwd={"ms": bwd_ms, "device_ms": bwd_dev, "plain_ms": bwd_plain,
+              "library_ms": bwd_lib,
               "bound_ms": rows[1]["bound_ms"]})
     del x32, lab, g, loss, lse
     torch.cuda.empty_cache()
@@ -1037,6 +1102,13 @@ def flash_kernel_phase(dev):
         t["library_bwd"] = cuda_ms(lambda: torch.autograd.grad(
             lib_o, [qr, kr, vr], do, retain_graph=True), flush=flush)
         del qr, kr, vr, lib_o
+        suffix = "_kernel" if dt == torch.float32 else "_bf16_kernel"
+        t["device_fwd"] = device_ms(lambda: fa.flash_fwd(
+            q, k, v, None, None, True, sm), "flash_fwd" + suffix, flush=flush)
+        t["device_dkv"] = device_ms(lambda: fa.flash_bwd_dkv(*args),
+                                    "flash_dkv" + suffix, flush=flush)
+        t["device_dq"] = device_ms(lambda: fa.flash_bwd_dq(*args),
+                                   "flash_dq" + suffix, flush=flush)
         if dt == torch.float32:
             t["plain_fwd"] = cuda_ms(lambda: fa.flash_fwd_reference(
                 q, k, v, None, None, True, sm), reps=5, flush=flush)
@@ -1081,12 +1153,13 @@ def flash_kernel_phase(dev):
             "replaces": "paddle_tpu/ops/pallas_kernels/flash_attention.py:"
                         + line,
             "launches": None, "max_abs_err": path_errs["float32"][out],
-            "ms": f32[kern], "plain_ms": f32["plain_" + kern],
+            "ms": f32[kern], "device_ms": f32["device_" + kern],
+            "plain_ms": f32["plain_" + kern],
             "bound_ms": bound_ms, "bound_by": by, "library_ms": f32[lib],
             # the library's backward is one call for dq, dk and dv together
             "library_call": "scaled_dot_product_attention(is_causal=True)"
                             + ("" if kern == "fwd" else " backward, whole"),
-            "bf16_ms": bf16[kern],
+            "bf16_ms": bf16[kern], "bf16_device_ms": bf16["device_" + kern],
             "bf16_bound_ms": bf16_bound_ms,
             "bf16_bound_share": bf16_bound_ms / bf16[kern],
             "bf16_library_ms": bf16[lib],
@@ -1295,16 +1368,26 @@ def row_sectors(ids, row_bytes):
     return int(((start + row_bytes - 1) // 32 - start // 32 + 1).sum())
 
 
+def untouched_bit_equal(got, old, touched):
+    """Whether every row of a [V, D] table that no id names (``touched``
+    False) holds the same bits in ``got`` as in ``old``, -0.0 and NaN
+    included; one [V] mask at a time, so a 2 GB table needs no copy."""
+    moved = (got.view(torch.int32) != old.view(torch.int32)).any(dim=1)
+    return not bool((moved & ~touched).any())
+
+
 # planted faults: K4a's source with one change each, built beside it
 SPARSE_FAULTS = {
-    "writes_pad_rows": (
-        "  if (id < 0 || id >= vocab) return;  // merge padding: touch "
-        "nothing\n  const long long k = id * d + t % d;\n"
-        "  const float g = rows[t];",
-        "  const long long k = (id >= vocab ? vocab - 1 : id) * d + t % d;\n"
-        "  const float g = rows[t];"),
-    "no_one_minus_beta1": ("__fmul_rn(one_minus_beta1, g)", "g"),
+    "writes_pad_rows": ("return id >= 0 && id < vocab ? id : -1;",
+                        "return id >= 0 && id < vocab ? id : vocab - 1;"),
+    "no_one_minus_beta1": ("__fmul_rn(omb1, g)", "g"),
 }
+# the profiler's names of K4a's and K4b's kernels (and of the parent's)
+K4A_KERNEL, K4B_KERNEL = r"sparse_?adam", r"sparse_?sgd"
+K4_DESIGN = "D = 10: 8 lanes a row, float2 a lane, the id loaded by lane 0 " \
+    "and shuffled; D = 1: one thread a row; every load of a row before " \
+    "any arithmetic, no division; table loads as inline PTX: 32 registers, " \
+    "so the 832 blocks of the [V, 10] step run in one wave"
 
 
 def build_sparse_faults():
@@ -1359,12 +1442,16 @@ def ctr_xent_check(dev, flush):
     lib_loss = F.cross_entropy(xr, lab, reduction="none")
     times = {
         "fwd_ms": cuda_ms(lambda: sx.softmax_xent_fwd(x, lab), flush=flush),
+        "fwd_device_ms": device_ms(lambda: sx.softmax_xent_fwd(x, lab),
+                                   r"xent_fwd_kernel", flush=flush),
         "fwd_plain_ms": cuda_ms(lambda: sx.softmax_xent_reference(x, lab),
                                 flush=flush),
         "fwd_library_ms": cuda_ms(lambda: F.cross_entropy(
             x, lab, reduction="none"), flush=flush),
         "bwd_ms": cuda_ms(lambda: sx.softmax_xent_bwd(x, lab, lse, g),
                           flush=flush),
+        "bwd_device_ms": device_ms(lambda: sx.softmax_xent_bwd(
+            x, lab, lse, g), r"xent_bwd_kernel", flush=flush),
         "bwd_plain_ms": cuda_ms(lambda: sx.softmax_xent_reference_bwd(
             x, lab, lse, g), flush=flush),
         "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(
@@ -1379,161 +1466,241 @@ def ctr_xent_check(dev, flush):
     return dict(times, max_err={"loss_rel": e_loss, "dlogits_abs": e_dx})
 
 
-def sparse_kernel_phase(dev):
-    """K4a/K4b against their plain versions at the CTR path's shapes:
-    tables [1e6, 10] and [1e6, 1], the ids of bench_deepfm's batch (1024 x
-    26 draws from RandomState(0)) merged on the card, with their padding
-    tail, and random gradient rows. p, m, v to 1e-6 of the larger of each
-    element's values after and before; every row no id names bit-equal,
-    row V-1 included (only padding ids clamp to it); planted faults (a
-    kernel that writes padding rows, one without the (1-β1) term) must
-    fail. Then times beside bound, plain version and library call, and
-    K2a/K2b at [1024, 2]."""
+def sparse_inputs(dev, vocab, d, ids=None):
+    """(merged ids, merged rows, (p, m, v), lr_t, lr) of one [vocab, d]
+    table: ``ids`` (by default bench_deepfm's batch at that V) merged on the
+    card with random gradient rows, random tables (seeded by d), lr_t of
+    Adam(1e-3)'s first step, lr·sqrt(1-β2)/(1-β1), and SGD's lr 1e-3, all
+    on the card."""
     from paddle_tpu_torch.core.sparse import merge_rows
+
+    if ids is None:
+        ids = torch.as_tensor(ctr_feed(vocab=vocab)["ids"].reshape(-1),
+                              device=dev)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    rows = torch.randn(ids.shape[0], d, generator=gen, device=dev)
+    uniq, merged = merge_rows(ids, rows, vocab)
+    olds = (torch.randn(vocab, d, generator=gen, device=dev) * d ** -0.5,
+            torch.randn(vocab, d, generator=gen, device=dev) * 1e-2,
+            torch.rand(vocab, d, generator=gen, device=dev) * 1e-4)
+    lr_t = torch.tensor([1e-3 * (1 - 0.999) ** 0.5 / (1 - 0.9)], device=dev)
+    return uniq, merged, olds, lr_t, torch.tensor([1e-3], device=dev)
+
+
+def sparse_table_case(dev, vocab, d, ids, faults, flush):
+    """K4a/K4b on one [vocab, d] table: the ids merged on the card with
+    their padding tail, random gradient rows and tables. Checks: p, m, v
+    to 1e-6 of the larger of each element's values after and before; K4b
+    bit-equal; every row no id names bit-equal, row V-1 included (only
+    padding ids clamp to it); at V = 1e6 the same on table, id and row
+    views one element off their alignment, which take the scalar
+    instantiation; at d = 10 the planted faults (a kernel that writes
+    padding rows, one without the (1-β1) term) must fail. Then the times
+    (events and CUPTI) beside bound, plain version and library call."""
     from paddle_tpu_torch.ops.kernels import sparse_adam as sa
 
-    vocab = CTR["sparse_feature_dim"]
-    ids = torch.as_tensor(ctr_feed()["ids"].reshape(-1), device=dev)
     n = ids.shape[0]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    # lr_t of Adam(1e-3)'s first step: lr·sqrt(1-β2)/(1-β1)
-    lr_t = torch.tensor([1e-3 * (1 - 0.999) ** 0.5 / (1 - 0.9)], device=dev)
-    lr = torch.tensor([1e-3], device=dev)
-    faults = build_sparse_faults()
-    flush = l2_flusher(dev)
-    out = {}
-    for table, d in (("sparse_emb", CTR["embedding_size"]), ("sparse_w1", 1)):
-        rows = torch.randn(n, d, generator=gen, device=dev)
-        uniq, merged = merge_rows(ids, rows, vocab)
-        n_u = int((uniq < vocab).sum())
-        valid = uniq[:n_u]
-        touched = torch.zeros(vocab, dtype=torch.bool, device=dev)
-        touched[valid] = True
-        check(n_u < n and bool((uniq[n_u:] == vocab).all()),
-              "no padding tail in the merged ids")
-        olds = (torch.randn(vocab, d, generator=gen, device=dev) * d ** -0.5,
-                torch.randn(vocab, d, generator=gen, device=dev) * 1e-2,
-                torch.rand(vocab, d, generator=gen, device=dev) * 1e-4)
-        a0, s0 = sa.LAUNCHES_ADAM, sa.LAUNCHES_SGD
-        got = sa.sparse_adam_rows(*(t.clone() for t in olds), uniq, merged,
-                                  lr_t)
-        got_sgd = sa.sparse_sgd_rows(olds[0].clone(), uniq, merged, lr)
-        torch.cuda.synchronize()
-        check((sa.LAUNCHES_ADAM - a0, sa.LAUNCHES_SGD - s0) == (1, 1),
-              "K4a/K4b launch counters did not move")
-        want = sa.sparse_adam_rows_reference(*(t.clone() for t in olds),
-                                             uniq, merged, lr_t)
-        want_sgd = sa.sparse_sgd_rows_reference(olds[0].clone(), uniq, merged,
-                                                lr)
+    uniq, merged, olds, lr_t, lr = sparse_inputs(dev, vocab, d, ids)
+    n_u = int((uniq < vocab).sum())
+    valid = uniq[:n_u]
+    touched = torch.zeros(vocab, dtype=torch.bool, device=dev)
+    touched[valid] = True
+    check(n_u < n and bool((uniq[n_u:] == vocab).all()),
+          "no padding tail in the merged ids")
+    want = sa.sparse_adam_rows_reference(*(t.clone() for t in olds), uniq,
+                                         merged, lr_t)
+    want_sgd = sa.sparse_sgd_rows_reference(olds[0].clone(), uniq, merged,
+                                            lr)
+    tag = "K4 [%d, %d]" % (vocab, d)
+
+    def held(got, got_sgd, what):
         errs = {}
         for name, g_, w_, o_ in zip(("p", "m", "v", "p_sgd"),
                                     (*got, got_sgd), (*want, want_sgd),
                                     (*olds, olds[0])):
             e = sparse_err(g_, w_, o_)
-            check(e <= 1e-6, "K4 %s %s err %g > 1e-6 of max(|after|, "
-                  "|before|)" % (table, name, e))
-            check(torch.equal(g_[~touched], o_[~touched]),
-                  "K4 %s %s: a row no id names moved" % (table, name))
+            check(e <= 1e-6, "%s%s %s err %g > 1e-6 of max(|after|, "
+                  "|before|)" % (tag, what, name, e))
+            check(untouched_bit_equal(g_, o_, touched),
+                  "%s%s %s: a row no id names moved" % (tag, what, name))
             errs[name] = {"rel": e, "abs": float((g_ - w_).abs().max())}
-        if table == "sparse_emb":
-            args = (uniq, merged, lr_t, n, d, vocab,
-                    *sa.adam_constants(0.9, 0.999, 1e-8))
-            bad = [t.clone() for t in olds]
-            sa.launch(faults["writes_pad_rows"], dev, *bad, *args)
-            torch.cuda.synchronize()
-            check(not all(torch.equal(b[~touched], o[~touched])
-                          for b, o in zip(bad, olds)),
-                  "the untouched-rows check passes a kernel that writes "
-                  "padding rows")
-            bad = [t.clone() for t in olds]
-            sa.launch(faults["no_one_minus_beta1"], dev, *bad, *args)
-            torch.cuda.synchronize()
-            check(sparse_err(bad[1], want[1], olds[1]) > 1e-6,
-                  "the check passes a kernel without the (1-β1) term")
-        # times: tables updated in place on every launch, L2 flushed
-        p, m, v = (t.clone() for t in olds)
-        t = {"ms": cuda_ms(lambda: sa.sparse_adam_rows(p, m, v, uniq, merged,
-                                                       lr_t), flush=flush),
-             "plain_ms": cuda_ms(lambda: sa.sparse_adam_rows_reference(
-                 p, m, v, uniq, merged, lr_t), flush=flush),
-             "sgd_ms": cuda_ms(lambda: sa.sparse_sgd_rows(p, uniq, merged,
-                                                          lr), flush=flush),
-             "sgd_plain_ms": cuda_ms(lambda: sa.sparse_sgd_rows_reference(
-                 p, uniq, merged, lr), flush=flush)}
+        check(torch.equal(got_sgd.view(torch.int32),
+                          want_sgd.view(torch.int32)),
+              "%s%s: K4b is not bit-equal to its plain version" % (tag, what))
+        return errs
+
+    a0, s0 = sa.LAUNCHES_ADAM, sa.LAUNCHES_SGD
+    got = sa.sparse_adam_rows(*(t.clone() for t in olds), uniq, merged, lr_t)
+    got_sgd = sa.sparse_sgd_rows(olds[0].clone(), uniq, merged, lr)
+    torch.cuda.synchronize()
+    check((sa.LAUNCHES_ADAM - a0, sa.LAUNCHES_SGD - s0) == (1, 1),
+          "K4a/K4b launch counters did not move")
+    errs = held(got, got_sgd, "")
+    width = sa.load_width(got, merged)
+    unaligned = None
+    if vocab == CTR["sparse_feature_dim"]:
+        # views one element off: tables, ids and rows on 4 bytes only
+
+        def off(t):
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            return flat[1:].view(t.shape).copy_(t)
+
+        views = [off(t) for t in olds]
+        u_ids, u_rows = off(uniq), off(merged)
+        check(sa.load_width(views, u_rows) == 1,
+              "%s: the views one element off are aligned" % tag)
+        sa.sparse_adam_rows(*views, u_ids, u_rows, lr_t)
+        u_sgd = sa.sparse_sgd_rows(off(olds[0]), u_ids, u_rows, lr)
+        torch.cuda.synchronize()
+        unaligned = held(views, u_sgd, " (views off alignment)")
+        del views, u_ids, u_rows, u_sgd
+    faults_rejected = None
+    if d == CTR["embedding_size"]:
+        args = (uniq, merged, lr_t, n, d, vocab,
+                *sa.adam_constants(0.9, 0.999, 1e-8), width)
+        bad = [t.clone() for t in olds]
+        sa.launch(faults["writes_pad_rows"], dev, *bad, *args)
+        torch.cuda.synchronize()
+        check(not all(untouched_bit_equal(b, o, touched)
+                      for b, o in zip(bad, olds)),
+              "the untouched-rows check passes a kernel that writes "
+              "padding rows")
+        bad = [t.clone() for t in olds]
+        sa.launch(faults["no_one_minus_beta1"], dev, *bad, *args)
+        torch.cuda.synchronize()
+        check(sparse_err(bad[1], want[1], olds[1]) > 1e-6,
+              "the check passes a kernel without the (1-β1) term")
+        del bad
+        faults_rejected = True
+    del want, want_sgd, got_sgd
+    torch.cuda.empty_cache()
+
+    # times: tables updated in place on every launch, L2 flushed
+    p, m, v = got
+
+    def adam():
+        sa.sparse_adam_rows(p, m, v, uniq, merged, lr_t)
+
+    def sgd():
+        sa.sparse_sgd_rows(p, uniq, merged, lr)
+
+    t = {"ms": cuda_ms(adam, flush=flush),
+         "device_ms": device_ms(adam, K4A_KERNEL, flush=flush),
+         "plain_ms": cuda_ms(lambda: sa.sparse_adam_rows_reference(
+             p, m, v, uniq, merged, lr_t), flush=flush),
+         "sgd_ms": cuda_ms(sgd, flush=flush),
+         "sgd_device_ms": device_ms(sgd, K4B_KERNEL, flush=flush),
+         "sgd_plain_ms": cuda_ms(lambda: sa.sparse_sgd_rows_reference(
+             p, uniq, merged, lr), flush=flush)}
+    if vocab == CTR["sparse_feature_dim"]:
         dirty = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-        t["ms_after_write_flush"] = cuda_ms(lambda: sa.sparse_adam_rows(
-            p, m, v, uniq, merged, lr_t), flush=dirty.zero_)
+        t["ms_after_write_flush"] = cuda_ms(adam, flush=dirty.zero_)
         del dirty
-        # library yardsticks: torch.optim.SparseAdam on the coalesced sparse
-        # gradient, index_add_ with alpha = -lr
-        param = torch.nn.Parameter(olds[0].clone())
-        grad = torch.sparse_coo_tensor(valid[None], merged[:n_u],
-                                       (vocab, d), check_invariants=False
-                                       ).coalesce()
-        opt = torch.optim.SparseAdam([param], lr=1e-3)
+    # library yardsticks: torch.optim.SparseAdam on the coalesced sparse
+    # gradient, index_add_ with alpha = -lr
+    del m, v, got
+    param = torch.nn.Parameter(p)
+    grad = torch.sparse_coo_tensor(valid[None], merged[:n_u], (vocab, d),
+                                   check_invariants=False).coalesce()
+    opt = torch.optim.SparseAdam([param], lr=1e-3)
 
-        def lib_adam():
-            param.grad = grad
-            opt.step()
+    def lib_adam():
+        param.grad = grad
+        opt.step()
 
-        t["library_ms"] = cuda_ms(lib_adam, flush=flush)
-        t["sgd_library_ms"] = cuda_ms(lambda: p.index_add_(
-            0, valid, merged[:n_u], alpha=-1e-3), flush=flush)
-        # least work: the ids read once (8 B each) and, per touched element,
-        # K4a reads p, m, v, g and writes p, m, v (28 B, ~11 flops), K4b
-        # reads p, g and writes p (12 B, 2 flops). The sector count is what
-        # the card moves for rows that lie at random: whole 32-byte sectors
-        # of p, m, v, the contiguous gradient rows and ids as they are.
-        elems = n_u * d
-        sectors = row_sectors(valid, 4 * d)
-        work = {"adam": (28 * elems + 8 * n, 11 * elems,
-                         6 * 32 * sectors + 4 * elems + 8 * n),
-                "sgd": (12 * elems + 8 * n, 2 * elems,
-                        2 * 32 * sectors + 4 * elems + 8 * n)}
-        for k, (nbytes, flops, sbytes) in work.items():
-            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-            t_ops = flops / H100_F32_FLOP_PER_S * 1e3
-            pre = "" if k == "adam" else "sgd_"
-            t[pre + "bound_ms"] = max(t_bytes, t_ops)
-            t[pre + "bound_by"] = "bytes" if t_bytes >= t_ops \
-                else "operations"
-            t[pre + "bytes"] = nbytes
-            t[pre + "sector_bytes"] = sbytes
-            t[pre + "bound_sectors_ms"] = sbytes / H100_BYTES_PER_S * 1e3
-        emit("kernel_vs_plain", kernel="sparse_rows", table=table,
-             shape={"V": vocab, "D": d, "N": n, "distinct_ids": n_u,
-                    "row_v_minus_1_named": bool(touched[vocab - 1])},
-             max_err=errs, tol="1e-6 of max(|after|, |before|); untouched "
-             "rows bit-equal", planted_faults_rejected=table == "sparse_emb",
-             **t)
-        out[table] = dict(t, errs=errs, distinct_ids=n_u)
-        del p, m, v, olds, got, want, param, grad, opt
-        torch.cuda.empty_cache()
+    t["library_ms"] = cuda_ms(lib_adam, flush=flush)
+    del param, grad, opt
+    torch.cuda.empty_cache()
+    t["sgd_library_ms"] = cuda_ms(lambda: p.index_add_(
+        0, valid, merged[:n_u], alpha=-1e-3), flush=flush)
+    t["sgd_library_device_ms"] = device_ms(lambda: p.index_add_(
+        0, valid, merged[:n_u], alpha=-1e-3), r"indexFunc", flush=flush)
+    # least work: the ids read once (8 B each) and, per touched element,
+    # K4a reads p, m, v, g and writes p, m, v (28 B, ~11 flops), K4b
+    # reads p, g and writes p (12 B, 2 flops). The sector count is what
+    # the card moves for rows that lie at random: whole 32-byte sectors
+    # of p, m, v, the contiguous gradient rows and ids as they are.
+    elems = n_u * d
+    sectors = row_sectors(valid, 4 * d)
+    work = {"adam": (28 * elems + 8 * n, 11 * elems,
+                     6 * 32 * sectors + 4 * elems + 8 * n),
+            "sgd": (12 * elems + 8 * n, 2 * elems,
+                    2 * 32 * sectors + 4 * elems + 8 * n)}
+    for k, (nbytes, flops, sbytes) in work.items():
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_F32_FLOP_PER_S * 1e3
+        pre = "" if k == "adam" else "sgd_"
+        t[pre + "bound_ms"] = max(t_bytes, t_ops)
+        t[pre + "bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        t[pre + "bytes"] = nbytes
+        t[pre + "sector_bytes"] = sbytes
+        t[pre + "bound_sectors_ms"] = sbytes / H100_BYTES_PER_S * 1e3
+    emit("kernel_vs_plain", kernel="sparse_rows",
+         shape={"V": vocab, "D": d, "N": n, "distinct_ids": n_u,
+                "row_v_minus_1_named": bool(touched[vocab - 1])},
+         vector_width=width, max_err=errs,
+         unaligned_views_max_err=unaligned,
+         tol="1e-6 of max(|after|, |before|); K4b and untouched rows "
+         "bit-equal", planted_faults_rejected=faults_rejected, **t)
+    del p, olds, touched, uniq, merged
+    torch.cuda.empty_cache()
+    return dict(t, errs=errs, distinct_ids=n_u)
+
+
+def sparse_kernel_phase(dev):
+    """K4a/K4b against their plain versions at the CTR path's shapes
+    (``sparse_table_case``): tables [V, 10] and [V, 1] at V = 1e6 and at
+    V = 5e7 (2 GB a [V, 10] table), the ids of bench_deepfm's batch at
+    that V (1024 x 26 draws from RandomState(0)); the launch floor; then
+    K2a/K2b at [1024, 2]."""
+    faults = build_sparse_faults()
+    flush = l2_flusher(dev)
+    floor = launch_floor_ms(flush)
+    emit("launch_floor", ms=floor, launch="torch.cuda._sleep(0)")
+    out = {}
+    for vocab in (CTR["sparse_feature_dim"], CTR_BIG_V):
+        ids = torch.as_tensor(ctr_feed(vocab=vocab)["ids"].reshape(-1),
+                              device=dev)
+        for table, d in (("emb", CTR["embedding_size"]), ("w1", 1)):
+            out[vocab, table] = sparse_table_case(dev, vocab, d, ids, faults,
+                                                  flush)
     k2 = ctr_xent_check(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
     def row(name, line, pre, err_key):
-        emb, w1 = out["sparse_emb"], out["sparse_w1"]
+        v1, big = CTR["sparse_feature_dim"], CTR_BIG_V
+        emb = out[v1, "emb"]
+        keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                "library_device_ms", "bound_sectors_ms")
+
+        def times(case):
+            return {k: case.get(pre + k) for k in keys}
+
         return {"name": name, "route": "cuda",
                 "source": "paddle_tpu_torch/csrc/sparse_adam.cu",
                 "replaces": "paddle_tpu/ops/pallas_kernels/sparse_adam.py:"
                             + line,
                 "launches": None,
-                "max_abs_err": max(emb["errs"][k]["abs"] for k in err_key),
-                "ms": emb[pre + "ms"], "plain_ms": emb[pre + "plain_ms"],
+                "max_abs_err": max(c["errs"][k]["abs"] for c in out.values()
+                                   for k in err_key),
+                "ms": emb[pre + "ms"], "device_ms": emb[pre + "device_ms"],
+                "plain_ms": emb[pre + "plain_ms"],
                 "bound_ms": emb[pre + "bound_ms"],
                 "bound_by": emb[pre + "bound_by"],
                 "library_ms": emb[pre + "library_ms"],
+                "library_device_ms": emb.get(pre + "library_device_ms"),
                 "library_call": "torch.optim.SparseAdam.step()" if pre == ""
                 else "Tensor.index_add_(alpha=-lr)",
-                "shape": "[1e6, 10] table, N = %d ids" % ids.shape[0],
+                "shape": "[1e6, 10] table, N = %d ids"
+                         % (CTR_BATCH * CTR["num_fields"]),
+                "design": K4_DESIGN, "launch_floor_ms": floor,
                 "bound_sectors_ms": emb[pre + "bound_sectors_ms"],
                 **({"ms_after_write_flush": emb["ms_after_write_flush"]}
                    if pre == "" else {}),
-                "w1_table": {k: w1[pre + k] for k in (
-                    "ms", "plain_ms", "bound_ms", "library_ms",
-                    "bound_sectors_ms")}}
+                "w1_table": times(out[v1, "w1"]),
+                "v5e7": {"emb_table": times(out[big, "emb"]),
+                         "w1_table": times(out[big, "w1"])}}
 
     return [row("sparse_adam_rows", "235", "", ("p", "m", "v")),
             row("sparse_sgd_rows", "301", "sgd_", ("p_sgd",))], k2
@@ -1597,9 +1764,9 @@ def ctr_run(fluid, vocab, opt="adam", is_sparse=True, warm=2, timed=6,
 def ctr_train_phase(k4_rows, xent_rows, k2_ctr):
     """DeepFM at full width (V = 1e6, batch 1024, float32, TF32 off): Adam
     and SGD runs of 2 warm-up and 6 timed steps, the Adam one profiled;
-    then the V = 5e7 sparse Adam step, which must allocate no [V, D]
-    gradient, and, as a finding, the dense (is_sparse=False) step at both
-    V."""
+    then the V = 5e7 sparse Adam and SGD steps, which must launch K4a or
+    K4b twice a step and allocate no [V, D] gradient, and, as a finding,
+    the dense (is_sparse=False) step at both V."""
     import paddle_tpu_torch as fluid
 
     vocab = CTR["sparse_feature_dim"]
@@ -1630,15 +1797,25 @@ def ctr_train_phase(k4_rows, xent_rows, k2_ctr):
                                if k.startswith(key + "_")}}
 
     big = ctr_run(fluid, CTR_BIG_V, "adam")
-    check(big["launches"]["k4a"] == 2 * steps,
-          "V = 5e7: K4a launches %r" % big["launches"])
-    check(big["peak_minus_state_bytes"] < 1e9,
-          "V = 5e7 sparse step: peak %d B is %d B above the state's %d B "
-          "(a [V, D] gradient?)" % (big["peak_memory_bytes"],
-                                    big["peak_minus_state_bytes"],
-                                    big["state_bytes"]))
-    emit("ctr_train", config=dict(CTR, sparse_feature_dim=CTR_BIG_V),
-         step_ms_at_1e6=adam["step_ms_median"], **big)
+    big_sgd = ctr_run(fluid, CTR_BIG_V, "sgd")
+    for run, k4 in ((big, "k4a"), (big_sgd, "k4b")):
+        check(run["losses"][-1] < run["losses"][0],
+              "V = 5e7 %s loss did not fall: %r" % (run["optimizer"],
+                                                    run["losses"]))
+        check(run["launches"] == {"k4a": 0, "k4b": 0, "k2a": steps,
+                                  "k2b": steps, k4: 2 * steps},
+              "V = 5e7 %s launches %r over %d steps"
+              % (run["optimizer"], run["launches"], steps))
+        check(run["peak_minus_state_bytes"] < 1e9,
+              "V = 5e7 sparse %s step: peak %d B is %d B above the state's "
+              "%d B (a [V, D] gradient?)"
+              % (run["optimizer"], run["peak_memory_bytes"],
+                 run["peak_minus_state_bytes"], run["state_bytes"]))
+        emit("ctr_train", config=dict(CTR, sparse_feature_dim=CTR_BIG_V),
+             step_ms_at_1e6=(adam if k4 == "k4a" else sgd)["step_ms_median"],
+             **run)
+    k4_rows[0]["launches_v5e7"] = big["launches"]["k4a"]
+    k4_rows[1]["launches_v5e7"] = big_sgd["launches"]["k4b"]
     for v in (vocab, CTR_BIG_V):
         dense = ctr_run(fluid, v, "adam", is_sparse=False, timed=4)
         emit("ctr_train_dense", config=dict(CTR, sparse_feature_dim=v),

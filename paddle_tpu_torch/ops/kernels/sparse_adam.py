@@ -14,15 +14,19 @@ ids name, in place, so the cost of a step does not grow with V:
 * K4b :func:`sparse_sgd_rows`: ``p[id] -= lr · row``.
 
 Both require merged ids: the kernels write each named row from one thread
-per element and have no atomics, so two equal ids would race. Padding ids
-(== V) and ids below 0 touch nothing.
+(or one group of lanes) and have no atomics, so two equal ids would race.
+Padding ids (== V) and ids below 0 touch nothing. A thread loads a row in
+the widest vector its alignment allows (:func:`vector_width`), so a table
+view whose storage offset breaks 16 bytes takes a narrower instantiation
+of the same kernel, and one off 8 bytes the scalar one.
 
 The wrappers take the plain versions (:func:`sparse_adam_rows_reference`,
 :func:`sparse_sgd_rows_reference`) for tensors on the CPU and, for CUDA
 tensors, launch the kernel or raise: nothing falls back from a kernel to
 the plain version. Both routes update the tables in place and return them,
 so a caller that holds a table sees the update either way. Each kernel
-launch adds one to :data:`LAUNCHES_ADAM` or :data:`LAUNCHES_SGD`.
+launch adds one to :data:`LAUNCHES_ADAM` or :data:`LAUNCHES_SGD`; with no
+ids (N = 0) nothing is launched.
 """
 
 from __future__ import annotations
@@ -34,8 +38,8 @@ import torch
 
 __all__ = ["sparse_adam_rows", "sparse_sgd_rows",
            "sparse_adam_rows_reference", "sparse_sgd_rows_reference",
-           "sparse_rows_supported", "adam_constants", "bind", "launch",
-           "LAUNCHES_ADAM", "LAUNCHES_SGD"]
+           "sparse_rows_supported", "adam_constants", "vector_width",
+           "load_width", "bind", "launch", "LAUNCHES_ADAM", "LAUNCHES_SGD"]
 
 LAUNCHES_ADAM = 0  # K4a launches since import (or since a caller reset it)
 LAUNCHES_SGD = 0   # K4b launches
@@ -47,14 +51,15 @@ def bind(lib):
     """(adam, sgd): the C entry points of a loaded ``sparse_adam`` library
     with their argument types set."""
     adam, sgd = lib.sparse_adam_rows, lib.sparse_sgd_rows
-    # p, m, v, ids, rows, lr_t, n, d, vocab, b1, 1-b1, b2, 1-b2, eps, stream
+    # p, m, v, ids, rows, lr_t, n, d, vocab, b1, 1-b1, b2, 1-b2, eps, vec,
+    # stream
     adam.argtypes = ([ctypes.c_void_p] * 6
                      + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
-                     + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-    # p, ids, rows, lr, n, d, vocab, stream
+                     + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
+    # p, ids, rows, lr, n, d, vocab, vec, stream
     sgd.argtypes = ([ctypes.c_void_p] * 4
-                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_void_p])
+                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+                    + [ctypes.c_int, ctypes.c_void_p])
     adam.restype = sgd.restype = ctypes.c_int
     return adam, sgd
 
@@ -82,6 +87,25 @@ def adam_constants(beta1, beta2, epsilon):
     f = np.float32
     return (float(f(beta1)), float(f(1) - f(beta1)), float(f(beta2)),
             float(f(1) - f(beta2)), float(f(epsilon)))
+
+
+def vector_width(d, *ptrs):
+    """Floats a thread moves with one load or store of a row: 4 where
+    ``d % 4 == 0`` and every pointer (the tables', the gradient rows') lies
+    on 16 bytes, 2 where ``d`` is even and they lie on 8, else 1. Every row
+    of a [*, d] float32 tensor at such a base then starts on the same
+    boundary."""
+    for w in (4, 2):
+        if d % w == 0 and all(p % (4 * w) == 0 for p in ptrs):
+            return w
+    return 1
+
+
+def load_width(tables, rows):
+    """:func:`vector_width` of [V, D] ``tables`` and [N, D] gradient
+    ``rows``: the C entry points' ``vec`` argument."""
+    return vector_width(tables[0].shape[1], rows.data_ptr(),
+                        *(t.data_ptr() for t in tables))
 
 
 def _check(tables, ids, rows, lr):
@@ -152,11 +176,14 @@ def sparse_adam_rows(param, moment1, moment2, ids, rows, lr_t, beta1=0.9,
     if param.device.type == "cpu":
         return sparse_adam_rows_reference(param, moment1, moment2, ids, rows,
                                           lr_t, beta1, beta2, epsilon)
+    if ids.shape[0] == 0:
+        return param, moment1, moment2
     ids, rows = ids.contiguous(), rows.contiguous()
     vocab, d = param.shape
     adam, _ = _kernels()
     launch(adam, param.device, param, moment1, moment2, ids, rows, lr_t,
-            ids.shape[0], d, vocab, *adam_constants(beta1, beta2, epsilon))
+           ids.shape[0], d, vocab, *adam_constants(beta1, beta2, epsilon),
+           load_width((param, moment1, moment2), rows))
     LAUNCHES_ADAM += 1
     return param, moment1, moment2
 
@@ -171,10 +198,13 @@ def sparse_sgd_rows(param, ids, rows, lr):
     _check((param,), ids, rows, lr)
     if param.device.type == "cpu":
         return sparse_sgd_rows_reference(param, ids, rows, lr)
+    if ids.shape[0] == 0:
+        return param
     ids, rows = ids.contiguous(), rows.contiguous()
     vocab, d = param.shape
     _, sgd = _kernels()
-    launch(sgd, param.device, param, ids, rows, lr, ids.shape[0], d, vocab)
+    launch(sgd, param.device, param, ids, rows, lr, ids.shape[0], d, vocab,
+           load_width((param,), rows))
     LAUNCHES_SGD += 1
     return param
 

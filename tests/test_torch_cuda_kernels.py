@@ -524,8 +524,48 @@ def sparse_case(dev, vocab, d, n, seed):
     return (p, m, v), uniq, merged
 
 
-@pytest.mark.parametrize("vocab,d,n", [(1000, 10, 300), (5000, 1, 700),
-                                       (64, 7, 200)])
+def sparse_held(tables, uniq, merged, lr_t, vocab):
+    """K4a and K4b on ``tables`` (left as they were) against their plain
+    versions: every element within 1e-6 of the larger of its values before
+    and after (the plain version stores m + (m_new - m) where the kernel
+    stores m_new), K4b bit-equal, untouched rows bit-equal."""
+    p, m, v = tables
+    touched = torch.zeros(vocab, dtype=torch.bool, device=p.device)
+    touched[uniq[uniq < vocab]] = True
+    want = sa.sparse_adam_rows_reference(p.clone(), m.clone(), v.clone(),
+                                         uniq, merged, lr_t)
+    want_sgd = sa.sparse_sgd_rows_reference(p.clone(), uniq, merged, lr_t)
+    olds = [t.clone() for t in tables]
+    got = sa.sparse_adam_rows(p, m, v, uniq, merged, lr_t)
+    torch.cuda.synchronize()
+    for g, w, old in zip(got, want, olds):
+        scale = torch.maximum(w.abs(), old.abs()).clamp_min(1e-30)
+        assert float(((g - w).abs() / scale).max()) <= 1e-6
+        assert torch.equal(g[~touched].view(torch.int32),
+                           old[~touched].view(torch.int32))
+    got_sgd = sa.sparse_sgd_rows(olds[0], uniq, merged, lr_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got_sgd.view(torch.int32), want_sgd.view(torch.int32))
+    return touched
+
+
+def off_by(t, elems):
+    """A contiguous copy of ``t`` whose storage starts ``elems`` elements
+    into a fresh buffer: 4 * elems bytes off 16-byte alignment for
+    float32, 8 * elems for int64."""
+    flat = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    return flat[elems:].view(t.shape).copy_(t)
+
+
+# D = 10 (8 lanes of float2 a row) and 1 (one thread a row), DeepFM's
+# widths, and for the other lane counts and vector widths: 2 (float2), 4,
+# 16 and 64 (float4), 7 and 33 (scalar; 33 needs two passes of 32 lanes)
+SPARSE_CASES = [(1000, 10, 300), (5000, 1, 700), (64, 7, 200),
+                (3000, 2, 500), (2000, 4, 400), (1500, 16, 300),
+                (900, 33, 257), (700, 64, 200)]
+
+
+@pytest.mark.parametrize("vocab,d,n", SPARSE_CASES)
 def test_sparse_row_kernels_match_plain_versions(cuda, vocab, d, n):
     """K4a and K4b against their plain versions on the same merged rows:
     every element within 1e-6 of the larger of its values before and after
@@ -533,6 +573,8 @@ def test_sparse_row_kernels_match_plain_versions(cuda, vocab, d, n):
     m_new), untouched rows bit-equal, row V-1 included, which only a
     padding id clamps to."""
     (p, m, v), uniq, merged = sparse_case(cuda, vocab, d, n, vocab + d)
+    want_width = 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+    assert sa.load_width((p, m, v), merged) == want_width
     lr_t = torch.tensor([3e-3], device=cuda)
     touched = torch.zeros(vocab, dtype=torch.bool, device=cuda)
     touched[uniq[uniq < vocab]] = True
@@ -556,6 +598,85 @@ def test_sparse_row_kernels_match_plain_versions(cuda, vocab, d, n):
     assert sa.LAUNCHES_SGD == s0 + 1
     assert torch.equal(got, want)
     assert torch.equal(got[~touched], p[~touched])
+
+
+@pytest.mark.parametrize("d", [10, 1, 4, 16])
+@pytest.mark.parametrize("tab_off,in_off", [(1, 0), (2, 0), (0, 1), (3, 1)])
+def test_sparse_row_kernels_take_views_off_alignment(cuda, d, tab_off,
+                                                     in_off):
+    """Contiguous table, id and row views whose storage offsets break 8- or
+    16-byte alignment take a narrower instantiation of the same kernel
+    (never the plain version) and give the same result."""
+    vocab, n = 1200, 400
+    tables, uniq, merged = sparse_case(cuda, vocab, d, n, d + tab_off)
+    tables = [off_by(t, tab_off) for t in tables]
+    uniq, merged = off_by(uniq, in_off), off_by(merged, in_off)
+    # fresh buffers lie on 256 bytes: the offsets alone set the widths
+    width = next((w for w in (4, 2) if d % w == 0 and tab_off % w == 0
+                  and in_off % w == 0), 1)
+    assert sa.load_width(tables, merged) == width
+    a0, s0 = sa.LAUNCHES_ADAM, sa.LAUNCHES_SGD
+    touched = sparse_held(tables, uniq, merged,
+                          torch.tensor([3e-3], device=cuda), vocab)
+    assert (sa.LAUNCHES_ADAM - a0, sa.LAUNCHES_SGD - s0) == (1, 1)
+    assert touched.any()
+
+
+@pytest.mark.parametrize("d", [10, 1, 4, 33])
+def test_sparse_row_kernels_with_no_rows_or_only_padding(cuda, d):
+    """N = 0 launches nothing and changes nothing; ids that are all padding
+    (== V) launch the kernels and touch no row, V-1 included."""
+    vocab = 500
+    tables, _, _ = sparse_case(cuda, vocab, d, 50, 3)
+    lr_t = torch.tensor([3e-3], device=cuda)
+    empty_ids = torch.empty(0, dtype=torch.int64, device=cuda)
+    empty_rows = torch.empty(0, d, device=cuda)
+    olds = [t.clone() for t in tables]
+    a0, s0 = sa.LAUNCHES_ADAM, sa.LAUNCHES_SGD
+    sa.sparse_adam_rows(*tables, empty_ids, empty_rows, lr_t)
+    sa.sparse_sgd_rows(tables[0], empty_ids, empty_rows, lr_t)
+    assert (sa.LAUNCHES_ADAM, sa.LAUNCHES_SGD) == (a0, s0)
+    pad_ids = torch.full((37,), vocab, dtype=torch.int64, device=cuda)
+    pad_rows = torch.randn(37, d, device=cuda)
+    sa.sparse_adam_rows(*tables, pad_ids, pad_rows, lr_t)
+    sa.sparse_sgd_rows(tables[0], pad_ids, pad_rows, lr_t)
+    torch.cuda.synchronize()
+    assert (sa.LAUNCHES_ADAM, sa.LAUNCHES_SGD) == (a0 + 1, s0 + 1)
+    for t, old in zip(tables, olds):
+        assert torch.equal(t.view(torch.int32), old.view(torch.int32))
+
+
+def test_sparse_sgd_past_2_to_the_31_elements(cuda):
+    """K4b on one [1.4e8, 16] table (8.96 GB; element offsets id * 16 pass
+    2^31): the touched rows against the plain version run on the rows
+    gathered before the update, bit-equal; the rows beside each touched row
+    (when untouched) unchanged."""
+    vocab, d, n = 140_000_000, 16, 4096
+    if torch.cuda.get_device_properties(cuda).total_memory < 16e9:
+        pytest.skip("needs a card with 16 GB")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = torch.empty(vocab, d, device=cuda).normal_(generator=g)
+    raw = torch.randint(0, vocab, (n,), generator=g, device=cuda)
+    raw[:8] = torch.arange(vocab - 9, vocab - 1, device=cuda)  # the far end
+    from paddle_tpu_torch.core.sparse import merge_rows
+
+    uniq, merged = merge_rows(raw, torch.randn(n, d, generator=g,
+                                               device=cuda), vocab)
+    valid = uniq[uniq < vocab]
+    assert int(valid.max()) * d > 2 ** 31
+    near = torch.cat([valid - 1, valid + 1]).clamp(0, vocab - 1)
+    near = near[~torch.isin(near, valid)]
+    before, near_before = p[valid].clone(), p[near].clone()
+    lr = torch.tensor([0.25], device=cuda)
+    want = sa.sparse_sgd_rows_reference(
+        before.clone(), torch.arange(valid.shape[0], device=cuda),
+        merged[:valid.shape[0]], lr)
+    sa.sparse_sgd_rows(p, uniq, merged, lr)
+    torch.cuda.synchronize()
+    assert torch.equal(p[valid].view(torch.int32), want.view(torch.int32))
+    assert torch.equal(p[near].view(torch.int32),
+                       near_before.view(torch.int32))
+    del p
 
 
 def test_sparse_row_kernel_wrapper_rules(cuda):

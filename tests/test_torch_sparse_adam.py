@@ -11,6 +11,8 @@
 * Padding ids clamp to row V-1 for the gather and leave it bit-equal, -0.0
   included; the wrappers update in place and take the plain versions for
   CPU tensors without counting a launch.
+* The vector width the wrappers hand the kernels, from D and the pointers'
+  alignment (fake pointers and real views).
 
 The kernels themselves run only on the card (``test_torch_cuda_kernels.py``).
 """
@@ -67,7 +69,12 @@ def test_merge_rows_matches_jax(vocab, dim, n, pattern):
     assert (uniq[k:] == vocab).all() and not merged[k:].any()
 
 
-CASES = [(500, 10, 64), (300, 1, 80), (64, 7, 40)]
+# D = 10 (8 lanes of float2 a row) and 1 (one thread a row), DeepFM's
+# widths, then one for each other vector width and lane count of the CUDA
+# kernel: 7 and 33 scalar (33: two passes of 32 lanes), 2 float2, 4 and 16
+# float4
+CASES = [(500, 10, 64), (300, 1, 80), (64, 7, 40), (400, 2, 50),
+         (300, 4, 60), (200, 16, 40), (150, 33, 30)]
 
 
 @pytest.mark.parametrize("vocab,dim,n", CASES)
@@ -149,3 +156,36 @@ def test_wrappers_update_in_place_and_check_their_inputs():
         tsa.sparse_adam_rows(p, m.t().contiguous().t(), v, uniq, merged, 1e-2)
     assert tsa.sparse_rows_supported(p, m, v)
     assert not tsa.sparse_rows_supported(p, m.double(), v)
+
+
+@pytest.mark.parametrize("d,ptrs,width", [
+    (10, (256, 512, 1024, 64), 2), (10, (256, 512, 1028, 64), 1),
+    (10, (256, 512, 1024, 72), 2), (1, (256, 256), 1), (4, (256, 512), 4),
+    (4, (256, 520), 2), (4, (260, 512), 1), (16, (4096, 48), 4),
+    (16, (4096, 40), 2), (2, (16, 24), 2), (2, (16, 20), 1), (6, (16, 32), 2),
+    (7, (16, 32), 1), (33, (256, 256), 1), (64, (16, 16, 16, 16), 4),
+    (8, (16, 16), 4), (8, (16, 8), 2), (12, (48, 4), 1), (3, (16, 16), 1),
+    (20, (32, 40), 2)])
+def test_vector_width_follows_d_and_every_pointer(d, ptrs, width):
+    """4 floats a load where D % 4 == 0 and every pointer lies on 16 bytes,
+    2 where D is even and they lie on 8, else 1."""
+    assert tsa.vector_width(d, *ptrs) == width
+
+
+@pytest.mark.parametrize("d", [10, 1, 4])
+def test_load_width_of_views_off_alignment(d):
+    """Contiguous views one or two elements into a buffer narrow the width
+    the wrapper hands the kernel; neither changes the route on the CPU,
+    where the plain version runs."""
+    def off(t, k):
+        flat = torch.empty(t.numel() + k, dtype=t.dtype)
+        return flat[k:].view(t.shape).copy_(t)
+
+    _, _, uniq, merged, tables = merged_case(d, 100, d, 30)
+    tables = [torch.tensor(t) for t in tables]
+    base = tsa.load_width(tables, merged)
+    assert base == (4 if d % 4 == 0 else 2 if d % 2 == 0 else 1)
+    assert tsa.load_width([off(t, 1) for t in tables], merged) == 1
+    assert tsa.load_width(tables, off(merged, 1)) == 1
+    two = tsa.load_width([off(t, 2) for t in tables], merged)
+    assert two == (2 if d % 2 == 0 else 1)
