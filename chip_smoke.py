@@ -35,7 +35,15 @@ paths through the entry points a user calls:
   K2a, K2b once, every SGD step K4b twice, the losses must be finite and
   fall; at V = 5e7 the same under Adam and SGD, and the sparse step must
   allocate no [V, D] gradient; at V = 1e4, batch 64 the card's losses and
-  state must match the CPU's.
+  state must match the CPU's;
+* vision training: ResNet-50 as ``bench.py``'s ``bench_resnet50`` builds
+  and feeds it (batch 64 x 3 x 224 x 224, 1000 classes, Momentum(0.1,
+  0.9)) at full width and depth, in float32 and under AMP; every step
+  must launch K2a and K2b once, the losses be finite and the first step
+  descend; the card must match the CPU at test size (the stem's max pool
+  on ties, ResNet-18 in float32 and under AMP, ResNet-50 at 64 x 64); the
+  MNIST MLP and LeNet-5 must train to an accuracy above 0.9 through K2 at
+  [64, 10].
 
 Each phase prints one JSON line; any failed check exits non-zero. The line
 before the last holds every kernel's numbers, the last line the device.
@@ -75,6 +83,22 @@ CTR = dict(sparse_feature_dim=1_000_000, embedding_size=10, num_fields=26,
            layer_sizes=(400, 400, 400))
 CTR_BATCH, CTR_DENSE = 1024, 13
 CTR_BIG_V = 50_000_000  # the largest V of bench.py's sweep one card holds
+
+# ResNet-50 as bench.py's bench_resnet50 trains it; the MNIST models at the
+# batch of tests/test_mnist_mlp.py; the loss shapes K2 meets on their paths
+RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES = 64, 224, 1000
+MNIST_BATCH, MNIST_DIM, MNIST_CLASSES = 64, 784, 10
+# the ResNet step's kernels by kind, for its profile (first match wins)
+RESNET_GROUPS = {
+    "conv_cudnn": r"cudnn|xmma|dgrad|wgrad|fprop|conv|implicit",
+    "copy_cast": r"copy",
+    "reduce": r"reduce_kernel",
+    "elementwise": r"elementwise|functor",
+    "gemm": r"gemm|cutlass",
+    "softmax_xent": r"xent_"}
+VISION_XENT = ((RESNET_BATCH, RESNET_CLASSES, torch.float32),
+               (RESNET_BATCH, RESNET_CLASSES, torch.bfloat16),
+               (MNIST_BATCH, MNIST_CLASSES, torch.float32))
 
 
 def check(ok, msg):
@@ -596,6 +620,9 @@ def xent_kernel_phase(dev):
     g1 = g.reshape(-1)
     bwd_lib = cuda_ms(lambda: torch.autograd.grad(
         lib_loss, [xr], g1, retain_graph=True), flush=flush)
+    vision = {vision_key(n_, v_, dt): xent_shape_check(
+        dev, flush, n_, v_, dt, seed=2 + i, kernel="softmax_xent_vision")
+        for i, (n_, v_, dt) in enumerate(VISION_XENT)}
     del xr, lib_loss, flush
 
     def row(name, fn_line, ms, dev, plain, lib, nbytes, flops, err):
@@ -632,9 +659,20 @@ def xent_kernel_phase(dev):
          bwd={"ms": bwd_ms, "device_ms": bwd_dev, "plain_ms": bwd_plain,
               "library_ms": bwd_lib,
               "bound_ms": rows[1]["bound_ms"]})
+    for row, key in zip(rows, ("fwd", "bwd")):
+        row["vision_shapes"] = {
+            name: {"launches": None, "max_err": c["max_err"],
+                   **{k[len(key) + 1:]: val for k, val in c.items()
+                      if k.startswith(key + "_")}}
+            for name, c in vision.items()}
     del x32, lab, g, loss, lse
     torch.cuda.empty_cache()
     return rows
+
+
+def vision_key(n, v, dtype):
+    """The name of a K2 vision shape in the kernels line: "64x1000_float32"."""
+    return "%dx%d_%s" % (n, v, str(dtype).replace("torch.", ""))
 
 
 def build_transformer(fluid, n_layer, d_model, n_head, d_inner, seq, vocab,
@@ -735,10 +773,12 @@ def train_phase(xent_rows):
 
 
 def train_profile_phase(exe, main, loss, feed, scope,
-                        phase="train_profile"):
+                        phase="train_profile", groups=None):
     """Where a training step's time goes: one step under torch.profiler;
     device busy share = kernel time summed over the CUDA events / wall time
-    of the step (the profiler's host cost is in the wall time)."""
+    of the step (the profiler's host cost is in the wall time). ``groups``
+    ({name: regular expression}) sums the kernels by the first pattern
+    their name matches, the rest under "other"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -749,9 +789,18 @@ def train_profile_phase(exe, main, loss, feed, scope,
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    by_group = None
+    if groups:
+        by_group = {g: {"device_ms": 0.0, "count": 0}
+                    for g in list(groups) + ["other"]}
+        for e in kern:
+            g = next((g for g, pat in groups.items()
+                      if re.search(pat, e.key, re.I)), "other")
+            by_group[g]["device_ms"] += e.self_device_time_total / 1e3
+            by_group[g]["count"] += e.count
     emit(phase, wall_ms=secs[0] * 1e3, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / (secs[0] * 1e3) if busy_ms else None,
-         kernels_launched=sum(e.count for e in kern),
+         kernels_launched=sum(e.count for e in kern), by_group=by_group,
          top=[{"name": e.key[:80], "count": e.count,
                "device_ms": e.self_device_time_total / 1e3} for e in top])
 
@@ -1418,26 +1467,42 @@ def build_sparse_faults():
     return fns
 
 
-def ctr_xent_check(dev, flush):
-    """K2a/K2b at DeepFM's loss shape [1024, 2] (no smoothing): one 256-
-    thread block per two-element row. The loss to 1e-5 relative, dlogits
-    to 1e-6 absolute; times beside bound, plain version and library."""
+def xent_shape_check(dev, flush, n, v, dtype=torch.float32, seed=1,
+                     kernel="softmax_xent_ctr"):
+    """K2a/K2b at one loss shape [n, v] without smoothing (DeepFM's
+    [1024, 2]; the vision shapes [64, 1000] and [64, 10]): the loss to 1e-5
+    relative against the plain version on the same values (bf16 upcasts
+    exactly), dlogits to 1e-6 absolute in float32 and in bf16 each element
+    to 2e-2·|want| + 1e-6·(max |want| of its row); times beside the byte
+    bound, the plain version and ``F.cross_entropy``."""
     from paddle_tpu_torch.ops.kernels import softmax_xent as sx
 
     F = torch.nn.functional
-    n, v = CTR_BATCH, 2
-    rng = np.random.RandomState(1)
-    x = torch.as_tensor((rng.randn(n, v) * 2).astype(np.float32), device=dev)
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor((rng.randn(n, v) * 2).astype(np.float32),
+                        device=dev).to(dtype)
     lab = torch.as_tensor(rng.randint(0, v, n).astype(np.int64), device=dev)
     g = torch.as_tensor(rng.randn(n, 1).astype(np.float32), device=dev)
     loss, lse = sx.softmax_xent_fwd(x, lab)
     dx = sx.softmax_xent_bwd(x, lab, lse, g)
     torch.cuda.synchronize()
-    want_loss, want_lse = sx.softmax_xent_reference(x, lab)
-    want_dx = sx.softmax_xent_reference_bwd(x, lab, want_lse, g)
-    e_loss, e_dx = rel_err(loss, want_loss), float((dx - want_dx).abs().max())
-    check(e_loss <= 1e-5, "K2a [1024, 2] loss rel err %g > 1e-5" % e_loss)
-    check(e_dx <= 1e-6, "K2b [1024, 2] dlogits abs err %g > 1e-6" % e_dx)
+    want_loss, want_lse = sx.softmax_xent_reference(x.float(), lab)
+    want_dx = sx.softmax_xent_reference_bwd(x.float(), lab, want_lse, g)
+    e_loss = rel_err(loss, want_loss)
+    e_dx = float((dx.float() - want_dx).abs().max())
+    shape = "[%d, %d] %s" % (n, v, str(dtype).replace("torch.", ""))
+    check(e_loss <= 1e-5, "K2a %s loss rel err %g > 1e-5" % (shape, e_loss))
+    check(dx.dtype == dtype, "K2b %s dlogits dtype %s" % (shape, dx.dtype))
+    if dtype == torch.float32:
+        tol = {"loss_rel": 1e-5, "dlogits_abs": 1e-6}
+        check(e_dx <= 1e-6, "K2b %s dlogits abs err %g > 1e-6"
+              % (shape, e_dx))
+        e_scaled = None
+    else:
+        tol = {"loss_rel": 1e-5, "dlogits_scaled": 1.0}
+        e_scaled = scaled_err(dx, want_dx, 2e-2)
+        check(e_scaled <= 1, "K2b %s dlogits err %g of its bound"
+              % (shape, e_scaled))
     xr = x.detach().requires_grad_(True)
     lib_loss = F.cross_entropy(xr, lab, reduction="none")
     times = {
@@ -1456,14 +1521,19 @@ def ctr_xent_check(dev, flush):
             x, lab, lse, g), flush=flush),
         "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(
             lib_loss, [xr], g.reshape(-1), retain_graph=True), flush=flush)}
-    nv = n * v
-    times["fwd_bound_ms"] = (4 * nv + 16 * n) / H100_BYTES_PER_S * 1e3
-    times["bwd_bound_ms"] = (8 * nv + 16 * n) / H100_BYTES_PER_S * 1e3
-    emit("kernel_vs_plain", kernel="softmax_xent_ctr",
-         shape={"N": n, "V": v, "smooth": 0.0},
-         max_err={"loss_rel": e_loss, "dlogits_abs": e_dx},
-         tol={"loss_rel": 1e-5, "dlogits_abs": 1e-6}, **times)
-    return dict(times, max_err={"loss_rel": e_loss, "dlogits_abs": e_dx})
+    # least bytes: K2a reads the logits and labels and writes loss and lse;
+    # K2b reads logits, labels, lse and g and writes dlogits
+    nv, elem = n * v, x.element_size()
+    times["fwd_bound_ms"] = (elem * nv + 16 * n) / H100_BYTES_PER_S * 1e3
+    times["bwd_bound_ms"] = (2 * elem * nv + 16 * n) / H100_BYTES_PER_S * 1e3
+    max_err = {"loss_rel": e_loss, "dlogits_abs": e_dx}
+    if e_scaled is not None:
+        max_err["dlogits_scaled"] = e_scaled
+    emit("kernel_vs_plain", kernel=kernel,
+         shape={"N": n, "V": v, "smooth": 0.0,
+                "dtype": str(dtype).replace("torch.", "")},
+         max_err=max_err, tol=tol, **times)
+    return dict(times, max_err=max_err)
 
 
 def sparse_inputs(dev, vocab, d, ids=None):
@@ -1664,7 +1734,7 @@ def sparse_kernel_phase(dev):
         for table, d in (("emb", CTR["embedding_size"]), ("w1", 1)):
             out[vocab, table] = sparse_table_case(dev, vocab, d, ids, faults,
                                                   flush)
-    k2 = ctr_xent_check(dev, flush)
+    k2 = xent_shape_check(dev, flush, CTR_BATCH, 2)
     del flush
     torch.cuda.empty_cache()
 
@@ -1892,6 +1962,356 @@ def ctr_parity_phase():
     torch.cuda.empty_cache()
 
 
+def build_resnet(fluid, amp, depth=50, image=RESNET_IMAGE,
+                 classes=RESNET_CLASSES, dataset="imagenet", lr=0.1):
+    """``bench.py``'s ``bench_resnet50`` program for the port's package
+    (Momentum(0.1, 0.9); ``amp`` decorates the optimizer as the bench
+    does), or at another depth, size and learning rate."""
+    from paddle_tpu_torch.models import resnet as rn
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", shape=[3, image, image])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        _, loss, acc = rn.resnet(img, label, depth=depth, class_num=classes,
+                                 dataset=dataset)
+        opt = fluid.optimizer.Momentum(lr, 0.9)
+        if amp:
+            opt = fluid.amp.decorate(opt)
+        opt.minimize(loss)
+    return main, startup, loss, acc
+
+
+def resnet_feed(batch, image=RESNET_IMAGE, classes=RESNET_CLASSES):
+    """The fixed batch of bench.py's bench_resnet50: RandomState(0) draws
+    the images (randn), then the labels."""
+    rng = np.random.RandomState(0)
+    return {"img": rng.randn(batch, 3, image, image).astype("float32"),
+            "label": rng.randint(0, classes, (batch, 1)).astype("int64")}
+
+
+def forward_flops(main, batch):
+    """FLOPs of a program's forward convolutions and products, from their
+    vars' shapes: 2·N·C_out·H_out·W_out·(C_in/g)·k_h·k_w a conv2d (the
+    filter is [C_out, C_in/g, k_h, k_w]), 2·N·K·M a mul."""
+    blk = main.global_block
+    total = 0
+    for op in blk.ops:
+        if op.type == "backward_marker":
+            break
+        if op.type == "conv2d":
+            co, ci, kh, kw = blk.var(op.inputs["Filter"][0]).shape
+            out = blk.var(op.outputs["Output"][0]).shape
+            h, w = out[1:3] if op.attrs.get("data_format") == "NHWC" \
+                else out[2:]
+            total += 2 * batch * co * h * w * ci * kh * kw
+        elif op.type == "mul":
+            k, m = blk.var(op.inputs["Y"][0]).shape
+            total += 2 * batch * k * m
+    return total
+
+
+def resnet_train_phase(xent_rows, amp):
+    """ResNet-50 at full width and depth as bench_resnet50 trains it
+    (batch 64 x 3 x 224 x 224, 1000 classes, Momentum(0.1, 0.9)), in
+    float32 (TF32 off) or under ``fluid.amp.decorate``, on the bench's
+    fixed batch with cuDNN's algorithm search on: 2 warm-up steps, then 6
+    timed ones, their median the step time. Each step must launch K2a and
+    K2b once, every loss be finite, and the first step descend. (The
+    bench's lr overshoots one fixed batch: the loss climbs past its start
+    for several steps after the first, in the JAX package too, which
+    ``tests/test_torch_resnet.py`` pins on the CPU.)"""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    mode = "bfloat16_amp" if amp else "float32"
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    t0 = time.perf_counter()
+    main, startup, loss, _ = build_resnet(fluid, amp)
+    build_s = time.perf_counter() - t0
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    params = main.all_parameters()
+    ops = [op.type for op in main.global_block.ops]
+    flop = 3 * forward_flops(main, RESNET_BATCH)
+    bound_ms = flop / (H100_BF16_FLOP_PER_S if amp
+                       else H100_F32_FLOP_PER_S) * 1e3
+    feed = resnet_feed(RESNET_BATCH)
+    warm, warm_secs = train_steps(exe, main, loss, feed, scope, 2)
+    torch.cuda.reset_peak_memory_stats()
+    sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+    losses, secs = train_steps(exe, main, loss, feed, scope, 6)
+    k2 = (sx.LAUNCHES_FWD, sx.LAUNCHES_BWD)
+    peak = torch.cuda.max_memory_allocated()
+    all_losses = warm + losses
+    state = {str(scope.find_var(v.name).dtype) for v in main.list_vars()
+             if v.persistable and v.dtype == "float32"}
+    step_ms = float(np.median(secs)) * 1e3
+    emit("resnet_train", mode=mode, depth=50, batch=RESNET_BATCH,
+         image=RESNET_IMAGE, classes=RESNET_CLASSES, optimizer="Momentum",
+         lr=0.1, momentum=0.9, params=len(params),
+         weights=sum(int(np.prod(p.shape)) for p in params), ops=len(ops),
+         conv2d=ops.count("conv2d"), batch_norm=ops.count("batch_norm"),
+         cudnn_benchmark=torch.backends.cudnn.benchmark,
+         tf32=torch.backends.cudnn.allow_tf32, build_s=build_s,
+         warm_ms=[x * 1e3 for x in warm_secs], steps=len(losses),
+         step_ms_median=step_ms, step_ms=[x * 1e3 for x in secs],
+         images_per_s=RESNET_BATCH / (step_ms / 1e3),
+         peak_memory_bytes=peak, train_flop=flop,
+         compute_bound_ms=bound_ms, compute_bound_share=bound_ms / step_ms,
+         losses=all_losses, k2_launches={"fwd": k2[0], "bwd": k2[1]})
+    check(bool(np.isfinite(all_losses).all()),
+          "non-finite ResNet-50 loss (%s): %r" % (mode, all_losses))
+    check(all_losses[1] < all_losses[0],
+          "ResNet-50's first step did not descend (%s): %r"
+          % (mode, all_losses))
+    check(k2 == (len(losses), len(losses)),
+          "K2 launches %r over %d ResNet-50 steps (%s)"
+          % (k2, len(losses), mode))
+    check(state == {"torch.float32"},
+          "parameters or moving statistics not float32: %r" % state)
+    key = vision_key(RESNET_BATCH, RESNET_CLASSES,
+                     torch.bfloat16 if amp else torch.float32)
+    for row, n in zip(xent_rows, k2):
+        row["vision_shapes"][key]["launches"] = n
+    train_profile_phase(exe, main, loss, feed, scope,
+                        phase="resnet_profile_" + mode, groups=RESNET_GROUPS)
+    torch.backends.cudnn.benchmark = prev
+    del scope, exe
+    torch.cuda.empty_cache()
+
+
+def norm_err(got, want, base=0.0):
+    """||got - want|| / ||want - base||, in float64."""
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(np.asarray(got, np.float64) - want)
+                 / max(np.linalg.norm(want - base), 1e-30))
+
+
+def maxpool_tie_check(dev, dtype):
+    """ResNet-50's stem pool (3 x 3, stride 2, padding 1) on a post-ReLU
+    [64, 64, 112, 112] activation with a 16 x 16 patch of zeros in every
+    plane: do the card and the CPU pick the same element of a window that
+    ties? The port's pool2d op is ``F.max_pool2d``; its indices say where
+    the backward routes each window's gradient."""
+    F = torch.nn.functional
+    rng = np.random.RandomState(5)
+    x = torch.relu(torch.as_tensor(rng.randn(RESNET_BATCH, 64, 112, 112)
+                                   .astype(np.float32))).to(dtype)
+    x[..., :16, :16] = 0
+    g = torch.as_tensor(rng.randn(RESNET_BATCH, 64, 56, 56)
+                        .astype(np.float32)).to(dtype)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        xd = x.to(d).requires_grad_(True)
+        out, idx = F.max_pool2d(xd, 3, 2, 1, return_indices=True)
+        dx, = torch.autograd.grad(F.max_pool2d(xd, 3, 2, 1), [xd], g.to(d))
+        outs.append((out.detach().cpu(), idx.cpu(), dx.cpu()))
+    (out_c, idx_c, dx_c), (out_h, idx_h, dx_h) = outs
+    # windows whose maximum appears more than once (the first 4 images)
+    win = F.unfold(x[:4].float().reshape(-1, 1, 112, 112), 3, padding=1,
+                   stride=2)
+    win = torch.where(F.unfold(torch.ones(1, 1, 112, 112), 3, padding=1,
+                               stride=2).bool(), win, -1.0)
+    tied = int(((win == win.amax(dim=1, keepdim=True)).sum(dim=1) > 1).sum())
+    return {"dtype": str(dtype).replace("torch.", ""),
+            "tied_windows_first_4_images": tied,
+            "windows_first_4_images": int(win.shape[0] * win.shape[2]),
+            "same_output": bool(torch.equal(out_c, out_h)),
+            "same_indices": bool(torch.equal(idx_c, idx_h)),
+            "grad_max_abs_diff": float((dx_c.float() - dx_h.float()).abs()
+                                       .max())}
+
+
+def resnet_parity_phase():
+    """The card against the CPU on one program at test size, cuDNN's
+    algorithms deterministic, TF32 off, from one CPU startup carried by
+    ``io.state_from_numpy``:
+
+    * the stem's max pool on a tie-laden activation (``maxpool_tie_check``)
+      in float32 and bfloat16: the same outputs and indices, so the same
+      element takes each window's gradient;
+    * ``resnet_cifar10`` (depth 18: basic blocks, 3 x 3 stem) at 32 x 32,
+      batch 8, 10 classes, Momentum(1e-3, 0.9), 3 steps. float32: losses
+      to 1e-4 relative; moving statistics (norm-wise per variable) to 5e-4;
+      each parameter's update over the 3 steps and each velocity norm-wise
+      to 5e-2 (the CPU tests' port-vs-JAX bounds: batch-norm bias
+      gradients are sums that cancel to near 0). AMP: losses, moving
+      statistics and all parameters together to 2e-2;
+    * ResNet-50 (bottleneck blocks, 7 x 7 stem, max pool) at 64 x 64,
+      batch 8: the first step's loss to 1e-4."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    prev = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pools = [maxpool_tie_check(dev, dt)
+             for dt in (torch.float32, torch.bfloat16)]
+    for p in pools:
+        check(p["same_output"] and p["same_indices"],
+              "max pool card vs CPU differ on ties: %r" % p)
+    emit("resnet_parity_maxpool", shape=[RESNET_BATCH, 64, 112, 112],
+         ksize=3, stride=2, padding=1, results=pools)
+
+    def both(main, startup, loss, feed, steps):
+        init = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+        arrays = {n: init.as_numpy(n) for n in init.vars}
+        card = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                         fluid.CUDAPlace(0))
+        f0, b0 = sx.LAUNCHES_FWD, sx.LAUNCHES_BWD
+        card_losses, _ = train_steps(fluid.Executor(fluid.CUDAPlace(0)), main,
+                                     loss, feed, card, steps)
+        n = (sx.LAUNCHES_FWD - f0, sx.LAUNCHES_BWD - b0)
+        check(n == (steps, steps), "the card run launched K2 %r times over "
+              "%d steps" % (n, steps))
+        cpu = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                        fluid.CPUPlace())
+        cpu_losses, _ = train_steps(fluid.Executor(fluid.CPUPlace()), main,
+                                    loss, feed, cpu, steps)
+        check((sx.LAUNCHES_FWD - f0, sx.LAUNCHES_BWD - b0) == n,
+              "the CPU run launched K2")
+        rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
+        check(bool(np.isfinite(card_losses + cpu_losses).all()),
+              "non-finite parity loss: %r %r" % (card_losses, cpu_losses))
+        return arrays, card, cpu, card_losses, cpu_losses, rel
+
+    feed = resnet_feed(8, 32, 10)
+    for amp in (False, True):
+        mode = "bfloat16_amp" if amp else "float32"
+        main, startup, loss, _ = build_resnet(fluid, amp, depth=18, image=32,
+                                              classes=10, dataset="cifar10",
+                                              lr=1e-3)
+        arrays, card, cpu, cl, hl, rel = both(main, startup, loss, feed, 3)
+        params = {p.name for p in main.all_parameters()}
+        errs = {"stat": 0.0, "update": 0.0, "velocity": 0.0}
+        got_p, want_p = [], []
+        for v in main.list_vars():
+            if not v.persistable or v.name.startswith("learning_rate"):
+                continue
+            a, b = card.as_numpy(v.name), cpu.as_numpy(v.name)
+            if v.name in params:
+                kind, base = "update", arrays[v.name]
+                got_p.append(a.ravel())
+                want_p.append(b.ravel())
+            else:
+                kind = "velocity" if "_velocity" in v.name else "stat"
+                base = 0.0
+            errs[kind] = max(errs[kind], norm_err(a, b, base))
+        errs["params_together"] = norm_err(np.concatenate(got_p),
+                                           np.concatenate(want_p))
+        tol = ({"loss_rel": 2e-2, "stat": 2e-2, "params_together": 2e-2}
+               if amp else {"loss_rel": 1e-4, "stat": 5e-4, "update": 5e-2,
+                            "velocity": 5e-2})
+        emit("resnet_parity", mode=mode, model="resnet_cifar10 depth 18",
+             image=32, batch=8, classes=10, lr=1e-3, steps=3,
+             card_losses=cl, cpu_losses=hl, rel_err=rel, state_err=errs,
+             tol=tol, cudnn_deterministic=True)
+        check(max(rel) <= tol["loss_rel"], "ResNet-18 card %r vs CPU %r "
+              "losses (rel %r, %s)" % (cl, hl, rel, mode))
+        bad = {k: e for k, e in errs.items() if e > tol.get(k, np.inf)}
+        check(not bad, "ResNet-18 card vs CPU state beyond its bound (%s): "
+              "%r" % (mode, bad))
+        del card, cpu
+
+    main, startup, loss, _ = build_resnet(fluid, False, image=64, classes=10)
+    _, card, cpu, cl, hl, rel = both(main, startup, loss,
+                                     resnet_feed(8, 64, 10), 1)
+    emit("resnet_parity", mode="float32", model="resnet50", image=64, batch=8,
+         classes=10, steps=1, card_losses=cl, cpu_losses=hl, rel_err=rel,
+         tol={"loss_rel": 1e-4})
+    check(rel[0] <= 1e-4, "ResNet-50 first loss card %r vs CPU %r" % (cl, hl))
+    del card, cpu
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = prev
+    torch.cuda.empty_cache()
+
+
+def mnist_data(n=512):
+    """The synthetic separable clusters of tests/test_mnist_mlp.py at
+    MNIST's 784 pixels: RandomState(0) draws 10 centres (x3), then the
+    labels, then the noise (x0.5)."""
+    rng = np.random.RandomState(0)
+    centers = rng.randn(MNIST_CLASSES, MNIST_DIM).astype("float32") * 3.0
+    ys = rng.randint(0, MNIST_CLASSES, size=n)
+    xs = centers[ys] + rng.randn(n, MNIST_DIM).astype("float32") * 0.5
+    return xs.astype("float32"), ys.reshape(n, 1).astype("int64")
+
+
+# (model, optimizer, learning rate): SGD at test_mnist_mlp.py's rate for the
+# MLP; its Momentum rate (0.05, for 64 features) took the MLP to NaN on
+# 784 pixels of standard deviation 3 on the card, so a tenth of it;
+# LeNet-5's convolutions see the same pixels and take a hundredth
+MNIST_RUNS = (("mlp", "momentum", 0.005), ("mlp", "sgd", 0.1),
+              ("lenet5", "momentum", 5e-4), ("lenet5", "sgd", 1e-3))
+
+
+def mnist_train_phase(xent_rows, epochs=4):
+    """``models.mnist.mlp`` (784-200-200-10) and ``lenet5`` (1 x 28 x 28)
+    on the card under Momentum and SGD, batch 64, ``epochs`` epochs over
+    512 cluster examples. Each step must launch K2a and K2b once at
+    [64, 10], the mean loss of the last epoch lie below the first loss,
+    and the mean accuracy of the last epoch exceed 0.9."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import mnist
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    xs, ys = mnist_data()
+    per_epoch = len(xs) // MNIST_BATCH
+    launches = [0, 0]
+    for model, opt, lr in MNIST_RUNS:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            img = fluid.layers.data(
+                "img", shape=[MNIST_DIM] if model == "mlp" else [1, 28, 28])
+            label = fluid.layers.data("label", shape=[1], dtype="int64")
+            _, loss, acc = getattr(mnist, model)(img, label)
+            (fluid.optimizer.SGD(lr) if opt == "sgd"
+             else fluid.optimizer.Momentum(lr, 0.9)).minimize(loss)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        images = xs if model == "mlp" else xs.reshape(-1, 1, 28, 28)
+        sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+        losses, accs, secs = [], [], []
+        for _ in range(epochs):
+            for i in range(0, len(xs), MNIST_BATCH):
+                t0 = time.perf_counter()
+                lv, av = exe.run(main, feed={
+                    "img": images[i:i + MNIST_BATCH],
+                    "label": ys[i:i + MNIST_BATCH]},
+                    fetch_list=[loss, acc], scope=scope)
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(lv))
+                accs.append(float(av))
+        k2 = (sx.LAUNCHES_FWD, sx.LAUNCHES_BWD)
+        last_loss = float(np.mean(losses[-per_epoch:]))
+        last_acc = float(np.mean(accs[-per_epoch:]))
+        step_ms = float(np.median(secs[per_epoch:])) * 1e3
+        emit("mnist_train", model=model, optimizer=opt, lr=lr,
+             batch=MNIST_BATCH, epochs=epochs, steps=len(losses),
+             first_loss=losses[0], last_epoch_loss=last_loss,
+             last_epoch_accuracy=last_acc, step_ms_median=step_ms,
+             images_per_s=MNIST_BATCH / (step_ms / 1e3),
+             k2_launches={"fwd": k2[0], "bwd": k2[1]})
+        check(k2 == (len(losses), len(losses)), "%s/%s K2 launches %r over "
+              "%d steps" % (model, opt, k2, len(losses)))
+        check(bool(np.isfinite(losses).all()) and last_loss < losses[0],
+              "%s/%s loss did not fall: first %g, last epoch %g"
+              % (model, opt, losses[0], last_loss))
+        check(last_acc > 0.9, "%s/%s last-epoch accuracy %g <= 0.9"
+              % (model, opt, last_acc))
+        launches = [a + b for a, b in zip(launches, k2)]
+        del scope, exe
+    key = vision_key(MNIST_BATCH, MNIST_CLASSES, torch.float32)
+    for row, n in zip(xent_rows, launches):
+        row["vision_shapes"][key]["launches"] = n
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1915,18 +2335,34 @@ def main():
     secs = _build.build_all()
     emit("build", seconds=time.perf_counter() - t0, kernels=secs)
     dev = torch.device("cuda", torch.cuda.current_device())
-    row = kernel_phase(dev)
-    xent_rows = xent_kernel_phase(dev)
-    flash_rows = flash_kernel_phase(dev)
-    k4_rows, k2_ctr = sparse_kernel_phase(dev)
-    ctr_train_phase(k4_rows, xent_rows, k2_ctr)
-    ctr_parity_phase()
-    serve_phase(row)
-    train_phase(xent_rows)
-    train_parity_phase()
-    longctx_train_phase(flash_rows, amp=False)
-    longctx_train_phase(flash_rows, amp=True)
-    longctx_parity_phase()
+    phase_s = {}
+
+    def timed(fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        name = fn.__name__ + ("_amp" if kw.get("amp") else "")
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    row = timed(kernel_phase, dev)
+    xent_rows = timed(xent_kernel_phase, dev)
+    flash_rows = timed(flash_kernel_phase, dev)
+    k4_rows, k2_ctr = timed(sparse_kernel_phase, dev)
+    timed(ctr_train_phase, k4_rows, xent_rows, k2_ctr)
+    timed(ctr_parity_phase)
+    timed(serve_phase, row)
+    timed(train_phase, xent_rows)
+    timed(train_parity_phase)
+    timed(longctx_train_phase, flash_rows, amp=False)
+    timed(longctx_train_phase, flash_rows, amp=True)
+    timed(longctx_parity_phase)
+    timed(resnet_train_phase, xent_rows, amp=False)
+    timed(resnet_train_phase, xent_rows, amp=True)
+    timed(resnet_parity_phase)
+    timed(mnist_train_phase, xent_rows)
+    # the card again, so the end of a long log still names it
+    emit("phase_seconds", nvidia_smi=smi, total=time.perf_counter() - t0,
+         **phase_s)
     print(json.dumps({"kernels": [row] + xent_rows + flash_rows + k4_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

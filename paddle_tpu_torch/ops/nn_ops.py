@@ -1,10 +1,18 @@
 # ported from paddle_tpu/ops/nn_ops.py
 """NN ops of the training slices: softmax, softmax with cross-entropy,
-layer norm, embedding (dense and ``is_sparse``), AUC.
+layer norm, batch norm, 2-D convolution and pooling, embedding (dense and
+``is_sparse``), accuracy, AUC.
 
 Fluid equivalents: ``operators/softmax_op.cc``,
 ``softmax_with_cross_entropy_op.cc``, ``layer_norm_op.cc``,
-``lookup_table_op.cc``, ``metrics/auc_op.cc``.
+``batch_norm_op.cc``, ``conv_op.cc``, ``pool_op.cc``,
+``lookup_table_op.cc``, ``metrics/accuracy_op.cc``, ``metrics/auc_op.cc``.
+
+Convolution and pooling go to cuDNN and PyTorch's own pooling kernels
+through ``F.conv2d`` / ``F.max_pool2d`` / ``F.avg_pool2d``, and batch norm
+is a ``torch.autograd.Function`` of torch reductions: the JAX package
+computes them outside any Pallas kernel too (``conv_general_dilated``,
+``reduce_window``, a ``custom_vjp`` of jnp reductions).
 
 ``softmax_with_cross_entropy`` with hard labels goes through the fused
 softmax cross-entropy wrapper (:mod:`.kernels.softmax_xent`): the CUDA
@@ -17,6 +25,8 @@ the JAX package.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -178,3 +188,188 @@ def auc_op(ctx: OpContext):
     ctx.set_output("AUC", auc.float())
     ctx.set_output("StatPosOut", new_pos.reshape(stat_pos.shape))
     ctx.set_output("StatNegOut", new_neg.reshape(stat_neg.shape))
+
+
+# -- normalization ----------------------------------------------------------
+
+
+def _bn_shape(x, ch_axis):
+    """The shape that broadcasts a per-channel vector against ``x``."""
+    shape = [1] * x.dim()
+    shape[ch_axis] = x.shape[ch_axis]
+    return shape
+
+
+def _bn_xhat(x, mean, inv, shape):
+    """x̂ = (x − mean)·inv in x's dtype."""
+    return (x - mean.to(x.dtype).reshape(shape)) \
+        * inv.to(x.dtype).reshape(shape)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """y = x̂·γ + β, x̂ = (x − mean)·inv, with the batch's ``mean`` and
+    ``inv`` = rsqrt(var + eps) computed once by the op (they carry no
+    gradient), and the closed-form backward of the JAX package's
+    ``_bn_train_bwd``: dx = (γ·inv/N)·(N·dy − Σdy − x̂·Σ(dy·x̂)), the two
+    sums accumulated in float32 off dy in x's dtype, the elementwise passes
+    in x's dtype. Autograd through the statistics would carry float32
+    cotangents of the whole activation instead."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, mean, inv, ch_axis):
+        shape = _bn_shape(x, ch_axis)
+        xhat = _bn_xhat(x, mean, inv, shape)
+        ctx.save_for_backward(x, scale, mean, inv)
+        ctx.ch_axis = ch_axis
+        return xhat * scale.to(x.dtype).reshape(shape) \
+            + bias.to(x.dtype).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, mean, inv = ctx.saved_tensors
+        ch_axis = ctx.ch_axis
+        shape = _bn_shape(x, ch_axis)
+        axes = tuple(a for a in range(x.dim()) if a != ch_axis)
+        n = x.numel() // x.shape[ch_axis]
+        xhat = _bn_xhat(x, mean, inv, shape)
+        dy_sum = torch.sum(dy, axes, dtype=torch.float32)
+        dyxhat_sum = torch.sum(dy * xhat, axes, dtype=torch.float32)
+        coef = (scale.float() * inv / n).to(x.dtype)
+        dx = coef.reshape(shape) * (
+            n * dy - dy_sum.to(x.dtype).reshape(shape)
+            - xhat * dyxhat_sum.to(x.dtype).reshape(shape))
+        return (dx, dyxhat_sum.to(scale.dtype), dy_sum.to(scale.dtype),
+                None, None, None)
+
+
+@register_op("batch_norm")
+def batch_norm_op(ctx: OpContext):
+    """Reference: operators/batch_norm_op.cc, NCHW or NHWC
+    (``data_layout``).
+
+    Training normalises by the batch's statistics, summed in float32
+    straight off x (E[x²] − mean², the biased variance), and updates the
+    running ones as Fluid does: ``MeanOut = momentum·Mean + (1 −
+    momentum)·batch mean`` (momentum weighs the old value, the opposite of
+    ``F.batch_norm``), ``VarianceOut`` likewise from the biased batch
+    variance. ``is_test`` or ``use_global_stats`` normalises by the running
+    statistics and returns them unchanged. The statistics outputs carry no
+    gradient, so the executor writes plain tensors back to the scope."""
+    x = ctx.input("X")
+    scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    mean, var = ctx.input("Mean"), ctx.input("Variance")
+    eps = ctx.attr("epsilon", 1e-5)
+    momentum = ctx.attr("momentum", 0.9)
+    ch_axis = 1 if ctx.attr("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    shape = _bn_shape(x, ch_axis)
+    if ctx.attr("use_global_stats", False) or ctx.is_test:
+        ctx.set_output("MeanOut", mean)
+        ctx.set_output("VarianceOut", var)
+        inv = torch.rsqrt(var.float() + eps).to(x.dtype)
+        y = _bn_xhat(x, mean, inv, shape)
+        ctx.set_output("Y", y * scale.to(x.dtype).reshape(shape)
+                       + bias.to(x.dtype).reshape(shape))
+        return
+    axes = tuple(a for a in range(x.dim()) if a != ch_axis)
+    n = x.numel() // x.shape[ch_axis]
+    with torch.no_grad():
+        bmean = torch.sum(x, axes, dtype=torch.float32) / n
+        bvar = torch.sum(x.float().square(), axes) / n - bmean.square()
+        inv = torch.rsqrt(bvar + eps)
+        ctx.set_output("MeanOut", (momentum * mean.float()
+                                   + (1 - momentum) * bmean).to(mean.dtype))
+        ctx.set_output("VarianceOut", (momentum * var.float()
+                                       + (1 - momentum) * bvar).to(var.dtype))
+        ctx.set_output("SavedMean", bmean.to(mean.dtype))
+        ctx.set_output("SavedVariance", bvar.to(var.dtype))
+    ctx.set_output("Y", _BatchNormTrain.apply(x, scale, bias, bmean, inv,
+                                              ch_axis))
+
+
+# -- conv / pool ------------------------------------------------------------
+
+
+def _nchw(x, nhwc):
+    """An NHWC tensor's NCHW view (a channels-last tensor, which cuDNN
+    takes as it is), or x itself."""
+    return x.permute(0, 3, 1, 2) if nhwc else x
+
+
+def _nhwc(out, nhwc):
+    return out.permute(0, 2, 3, 1) if nhwc else out
+
+
+@register_op("conv2d", "depthwise_conv2d")
+def conv2d_op(ctx: OpContext):
+    """Reference: operators/conv_op.cc. Filters stay OIHW in both layouts;
+    strides, symmetric paddings [ph, pw], dilations and groups."""
+    nhwc = ctx.attr("data_format", "NCHW") == "NHWC"
+    out = F.conv2d(_nchw(ctx.input("Input"), nhwc), ctx.input("Filter"),
+                   None, tuple(ctx.attr("strides", [1, 1])),
+                   tuple(ctx.attr("paddings", [0, 0])),
+                   tuple(ctx.attr("dilations", [1, 1])),
+                   ctx.attr("groups", 1) or 1)
+    ctx.set_output("Output", _nhwc(out, nhwc))
+
+
+@register_op("pool2d")
+def pool2d_op(ctx: OpContext):
+    """Reference: operators/pool_op.cc, max or avg, NCHW or NHWC.
+
+    ``global_pooling`` (or ``adaptive`` with ksize 1) reduces the whole
+    plane; ``adaptive`` takes ksize as the output size, windows
+    [floor(i·in/out), ceil((i+1)·in/out)) as in the JAX package. Padding
+    is -inf for max; avg divides by the window (``exclusive`` false) or by
+    the elements inside the input (``exclusive`` true). The JAX package
+    never reads ``ceil_mode``, so neither does the port: windows always
+    fit the padded input (floor mode)."""
+    nhwc = ctx.attr("data_format", "NCHW") == "NHWC"
+    x = _nchw(ctx.input("X"), nhwc)
+    is_max = ctx.attr("pooling_type", "max") == "max"
+    ksize = [int(k) for k in ctx.attr("ksize", [1, 1])]
+    strides = [int(s) for s in ctx.attr("strides", [1, 1])]
+    pads = [int(p) for p in ctx.attr("paddings", [0, 0])]
+    exclusive = ctx.attr("exclusive", True) and any(pads)
+    adaptive = ctx.attr("adaptive", False)
+    if ctx.attr("global_pooling", False) or (
+            adaptive and all(k == 1 for k in ksize)):
+        out = torch.amax(x, (2, 3), keepdim=True) if is_max \
+            else torch.mean(x, (2, 3), keepdim=True)
+    elif adaptive:
+        out = (F.adaptive_max_pool2d if is_max else F.adaptive_avg_pool2d)(
+            x, ksize)
+    elif any(2 * p > k for p, k in zip(pads, ksize)):
+        # torch pads at most half a window: pad explicitly
+        pad = (pads[1], pads[1], pads[0], pads[0])
+        if is_max:
+            out = F.max_pool2d(F.pad(x, pad, value=-math.inf), ksize,
+                               strides)
+        else:
+            out = F.avg_pool2d(F.pad(x, pad), ksize, strides)
+            if exclusive:
+                ones = F.pad(torch.ones_like(x[:1, :1]), pad)
+                out = out / F.avg_pool2d(ones, ksize, strides)
+    elif is_max:
+        out = F.max_pool2d(x, ksize, strides, pads)
+    else:
+        out = F.avg_pool2d(x, ksize, strides, pads,
+                           count_include_pad=not exclusive)
+    ctx.set_output("Out", _nhwc(out, nhwc))
+
+
+# -- metrics ----------------------------------------------------------------
+
+
+@register_op("accuracy")
+def accuracy_op(ctx: OpContext):
+    """Reference: operators/metrics/accuracy_op.cc: a row is correct when
+    its label is among its top-k ``Indices``. ``Accuracy`` float32,
+    ``Correct`` and ``Total`` int32."""
+    indices = ctx.input("Indices")
+    lbl = ctx.input("Label").reshape(-1, 1)
+    correct = torch.sum(torch.any(indices == lbl, dim=-1), dtype=torch.int32)
+    total = lbl.shape[0]
+    ctx.set_output("Accuracy", correct.float() / total)
+    ctx.set_output("Correct", correct)
+    ctx.set_output("Total", torch.tensor(total, dtype=torch.int32,
+                                         device=indices.device))

@@ -1,6 +1,6 @@
 # ported from paddle_tpu/ops/optimizer_ops.py
 """Optimizer update ops of the training slices (reference:
-``operators/optimizers/sgd_op.h``, ``adam_op.h``).
+``operators/optimizers/sgd_op.h``, ``momentum_op.h``, ``adam_op.h``).
 
 The Executor runs these ops after the backward, under ``torch.no_grad()``.
 The dense branches return new tensors, as the JAX package's do. A
@@ -13,9 +13,10 @@ version, as in the JAX package. The route depends on the dtype only,
 never on the device: the kernel wrappers run their plain versions on CPU
 tensors.
 
-Left out against the JAX package: the mesh-sharded tables' branch and
+Left out against the JAX package: the mesh-sharded tables' branch,
 ``FLAGS_sparse_update_kernel`` (the wrappers pick kernel or plain version
-by the tensors' device).
+by the tensors' device), the sparse branch of ``momentum`` (it raises) and
+``lars_momentum``.
 """
 
 from __future__ import annotations
@@ -46,6 +47,27 @@ def sgd_op(ctx: OpContext):
         ctx.set_output("ParamOut", p)
         return
     ctx.set_output("ParamOut", p - lr * g.to(p.dtype))
+
+
+@register_op("momentum")
+def momentum_op(ctx: OpContext):
+    """Dense momentum: v = mu·v + g, then p -= lr·v, or with
+    ``use_nesterov`` p -= (g + mu·v)·lr, in the parameter's dtype."""
+    p, g, v = ctx.input("Param"), ctx.input("Grad"), ctx.input("Velocity")
+    if isinstance(g, SparseGrad):
+        raise NotImplementedError(
+            "momentum: the sparse (is_sparse table) gradient branch is not "
+            "ported; use Adam or SGD for is_sparse tables")
+    lr = _lr(ctx).to(p.dtype)
+    mu = ctx.attr("mu")
+    g = g.to(p.dtype)
+    v_new = mu * v + g
+    if ctx.attr("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    ctx.set_output("ParamOut", p_new)
+    ctx.set_output("VelocityOut", v_new)
 
 
 @register_op("adam")

@@ -1,5 +1,6 @@
 # ported from paddle_tpu/ops/tensor_ops.py
-"""Tensor manipulation, fill, and random ops of the training slices.
+"""Tensor manipulation, fill, random and selection ops of the training
+slices.
 
 Fluid equivalents live across ``operators/reshape_op.cc``,
 ``fill_constant_op.cc``, ``uniform_random_op.cc``, ``dropout_op.cc`` etc.
@@ -88,6 +89,21 @@ def split_op(ctx: OpContext):
 @register_op("concat")
 def concat_op(ctx: OpContext):
     ctx.set_output("Out", torch.cat(ctx.inputs("X"), dim=ctx.attr("axis", 0)))
+
+
+@register_op("top_k")
+def top_k_op(ctx: OpContext):
+    """The k largest values of the last axis and their int32 indices, in
+    ``jax.lax.top_k``'s order: descending, the lower index first among
+    equal values. ``torch.topk`` promises no order for ties (and its CPU
+    and CUDA orders differ), and a bf16 softmax row ties often, which would
+    move ``accuracy``; a stable descending sort keeps the reference's
+    order. (The reference also orders -0.0 below +0.0; here they tie.)"""
+    x = ctx.input("X")
+    k = ctx.attr("k", 1)
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    ctx.set_output("Out", values[..., :k])
+    ctx.set_output("Indices", indices[..., :k].int())
 
 
 # -- fill / init ops ----------------------------------------------------------

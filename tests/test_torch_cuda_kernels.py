@@ -168,7 +168,8 @@ def test_engine_decodes_through_the_kernel(cuda):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("n,v", [(37, 1000), (64, 30000), (5, 7)])
+@pytest.mark.parametrize("n,v", [(37, 1000), (64, 30000), (5, 7), (64, 1000),
+                                 (64, 10)])
 @pytest.mark.parametrize("smooth", [0.0, 0.1])
 def test_softmax_xent_kernels_match_plain_version(cuda, n, v, smooth):
     """K2a/K2b against the plain version on the same tensors: the loss to
@@ -176,7 +177,8 @@ def test_softmax_xent_kernels_match_plain_version(cuda, n, v, smooth):
     absolute in float32, and in bf16 each element to 2e-2·|want| +
     1e-6·(max |want| of its row), which dlogits without the eps/V term
     break. Ragged V (no multiple of the block), rows labelled -100
-    zeroed."""
+    zeroed. [64, 1000] is ResNet-50's loss (float32 and bf16 under AMP),
+    [64, 10] the MNIST models'."""
     rng = np.random.RandomState(n + v)
     x32 = torch.as_tensor((rng.randn(n, v) * 3).astype(np.float32),
                           device=cuda)
@@ -724,3 +726,45 @@ def test_deepfm_trains_through_the_row_kernels(cuda):
         assert getattr(sa, counter) - k0 == 10
         assert sx.LAUNCHES_FWD - f0 == 5
         assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def test_resnet_trains_on_the_card_as_on_the_cpu(cuda):
+    """ResNet-18 (``resnet_cifar10``) at 32 x 32, batch 8, Momentum(1e-3,
+    0.9), cuDNN deterministic: three steps on the card launch K2a and K2b
+    once each a step, and their losses match three on the CPU from the
+    same state to 1e-4 relative."""
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", shape=[3, 32, 32])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        _, loss, _ = resnet.resnet_cifar10(img, label, depth=18)
+        fluid.optimizer.Momentum(1e-3, 0.9).minimize(loss)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    arrays = {n: init.as_numpy(n) for n in init.vars}
+    rng = np.random.RandomState(0)
+    feed = {"img": rng.randn(8, 3, 32, 32).astype("float32"),
+            "label": rng.randint(0, 10, (8, 1)).astype("int64")}
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        losses = []
+        for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+            scope = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                              place)
+            exe = fluid.Executor(place)
+            f0, b0 = sx.LAUNCHES_FWD, sx.LAUNCHES_BWD
+            losses.append([float(exe.run(main, feed=feed, fetch_list=[loss],
+                                         scope=scope)[0]) for _ in range(3)])
+            launched = (sx.LAUNCHES_FWD - f0, sx.LAUNCHES_BWD - b0)
+            assert launched == ((3, 3) if place != fluid.CPUPlace()
+                                else (0, 0))
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.allow_tf32 = prev
+    card, cpu = losses
+    np.testing.assert_allclose(card, cpu, rtol=1e-4)
+    assert card[-1] < card[0]
