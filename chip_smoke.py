@@ -18,9 +18,10 @@ paths through the entry points a user calls:
 * training: the Transformer-base program of
   ``__graft_entry__._build_transformer``, built with
   ``import paddle_tpu_torch as fluid`` and trained through
-  ``Executor.run`` on one fixed batch of 64 x 256 tokens; every step must
-  launch K2a and K2b once, the losses must be finite and fall, and at
-  batch 2 with dropout 0 the card's losses must match the CPU's;
+  ``Executor.run`` on one fixed batch of 64 x 256 tokens, in float32 and
+  under ``fluid.amp.decorate``; every step must launch K2a and K2b once,
+  the losses must be finite and fall, and at batch 2 with dropout 0 the
+  card's losses must match the CPU's;
 * long-context training: the causal LM of ``bench.py``'s
   ``bench_longseq_train`` (12 layers, d_model 1024, 16 heads, vocab 32000,
   batch 8 x 2048 tokens, Adam) at full width and depth, once in float32
@@ -43,7 +44,19 @@ paths through the entry points a user calls:
   descend; the card must match the CPU at test size (the stem's max pool
   on ties, ResNet-18 in float32 and under AMP, ResNet-50 at 64 x 64); the
   MNIST MLP and LeNet-5 must train to an accuracy above 0.9 through K2 at
-  [64, 10].
+  [64, 10];
+* BERT: pretraining as ``bench.py``'s ``bench_bert`` builds and feeds it
+  (BERT-base, 133,510,460 weights, batch 32 x 128, 20 masked positions,
+  Adam(1e-4)) in float32 and under AMP, K2a and K2b once a step at each
+  of the MLM's [640, 30522] and the NSP's [32, 2], counted by shape, the
+  losses finite and falling; its encoder weights through
+  ``io.save_params``/``io.load_params`` into ``bench_bert_infer``'s
+  program (batch 64 x 256) run in float32 and under ``fluid.amp.enable``;
+  that program through ``io.save_inference_model`` into an
+  ``inference.Predictor`` on the card at batch 64 and 48 (exact, and
+  bucketed to 64), equal to the ``Executor``'s float32 run; and at 2
+  layers, batch 8, dropout 0 the card's losses must match the CPU's, in
+  float32 and under AMP.
 
 Each phase prints one JSON line; any failed check exits non-zero. The line
 before the last holds every kernel's numbers, the last line the device.
@@ -58,6 +71,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -99,6 +113,18 @@ RESNET_GROUPS = {
 VISION_XENT = ((RESNET_BATCH, RESNET_CLASSES, torch.float32),
                (RESNET_BATCH, RESNET_CLASSES, torch.bfloat16),
                (MNIST_BATCH, MNIST_CLASSES, torch.float32))
+
+# BERT-base pretraining as bench.py's bench_bert trains it (batch x seq
+# tokens, n_mask masked positions a sequence) and inference as its
+# bench_bert_infer runs it; K2's two loss shapes on that path: the MLM
+# loss [batch * n_mask, vocab] and the NSP loss [batch, 2], float32 and
+# under AMP bfloat16
+BERT_BATCH, BERT_SEQ, BERT_MASK, BERT_VOCAB = 32, 128, 20, 30522
+BERT_INFER_BATCH, BERT_INFER_SEQ = 64, 256
+BERT_FEEDS = ["ids", "pos", "sent", "mask", "chain"]
+BERT_XENT = tuple((n, v, dt) for n, v in ((BERT_BATCH * BERT_MASK, BERT_VOCAB),
+                                          (BERT_BATCH, 2))
+                  for dt in (torch.float32, torch.bfloat16))
 
 
 def check(ok, msg):
@@ -540,7 +566,8 @@ def profile_phase(model, stream):
 def xent_kernel_phase(dev):
     """K2a/K2b against their plain versions at the Transformer-base loss
     shape: N = 64 x 256 rows, V = 30000, label smoothing 0.1, a few rows
-    labelled -100. The loss to 1e-5 relative in both dtypes (bf16 logits
+    labelled -100 (then, by ``xent_shape_check``, at the vision shapes and
+    BERT's MLM [640, 30522] and NSP [32, 2] shapes, float32 and bf16). The loss to 1e-5 relative in both dtypes (bf16 logits
     upcast exactly, so the plain version in float32 sees the same inputs);
     dlogits to 1e-6 absolute in float32, and in bf16 each element to
     2e-2·|want| + 1e-6·(max |want| of its row), a bound that a missing
@@ -623,6 +650,9 @@ def xent_kernel_phase(dev):
     vision = {vision_key(n_, v_, dt): xent_shape_check(
         dev, flush, n_, v_, dt, seed=2 + i, kernel="softmax_xent_vision")
         for i, (n_, v_, dt) in enumerate(VISION_XENT)}
+    bert = {vision_key(n_, v_, dt): xent_shape_check(
+        dev, flush, n_, v_, dt, seed=8 + i, kernel="softmax_xent_bert")
+        for i, (n_, v_, dt) in enumerate(BERT_XENT)}
     del xr, lib_loss, flush
 
     def row(name, fn_line, ms, dev, plain, lib, nbytes, flops, err):
@@ -660,24 +690,29 @@ def xent_kernel_phase(dev):
               "library_ms": bwd_lib,
               "bound_ms": rows[1]["bound_ms"]})
     for row, key in zip(rows, ("fwd", "bwd")):
-        row["vision_shapes"] = {
-            name: {"launches": None, "max_err": c["max_err"],
-                   **{k[len(key) + 1:]: val for k, val in c.items()
-                      if k.startswith(key + "_")}}
-            for name, c in vision.items()}
+        for field, shapes in (("vision_shapes", vision),
+                              ("bert_shapes", bert)):
+            row[field] = {
+                name: {"launches": None, "max_err": c["max_err"],
+                       **{k[len(key) + 1:]: val for k, val in c.items()
+                          if k.startswith(key + "_")}}
+                for name, c in shapes.items()}
     del x32, lab, g, loss, lse
     torch.cuda.empty_cache()
     return rows
 
 
 def vision_key(n, v, dtype):
-    """The name of a K2 vision shape in the kernels line: "64x1000_float32"."""
+    """The name of a K2 vision or BERT shape in the kernels line:
+    "64x1000_float32"."""
     return "%dx%d_%s" % (n, v, str(dtype).replace("torch.", ""))
 
 
 def build_transformer(fluid, n_layer, d_model, n_head, d_inner, seq, vocab,
-                      train, dropout=None):
-    """``__graft_entry__._build_transformer``, for the port's package."""
+                      train, dropout=None, amp=False):
+    """``__graft_entry__._build_transformer``, for the port's package;
+    ``amp`` decorates the optimizer as ``bench_transformer`` does with
+    ``use_amp=True``."""
     from paddle_tpu_torch.models import transformer as tfm
 
     main, startup = fluid.Program(), fluid.Program()
@@ -698,7 +733,10 @@ def build_transformer(fluid, n_layer, d_model, n_head, d_inner, seq, vocab,
                 else dropout,
                 label_smooth_eps=0.1, is_test=not train)
             if train:
-                fluid.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+                opt = fluid.optimizer.Adam(learning_rate=1e-4)
+                if amp:
+                    opt = fluid.amp.decorate(opt)
+                opt.minimize(loss)
     return main, startup, loss, logits
 
 
@@ -727,14 +765,18 @@ def train_steps(exe, main, loss, feed, scope, n):
     return losses, secs
 
 
-def train_phase(xent_rows):
-    """Transformer-base at full width through the port's Fluid API: 2
-    warm-up steps, then 6 timed steps on one fixed batch."""
+def train_phase(xent_rows, amp=False):
+    """Transformer-base at full width through the port's Fluid API, in
+    float32 or under ``fluid.amp.decorate`` (bfloat16) as
+    ``bench_transformer`` runs it with ``use_amp=True``: 2 warm-up steps,
+    then 6 timed steps on one fixed batch."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops.kernels import softmax_xent as sx
 
+    mode = "bfloat16_amp" if amp else "float32"
     t0 = time.perf_counter()
-    main, startup, loss, _ = build_transformer(fluid, train=True, **TRAIN)
+    main, startup, loss, _ = build_transformer(fluid, train=True, amp=amp,
+                                               **TRAIN)
     build_s = time.perf_counter() - t0
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
@@ -743,7 +785,7 @@ def train_phase(xent_rows):
     params = main.all_parameters()
     n_weights = sum(int(np.prod(p.shape)) for p in params)
     ops = [op.type for op in main.global_block.ops]
-    emit("train_model", config=TRAIN, batch=TRAIN_BATCH,
+    emit("train_model", mode=mode, config=TRAIN, batch=TRAIN_BATCH,
          params=len(params), weights=n_weights, ops=len(ops),
          op_types=len(set(ops)), adam_ops=ops.count("adam"),
          build_s=build_s, setup_s=time.perf_counter() - t0)
@@ -759,24 +801,36 @@ def train_phase(xent_rows):
     check(all_losses[-1] < all_losses[0],
           "loss did not fall: %r" % all_losses)
     check(fwd == len(losses) and bwd == len(losses),
-          "K2 launches fwd %d bwd %d over %d steps" % (fwd, bwd, len(losses)))
-    xent_rows[0]["launches"], xent_rows[1]["launches"] = fwd, bwd
+          "K2 launches fwd %d bwd %d over %d steps (%s)"
+          % (fwd, bwd, len(losses), mode))
+    masters = {str(scope.find_var(p.name).dtype) for p in params}
+    check(masters == {"torch.float32"}, "parameters not float32: %r" % masters)
+    key = "launches_amp" if amp else "launches"
+    xent_rows[0][key], xent_rows[1][key] = fwd, bwd
     step_ms = float(np.median(secs)) * 1e3
-    emit("train", steps=len(losses), step_ms_median=step_ms,
+    emit("train", mode=mode, steps=len(losses), step_ms_median=step_ms,
          step_ms=[s * 1e3 for s in secs],
          target_tokens_per_s=TRAIN_BATCH * TRAIN["seq"] / (step_ms / 1e3),
          peak_memory_bytes=peak, losses=all_losses,
          k2_launches={"fwd": fwd, "bwd": bwd})
-    train_profile_phase(exe, main, loss, feed, scope)
+    train_profile_phase(exe, main, loss, feed, scope,
+                        phase="train_profile" + ("_amp" if amp else ""))
     del scope, exe
     torch.cuda.empty_cache()
 
 
 def train_profile_phase(exe, main, loss, feed, scope,
                         phase="train_profile", groups=None):
-    """Where a training step's time goes: one step under torch.profiler;
+    """Where a training step's time goes: ``profile_step`` of one step."""
+    profile_step(lambda: train_steps(exe, main, loss, feed, scope, 1)[1][0],
+                 phase, groups)
+
+
+def profile_step(step, phase, groups=None):
+    """One ``step()`` (it returns its wall seconds) under torch.profiler;
     device busy share = kernel time summed over the CUDA events / wall time
-    of the step (the profiler's host cost is in the wall time). ``groups``
+    of the step (the profiler's host cost is in the wall time);
+    ``host_syncs`` counts the CUDA calls that block the host. ``groups``
     ({name: regular expression}) sums the kernels by the first pattern
     their name matches, the rest under "other"."""
     from torch.autograd import DeviceType
@@ -784,7 +838,7 @@ def train_profile_phase(exe, main, loss, feed, scope,
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, secs = train_steps(exe, main, loss, feed, scope, 1)
+        secs = [step()]
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
@@ -798,11 +852,19 @@ def train_profile_phase(exe, main, loss, feed, scope,
                       if re.search(pat, e.key, re.I)), "other")
             by_group[g]["device_ms"] += e.self_device_time_total / 1e3
             by_group[g]["count"] += e.count
+    host_all = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU]
+    host = sorted(host_all, key=lambda e: -e.self_cpu_time_total)[:8]
     emit(phase, wall_ms=secs[0] * 1e3, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / (secs[0] * 1e3) if busy_ms else None,
          kernels_launched=sum(e.count for e in kern), by_group=by_group,
+         host_syncs={e.key: e.count for e in host_all
+                     if "Synchronize" in e.key},
          top=[{"name": e.key[:80], "count": e.count,
-               "device_ms": e.self_device_time_total / 1e3} for e in top])
+               "device_ms": e.self_device_time_total / 1e3} for e in top],
+         host_top=[{"name": e.key[:60], "count": e.count,
+                    "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                   for e in host])
 
 
 def train_parity_phase():
@@ -2312,6 +2374,429 @@ def mnist_train_phase(xent_rows, epochs=4):
         row["vision_shapes"][key]["launches"] = n
 
 
+def bert_train_flop(batch, seq=BERT_SEQ, n_mask=BERT_MASK, vocab=BERT_VOCAB,
+                    n_layer=12, d=768, di=3072):
+    """A pretraining step's FLOPs as ``bench.py:617``
+    ``_bert_train_flops_per_example`` counts them (the forward's products,
+    times 3), for ``batch`` sequences."""
+    enc = n_layer * (8 * seq * d * d + 4 * seq * seq * d + 4 * seq * d * di)
+    heads = n_mask * (2 * d * d + 2 * d * vocab)
+    return 3 * (enc + heads) * batch
+
+
+def bert_fwd_flop(batch, seq=BERT_INFER_SEQ, n_layer=12, d=768, di=3072):
+    """An encoder forward's FLOPs as ``bench.py:865``
+    ``_bert_fwd_flops_per_example`` counts them, for ``batch`` sequences."""
+    return n_layer * (8 * seq * d * d + 4 * seq * seq * d
+                      + 4 * seq * d * di) * batch
+
+
+def build_bert(fluid, amp, n_layer=None, dropout=None):
+    """``bench.py``'s ``bench_bert`` program for the port's package:
+    ``BERT_BASE_CONFIG`` (or ``n_layer`` layers of it), MLM + NSP losses,
+    Adam(1e-4), decorated by ``fluid.amp.decorate`` when ``amp``; dropout
+    0.1 unless given."""
+    from paddle_tpu_torch.models import bert
+
+    cfg = dict(bert.BERT_BASE_CONFIG)
+    if n_layer is not None:
+        cfg["n_layer"] = n_layer
+    if dropout is not None:
+        cfg["dropout_rate"] = dropout
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.layers.data("ids", shape=[BERT_SEQ], dtype="int64")
+        pos = fluid.layers.data("pos", shape=[BERT_SEQ], dtype="int64")
+        sent = fluid.layers.data("sent", shape=[BERT_SEQ], dtype="int64")
+        mask = fluid.layers.data("mask", shape=[BERT_SEQ], dtype="float32")
+        mpos = fluid.layers.data("mpos", shape=[BERT_MASK], dtype="int64")
+        mlbl = fluid.layers.data("mlbl", shape=[1], dtype="int64")
+        nsp = fluid.layers.data("nsp", shape=[1], dtype="int64")
+        loss, _, _ = bert.bert_pretrain(ids, pos, sent, mask, mpos, mlbl, nsp,
+                                        **cfg)
+        opt = fluid.optimizer.Adam(learning_rate=1e-4)
+        if amp:
+            opt = fluid.amp.decorate(opt)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def bert_feed(batch, dev=None):
+    """The fixed batch of bench.py's bench_bert: RandomState(0) draws the
+    masked positions (flat indices into [batch * seq]; a row may repeat
+    one), then the ids, the MLM labels and the NSP labels. On ``dev`` as
+    tensors, as the bench places its feed on the device once."""
+    rng = np.random.RandomState(0)
+    mpos = (np.arange(batch)[:, None] * BERT_SEQ
+            + rng.randint(0, BERT_SEQ, (batch, BERT_MASK))).astype("int64")
+    feed = {
+        "ids": rng.randint(0, BERT_VOCAB, (batch, BERT_SEQ)).astype("int64"),
+        "pos": np.tile(np.arange(BERT_SEQ), (batch, 1)).astype("int64"),
+        "sent": np.zeros((batch, BERT_SEQ), "int64"),
+        "mask": np.ones((batch, BERT_SEQ), "float32"),
+        "mpos": mpos,
+        "mlbl": rng.randint(0, BERT_VOCAB,
+                            (batch * BERT_MASK, 1)).astype("int64"),
+        "nsp": rng.randint(0, 2, (batch, 1)).astype("int64"),
+    }
+    if dev is None:
+        return feed
+    return {k: torch.as_tensor(v, device=dev) for k, v in feed.items()}
+
+
+def bert_train_phase(xent_rows, amp, ckpt_dir=None):
+    """BERT-base pretraining at full width and depth as bench_bert trains
+    it (batch 32 x 128, 20 masked positions, dropout 0.1, Adam(1e-4)), in
+    float32 (TF32 off) or under ``fluid.amp.decorate``: 2 warm-up steps,
+    then 6 timed steps on the bench's fixed batch, their median the step
+    time. Each step must launch K2a and K2b once at each of the MLM loss's
+    [640, 30522] and the NSP loss's [32, 2], in the leg's dtype (counted
+    by shape at the launch), every loss be finite and the last below the
+    first, the master weights stay float32. With ``ckpt_dir`` the
+    parameters are saved there by ``io.save_params``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    mode = "bfloat16_amp" if amp else "float32"
+    t0 = time.perf_counter()
+    main, startup, loss = build_bert(fluid, amp)
+    build_s = time.perf_counter() - t0
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    params = main.all_parameters()
+    n_weights = sum(int(np.prod(p.shape)) for p in params)
+    check(n_weights == 133_510_460, "BERT-base has %d weights" % n_weights)
+    ops = [op.type for op in main.global_block.ops]
+    feed = bert_feed(BERT_BATCH, exe.place)
+    warm, warm_secs = train_steps(exe, main, loss, feed, scope, 2)
+    torch.cuda.reset_peak_memory_stats()
+    sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+    sx.LAUNCHES_BY_SHAPE.clear()
+    losses, secs = train_steps(exe, main, loss, feed, scope, 6)
+    k2 = (sx.LAUNCHES_FWD, sx.LAUNCHES_BWD)
+    by_shape = dict(sx.LAUNCHES_BY_SHAPE)
+    peak = torch.cuda.max_memory_allocated()
+    all_losses = warm + losses
+    masters = {str(scope.find_var(p.name).dtype) for p in params}
+    # each step's two softmax_with_cross_entropy ops, the MLM loss and the
+    # NSP loss, in the leg's dtype: one launch of each kernel a step at each
+    dt = torch.bfloat16 if amp else torch.float32
+    shapes = ((BERT_BATCH * BERT_MASK, BERT_VOCAB), (BERT_BATCH, 2))
+    want = {(kern, rows, vocab, dt): len(losses)
+            for kern in ("K2a", "K2b") for rows, vocab in shapes}
+    flop = bert_train_flop(BERT_BATCH)
+    bound_ms = flop / (H100_BF16_FLOP_PER_S if amp
+                       else H100_F32_FLOP_PER_S) * 1e3
+    step_ms = float(np.median(secs)) * 1e3
+    emit("bert_train", mode=mode, config="BERT_BASE_CONFIG",
+         batch=BERT_BATCH, seq=BERT_SEQ, n_mask=BERT_MASK, dropout=0.1,
+         optimizer="Adam", lr=1e-4, params=len(params), weights=n_weights,
+         ops=len(ops), op_types=len(set(ops)), build_s=build_s,
+         warm_ms=[x * 1e3 for x in warm_secs], steps=len(losses),
+         step_ms_median=step_ms, step_ms=[x * 1e3 for x in secs],
+         sequences_per_s=BERT_BATCH / (step_ms / 1e3),
+         tokens_per_s=BERT_BATCH * BERT_SEQ / (step_ms / 1e3),
+         peak_memory_bytes=peak, train_flop=flop, compute_bound_ms=bound_ms,
+         compute_bound_share=bound_ms / step_ms, losses=all_losses,
+         k2_launches={"fwd": k2[0], "bwd": k2[1]},
+         k2_launches_by_shape={"%s_%s" % (kern, vision_key(rows, vocab, d)): n
+                               for (kern, rows, vocab, d), n
+                               in sorted(by_shape.items(), key=str)})
+    check(bool(np.isfinite(all_losses).all()),
+          "non-finite BERT loss (%s): %r" % (mode, all_losses))
+    check(all_losses[-1] < all_losses[0],
+          "BERT loss did not fall (%s): %r" % (mode, all_losses))
+    check(k2 == (2 * len(losses), 2 * len(losses)),
+          "K2 launches %r over %d BERT steps (%s), want 2 a step"
+          % (k2, len(losses), mode))
+    check(by_shape == want,
+          "K2 launches by (kernel, N, V, dtype) %r over %d BERT steps (%s), "
+          "want %r" % (by_shape, len(losses), mode, want))
+    check(masters == {"torch.float32"}, "parameters not float32: %r" % masters)
+    for row, kern in zip(xent_rows, ("K2a", "K2b")):
+        for rows, vocab in shapes:
+            row["bert_shapes"][vision_key(rows, vocab, dt)]["launches"] = \
+                by_shape.get((kern, rows, vocab, dt), 0)
+    train_profile_phase(exe, main, loss, feed, scope,
+                        phase="bert_profile_" + mode)
+    if ckpt_dir is not None:
+        with fluid.scope_guard(scope):
+            fluid.io.save_params(exe, ckpt_dir, main_program=main)
+    del scope, exe
+    torch.cuda.empty_cache()
+
+
+def build_bert_infer(fluid):
+    """``bench.py``'s ``bench_bert_infer`` program: ``bert_base`` at
+    ``is_test``, dropout 0, its ids coupled to the previous step's pooled
+    output by a zero (the bench's ``chain``), the pooled output fetched in
+    float32. Returns (main, startup, pooled_f32)."""
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.layers.data("ids", shape=[BERT_INFER_SEQ], dtype="int64")
+        pos = fluid.layers.data("pos", shape=[BERT_INFER_SEQ], dtype="int64")
+        sent = fluid.layers.data("sent", shape=[BERT_INFER_SEQ],
+                                 dtype="int64")
+        mask = fluid.layers.data("mask", shape=[BERT_INFER_SEQ],
+                                 dtype="float32")
+        chain = fluid.layers.data("chain", shape=[768])
+        zero = fluid.layers.cast(
+            fluid.layers.scale(fluid.layers.reduce_sum(chain), scale=0.0),
+            "int64")
+        ids2 = fluid.layers.elementwise_add(ids, zero)
+        _, pooled = bert.bert_base(ids2, pos, sent, mask, dropout_rate=0.0,
+                                   is_test=True)
+        pooled_f32 = fluid.layers.cast(pooled, "float32")
+    return main, startup, pooled_f32
+
+
+def bert_infer_feed(batch):
+    """The bench's inference feed: RandomState(0) draws the ids; the chain
+    starts at zeros."""
+    rng = np.random.RandomState(0)
+    return {
+        "ids": rng.randint(0, BERT_VOCAB,
+                           (batch, BERT_INFER_SEQ)).astype("int64"),
+        "pos": np.tile(np.arange(BERT_INFER_SEQ), (batch, 1)).astype("int64"),
+        "sent": np.zeros((batch, BERT_INFER_SEQ), "int64"),
+        "mask": np.ones((batch, BERT_INFER_SEQ), "float32"),
+        "chain": np.zeros((batch, 768), "float32"),
+    }
+
+
+def infer_steps(exe, main, out, feed, scope, n, carry):
+    """n inference steps as bench_bert_infer runs them: each feeds the
+    previous step's pooled output (``carry[0]``) as the chain; a step ends
+    with the card synchronised. Returns (seconds of each step, the last
+    output)."""
+    secs = []
+    for _ in range(n):
+        f = dict(feed, chain=carry[0])
+        t0 = time.perf_counter()
+        carry[0], = exe.run(main, feed=f, fetch_list=[out], scope=scope,
+                            return_numpy=False)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs, carry[0]
+
+
+def bert_infer_phase(ckpt_dir):
+    """bench_bert_infer's program at full width and depth (batch 64 x 256),
+    its weights the ``bert_train`` leg's encoder, loaded by
+    ``io.load_params`` from what that leg saved: float32 (TF32 off), then
+    under ``fluid.amp.enable`` as the bench runs it; 2 warm-up steps and 6
+    timed ones each, their median the step time, and one profiled step.
+    Returns what ``bert_predictor_phase`` needs: the program, its scope and
+    executor, the fetch and the float32 output of the bench's feed."""
+    import paddle_tpu_torch as fluid
+
+    t0 = time.perf_counter()
+    main, startup, out = build_bert_infer(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    params = main.all_parameters()
+    with fluid.scope_guard(scope):
+        fluid.io.load_params(exe, ckpt_dir, main_program=main)
+    saved = np.load(ckpt_dir + "/word_embedding.npy")
+    check(np.array_equal(scope.as_numpy("word_embedding"), saved)
+          and all(scope.find_var(p.name).device.type == "cuda"
+                  for p in params),
+          "load_params did not put the trained weights on the card")
+    setup_s = time.perf_counter() - t0
+    feed_np = bert_infer_feed(BERT_INFER_BATCH)
+    feed = {k: torch.as_tensor(v, device=exe.place)
+            for k, v in feed_np.items()}
+    flop = bert_fwd_flop(BERT_INFER_BATCH)
+    want = None
+    for amp in (False, True):
+        mode = "bfloat16_amp" if amp else "float32"
+        if amp:
+            fluid.amp.enable(main, "bfloat16")
+        carry = [feed["chain"]]
+        warm, warm_out = infer_steps(exe, main, out, feed, scope, 2, carry)
+        warm_out = warm_out.cpu().numpy()
+        if want is None:
+            want = warm_out
+        torch.cuda.reset_peak_memory_stats()
+        secs, last = infer_steps(exe, main, out, feed, scope, 6, carry)
+        peak = torch.cuda.max_memory_allocated()
+        last = last.cpu().numpy()
+        bound_ms = flop / (H100_BF16_FLOP_PER_S if amp
+                           else H100_F32_FLOP_PER_S) * 1e3
+        step_ms = float(np.median(secs)) * 1e3
+        emit("bert_infer", mode=mode, config="BERT_BASE_CONFIG",
+             batch=BERT_INFER_BATCH, seq=BERT_INFER_SEQ, params=len(params),
+             loaded_from="bert_train (io.save_params / io.load_params)",
+             setup_s=setup_s, warm_ms=[x * 1e3 for x in warm],
+             steps=len(secs), step_ms_median=step_ms,
+             step_ms=[x * 1e3 for x in secs],
+             sequences_per_s=BERT_INFER_BATCH / (step_ms / 1e3),
+             tokens_per_s=BERT_INFER_BATCH * BERT_INFER_SEQ / (step_ms / 1e3),
+             peak_memory_bytes=peak, fwd_flop=flop,
+             compute_bound_ms=bound_ms, compute_bound_share=bound_ms / step_ms,
+             out_dtype=str(last.dtype),
+             chained_steps_bit_equal=bool(np.array_equal(warm_out, last)),
+             max_abs_diff_to_float32=float(np.abs(last - want).max()))
+        check(bool(np.isfinite(last).all()) and last.shape == (
+            BERT_INFER_BATCH, 768), "BERT inference output (%s): shape %s"
+            % (mode, last.shape))
+        carry = [feed["chain"]]
+        profile_step(lambda: infer_steps(exe, main, out, feed, scope, 1,
+                                         carry)[0][0],
+                     "bert_infer_profile_" + mode)
+    fluid.amp.disable(main)
+    return {"main": main, "scope": scope, "exe": exe, "out": out,
+            "feed": feed_np, "want": want}
+
+
+def bert_predictor_phase(infer, runs=3):
+    """The Fluid inference entry point on the card: ``save_inference_model``
+    of ``bert_infer``'s program (feeds ids, pos, sent, mask, chain; target
+    the float32 pooled output), ``inference.create_predictor`` of an
+    ``AnalysisConfig`` of that directory (the card by default), once as
+    configured by default (no batch bucketing) and once with
+    ``switch_batch_bucketing(True)``. Each runs at batch 64 and at 48 (the
+    bucketing one pads 48 to 64 and slices back), one warm-up and ``runs``
+    timed runs:
+
+    * the outputs equal the ``Executor``'s float32 run of the same program
+      on the rows it ran bit for bit: the exact batch, or the 64 rows a
+      bucketed run pads to (no padding row leaks into a real one);
+    * against the ``Executor``'s run at the exact batch they agree to 1e-5
+      relative, norm-wise: at 48 rows cuBLAS takes other kernels than at
+      64, so each product sums in another order;
+    * a run staged through the input handles equals a positional one bit
+      for bit.
+
+    The saved desc carries no AMP mode, so the loaded model runs in
+    float32."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference
+
+    main, scope, exe, out = (infer[k] for k in ("main", "scope", "exe", "out"))
+    feed = infer["feed"]
+    preds = {}
+    with tempfile.TemporaryDirectory() as model_dir:
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(model_dir, BERT_FEEDS, [out], exe,
+                                          main_program=main)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        preds[False] = inference.create_predictor(
+            inference.AnalysisConfig(model_dir))
+        load_s = time.perf_counter() - t0
+        config = inference.AnalysisConfig(model_dir)
+        config.switch_batch_bucketing(True)
+        preds[True] = inference.create_predictor(config)
+    check(not preds[False].config.batch_bucketing(),
+          "the default AnalysisConfig buckets batches")
+    check(all(p._exe.place.type == "cuda" for p in preds.values()),
+          "the Predictor is not on the card")
+    amp_dtype = getattr(preds[False]._program, "_amp_dtype", None)
+    check(amp_dtype is None, "the loaded program carries AMP %r" % amp_dtype)
+    res = {}
+    for batch in (BERT_INFER_BATCH, 48):
+        f = {k: v[:batch] for k, v in feed.items()}
+        args = [f[n] for n in BERT_FEEDS]
+        exact = infer["want"] if batch == BERT_INFER_BATCH else exe.run(
+            main, feed=f, fetch_list=[out], scope=scope)[0]
+        for bucketing, pred in preds.items():
+            ran = BERT_INFER_BATCH if bucketing else batch
+            ran_rows = infer["want"][:batch] if bucketing else exact
+            pred.run(args)
+            secs = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                got, = pred.run(args)
+                secs.append(time.perf_counter() - t0)
+            for n in BERT_FEEDS:
+                pred.get_input_handle(n).copy_from_cpu(f[n])
+            pred.run()
+            staged = pred.get_output_handle(out.name).copy_to_cpu()
+            rel = float(np.linalg.norm((got - exact).astype(np.float64))
+                        / np.linalg.norm(exact.astype(np.float64)))
+            key = "%d_%s" % (batch, "bucketed" if bucketing else "exact")
+            r = res[key] = {
+                "batch_run": ran, "shape": list(got.shape),
+                "run_ms_median": float(np.median(secs)) * 1e3,
+                "run_ms": [x * 1e3 for x in secs],
+                "bit_equal_to_executor_rows_run": bool(np.array_equal(
+                    got, ran_rows)),
+                "normwise_rel_err_to_executor_exact_batch": rel,
+                "max_abs_diff_to_executor_exact_batch":
+                    float(np.abs(got - exact).max()),
+                "elementwise_err_of_1e-5_rel_1e-6_row": scaled_err(
+                    torch.as_tensor(got), torch.as_tensor(exact), 1e-5),
+                "handles_bit_equal": bool(np.array_equal(staged, got))}
+            check(got.shape == (batch, 768)
+                  and r["bit_equal_to_executor_rows_run"],
+                  "Predictor at batch %d (bucketing %s) != the Executor's "
+                  "rows: %r" % (batch, bucketing, r))
+            check(rel <= 1e-5, "Predictor at batch %d (bucketing %s) vs the "
+                  "Executor at that batch: norm-wise %g > 1e-5"
+                  % (batch, bucketing, rel))
+            check(r["handles_bit_equal"], "Predictor handle run != "
+                  "positional run at batch %d (bucketing %s)"
+                  % (batch, bucketing))
+    emit("bert_predictor", model="bench_bert_infer program (BERT-base, "
+         "loaded weights)", feeds=BERT_FEEDS, save_s=save_s, load_s=load_s,
+         device=str(preds[False]._exe.place), amp=amp_dtype,
+         runs_in="float32 (the desc carries no AMP mode)",
+         tol={"executor_rows_run": "bit equal",
+              "executor_exact_batch": "1e-5 norm-wise"}, batches=res)
+    del preds
+    torch.cuda.empty_cache()
+
+
+def bert_parity_phase():
+    """bench_bert's program at full width, 2 layers, dropout 0, batch 8:
+    three steps on the card (K2a/K2b twice a step) and three on the CPU
+    (their plain versions) from one CPU startup carried by
+    ``io.state_from_numpy``, in float32 (TF32 off; losses to 1e-4
+    relative) and under AMP (2e-2)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    feed = bert_feed(8)
+    for amp, tol in ((False, 1e-4), (True, 2e-2)):
+        main, startup, loss = build_bert(fluid, amp, n_layer=2, dropout=0.0)
+        init = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+        arrays = {n: init.as_numpy(n) for n in init.vars}
+        card = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                         fluid.CUDAPlace(0))
+        f0, b0 = sx.LAUNCHES_FWD, sx.LAUNCHES_BWD
+        card_losses, _ = train_steps(fluid.Executor(fluid.CUDAPlace(0)), main,
+                                     loss, feed, card, 3)
+        n = (sx.LAUNCHES_FWD - f0, sx.LAUNCHES_BWD - b0)
+        check(n == (6, 6), "the card run launched K2 %r times over 3 BERT "
+              "steps, want 6" % (n,))
+        cpu = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                        fluid.CPUPlace())
+        t0 = time.perf_counter()
+        cpu_losses, _ = train_steps(fluid.Executor(fluid.CPUPlace()), main,
+                                    loss, feed, cpu, 3)
+        check((sx.LAUNCHES_FWD - f0, sx.LAUNCHES_BWD - b0) == n,
+              "the CPU run launched K2")
+        rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
+        emit("bert_parity", mode="bfloat16_amp" if amp else "float32",
+             n_layer=2, batch=8, seq=BERT_SEQ, n_mask=BERT_MASK, dropout=0.0,
+             steps=3, card_losses=card_losses, cpu_losses=cpu_losses,
+             rel_err=rel, tol=tol, cpu_s=time.perf_counter() - t0)
+        check(bool(np.isfinite(card_losses + cpu_losses).all())
+              and max(rel) <= tol,
+              "BERT card %r vs CPU %r losses (rel %r > %g, amp %s)"
+              % (card_losses, cpu_losses, rel, tol, amp))
+        del card, cpu
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2352,6 +2837,7 @@ def main():
     timed(ctr_parity_phase)
     timed(serve_phase, row)
     timed(train_phase, xent_rows)
+    timed(train_phase, xent_rows, amp=True)
     timed(train_parity_phase)
     timed(longctx_train_phase, flash_rows, amp=False)
     timed(longctx_train_phase, flash_rows, amp=True)
@@ -2360,6 +2846,13 @@ def main():
     timed(resnet_train_phase, xent_rows, amp=True)
     timed(resnet_parity_phase)
     timed(mnist_train_phase, xent_rows)
+    with tempfile.TemporaryDirectory() as ckpt:
+        timed(bert_train_phase, xent_rows, amp=True, ckpt_dir=ckpt)
+        timed(bert_train_phase, xent_rows, amp=False)
+        infer = timed(bert_infer_phase, ckpt)
+    timed(bert_predictor_phase, infer)
+    del infer
+    timed(bert_parity_phase)
     # the card again, so the end of a long log still names it
     emit("phase_seconds", nvidia_smi=smi, total=time.perf_counter() - t0,
          **phase_s)

@@ -17,10 +17,18 @@ Ported so far:
   (:mod:`.ops.kernels.softmax_xent`), and for the long-context causal LM,
   whose attention runs through three hand-written flash-attention kernels
   (:mod:`.ops.kernels.flash_attention`), in float32 or under
-  :mod:`.amp` (bfloat16 forward and backward, float32 master weights).
-  A Fluid script runs unchanged with::
+  :mod:`.amp` (bfloat16 forward and backward, float32 master weights);
+  CTR training (:mod:`.models.deepfm`), vision training
+  (:mod:`.models.resnet`, :mod:`.models.mnist`) and BERT pretraining and
+  inference (:mod:`.models.bert`);
+* the model files of :mod:`.io` (``save_inference_model``,
+  ``load_inference_model``, ``save_params``, ...), the JAX package's
+  files name for name, and the :mod:`.inference` ``Predictor`` that runs a
+  saved model.
 
-      import paddle_tpu_torch as fluid
+A Fluid script runs unchanged with::
+
+    import paddle_tpu_torch as fluid
 """
 
 from . import (  # noqa: F401

@@ -1,8 +1,8 @@
 # ported from paddle_tpu/ops/activation_ops.py
 """Activation ops of the training slices (reference:
 ``operators/activation_op.cc``): ``relu``, the Transformer FFN's and
-DeepFM's activation, ``gelu``, the causal LM's, and ``square``, DeepFM's
-second-order term."""
+DeepFM's activation, ``gelu``, the causal LM's and BERT's, ``tanh``,
+BERT's pooler, and ``square``, DeepFM's second-order term."""
 
 from __future__ import annotations
 
@@ -15,6 +15,11 @@ from ..core.registry import OpContext, register_op
 @register_op("relu")
 def relu_op(ctx: OpContext):
     ctx.set_output("Out", torch.relu(ctx.input("X")))
+
+
+@register_op("tanh")
+def tanh_op(ctx: OpContext):
+    ctx.set_output("Out", torch.tanh(ctx.input("X")))
 
 
 @register_op("square")

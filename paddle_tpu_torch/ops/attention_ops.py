@@ -1,7 +1,7 @@
 # ported from paddle_tpu/ops/attention_ops.py
 """Attention math of the serving and training paths.
 
-* :func:`neg_inf` / :func:`neg_inf_value` — the one masking constant every
+* :func:`neg_inf_value` — the one masking constant every
   attention implementation here shares (composed :func:`sdpa`,
   :func:`decode_attention`, :func:`verify_attention` and the paged-attention
   CUDA kernel), so masking cannot drift between them.
@@ -33,21 +33,18 @@ from ..flags import flags
 from .kernels import flash_attention as fa
 from .tensor_ops import keep_mask
 
-__all__ = ["neg_inf", "neg_inf_value", "paged_kernel_enabled", "sdpa",
+__all__ = ["neg_inf_value", "paged_kernel_enabled", "sdpa",
            "decode_attention", "verify_attention"]
 
 
 def neg_inf_value(dtype) -> float:
     """``-0.7 * finfo(dtype).max`` as a Python float: finite in every float
     dtype, while ``exp()`` of it (minus any real score) underflows to
-    exactly 0.0, so masked positions contribute exactly nothing."""
+    exactly 0.0, so masked positions contribute exactly nothing. Handed to
+    ``torch.where`` as a Python scalar it rounds once to the scores' dtype,
+    as the JAX package's ``jnp.asarray(value, dtype)`` rounds it (a CPU
+    0-d tensor there would be copied to the card with a host sync)."""
     return -0.7 * float(torch.finfo(dtype).max)
-
-
-def neg_inf(dtype) -> torch.Tensor:
-    """:func:`neg_inf_value` as a 0-d tensor of ``dtype`` (rounded once, as
-    the JAX package's ``jnp.asarray(value, dtype)`` rounds it)."""
-    return torch.tensor(neg_inf_value(dtype), dtype=dtype)
 
 
 def paged_kernel_enabled() -> bool:
@@ -120,7 +117,7 @@ def sdpa(q, k, v, bias=None, segment_ids_q=None, segment_ids_kv=None,
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
     if bias is not None:
         scores = scores + bias
-    ninf = neg_inf(scores.dtype)
+    ninf = neg_inf_value(scores.dtype)
     if segment_ids_q is not None:
         mask = (segment_ids_q[:, None, :, None]
                 == segment_ids_kv[:, None, None, :])
@@ -148,14 +145,14 @@ def decode_attention(q, ctx_k, ctx_v, ctx_len, sm_scale=1.0):
     ``ctx_v`` [B,L,H,D] is the slot's cache context (a paged gather or a
     contiguous cache slice). ``ctx_len`` [B] counts the valid leading
     positions, INCLUDING the current token, whose k/v the caller wrote
-    before calling. Invalid positions are masked with :func:`neg_inf`, so
-    cache garbage beyond ``ctx_len`` contributes exactly nothing. Returns
-    [B,H,D].
+    before calling. Invalid positions are masked with
+    :func:`neg_inf_value`, so cache garbage beyond ``ctx_len`` contributes
+    exactly nothing. Returns [B,H,D].
     """
     scores = torch.einsum("bhd,blhd->bhl", q, ctx_k) * sm_scale
     pos = torch.arange(ctx_k.shape[1], device=q.device)
     mask = pos[None, None, :] < ctx_len[:, None, None]
-    scores = torch.where(mask, scores, neg_inf(scores.dtype))
+    scores = torch.where(mask, scores, neg_inf_value(scores.dtype))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhl,blhd->bhd", probs, ctx_v)
 
@@ -171,7 +168,7 @@ def verify_attention(q, ctx_k, ctx_v, ctx_len, sm_scale=1.0):
     scores = torch.einsum("bwhd,blhd->bwhl", q, ctx_k) * sm_scale
     pos = torch.arange(ctx_k.shape[1], device=q.device)
     mask = pos[None, None, None, :] < lens[:, :, None, None]
-    scores = torch.where(mask, scores, neg_inf(scores.dtype))
+    scores = torch.where(mask, scores, neg_inf_value(scores.dtype))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bwhl,blhd->bwhd", probs, ctx_v)
 

@@ -26,7 +26,8 @@ take the plain version (:func:`softmax_xent_reference`,
 :func:`softmax_xent_reference_bwd`) for tensors on the CPU, and for CUDA
 tensors launch the kernel or raise: nothing falls back from a kernel to
 the plain version. Every forward launch adds one to :data:`LAUNCHES_FWD`,
-every backward launch one to :data:`LAUNCHES_BWD`.
+every backward launch one to :data:`LAUNCHES_BWD`, and each also adds one
+to its shape's entry in :data:`LAUNCHES_BY_SHAPE`.
 """
 
 from __future__ import annotations
@@ -37,10 +38,13 @@ import torch
 
 __all__ = ["softmax_xent", "SoftmaxXent", "softmax_xent_fwd",
            "softmax_xent_bwd", "softmax_xent_reference",
-           "softmax_xent_reference_bwd", "LAUNCHES_FWD", "LAUNCHES_BWD"]
+           "softmax_xent_reference_bwd", "LAUNCHES_FWD", "LAUNCHES_BWD",
+           "LAUNCHES_BY_SHAPE"]
 
 LAUNCHES_FWD = 0  # K2a launches since import (or since a caller reset it)
 LAUNCHES_BWD = 0  # K2b launches
+# ("K2a" or "K2b", N, V, logits dtype) -> launches; a caller clears it
+LAUNCHES_BY_SHAPE: dict = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = None
@@ -86,6 +90,11 @@ def _check(logits, labels):
                          % logits.device)
 
 
+def _count_shape(kernel, logits):
+    key = (kernel, *logits.shape, logits.dtype)
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+
+
 def _launch(fn, *args):
     dev = args[0].device
     with torch.cuda.device(dev):
@@ -114,6 +123,7 @@ def softmax_xent_fwd(logits, labels, smooth=0.0, ignore_index=-100):
     _launch(fwd, logits, labels, loss, lse, n, v, float(smooth),
             int(ignore_index), _DTYPE_CODE[logits.dtype])
     LAUNCHES_FWD += 1
+    _count_shape("K2a", logits)
     return loss, lse
 
 
@@ -139,6 +149,7 @@ def softmax_xent_bwd(logits, labels, lse, g, smooth=0.0, ignore_index=-100):
     _launch(bwd, logits, labels, lse, g, dlogits, n, v, float(smooth),
             int(ignore_index), _DTYPE_CODE[logits.dtype])
     LAUNCHES_BWD += 1
+    _count_shape("K2b", logits)
     return dlogits
 
 

@@ -53,6 +53,21 @@ def reshape_op(ctx: OpContext):
     _set_xshape(ctx, x)
 
 
+@register_op("squeeze", "squeeze2")
+def squeeze_op(ctx: OpContext):
+    """Drops the listed axes whose dim is 1 (an axis of another size is
+    passed over, not an error), or every dim of 1 when ``axes`` is empty."""
+    x = ctx.input("X")
+    axes = ctx.attr("axes", [])
+    if axes:
+        axes = tuple(a % x.dim() for a in axes if x.shape[a % x.dim()] == 1)
+        out = x.squeeze(axes) if axes else x
+    else:
+        out = x.squeeze()
+    ctx.set_output("Out", out)
+    _set_xshape(ctx, x)
+
+
 @register_op("unsqueeze", "unsqueeze2")
 def unsqueeze_op(ctx: OpContext):
     x = ctx.input("X")
@@ -84,6 +99,30 @@ def split_op(ctx: OpContext):
                              "%d equal parts" % (axis, x.shape[axis], num))
         outs = torch.split(x, x.shape[axis] // num, dim=axis)
     ctx.set_outputs("Out", outs)
+
+
+@register_op("slice")
+def slice_op(ctx: OpContext):
+    """``Input[starts:ends]`` along ``axes``: a negative start or end counts
+    from the end of its dim, and both clamp to [0, dim]."""
+    x = ctx.input("Input")
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(ctx.attr("axes"), ctx.attr("starts"), ctx.attr("ends")):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    ctx.set_output("Out", x[tuple(idx)])
+
+
+@register_op("gather")
+def gather_op(ctx: OpContext):
+    """Rows of ``X`` at the flattened ``Index`` (a negative index counts from
+    the end). Its gradient sums the rows of a repeated index (on the card
+    with atomic adds). An index out of [-rows, rows) raises where the JAX
+    package returns a row of NaN."""
+    x, index = ctx.input("X"), ctx.input("Index")
+    ctx.set_output("Out", x[index.reshape(-1)])
 
 
 @register_op("concat")

@@ -17,7 +17,7 @@ One :class:`ServingEngine` owns:
 
 Decoding is greedy (``argmax``, first maximum on ties). Sampled decoding,
 speculation, the prefix cache, drain, deadlines, fault retries, traces,
-telemetry and SLOs are not ported yet (ROADMAP.md, queue 3).
+telemetry and SLOs are not ported yet (ROADMAP.md, Queue 1 item 5).
 Observability is the ``serving/*`` counters and latency histograms
 (serving.metrics).
 """
@@ -172,14 +172,15 @@ class ServingEngine:
         can NEVER be served at this geometry, ``BackpressureError`` when the
         bounded queue is full (shed/retry — transient), and
         ``NotImplementedError`` for ``temperature > 0``: sampled decoding
-        waits for a bit-exact threefry port (ROADMAP.md, queue 3), without
-        which the JAX package's sampled streams cannot be matched."""
+        waits for a bit-exact threefry port (ROADMAP.md, Queue 1 item 5),
+        without which the JAX package's sampled streams cannot be
+        matched."""
         if temperature > 0:
             raise NotImplementedError(
                 "sampled decoding (temperature > 0) is not ported yet: it "
-                "needs the bit-exact threefry sampler of ROADMAP.md queue 3 "
-                "to match the JAX package's streams; submit greedy requests "
-                "(temperature=0)")
+                "needs the bit-exact threefry sampler of ROADMAP.md Queue 1 "
+                "item 5 to match the JAX package's streams; submit greedy "
+                "requests (temperature=0)")
         req = Request(prompt, max_new_tokens, temperature=temperature)
         if req.prompt_len > self.cfg.prompt_buckets[-1]:
             raise ValueError(

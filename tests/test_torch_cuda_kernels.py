@@ -768,3 +768,71 @@ def test_resnet_trains_on_the_card_as_on_the_cpu(cuda):
     card, cpu = losses
     np.testing.assert_allclose(card, cpu, rtol=1e-4)
     assert card[-1] < card[0]
+
+
+def test_gather_sums_repeated_rows_on_the_card(cuda):
+    """``gather`` at an index that repeats rows (BERT's masked positions
+    may): the card's rows equal the CPU's bit for bit, and its gradient,
+    summed by atomic adds, matches the CPU's to 1e-6."""
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+    from paddle_tpu_torch.core.framework import Operator, Program
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(640, 768).astype(np.float32)
+    idx = rng.randint(0, 64, (2048, 1)).astype(np.int64)
+    g = rng.randn(2048, 768).astype(np.float32)
+    op = Operator(Program().global_block, "gather",
+                  inputs={"X": ["x"], "Index": ["i"]}, outputs={"Out": ["o"]})
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        xt = torch.as_tensor(x, device=dev).requires_grad_(True)
+        env = {"x": xt, "i": torch.as_tensor(idx, device=dev)}
+        get_op_impl("gather")(OpContext(op, env, None))
+        dx, = torch.autograd.grad(env["o"], [xt],
+                                  torch.as_tensor(g, device=dev))
+        outs.append((env["o"].detach().cpu(), dx.cpu()))
+    (o_card, dx_card), (o_cpu, dx_cpu) = outs
+    assert torch.equal(o_card, o_cpu)
+    torch.testing.assert_close(dx_card, dx_cpu, rtol=1e-6, atol=1e-5)
+
+
+def test_bert_predictor_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A tiny BERT inference model saved by the port loads into a
+    ``Predictor`` on the card (the default device) and into one on the
+    CPU; at batch 5 (bucketed to 8) their outputs agree to 1e-5, and the
+    loaded parameters live on the card."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models import bert
+
+    seq = 16
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds = [fluid.layers.data(n, shape=[seq], dtype="int64")
+                 for n in ("ids", "pos", "sent")]
+        mask = fluid.layers.data("mask", shape=[seq], dtype="float32")
+        _, pooled = bert.bert_tiny(*feeds, mask, dropout_rate=0.0,
+                                   is_test=True)
+    with fluid.scope_guard(fluid.Scope()):
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(startup)
+        fluid.io.save_inference_model(str(tmp_path),
+                                      ["ids", "pos", "sent", "mask"],
+                                      [pooled], exe, main_program=main)
+    rng = np.random.RandomState(0)
+    args = [rng.randint(0, 64, (5, seq)).astype("int64"),
+            np.tile(np.arange(seq), (5, 1)).astype("int64"),
+            rng.randint(0, 2, (5, seq)).astype("int64"),
+            (rng.rand(5, seq) > 0.2).astype("float32")]
+    config = inference.AnalysisConfig(str(tmp_path))
+    config.switch_batch_bucketing(True)
+    card = inference.create_predictor(config)
+    assert card._exe.place.type == "cuda"
+    assert all(v.device.type == "cuda" for v in card._scope.vars.values())
+    config = inference.AnalysisConfig(str(tmp_path))
+    config.switch_batch_bucketing(True)
+    config.disable_gpu()
+    cpu = inference.create_predictor(config)
+    got, = card.run(args)
+    want, = cpu.run(args)
+    assert got.shape == (5, 32)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

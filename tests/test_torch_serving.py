@@ -201,7 +201,10 @@ def test_port_sources_name_no_jax_import():
     assert {"paddle_tpu_torch/amp.py",
             "paddle_tpu_torch/ops/kernels/flash_attention.py",
             "paddle_tpu_torch/ops/kernels/sparse_adam.py",
-            "paddle_tpu_torch/models/deepfm.py"} <= names
+            "paddle_tpu_torch/models/deepfm.py",
+            "paddle_tpu_torch/models/bert.py", "paddle_tpu_torch/io.py",
+            "paddle_tpu_torch/core/serialization.py",
+            "paddle_tpu_torch/inference/predictor.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
