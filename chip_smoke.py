@@ -58,6 +58,22 @@ paths through the entry points a user calls:
   layers, batch 8, dropout 0 the card's losses must match the CPU's, in
   float32 and under AMP.
 
+Five programs also run as a captured step (``Executor.run_steps``: two
+eager warm-up steps, one CUDA graph capture, then replays), each at its
+phase's full width, on its phase's program and state: ``bert_captured``
+(float32 and AMP), ``transformer_captured`` (AMP, driven by
+``bench.py``'s ``_timeit_pipeline`` calls), ``resnet_captured`` (AMP),
+``ctr_captured`` (Adam and SGD) and ``longctx_captured`` (AMP). Each
+runs six steps (eight for the Transformer) eagerly and the same steps
+captured from the same start state; the losses must agree within 1e-6
+relative at every step and the state within 1e-6 norm-wise (AMP 1e-3),
+the replays number the steps less the warm-ups, one replay must launch
+the graph once and each hand-written kernel of the program at its count
+a step (K2, K1 and K4 inside the graph, counted by name under
+torch.profiler), and an eager step must sync the host nowhere (the sync
+debug mode). Then eager and captured blocks of steps run in turns: step
+ms, host ms, launches a step, busy share and peak memory of each.
+
 Each phase prints one JSON line; any failed check exits non-zero. The line
 before the last holds every kernel's numbers, the last line the device.
 
@@ -740,10 +756,11 @@ def build_transformer(fluid, n_layer, d_model, n_head, d_inner, seq, vocab,
     return main, startup, loss, logits
 
 
-def train_feed(batch):
-    """The fixed batch of bench.py's bench_transformer."""
+def train_feed(batch, seed=0):
+    """The fixed batch of bench.py's bench_transformer (another batch of
+    the same shapes for another ``seed``)."""
     seq, vocab = TRAIN["seq"], TRAIN["vocab"]
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     return {
         "src": rng.randint(2, vocab, (batch, seq)).astype("int64"),
         "trg": rng.randint(2, vocab, (batch, seq)).astype("int64"),
@@ -815,6 +832,15 @@ def train_phase(xent_rows, amp=False):
          k2_launches={"fwd": fwd, "bwd": bwd})
     train_profile_phase(exe, main, loss, feed, scope,
                         phase="train_profile" + ("_amp" if amp else ""))
+    if amp:
+        counts = captured_leg(
+            "transformer_captured", main, loss, scope,
+            [train_feed(TRAIN_BATCH, seed=i) for i in range(8)], amp,
+            {k: (pat, 1) for k, pat in K2_NAMES.items()},
+            pipeline_batch=TRAIN_BATCH)
+        for row, kern in zip(xent_rows, K2_NAMES):
+            row.setdefault("captured_launches_a_step", {})[
+                "transformer_amp"] = counts[kern]
     del scope, exe
     torch.cuda.empty_cache()
 
@@ -1310,8 +1336,8 @@ def build_causal_lm(fluid, seq, amp, dropout=0.1, n_layer=None):
     return main, startup, loss
 
 
-def longctx_feed(batch, seq):
-    rng = np.random.RandomState(0)
+def longctx_feed(batch, seq, seed=0):
+    rng = np.random.RandomState(seed)
     vocab = LONGCTX["vocab_size"]
     return {"ids": rng.randint(0, vocab, (batch, seq)).astype("int64"),
             "lbl": rng.randint(0, vocab, (batch, seq, 1)).astype("int64")}
@@ -1383,6 +1409,17 @@ def longctx_train_phase(flash_rows, amp):
          setup_s=time.perf_counter() - t0 - sum(secs))
     train_profile_phase(exe, main, loss, feed, scope,
                         phase="longctx_profile_" + mode)
+    if amp:
+        per_step = {k: (pat, LONGCTX["n_layer"])
+                    for k, pat in K1_NAMES.items()}
+        per_step.update({k: (pat, 1) for k, pat in K2_NAMES.items()})
+        counts = captured_leg(
+            "longctx_captured", main, loss, scope,
+            [longctx_feed(LONGCTX_BATCH, LONGCTX_SEQ, seed=i)
+             for i in range(CAPTURED_STEPS)], amp, per_step)
+        for row, kern in zip(flash_rows, K1_NAMES):
+            row.setdefault("captured_launches_a_step", {})[
+                "longctx_amp"] = counts[kern]
     del scope, exe
     torch.cuda.empty_cache()
 
@@ -1431,14 +1468,14 @@ def longctx_parity_phase():
     torch.cuda.empty_cache()
 
 
-def ctr_feed(batch=None, vocab=None):
+def ctr_feed(batch=None, vocab=None, seed=0):
     """The fixed batch of bench.py's bench_deepfm (batch 1024, V = 1e6 by
     default): RandomState(0) draws the ids, then the dense features, then
-    the labels."""
+    the labels (RandomState(seed) another batch)."""
     batch = batch or CTR_BATCH
     vocab = vocab or CTR["sparse_feature_dim"]
     num_fields = CTR["num_fields"]
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     return {"ids": rng.randint(0, vocab, (batch, num_fields)).astype("int64"),
             "dense": rng.rand(batch, CTR_DENSE).astype("float32"),
             "label": rng.randint(0, 2, (batch, 1)).astype("int64")}
@@ -1844,7 +1881,7 @@ def state_bytes(scope):
 
 
 def ctr_run(fluid, vocab, opt="adam", is_sparse=True, warm=2, timed=6,
-            profile=None):
+            profile=None, leg=False):
     """DeepFM at full width through ``Executor.run``: ``warm`` steps, then
     the launch counters set to 0 and ``timed`` steps on one fixed batch, each
     ending with its loss and AUC on the host. Returns the phase's numbers."""
@@ -1888,6 +1925,14 @@ def ctr_run(fluid, vocab, opt="adam", is_sparse=True, warm=2, timed=6,
           % losses)
     if profile:
         train_profile_phase(exe, main, loss, feed, scope, phase=profile)
+    if leg:
+        k4 = "K4a" if opt == "adam" else "K4b"
+        per_step = {k4: (K4A_KERNEL if opt == "adam" else K4B_KERNEL, 2)}
+        per_step.update({k: (pat, 1) for k, pat in K2_NAMES.items()})
+        res["captured_launches_a_step"] = captured_leg(
+            "ctr_captured", main, loss, scope,
+            [ctr_feed(vocab=vocab, seed=i) for i in range(CAPTURED_STEPS)],
+            False, per_step)
     del scope, exe
     torch.cuda.empty_cache()
     return res
@@ -1902,7 +1947,7 @@ def ctr_train_phase(k4_rows, xent_rows, k2_ctr):
     import paddle_tpu_torch as fluid
 
     vocab = CTR["sparse_feature_dim"]
-    adam = ctr_run(fluid, vocab, "adam", profile="ctr_profile")
+    adam = ctr_run(fluid, vocab, "adam", profile="ctr_profile", leg=True)
     steps = adam["steps"]
     check(adam["losses"][-1] < adam["losses"][0],
           "DeepFM Adam loss did not fall: %r" % adam["losses"])
@@ -1911,7 +1956,7 @@ def ctr_train_phase(k4_rows, xent_rows, k2_ctr):
           "DeepFM Adam launches %r over %d steps (want K4a 2, K2a/K2b 1 a "
           "step)" % (adam["launches"], steps))
     emit("ctr_train", config=CTR, **adam)
-    sgd = ctr_run(fluid, vocab, "sgd")
+    sgd = ctr_run(fluid, vocab, "sgd", leg=True)
     check(sgd["losses"][-1] < sgd["losses"][0],
           "DeepFM SGD loss did not fall: %r" % sgd["losses"])
     check(sgd["launches"] == {"k4a": 0, "k4b": 2 * steps, "k2a": steps,
@@ -1921,6 +1966,10 @@ def ctr_train_phase(k4_rows, xent_rows, k2_ctr):
     emit("ctr_train", config=CTR, **sgd)
     k4_rows[0]["launches"] = adam["launches"]["k4a"]
     k4_rows[1]["launches"] = sgd["launches"]["k4b"]
+    k4_rows[0]["captured_launches_a_step"] = {
+        "ctr_adam": adam["captured_launches_a_step"]["K4a"]}
+    k4_rows[1]["captured_launches_a_step"] = {
+        "ctr_sgd": sgd["captured_launches_a_step"]["K4b"]}
     for row, key, n in zip(xent_rows, ("fwd", "bwd"),
                            (adam["launches"]["k2a"], adam["launches"]["k2b"])):
         row["ctr_shape"] = {"N": CTR_BATCH, "V": 2, "launches": n,
@@ -2044,10 +2093,11 @@ def build_resnet(fluid, amp, depth=50, image=RESNET_IMAGE,
     return main, startup, loss, acc
 
 
-def resnet_feed(batch, image=RESNET_IMAGE, classes=RESNET_CLASSES):
+def resnet_feed(batch, image=RESNET_IMAGE, classes=RESNET_CLASSES, seed=0):
     """The fixed batch of bench.py's bench_resnet50: RandomState(0) draws
-    the images (randn), then the labels."""
-    rng = np.random.RandomState(0)
+    the images (randn), then the labels (RandomState(seed) another
+    batch)."""
+    rng = np.random.RandomState(seed)
     return {"img": rng.randn(batch, 3, image, image).astype("float32"),
             "label": rng.randint(0, classes, (batch, 1)).astype("int64")}
 
@@ -2141,6 +2191,15 @@ def resnet_train_phase(xent_rows, amp):
         row["vision_shapes"][key]["launches"] = n
     train_profile_phase(exe, main, loss, feed, scope,
                         phase="resnet_profile_" + mode, groups=RESNET_GROUPS)
+    if amp:
+        counts = captured_leg(
+            "resnet_captured", main, loss, scope,
+            [resnet_feed(RESNET_BATCH, seed=i)
+             for i in range(CAPTURED_STEPS)], amp,
+            {k: (pat, 1) for k, pat in K2_NAMES.items()})
+        for row, kern in zip(xent_rows, K2_NAMES):
+            row.setdefault("captured_launches_a_step", {})[
+                "resnet_amp"] = counts[kern]
     torch.backends.cudnn.benchmark = prev
     del scope, exe
     torch.cuda.empty_cache()
@@ -2421,12 +2480,13 @@ def build_bert(fluid, amp, n_layer=None, dropout=None):
     return main, startup, loss
 
 
-def bert_feed(batch, dev=None):
+def bert_feed(batch, dev=None, seed=0):
     """The fixed batch of bench.py's bench_bert: RandomState(0) draws the
     masked positions (flat indices into [batch * seq]; a row may repeat
-    one), then the ids, the MLM labels and the NSP labels. On ``dev`` as
-    tensors, as the bench places its feed on the device once."""
-    rng = np.random.RandomState(0)
+    one), then the ids, the MLM labels and the NSP labels (RandomState(seed)
+    another batch). On ``dev`` as tensors, as the bench places its feed on
+    the device once."""
+    rng = np.random.RandomState(seed)
     mpos = (np.arange(batch)[:, None] * BERT_SEQ
             + rng.randint(0, BERT_SEQ, (batch, BERT_MASK))).astype("int64")
     feed = {
@@ -2524,6 +2584,13 @@ def bert_train_phase(xent_rows, amp, ckpt_dir=None):
     if ckpt_dir is not None:
         with fluid.scope_guard(scope):
             fluid.io.save_params(exe, ckpt_dir, main_program=main)
+    counts = captured_leg(
+        "bert_captured", main, loss, scope,
+        [bert_feed(BERT_BATCH, seed=i) for i in range(CAPTURED_STEPS)], amp,
+        {k: (pat, 2) for k, pat in K2_NAMES.items()})
+    for row, kern in zip(xent_rows, K2_NAMES):
+        row.setdefault("captured_launches_a_step", {})[
+            "bert_" + mode] = counts[kern]
     del scope, exe
     torch.cuda.empty_cache()
 
@@ -2795,6 +2862,261 @@ def bert_parity_phase():
               % (card_losses, cpu_losses, rel, tol, amp))
         del card, cpu
     torch.cuda.empty_cache()
+
+
+# -- the captured legs --------------------------------------------------------
+# Each leg holds the captured step (``Executor.run_steps``: warm-up steps,
+# one CUDA graph capture, replays) against eager ``run()`` steps from one
+# start state on one list of feeds, then times both in turns in this call.
+CAPTURED_STEPS = 6   # steps each leg runs eagerly and captured
+CAPTURED_TURNS = 3   # rounds of (an eager block, a captured block)
+CAPTURED_BLOCK = 4   # steps a timed block: one run_steps chunk
+# the hand-written kernels by the name the profiler records
+K2_NAMES = {"K2a": r"xent_fwd", "K2b": r"xent_bwd"}
+K1_NAMES = {"K1a": r"flash_fwd", "K1b": r"flash_dkv", "K1c": r"flash_dq"}
+
+
+def timeit_pipeline(exe, prog, feed, fetch_list, batch, skip=5, iters=20,
+                    epochs=3, fetch_every=8):
+    """The body of ``bench.py``'s ``_timeit_pipeline`` with its calls
+    unchanged (``run_steps(..., fetch_every=8, return_numpy=False)``, the
+    last handle resolved by ``np.asarray``); returns its numbers instead of
+    setting ``_timeit.last``."""
+
+    def rep(n):
+        return (feed for _ in range(n))
+
+    warm = max(iters, skip)
+    hs = exe.run_steps(prog, rep(warm), steps=warm, fetch_list=fetch_list,
+                       fetch_every=fetch_every, return_numpy=False)
+    np.asarray(hs[-1][0])
+    times, dispatch_times, n_dispatches = [], [], 0
+    for _ in range(max(1, epochs)):
+        t0 = time.time()
+        hs = exe.run_steps(prog, rep(iters), steps=iters,
+                           fetch_list=fetch_list, fetch_every=fetch_every,
+                           return_numpy=False)
+        dispatch_times.append(time.time() - t0)
+        out = np.asarray(hs[-1][0])  # sync: resolves the whole chain
+        assert np.isfinite(out).all()
+        times.append(time.time() - t0)
+        n_dispatches = len(hs)
+    dt = sorted(times)[len(times) // 2]
+    return {"epoch_sec": times, "eps_median": batch * iters / dt,
+            "fetch_every": fetch_every, "dispatches_per_epoch": n_dispatches,
+            "host_dispatch_ms_per_step":
+                sorted(dispatch_times)[len(dispatch_times) // 2] / iters
+                * 1e3,
+            "synced_step_ms": dt / iters * 1e3}
+
+
+# the runtime calls by which the host puts work on the card
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def step_profile(step):
+    """``step()`` once under torch.profiler: (wall ms, device busy ms,
+    kernels run {name: count}, cudaGraphLaunch calls, the host's launch
+    calls (``LAUNCH_CALLS``), the host's eight largest items by self CPU
+    ms). Copies and memsets are not kernels and are left out of the
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    kern = [e for e in avgs if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))]
+    host = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    return (wall * 1e3, sum(e.self_device_time_total for e in kern) / 1e3,
+            {e.key: e.count for e in kern},
+            sum(e.count for e in avgs if e.key == "cudaGraphLaunch"),
+            sum(e.count for e in avgs if e.key in LAUNCH_CALLS),
+            {e.key[:60]: [e.count, e.self_cpu_time_total / 1e3]
+             for e in host})
+
+
+def host_syncs(step):
+    """The synchronizing CUDA calls of ``step()``, as the sync debug mode
+    reports them (one warning each)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message)[:120] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def captured_leg(leg, main, loss, scope, feeds, amp, per_step,
+                 pipeline_batch=None):
+    """The captured leg of a phase, on its program and its scope after its
+    eager steps: ``len(feeds)`` eager ``run()`` steps on the scope, then
+    the same steps from the same start state and step index through
+    ``run_steps`` on a copy (``WARMUP_STEPS`` eager warm-ups, one capture,
+    replays). Losses within 1e-6 relative at every step and the state
+    within 1e-6 norm-wise afterwards (AMP 1e-3), bit-equality reported;
+    one capture and ``len(feeds) - WARMUP_STEPS`` replays; in one replay
+    under the profiler one ``cudaGraphLaunch`` and each kernel of
+    ``per_step`` ({name: (profiler name pattern, launches a step)}) at
+    its count; no host sync in an eager step. Then eager and captured
+    blocks of ``CAPTURED_BLOCK`` steps in turns on the card's copy of the
+    first feed: step ms (block wall / steps, synced at the block's end)
+    and host ms (until the block is dispatched); launches a step (kernels
+    run, and the host's launch calls), busy share and peak memory of
+    each.
+    With ``pipeline_batch`` the captured steps are driven by
+    ``_timeit_pipeline``'s calls. Returns the launches a replay by kernel
+    name."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.executor import WARMUP_STEPS
+    from paddle_tpu_torch.monitor import metrics
+
+    t_leg = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    n = len(feeds)
+    scope_c = fluid.Scope()
+    for k, v in scope.vars.items():
+        scope_c.set_var(k, v.clone() if isinstance(v, torch.Tensor) else v)
+    step0 = getattr(main, "_tpu_step_counter", 0)
+    exe = fluid.Executor(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager = [float(exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0])
+             for f in feeds]
+    peak_e = torch.cuda.max_memory_allocated()
+    main._tpu_step_counter = step0
+    exe_c = fluid.Executor(dev)
+    caps0, reps0 = metrics.CAPTURES.value, metrics.REPLAYS.value
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if pipeline_batch:
+        hs = exe_c.run_steps(main, iter(feeds), steps=n, fetch_list=[loss],
+                             fetch_every=8, scope=scope_c,
+                             return_numpy=False)
+        got = [float(x) for h in hs for x in np.atleast_1d(np.asarray(h[0]))]
+    else:
+        got = [float(r[0]) for r in exe_c.run_steps(
+            main, feeds, fetch_list=[loss], fetch_every=n, scope=scope_c)]
+    run_steps_s = time.perf_counter() - t0
+    peak_c = torch.cuda.max_memory_allocated()
+    captures = metrics.CAPTURES.value - caps0
+    replays = metrics.REPLAYS.value - reps0
+    tol = 1e-3 if amp else 1e-6
+    loss_err = max(abs(g - e) / max(abs(e), 1e-6) for g, e in zip(got, eager))
+    state_err, state_equal = 0.0, True
+    for k, v in scope.vars.items():
+        if not isinstance(v, torch.Tensor):
+            continue
+        c = scope_c.find_var(k)
+        state_equal = state_equal and torch.equal(c, v)
+        if v.is_floating_point():
+            d = (c.double() - v.double()).norm()
+            state_err = max(state_err, float(
+                d / v.double().norm().clamp_min(1e-30)))
+        else:
+            check(torch.equal(c, v), "%s: state %s differs" % (leg, k))
+    check(len(got) == n and loss_err <= tol,
+          "%s: captured losses %r against eager %r (largest relative "
+          "difference %.3g, tolerance %g)" % (leg, got, eager, loss_err, tol))
+    check(state_err <= tol, "%s: state after the captured steps %.3g from "
+          "the eager one norm-wise (tolerance %g)" % (leg, state_err, tol))
+    check((captures, replays) == (1, n - WARMUP_STEPS),
+          "%s: %d captures and %d replays in %d steps, want 1 and %d"
+          % (leg, captures, replays, n, n - WARMUP_STEPS))
+
+    dfeed = {k: torch.as_tensor(v, device=dev) for k, v in feeds[0].items()}
+    syncs = host_syncs(lambda: exe.run(main, feed=dfeed, fetch_list=[loss],
+                                       scope=scope, return_numpy=False))
+    check(not syncs, "%s: an eager step syncs the host: %s" % (leg, syncs))
+
+    def eager_step():
+        exe.run(main, feed=dfeed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+
+    def captured_steps(k):
+        return exe_c.run_steps(main, (dfeed for _ in range(k)), steps=k,
+                               fetch_list=[loss], fetch_every=k,
+                               scope=scope_c, return_numpy=False)
+
+    wall_e, busy_e, kern_e, _, calls_e, _ = step_profile(eager_step)
+    wall_c, busy_c, kern_c, graph_launches, calls_c, host_c = step_profile(
+        lambda: captured_steps(1))
+    host_block = step_profile(lambda: captured_steps(CAPTURED_BLOCK))[-1]
+    block_syncs = host_syncs(lambda: captured_steps(CAPTURED_BLOCK))
+    check(graph_launches == 1, "%s: %d cudaGraphLaunch in one replay"
+          % (leg, graph_launches))
+    counts = {name: sum(c for k, c in kern_c.items() if re.search(pat, k,
+                                                                  re.I))
+              for name, (pat, _) in per_step.items()}
+    want = {name: c for name, (_, c) in per_step.items()}
+    check(counts == want, "%s: kernels in one replay %r, want %r a step"
+          % (leg, counts, want))
+
+    times = {"eager": [], "captured": []}
+    hosts = {"eager": [], "captured": []}
+    for _ in range(CAPTURED_TURNS):
+        for mode in ("eager", "captured"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "eager":
+                for _ in range(CAPTURED_BLOCK):
+                    eager_step()
+            else:
+                captured_steps(CAPTURED_BLOCK)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            hosts[mode].append((t1 - t0) / CAPTURED_BLOCK * 1e3)
+            times[mode].append((t2 - t0) / CAPTURED_BLOCK * 1e3)
+    pipeline = None
+    if pipeline_batch:
+        # as the bench runs it: the program's state in the global scope
+        with fluid.scope_guard(scope_c):
+            pipeline = timeit_pipeline(exe_c, main, dfeed, [loss],
+                                       pipeline_batch, iters=8, epochs=2)
+    emit(leg, mode="bfloat16_amp" if amp else "float32", steps=n,
+         warmup_steps=WARMUP_STEPS, captures=captures, replays=replays,
+         losses_eager=eager, losses_captured=got,
+         loss_max_rel_diff=loss_err, state_max_norm_diff=state_err,
+         bit_equal=bool(got == eager and state_equal), tolerance=tol,
+         step_ms_eager=float(np.median(times["eager"])),
+         step_ms_captured=float(np.median(times["captured"])),
+         step_ms_turns=times, host_ms_eager=float(np.median(hosts["eager"])),
+         host_ms_captured=float(np.median(hosts["captured"])),
+         busy_share_eager=busy_e / wall_e, busy_share_captured=busy_c / wall_c,
+         device_share_of_step_eager=busy_e / np.median(times["eager"]),
+         device_share_of_step_captured=busy_c
+         / np.median(times["captured"]),
+         device_busy_ms_eager=busy_e, device_busy_ms_captured=busy_c,
+         launches_eager=sum(kern_e.values()),
+         launches_captured=sum(kern_c.values()), graph_launches=graph_launches,
+         host_launch_calls_eager=calls_e, host_launch_calls_captured=calls_c,
+         kernels_a_replay=counts,
+         capture_s=metrics.CAPTURE_MS.value / 1e3, run_steps_s=run_steps_s,
+         peak_memory_eager=peak_e, peak_memory_captured=peak_c,
+         eager_host_syncs=len(syncs), captured_block_host_syncs=block_syncs,
+         host_top_captured_step=host_c, host_top_captured_block=host_block,
+         pipeline=pipeline,
+         phase_seconds=time.perf_counter() - t_leg)
+    exe_c.close()
+    del scope_c, exe_c, exe
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main():

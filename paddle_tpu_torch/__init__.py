@@ -25,6 +25,9 @@ Ported so far:
   ``load_inference_model``, ``save_params``, ...), the JAX package's
   files name for name, and the :mod:`.inference` ``Predictor`` that runs a
   saved model.
+* the captured step: :class:`CompiledProgram` and
+  ``Executor.run_steps`` warm a program's step up, capture it into a
+  CUDA graph and replay it (:mod:`.compiler`, :mod:`.executor`).
 
 A Fluid script runs unchanged with::
 
@@ -41,6 +44,8 @@ from . import (  # noqa: F401
     serving,
 )
 from .backward import append_backward, calc_gradient, gradients  # noqa: F401
+from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
+                       ExecutionStrategy)
 from .core import unique_name  # noqa: F401
 from .core.framework import (  # noqa: F401
     Program,
@@ -63,4 +68,5 @@ __all__ = ["serving", "models", "CUDAPlace", "CPUPlace", "TPUPlace",
            "optimizer", "initializer", "io", "Executor", "Scope",
            "scope_guard", "global_scope", "unique_name", "ParamAttr",
            "WeightNormParamAttr", "amp", "flags", "get_flag", "set_flag",
-           "append_backward", "gradients", "calc_gradient"]
+           "append_backward", "gradients", "calc_gradient",
+           "CompiledProgram", "BuildStrategy", "ExecutionStrategy"]

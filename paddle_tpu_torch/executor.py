@@ -1,5 +1,6 @@
 # ported from paddle_tpu/executor.py
-"""Executor: runs a Fluid ``Program`` eagerly on one device.
+"""Executor: runs a Fluid ``Program`` on one device, eagerly or as a
+captured step.
 
 The JAX package traces a program once into a ``jax.jit``-compiled step
 (``_CompiledStep``) and differentiates it with ``jax.value_and_grad``.
@@ -28,18 +29,29 @@ weights, which the optimizer ops read and update. The loss is summed in
 float32. A run without a backward casts a copy of its inputs and writes
 back only what an op rewrote, in the dtype the scope held.
 
-Stochastic ops draw from a ``torch.Generator`` per op, seeded from (seed
+Stochastic ops draw from one ``torch.Generator`` per op position, made
+once per plan (:class:`_Plan`) and seeded before every step from (seed
 attr or ``program.random_seed``, step index, op position); the step index
-counts the runs of each program (``_next_step_index``).
+counts the steps of each program (``_next_step_index``).
 
-Left out against the JAX package: jit and ``CompiledProgram``, meshes,
-gradient accumulation, ``run_steps``, the numerics watchdog, the
-trace-time optimizer passes and py_readers.
+The captured step (:class:`_CapturedStep`) is the counterpart of the JAX
+package's one compiled dispatch: ``Executor.run(CompiledProgram)`` and
+:meth:`Executor.run_steps` warm a step up eagerly, capture the same step
+body once into a ``torch.cuda.CUDAGraph`` for each feed signature, and
+replay it. The scope's tensors are the graph's static state, which the
+body updates with ``copy_``. On the CPU the same calls run the body step
+by step, without a graph.
+
+Left out against the JAX package: meshes, gradient accumulation, the
+numerics watchdog, the flight recorder, fault injection, the metrics
+histograms, ``prepare``, the trace-time optimizer passes and py_readers.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+import time
+import weakref
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,15 +59,21 @@ import torch
 from . import ops  # noqa: F401  (registers the ops)
 from .core.dtypes import to_torch_dtype
 from .core.framework import (Program, Variable, default_main_program,
-                             grad_var_name)
+                             grad_var_name, in_test_mode)
 from .core.interpreter import run_block_ops
 from .core.place import resolve_device
 from .core.sparse import SparseGrad
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
+from .monitor import metrics
 
-__all__ = ["Executor", "global_scope", "scope_guard"]
+__all__ = ["Executor", "FeedError", "FetchHandle", "global_scope",
+           "scope_guard"]
 
 _SEED_MIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
+
+# eager steps of a captured step before its capture: they resolve cuDNN's
+# algorithm search, cuBLAS's workspaces and the kernels' library loads
+WARMUP_STEPS = 2
 
 
 def _mix_seed(seed: int, step: int, idx: int) -> int:
@@ -68,14 +86,21 @@ def _mix_seed(seed: int, step: int, idx: int) -> int:
     return h & 0x7FFFFFFFFFFFFFFF
 
 
+class FeedError(RuntimeError):
+    """The feed source raised while ``run_steps`` assembled a chunk; the
+    message names the global step and its position in the chunk."""
+
+
 class TraceContext:
     """Per-run state handed to the ops: test mode, device, the step index
     and the op position that seed each stochastic op's generator, and in a
     training step the names of its sparse tables (``sparse_params``) with
-    the (ids, virtual rows leaf) their lookups register (``sparse_rows``)."""
+    the (ids, virtual rows leaf) their lookups register (``sparse_rows``).
+    ``generators`` ({op position: (generator, op)}) is the plan's; a
+    context without one makes its own."""
 
     def __init__(self, program: Program, is_test: bool, device: torch.device,
-                 step: int):
+                 step: int, generators: Optional[dict] = None):
         self.program = program
         self.is_test = is_test
         self.device = device
@@ -83,12 +108,116 @@ class TraceContext:
         self.current_op_idx = 0
         self.sparse_params = frozenset()
         self.sparse_rows = {}
+        self.generators = {} if generators is None else generators
 
     def op_rng(self, ctx) -> torch.Generator:
-        seed = ctx.attr("seed", 0) or self.program.random_seed
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(_mix_seed(int(seed), self.step, self.current_op_idx))
-        return gen
+        """The generator of the op at ``current_op_idx``, made on its first
+        draw and seeded for this step; the plan reseeds it before later
+        steps (:meth:`_Plan.reseed`)."""
+        entry = self.generators.get(self.current_op_idx)
+        if entry is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(_op_seed(self.program, ctx.op, self.step,
+                                     self.current_op_idx))
+            entry = self.generators[self.current_op_idx] = (gen, ctx.op)
+        return entry[0]
+
+
+def _op_seed(program, op, step, idx) -> int:
+    seed = op.attrs.get("seed", 0) or program.random_seed
+    return _mix_seed(int(seed), step, idx)
+
+
+class _Plan:
+    """What a program's step needs beside its state and feeds, resolved
+    once for each (program, version, test mode, device): the op list and
+    its backward marker, the AMP dtype, the persistable names, and one
+    generator per stochastic op position."""
+
+    def __init__(self, program: Program, is_test: bool):
+        self.program_ref = weakref.ref(program)
+        self.is_test = is_test
+        self.ops = program.global_block.ops
+        self.bw = program._backward_info
+        self.marker_idx = next((i for i, op in enumerate(self.ops)
+                                if op.type == "backward_marker"), None)
+        amp_dtype = getattr(program, "_amp_dtype", None)
+        self.amp_dtype = None if amp_dtype is None \
+            else to_torch_dtype(amp_dtype)
+        self.state_names = tuple(sorted({v.name for v in program.list_vars()
+                                         if v.persistable}))
+        self.generators: Dict[int, Tuple[torch.Generator, Any]] = {}
+
+    def reseed(self, program: Program, step: int):
+        """Seed every generator for ``step``: ``manual_seed`` also resets
+        its offset, so each step draws what a fresh generator would."""
+        for idx, (gen, op) in self.generators.items():
+            gen.manual_seed(_op_seed(program, op, step, idx))
+
+
+class _Fetched(torch.Tensor):
+    """A fetched tensor that numpy reads: ``np.asarray`` waits for the
+    card and copies it to the host, as it does a JAX array."""
+
+    def __array__(self, dtype=None, copy=None):
+        out = _to_numpy(self.as_subclass(torch.Tensor))
+        return out if dtype is None else out.astype(dtype, copy=False)
+
+
+class FetchHandle:
+    """A chunk's fetches, as ``run_steps(..., return_numpy=False)`` returns
+    them: tensors on the executor's device and, on the card, a CUDA event
+    recorded after the chunk's last step. A chunk of n > 1 steps holds each
+    fetch stacked on a leading axis of n.
+
+    Indexing and iteration hand back the device tensors without a sync
+    (``np.asarray`` of one waits and copies); :meth:`numpy` waits and copies
+    them all."""
+
+    __slots__ = ("_values", "_names", "_event", "_np")
+
+    def __init__(self, values, names, event=None):
+        self._values = list(values)
+        self._names = tuple(names)
+        self._event = event
+        self._np = None
+
+    @property
+    def names(self):
+        return self._names
+
+    @property
+    def raw(self):
+        """The fetched tensors, no sync."""
+        return list(self._values)
+
+    def __len__(self):
+        return len(self._values)
+
+    def __getitem__(self, i):
+        return self._values[i].as_subclass(_Fetched)
+
+    def __iter__(self):
+        return (v.as_subclass(_Fetched) for v in self._values)
+
+    def done(self) -> bool:
+        """True once the chunk's device work finished (no wait)."""
+        return self._event is None or self._event.query()
+
+    def block(self):
+        """Wait for the chunk's device work; returns self."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self
+
+    def numpy(self):
+        """The fetches as host numpy arrays (waits; cached)."""
+        if self._np is None:
+            self.block()
+            self._np = [_to_numpy(v) for v in self._values]
+        return list(self._np)
+
+    resolve = numpy
 
 
 class Executor:
@@ -100,9 +229,17 @@ class Executor:
 
     def __init__(self, place=None):
         self.place = resolve_device(place)
+        self._plans: Dict[tuple, _Plan] = {}
+        self._captured: Dict[tuple, "_CapturedStep"] = {}
+        self._side_stream = None
 
     def close(self):
-        """Parity with executor.py:388; the eager executor caches nothing."""
+        """Drop every plan and captured step, and with each CUDA graph its
+        memory pool (reference: executor.py:388)."""
+        for cap in self._captured.values():
+            cap.release()
+        self._captured.clear()
+        self._plans.clear()
 
     # -- helpers --------------------------------------------------------------
     @staticmethod
@@ -113,28 +250,47 @@ class Executor:
         return tuple(names)
 
     @staticmethod
-    def _persistable_names(program: Program) -> Tuple[str, ...]:
-        return tuple(sorted({v.name for v in program.list_vars()
-                             if v.persistable}))
-
-    @staticmethod
-    def _next_step_index(program: Program) -> int:
-        """The step index of this run; the counter lives on the Program so
-        it dies with it."""
+    def _next_step_index(program: Program, n: int = 1) -> int:
+        """The step index of this run (of the first of ``n`` steps); the
+        counter lives on the Program so it dies with it."""
         step = getattr(program, "_tpu_step_counter", 0)
-        program._tpu_step_counter = step + 1
+        program._tpu_step_counter = step + n
         return step
 
     def _feed_tensor(self, block, name, value) -> torch.Tensor:
         """A feed as a tensor on the executor's device, in the dtype the
         program declares for it (the value's own dtype when undeclared)."""
-        dtype = None
-        if block.has_var(name):
-            dtype = to_torch_dtype(block.var(name).dtype)
+        dtype = _feed_dtype(block, name)
         if isinstance(value, torch.Tensor):
             return value.to(device=self.place, dtype=dtype)
         return torch.tensor(np.asarray(value)).to(device=self.place,
                                                   dtype=dtype)
+
+    def _plan(self, program: Program) -> _Plan:
+        is_test = in_test_mode()
+        key = (id(program), program._version, is_test,
+               getattr(program, "_amp_dtype", None))
+        plan = self._plans.get(key)
+        if plan is None or plan.program_ref() is not program:
+            plan = self._plans[key] = _Plan(program, is_test)
+        return plan
+
+    def _gather_state(self, plan: _Plan, scope: Scope) -> Dict[str, Any]:
+        state = {}
+        for n in plan.state_names:
+            val = scope.find_var(n)
+            if val is not None:
+                if not isinstance(val, torch.Tensor):
+                    val = torch.as_tensor(np.asarray(val))
+                state[n] = val if val.device == self.place \
+                    else val.to(self.place)
+        return state
+
+    def _stream(self):
+        """The side stream that warm-up steps and captures run on."""
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.place)
+        return self._side_stream
 
     # -- the public API -------------------------------------------------------
     def run(
@@ -152,17 +308,22 @@ class Executor:
         backward marker). Returns the fetches, as numpy arrays when
         ``return_numpy``, else as tensors on the device.
 
+        A ``CompiledProgram`` takes the captured step (its ``_run``); a
+        ``Program`` runs eagerly.
+
         ``feed_var_name``, ``fetch_var_name`` and ``use_program_cache`` are
-        Fluid's signature. The eager executor has no feed/fetch holder vars,
-        so other names than the defaults raise; it builds nothing to cache,
-        so both values of ``use_program_cache`` run alike."""
-        from .core.framework import in_test_mode
+        Fluid's signature. The executor has no feed/fetch holder vars, so
+        other names than the defaults raise; both values of
+        ``use_program_cache`` run alike."""
+        from .compiler import CompiledProgram
 
         if (feed_var_name, fetch_var_name) != ("feed", "fetch"):
             raise ValueError(
                 "feed_var_name/fetch_var_name other than 'feed'/'fetch' are "
                 "not supported (got %r/%r)" % (feed_var_name, fetch_var_name))
-
+        if isinstance(program, CompiledProgram):
+            return program._run(self, feed=feed, fetch_list=fetch_list,
+                                scope=scope, return_numpy=return_numpy)
         if program is None:
             program = default_main_program()
         if scope is None:
@@ -171,60 +332,186 @@ class Executor:
         fetch_names = self._fetch_names(fetch_list)
         feeds = {n: self._feed_tensor(block, n, v)
                  for n, v in (feed or {}).items()}
-        state_names = self._persistable_names(program)
-        state = {}
-        for n in state_names:
-            val = scope.find_var(n)
-            if val is not None:
-                if not isinstance(val, torch.Tensor):
-                    val = torch.as_tensor(np.asarray(val))
-                state[n] = val if val.device == self.place \
-                    else val.to(self.place)
+        env = self._eager_step(program, self._plan(program), scope, feeds,
+                               fetch_names, self._next_step_index(program))
+        fetches = _fetches(env, fetch_names)
+        if return_numpy:
+            return [_to_numpy(t) for t in fetches]
+        return fetches
 
-        trace = TraceContext(program, in_test_mode(), self.place,
-                             self._next_step_index(program))
-        ops = block.ops
-        bw = program._backward_info
-        marker_idx = next((i for i, op in enumerate(ops)
-                           if op.type == "backward_marker"), None)
-        amp_dtype = getattr(program, "_amp_dtype", None)
-        if amp_dtype is not None:
-            amp_dtype = to_torch_dtype(amp_dtype)
-        if bw is None or marker_idx is None:
+    def run_steps(
+        self,
+        program: Optional[Program] = None,
+        feed_iter=None,
+        steps: Optional[int] = None,
+        fetch_list: Optional[Sequence] = None,
+        fetch_every: int = 1,
+        scope: Optional[Scope] = None,
+        return_numpy: bool = True,
+    ):
+        """Drive up to ``steps`` training steps from ``feed_iter`` (one
+        feed dict a step) through the captured step, ``fetch_every`` steps
+        to a chunk: on the card the chunk's steps are graph replays issued
+        back to back with no host sync between them, and its fetches are
+        copied into [n, ...] tensors, one host copy a chunk. A
+        ``CompiledProgram`` is unwrapped to its program.
+
+        ``steps=None`` runs until the feeds are exhausted. A feed-shape
+        change (the final partial batch of an epoch) cuts the chunk and
+        resolves another captured step for the new shapes. A feed source
+        that raises surfaces as :class:`FeedError`.
+
+        Returns per-step fetch rows (``return_numpy=True``: a list of
+        ``[np.ndarray, ...]``, equal to ``steps`` individual ``run()``
+        calls from the same start) or one :class:`FetchHandle` per chunk
+        (``return_numpy=False``; a chunk of n > 1 steps resolves to arrays
+        with a leading axis of n, a single-step chunk's to per-fetch
+        arrays like ``run()``'s)."""
+        program = self._unwrap_program(program)
+        if feed_iter is None:
+            raise ValueError(
+                "run_steps() needs a feed_iter; the port has no py_reader "
+                "to drain instead")
+        if scope is None:
+            scope = global_scope()
+        fetch_names = self._fetch_names(fetch_list)
+        k = max(1, int(fetch_every))
+        feed_iter = iter(feed_iter)
+        rows: List[Any] = []
+        handles: List[FetchHandle] = []
+        consumed = 0
+        pending = None  # the feed that cut the previous chunk
+        while steps is None or consumed < steps:
+            want = k if steps is None else min(k, steps - consumed)
+            chunk, sig0 = [], None
+            while len(chunk) < want:
+                if pending is not None:
+                    f, pending = pending, None
+                else:
+                    try:
+                        f = next(feed_iter)
+                    except StopIteration:
+                        break
+                    except Exception as e:
+                        raise FeedError(
+                            "run_steps(): feed source raised at global step "
+                            "%d (position %d of the current %d-step chunk): "
+                            "%s: %s" % (consumed + len(chunk), len(chunk),
+                                        want, type(e).__name__, e)) from e
+                try:
+                    sig, f = _feed_signature(f)
+                except Exception as e:
+                    raise FeedError(
+                        "run_steps(): feed for global step %d (position %d "
+                        "of the current %d-step chunk) could not be "
+                        "converted to arrays: %s: %s"
+                        % (consumed + len(chunk), len(chunk), want,
+                           type(e).__name__, e)) from e
+                if chunk and sig != sig0:
+                    pending = f
+                    break
+                sig0 = sig
+                chunk.append(f)
+            if not chunk:
+                break
+            cap = self._captured_step(program, scope, sig0, fetch_names)
+            n = len(chunk)
+            step0 = self._next_step_index(program, n)
+            bufs = None
+            for i, f in enumerate(chunk):
+                outs = cap.step(f, step0 + i)
+                if n == 1:
+                    bufs = [o.clone() for o in outs]
+                    continue
+                if bufs is None:
+                    bufs = [o.new_empty((n,) + tuple(o.shape)) for o in outs]
+                for b, o in zip(bufs, outs):
+                    b[i].copy_(o)
+            consumed += n
+            if not fetch_names:
+                continue
+            event = None
+            if self.place.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.place))
+            handle = FetchHandle(bufs, fetch_names, event)
+            if not return_numpy:
+                handles.append(handle)
+            elif n == 1:
+                rows.append(handle.numpy())
+            else:
+                arrs = handle.numpy()
+                rows.extend([a[i] for a in arrs] for i in range(n))
+        if not fetch_names:
+            return []
+        return rows if return_numpy else handles
+
+    @staticmethod
+    def _unwrap_program(program):
+        """The plain program of a possibly wrapped ``CompiledProgram``
+        (reference: executor.py:870), after its strategy checks."""
+        from .compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            program = program._checked_program()
+        return default_main_program() if program is None else program
+
+    def _captured_step(self, program, scope, sig, fetch_names):
+        """The captured step of (program, version, feed signature, fetch
+        names, test mode, AMP dtype, scope); made on first use."""
+        plan = self._plan(program)
+        key = (id(program), program._version, sig, fetch_names,
+               plan.is_test, getattr(program, "_amp_dtype", None), id(scope))
+        cap = self._captured.get(key)
+        if cap is None or cap.plan is not plan or cap.scope_ref() is not scope:
+            if cap is not None:
+                cap.release()
+            cap = self._captured[key] = _CapturedStep(
+                self, program, plan, scope, sig, fetch_names)
+        return cap
+
+    # -- the step body --------------------------------------------------------
+    def _eager_step(self, program, plan, scope, feeds, fetch_names, step):
+        """One eager step: the body on the scope's state, then every
+        persistable it computed set into the scope. Returns the env."""
+        state = self._gather_state(plan, scope)
+        plan.reseed(program, step)
+        trace = TraceContext(program, plan.is_test, self.place, step,
+                             plan.generators)
+        env = self._body(plan, state, feeds, fetch_names, trace)
+        for n in plan.state_names:
+            val = env.get(n)
+            if val is not None:
+                scope.set_var(n, val.detach())
+        return env
+
+    def _body(self, plan: _Plan, state, feeds, fetch_names, trace):
+        """The step: ``(state, feeds, step) -> env`` of every var it
+        computed (state writes and fetches among them). The same function
+        runs eagerly and under capture; it reads the host for nothing."""
+        env: Dict[str, Any]
+        if plan.bw is None or plan.marker_idx is None:
             env = dict(state)
             env.update(feeds)
-            if amp_dtype is not None:
+            if plan.amp_dtype is not None:
                 # the ops see a cast copy; the float32 state survives an
                 # eval or fetch run as it was. Only what an op rewrote
                 # (another tensor under the name) goes back, in the
                 # state's dtype.
-                env = _amp_cast(env, amp_dtype)
+                env = _amp_cast(env, plan.amp_dtype)
                 before = dict(env)
             with torch.no_grad():
-                run_block_ops(ops, env, trace)
-            if amp_dtype is not None:
+                run_block_ops(plan.ops, env, trace)
+            if plan.amp_dtype is not None:
                 for n, held in state.items():
                     val = env.get(n)
                     if val is before.get(n):
                         env[n] = held
                     elif val is not None and val.dtype != held.dtype:
                         env[n] = val.to(held.dtype)
-        else:
-            env = self._train_step(ops, marker_idx, bw, state, feeds, trace,
-                                   fetch_names, amp_dtype)
-
-        for n in state_names:
-            val = env.get(n)
-            if val is not None:
-                scope.set_var(n, val.detach())
-        missing = [f for f in fetch_names if f not in env]
-        if missing:
-            raise KeyError("fetch of %s: not computed by the program and not "
-                           "in the scope" % missing)
-        fetches = [env[f].detach() for f in fetch_names]
-        if return_numpy:
-            return [_to_numpy(t) for t in fetches]
-        return fetches
+            return env
+        return self._train_step(plan.ops, plan.marker_idx, plan.bw, state,
+                                feeds, trace, fetch_names, plan.amp_dtype)
 
     @staticmethod
     def _train_step(ops, marker_idx, bw, state, feeds, trace, fetch_names,
@@ -277,6 +564,200 @@ class Executor:
             run_block_ops(post_ops, env, trace,
                           offset=marker_idx + 1)
         return env
+
+
+class _CapturedStep:
+    """One program's step at one feed signature, the counterpart of the
+    JAX package's ``_CompiledStep``/``_DispatchPlan``
+    (``paddle_tpu/executor.py:442, 787``).
+
+    Its first ``WARMUP_STEPS`` steps run eagerly (on a side stream on the
+    card); they are real steps with their own step indexes. Then the scope's
+    persistable tensors become the static state, the feeds get static
+    buffers, and on the card the body is captured once into a
+    ``torch.cuda.CUDAGraph``, its generators registered with the graph
+    (capture executes nothing: the first replay runs the step captured).
+    Each later step reseeds the generators, brings back into the static
+    state any var an eager ``run()`` replaced in the scope, fills the
+    static feeds and replays the graph; on the CPU it runs the body. A
+    capture that fails raises, naming the op; nothing runs eagerly in its
+    place."""
+
+    def __init__(self, exe: Executor, program, plan, scope, sig, fetch_names):
+        self.exe = exe
+        self.program_ref = weakref.ref(program)
+        self.plan = plan
+        self.scope_ref = weakref.ref(scope)
+        self.sig = sig
+        self.fetch_names = fetch_names
+        self.warm_left = WARMUP_STEPS
+        self.state: Optional[Dict[str, torch.Tensor]] = None
+        self.feeds: Dict[str, torch.Tensor] = {}
+        self.outputs: List[torch.Tensor] = []
+        self.graph = None
+
+    def release(self):
+        """Drop the graph (and with it its memory pool) and the static
+        buffers."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+        self.state = None
+        self.feeds = {}
+        self.outputs = []
+
+    def step(self, feed, step: int) -> List[torch.Tensor]:
+        """Run one step on ``feed``; returns its fetches, which the caller
+        copies before the next step (static outputs on the card)."""
+        exe, program, scope = self.exe, self.program_ref(), self.scope_ref()
+        block = program.global_block
+        if self.warm_left > 0:
+            self.warm_left -= 1
+            feeds = {n: exe._feed_tensor(block, n, v)
+                     for n, v in feed.items()}
+            if exe.place.type != "cuda":
+                env = exe._eager_step(program, self.plan, scope, feeds,
+                                      self.fetch_names, step)
+                return _fetches(env, self.fetch_names)
+            cur = torch.cuda.current_stream(exe.place)
+            side = exe._stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                env = exe._eager_step(program, self.plan, scope, feeds,
+                                      self.fetch_names, step)
+                outs = _fetches(env, self.fetch_names)
+            cur.wait_stream(side)
+            return outs
+        if self.state is None:
+            self._capture(program, scope, step)
+        self._restore_state(scope)
+        for n, v in feed.items():
+            src = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(v))
+            self.feeds[n].copy_(src, non_blocking=True)
+        self.plan.reseed(program, step)
+        if exe.place.type != "cuda":
+            self.outputs = self._static_body(program, step)
+        else:
+            self.graph.replay()
+            metrics.REPLAYS.inc()
+        return self.outputs
+
+    def _static_body(self, program, step, trace=None):
+        """The body on the static state and feeds, each state output
+        written back into its static tensor with ``copy_`` (one an op
+        updated in place is skipped); returns the fetches."""
+        exe, plan = self.exe, self.plan
+        if trace is None:
+            trace = TraceContext(program, plan.is_test, exe.place, step,
+                                 plan.generators)
+        env = exe._body(plan, self.state, self.feeds, self.fetch_names, trace)
+        with torch.no_grad():
+            for n, held in self.state.items():
+                val = env.get(n)
+                if val is None or val is held:
+                    continue
+                if val.shape != held.shape:
+                    raise RuntimeError(
+                        "captured step: persistable %r came out as %s, its "
+                        "static tensor is %s" % (n, list(val.shape),
+                                                 list(held.shape)))
+                held.copy_(val)
+        return _fetches(env, self.fetch_names)
+
+    def _capture(self, program, scope, step):
+        """Take the scope's tensors as the static state, allocate the
+        static feeds and, on the card, capture the body."""
+        exe, plan = self.exe, self.plan
+        state = exe._gather_state(plan, scope)
+        for n, t in state.items():
+            if scope.find_var(n) is not t:
+                scope.set_var(n, t)
+        block = program.global_block
+        self.state = state
+        self.feeds = {
+            n: torch.empty(shape, device=exe.place,
+                           dtype=_feed_dtype(block, n)
+                           or getattr(torch, dtype))
+            for n, shape, dtype in self.sig}
+        if exe.place.type != "cuda":
+            return
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        if plan.generators and not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                "this torch (%s) cannot register a generator with a CUDA "
+                "graph, so a program with stochastic ops cannot be "
+                "captured" % torch.__version__)
+        for gen, _ in plan.generators.values():
+            graph.register_generator_state(gen)
+        plan.reseed(program, step)
+        trace = TraceContext(program, plan.is_test, exe.place, step,
+                             plan.generators)
+        try:
+            with torch.cuda.graph(graph, stream=exe._stream()):
+                self.outputs = self._static_body(program, step, trace)
+        except Exception as e:
+            # the next step captures again (and fails again): nothing runs
+            # eagerly in the graph's place
+            self.state, self.feeds, self.outputs = None, {}, []
+            op = plan.ops[trace.current_op_idx] if plan.ops else None
+            raise RuntimeError(
+                "capturing the step into a CUDA graph failed at op %d (%s, "
+                "outputs %s); it is not run eagerly in its place. "
+                "A captured step may not read a device value on the host "
+                "or change shapes: %s: %s"
+                % (trace.current_op_idx, getattr(op, "type", None),
+                   getattr(op, "output_arg_names", None),
+                   type(e).__name__, e)) from e
+        self.graph = graph
+        metrics.CAPTURES.inc()
+        metrics.CAPTURE_MS.set((time.perf_counter() - t0) * 1e3)
+
+    def _restore_state(self, scope):
+        """Bring back each static tensor an eager ``run()`` (or the user)
+        replaced in the scope: copy the scope's value in, set the static
+        tensor back."""
+        for n, held in self.state.items():
+            cur = scope.find_var(n)
+            if cur is held:
+                continue
+            if cur is not None:
+                if not isinstance(cur, torch.Tensor):
+                    cur = torch.as_tensor(np.asarray(cur))
+                if tuple(cur.shape) != tuple(held.shape):
+                    raise ValueError(
+                        "scope var %r is %s, the captured step's static "
+                        "tensor %s" % (n, list(cur.shape), list(held.shape)))
+                with torch.no_grad():
+                    held.copy_(cur)
+            scope.set_var(n, held)
+
+
+def _feed_dtype(block, name):
+    return to_torch_dtype(block.var(name).dtype) if block.has_var(name) \
+        else None
+
+
+def _feed_signature(feed):
+    """((name, shape, dtype), ...) of a feed dict, sorted by name, and the
+    feed with list or scalar values converted to numpy once."""
+    sig, conv = [], {}
+    for n in sorted(feed):
+        v = feed[n]
+        if not isinstance(v, (torch.Tensor, np.ndarray)):
+            v = np.asarray(v)
+        conv[n] = v
+        sig.append((n, tuple(v.shape), str(v.dtype).replace("torch.", "")))
+    return tuple(sig), conv
+
+
+def _fetches(env, fetch_names) -> List[torch.Tensor]:
+    missing = [f for f in fetch_names if f not in env]
+    if missing:
+        raise KeyError("fetch of %s: not computed by the program and not "
+                       "in the scope" % missing)
+    return [env[f].detach() for f in fetch_names]
 
 
 def _amp_cast(tensors: Dict[str, torch.Tensor], dtype) -> Dict[str, Any]:

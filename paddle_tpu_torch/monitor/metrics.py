@@ -462,3 +462,14 @@ def reset() -> None:
         items = list(_registry.values())
     for inst in items:
         inst.reset()
+
+
+# The captured step's instruments (``executor._CapturedStep``): CUDA graphs
+# captured, their replays, and the wall time of the last capture. The
+# kernels' own launch counters count a capture once, never its replays.
+CAPTURES = counter("executor/captures",
+                   help="training or eval steps captured into a CUDA graph")
+REPLAYS = counter("executor/replays", help="replays of captured steps")
+CAPTURE_MS = gauge("executor/capture_ms",
+                   help="wall ms of the last capture (the graph's "
+                        "synchronize, capture and instantiation)")

@@ -81,7 +81,14 @@ def _flash_ok(q, k, causal) -> bool:
 
 
 def _draw_seed(gen: torch.Generator) -> int:
-    """One int32 from the op's generator: the seed of the kernels' mask."""
+    """One int32 from the op's generator: the seed of the kernels' mask.
+    It is read on the host (a sync on the card), which a captured step
+    cannot hold, so under capture it raises (ROADMAP Queue 3)."""
+    if gen.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "flash attention with dropout reads its mask seed on the host, "
+            "which a CUDA graph cannot capture (ROADMAP Queue 3); run this "
+            "program eagerly, or with attention dropout 0")
     return int(torch.randint(-2 ** 31, 2 ** 31, (1,), generator=gen,
                              device=gen.device, dtype=torch.int64))
 

@@ -371,5 +371,7 @@ def accuracy_op(ctx: OpContext):
     total = lbl.shape[0]
     ctx.set_output("Accuracy", correct.float() / total)
     ctx.set_output("Correct", correct)
-    ctx.set_output("Total", torch.tensor(total, dtype=torch.int32,
-                                         device=indices.device))
+    # a fill on the device: a tensor made from the host scalar would be a
+    # host-to-device copy every step, which a captured step cannot hold
+    ctx.set_output("Total", torch.full((), total, dtype=torch.int32,
+                                       device=indices.device))

@@ -1,0 +1,263 @@
+"""The captured step on the card.
+
+``Executor.run_steps`` and ``Executor.run(CompiledProgram)`` warm a step
+up eagerly, capture it into a CUDA graph and replay it; these tests hold
+the replays against eager ``run()`` steps from the same start state, with
+the hand-written kernels (K2, K4) inside the graph. Every test carries the
+``cuda`` marker and skips without a GPU. The file imports neither ``jax``
+nor ``paddle_tpu``:
+
+    python -m pytest tests/test_torch_captured_cuda.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch.executor import WARMUP_STEPS
+from paddle_tpu_torch.flags import set_flag
+from paddle_tpu_torch.monitor import metrics
+from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+from paddle_tpu_torch.ops.kernels import sparse_adam as sa
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    yield torch.device("cuda")
+    set_flag("flash_attention_min_seq", 2048)
+
+
+def bert_program(amp):
+    from paddle_tpu_torch.models import bert
+
+    s, n_mask = 16, 3
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        names = ("ids", "pos", "sent")
+        ins = [fluid.layers.data(n, shape=[s], dtype="int64") for n in names]
+        mask = fluid.layers.data("mask", shape=[s], dtype="float32")
+        mpos = fluid.layers.data("mpos", shape=[n_mask], dtype="int64")
+        mlbl = fluid.layers.data("mlbl", shape=[1], dtype="int64")
+        nsp = fluid.layers.data("nsp", shape=[1], dtype="int64")
+        loss, _, _ = bert.bert_pretrain(*ins, mask, mpos, mlbl, nsp,
+                                        dropout_rate=0.1,
+                                        **bert.BERT_TINY_CONFIG)
+        opt = fluid.optimizer.Adam(1e-3)
+        if amp:
+            opt = fluid.amp.decorate(opt)
+        opt.minimize(loss)
+    vocab = bert.BERT_TINY_CONFIG["vocab_size"]
+    feeds = []
+    for seed in range(6):
+        rng = np.random.RandomState(seed)
+        feeds.append({
+            "ids": rng.randint(0, vocab, (4, s)).astype("int64"),
+            "pos": np.tile(np.arange(s), (4, 1)).astype("int64"),
+            "sent": rng.randint(0, 2, (4, s)).astype("int64"),
+            "mask": (rng.rand(4, s) > 0.2).astype("float32"),
+            "mpos": (np.arange(4)[:, None] * s
+                     + rng.randint(0, s, (4, n_mask))).astype("int64"),
+            "mlbl": rng.randint(0, vocab, (4 * n_mask, 1)).astype("int64"),
+            "nsp": rng.randint(0, 2, (4, 1)).astype("int64")})
+    return main, startup, loss, feeds
+
+
+def deepfm_program(opt):
+    from paddle_tpu_torch.models import deepfm
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("ids", shape=[8], dtype="int64")
+        dense = fluid.layers.data("dense", shape=[13])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        _, loss, _ = deepfm.deepfm(ids, dense, label, sparse_feature_dim=1000,
+                                   embedding_size=4, num_fields=8,
+                                   layer_sizes=(16, 16))
+        (fluid.optimizer.Adam(1e-2) if opt == "adam"
+         else fluid.optimizer.SGD(1e-1)).minimize(loss)
+    feeds = []
+    for seed in range(6):
+        rng = np.random.RandomState(seed)
+        feeds.append({"ids": rng.randint(0, 1000, (32, 8)).astype("int64"),
+                      "dense": rng.rand(32, 13).astype("float32"),
+                      "label": rng.randint(0, 2, (32, 1)).astype("int64")})
+    return main, startup, loss, feeds
+
+
+def eager_and_captured(main, startup, loss, feeds, fetch_every):
+    """The same steps from one start state: eager ``run()`` on one scope,
+    ``run_steps`` on a copy. Returns (eager losses, captured losses, eager
+    scope, captured scope, counter deltas)."""
+    dev = fluid.CUDAPlace(0)
+    scope_e = fluid.Scope()
+    exe = fluid.Executor(dev)
+    exe.run(startup, scope=scope_e)
+    scope_c = fluid.Scope()
+    for n, v in scope_e.vars.items():
+        scope_c.set_var(n, v.clone())
+    step0 = getattr(main, "_tpu_step_counter", 0)
+    want = [float(exe.run(main, feed=f, fetch_list=[loss],
+                          scope=scope_e)[0]) for f in feeds]
+    main._tpu_step_counter = step0
+    caps, reps = metrics.CAPTURES.value, metrics.REPLAYS.value
+    exe_c = fluid.Executor(dev)
+    rows = exe_c.run_steps(main, feeds, fetch_list=[loss],
+                           fetch_every=fetch_every, scope=scope_c)
+    counts = (metrics.CAPTURES.value - caps, metrics.REPLAYS.value - reps)
+    exe_c.close()
+    return want, [float(r[0]) for r in rows], scope_e, scope_c, counts
+
+
+def assert_state_close(scope_e, scope_c, rtol, atol):
+    for n, v in scope_e.vars.items():
+        np.testing.assert_allclose(scope_c.as_numpy(n),
+                                   v.float().cpu().numpy(), rtol=rtol,
+                                   atol=atol, err_msg=n)
+
+
+@pytest.mark.parametrize("amp", [False, True], ids=["float32", "bf16_amp"])
+def test_captured_bert_matches_eager_steps_with_dropout(cuda, amp):
+    """bert_tiny at dropout 0.1: the replays give the eager steps' losses
+    (each step its own masks), with K2 at both loss shapes in the graph."""
+    main, startup, loss, feeds = bert_program(amp)
+    f0 = sx.LAUNCHES_FWD
+    want, got, scope_e, scope_c, counts = eager_and_captured(
+        main, startup, loss, feeds, fetch_every=3)
+    assert counts == (1, len(feeds) - WARMUP_STEPS)
+    # two loss shapes: 6 eager steps, the warm-ups and the capture
+    assert sx.LAUNCHES_FWD - f0 == 2 * (len(feeds) + WARMUP_STEPS + 1)
+    tol = 1e-3 if amp else 1e-6
+    np.testing.assert_allclose(got, want, rtol=tol)
+    if not amp:  # bfloat16 losses may round to the same value
+        assert len(set(want)) == len(want)
+    assert_state_close(scope_e, scope_c, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("opt", ["adam", "sgd"])
+def test_captured_deepfm_updates_its_tables_in_graph(cuda, opt):
+    """K4a (Adam) or K4b (SGD) update the tables in place inside the
+    graph: the captured steps give the eager steps' losses and state."""
+    main, startup, loss, feeds = deepfm_program(opt)
+    counter = "LAUNCHES_ADAM" if opt == "adam" else "LAUNCHES_SGD"
+    k0 = getattr(sa, counter)
+    want, got, scope_e, scope_c, counts = eager_and_captured(
+        main, startup, loss, feeds, fetch_every=4)
+    assert counts == (1, len(feeds) - WARMUP_STEPS)
+    assert getattr(sa, counter) - k0 == 2 * (len(feeds) + WARMUP_STEPS + 1)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert_state_close(scope_e, scope_c, rtol=1e-4, atol=1e-6)
+
+
+def test_compiled_program_runs_captured_steps(cuda):
+    main, startup, loss, feeds = deepfm_program("adam")
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    prog = fluid.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
+    reps = metrics.REPLAYS.value
+    out = [exe.run(prog, feed=f, fetch_list=[loss], scope=scope)
+           for f in feeds]
+    assert metrics.REPLAYS.value - reps == len(feeds) - WARMUP_STEPS
+    assert all(np.isfinite(o[0]) for o in out)
+    (lv,) = exe.run(prog, feed=feeds[0], fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+    assert lv.is_cuda
+    exe.close()
+    assert not exe._captured
+
+
+def test_handles_hold_device_tensors_and_an_event(cuda):
+    main, startup, loss, feeds = deepfm_program("sgd")
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    hs = exe.run_steps(main, feeds, fetch_list=[loss], fetch_every=4,
+                       scope=scope, return_numpy=False)
+    assert [tuple(h.raw[0].shape) for h in hs] == [(4,), (2,)]
+    assert hs[0].raw[0].is_cuda
+    last = np.asarray(hs[-1][0])
+    assert hs[-1].done() and np.isfinite(last).all()
+    np.testing.assert_array_equal(hs[0].block().numpy()[0],
+                                  np.asarray(hs[0][0]))
+    exe.close()
+
+
+def test_capture_refuses_flash_attention_with_dropout(cuda):
+    """The flash route with dropout reads its seed on the host: the
+    capture raises, naming the op, and runs nothing in its place."""
+    set_flag("flash_attention_min_seq", 128)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        q, k, v = (fluid.layers.data(n, shape=[2, 128, 32],
+                                     dtype="float32") for n in "qkv")
+        out = fluid.layers.scaled_dot_product_attention(
+            q, k, v, causal=True, dropout_rate=0.1)
+        loss = fluid.layers.mean(out)
+    rng = np.random.RandomState(0)
+    feed = {n: rng.randn(2, 2, 128, 32).astype("float32") for n in "qkv"}
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    reps = metrics.REPLAYS.value
+    with pytest.raises(RuntimeError,
+                       match="scaled_dot_product_attention") as err:
+        exe.run_steps(main, [feed] * (WARMUP_STEPS + 2), fetch_list=[loss],
+                      scope=scope)
+    assert "Queue 3" in str(err.value.__cause__)
+    assert metrics.REPLAYS.value == reps
+    exe.close()
+
+
+def test_capture_names_an_op_that_reads_the_host(cuda):
+    """A reshape whose shape comes from a tensor reads it on the host
+    (a sync): the capture fails and names that op."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", shape=[6], dtype="float32")
+        shape = fluid.layers.data("shape", shape=[2], dtype="int32",
+                                  append_batch_size=False)
+        y = fluid.layers.reshape(x, shape=[-1, 6])
+        op = main.global_block.ops[-1]
+        op.inputs["Shape"] = [shape.name]
+        loss = fluid.layers.mean(y)
+    feed = {"x": np.ones((4, 6), "float32"),
+            "shape": np.array([2, 12], "int32")}
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with pytest.raises(RuntimeError, match="reshape2"):
+        exe.run_steps(main, [feed] * (WARMUP_STEPS + 1), fetch_list=[loss],
+                      scope=fluid.Scope())
+    exe.close()
+
+
+def test_accuracy_makes_no_host_copy(cuda):
+    """An MNIST MLP step with ``accuracy`` (fetched as a device tensor,
+    feeds on the card) runs under the sync debug mode's "error"."""
+    from paddle_tpu_torch.models import mnist
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", shape=[784])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        _, loss, acc = mnist.mlp(img, label)
+        fluid.optimizer.Momentum(1e-3, 0.9).minimize(loss)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {"img": torch.as_tensor(rng.rand(64, 784).astype("float32"),
+                                   device=cuda),
+            "label": torch.as_tensor(rng.randint(0, 10, (64, 1)),
+                                     device=cuda)}
+    exe.run(main, feed=feed, fetch_list=[loss, acc], scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exe.run(main, feed=feed, fetch_list=[loss, acc], scope=scope,
+                return_numpy=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
