@@ -58,12 +58,13 @@ paths through the entry points a user calls:
   layers, batch 8, dropout 0 the card's losses must match the CPU's, in
   float32 and under AMP.
 
-Five programs also run as a captured step (``Executor.run_steps``: two
+Seven programs also run as a captured step (``Executor.run_steps``: two
 eager warm-up steps, one CUDA graph capture, then replays), each at its
 phase's full width, on its phase's program and state: ``bert_captured``
 (float32 and AMP), ``transformer_captured`` (AMP, driven by
 ``bench.py``'s ``_timeit_pipeline`` calls), ``resnet_captured`` (AMP),
-``ctr_captured`` (Adam and SGD) and ``longctx_captured`` (AMP). Each
+``ctr_captured`` (Adam and SGD), ``longctx_captured`` (AMP),
+``unfused_captured`` and ``flash_dropout_captured`` (AMP, below). Each
 runs six steps (eight for the Transformer) eagerly and the same steps
 captured from the same start state; the losses must agree within 1e-6
 relative at every step and the state within 1e-6 norm-wise (AMP 1e-3),
@@ -73,6 +74,30 @@ a step (K2, K1 and K4 inside the graph, counted by name under
 torch.profiler), and an eager step must sync the host nowhere (the sync
 debug mode). Then eager and captured blocks of steps run in turns: step
 ms, host ms, launches a step, busy share and peak memory of each.
+
+The pass pipeline and gradient accumulation: ``unfused_train`` builds
+``bench.py``'s ``bench_transformer`` program as the bench does (attention
+from primitives under ``FLAGS_unfused_attention``, AMP, 64 x 256);
+``flash_attention_rewrite`` must match all 12 non-causal sites, the op
+types after the pipeline equal the fused-built program's but for the
+segment-bias chain, K2 launch once a step eagerly and in one replay, and
+at dropout 0 on a padded batch the losses and state equal the fused-built
+program's (1e-6; the AMP state 1e-3), limits that reject a rewrite with a
+planted fault; it is timed eager and captured in turns with the
+fused-built program.
+``unfused_flash`` runs the same program at 8 x 2048, where all 18 sites
+a step launch K1a-c. ``flash_dropout_captured`` captures two causal
+layers at full long-context width with attention dropout 0.1 on the
+flash route (the seed drawn on the card) and holds the replays to the
+eager steps; its forward on one batch twice must differ (new masks).
+``accum_train`` runs ``CompiledProgram`` with 4 microbatches a step and
+holds it to the full batch in float32 (losses 1e-5, gradients 1e-3,
+state 1e-4) and, under AMP at a global batch of 256, the captured
+accumulated step (one graph) to eager ones, with peak memory beside a
+batch-64 step's.
+The MNIST MLP in the book's form (softmax, ``cross_entropy``) must reach
+K2 at level 1 only. Every phase reports the op counts of its programs at
+``PADDLE_TPU_OPT_LEVEL`` 0 and 1 (``pipeline_ops``).
 
 Each phase prints one JSON line; any failed check exits non-zero. The line
 before the last holds every kernel's numbers, the last line the device.
@@ -2431,6 +2456,82 @@ def mnist_train_phase(xent_rows, epochs=4):
     key = vision_key(MNIST_BATCH, MNIST_CLASSES, torch.float32)
     for row, n in zip(xent_rows, launches):
         row["vision_shapes"][key]["launches"] = n
+    book = {}
+    for level in ("1", "0"):
+        book[level] = mnist_book_form(xs, ys, level, epochs)
+    for i, row in enumerate(xent_rows):
+        row["vision_shapes"][key]["launches_book_form"] = {
+            "level_" + lv: b["k2_launches"][i] for lv, b in book.items()}
+
+
+def mnist_book_form(xs, ys, level, epochs, lr=0.1):
+    """The MNIST MLP as Fluid's book writes it
+    (``tests/book/test_recognize_digits.py``): ``prediction = fc(size=10,
+    act="softmax")``, ``mean(cross_entropy(prediction, label))`` and
+    ``accuracy(prediction, label)``, SGD, at ``PADDLE_TPU_OPT_LEVEL``
+    ``level``. At 1 ``softmax_xent_fuse_pass`` fuses the loss on the
+    logits (the softmax stays for ``accuracy``), so K2a and K2b launch once
+    a step at [64, 10]; at 0 they never launch. Either must train to an
+    accuracy above 0.9."""
+    import os
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    prev = os.environ.get("PADDLE_TPU_OPT_LEVEL")
+    os.environ["PADDLE_TPU_OPT_LEVEL"] = level
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            img = fluid.layers.data("img", shape=[MNIST_DIM])
+            label = fluid.layers.data("label", shape=[1], dtype="int64")
+            h = img
+            for size in (200, 200):
+                h = fluid.layers.fc(h, size=size, act="relu")
+            prediction = fluid.layers.fc(h, size=MNIST_CLASSES,
+                                         act="softmax")
+            loss = fluid.layers.mean(
+                fluid.layers.cross_entropy(prediction, label))
+            acc = fluid.layers.accuracy(prediction, label)
+            fluid.optimizer.SGD(lr).minimize(loss)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        opt = exe._maybe_optimize(main, (loss.name, acc.name), scope)
+        sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+        losses, accs = [], []
+        for _ in range(epochs):
+            for i in range(0, len(xs), MNIST_BATCH):
+                lv, av = exe.run(main, feed={
+                    "img": xs[i:i + MNIST_BATCH],
+                    "label": ys[i:i + MNIST_BATCH]},
+                    fetch_list=[loss, acc], scope=scope)
+                losses.append(float(lv))
+                accs.append(float(av))
+        k2 = (sx.LAUNCHES_FWD, sx.LAUNCHES_BWD)
+    finally:
+        if prev is None:
+            os.environ.pop("PADDLE_TPU_OPT_LEVEL", None)
+        else:
+            os.environ["PADDLE_TPU_OPT_LEVEL"] = prev
+    per_epoch = len(xs) // MNIST_BATCH
+    last_acc = float(np.mean(accs[-per_epoch:]))
+    want = len(losses) if level == "1" else 0
+    ops = [op.type for op in opt.global_block.ops]
+    check(k2 == (want, want), "mnist book form at level %s: K2 launches %r "
+          "over %d steps, want %d" % (level, k2, len(losses), want))
+    check(bool(np.isfinite(losses).all()) and last_acc > 0.9,
+          "mnist book form at level %s: last-epoch accuracy %g"
+          % (level, last_acc))
+    out = {"level": level, "steps": len(losses), "first_loss": losses[0],
+           "last_epoch_loss": float(np.mean(losses[-per_epoch:])),
+           "last_epoch_accuracy": last_acc, "k2_launches": list(k2),
+           "ops_level0": len(main.global_block.ops), "ops_run": len(ops),
+           "softmax_ops": ops.count("softmax"),
+           "fused_loss_ops": ops.count("softmax_with_cross_entropy")}
+    emit("mnist_book_form", **out)
+    del scope, exe
+    return out
 
 
 def bert_train_flop(batch, seq=BERT_SEQ, n_mask=BERT_MASK, vocab=BERT_VOCAB,
@@ -2989,9 +3090,7 @@ def captured_leg(leg, main, loss, scope, feeds, amp, per_step,
     t_leg = time.perf_counter()
     dev = fluid.CUDAPlace(0)
     n = len(feeds)
-    scope_c = fluid.Scope()
-    for k, v in scope.vars.items():
-        scope_c.set_var(k, v.clone() if isinstance(v, torch.Tensor) else v)
+    scope_c = clone_scope(fluid, scope)
     step0 = getattr(main, "_tpu_step_counter", 0)
     exe = fluid.Executor(dev)
     torch.cuda.synchronize()
@@ -3017,19 +3116,12 @@ def captured_leg(leg, main, loss, scope, feeds, amp, per_step,
     captures = metrics.CAPTURES.value - caps0
     replays = metrics.REPLAYS.value - reps0
     tol = 1e-3 if amp else 1e-6
-    loss_err = max(abs(g - e) / max(abs(e), 1e-6) for g, e in zip(got, eager))
-    state_err, state_equal = 0.0, True
+    loss_err = loss_rel_err(got, eager)
+    _, state_err, state_equal = state_norm_err(scope_c, scope)
     for k, v in scope.vars.items():
-        if not isinstance(v, torch.Tensor):
-            continue
-        c = scope_c.find_var(k)
-        state_equal = state_equal and torch.equal(c, v)
-        if v.is_floating_point():
-            d = (c.double() - v.double()).norm()
-            state_err = max(state_err, float(
-                d / v.double().norm().clamp_min(1e-30)))
-        else:
-            check(torch.equal(c, v), "%s: state %s differs" % (leg, k))
+        if isinstance(v, torch.Tensor) and not v.is_floating_point():
+            check(torch.equal(scope_c.find_var(k), v),
+                  "%s: state %s differs" % (leg, k))
     check(len(got) == n and loss_err <= tol,
           "%s: captured losses %r against eager %r (largest relative "
           "difference %.3g, tolerance %g)" % (leg, got, eager, loss_err, tol))
@@ -3054,6 +3146,9 @@ def captured_leg(leg, main, loss, scope, feeds, amp, per_step,
                                scope=scope_c, return_numpy=False)
 
     wall_e, busy_e, kern_e, _, calls_e, _ = step_profile(eager_step)
+    want = {name: c for name, (_, c) in per_step.items()}
+    pats = "|".join(pat for pat, _ in per_step.values())
+
     wall_c, busy_c, kern_c, graph_launches, calls_c, host_c = step_profile(
         lambda: captured_steps(1))
     host_block = step_profile(lambda: captured_steps(CAPTURED_BLOCK))[-1]
@@ -3063,9 +3158,11 @@ def captured_leg(leg, main, loss, scope, feeds, amp, per_step,
     counts = {name: sum(c for k, c in kern_c.items() if re.search(pat, k,
                                                                   re.I))
               for name, (pat, _) in per_step.items()}
-    want = {name: c for name, (_, c) in per_step.items()}
-    check(counts == want, "%s: kernels in one replay %r, want %r a step"
-          % (leg, counts, want))
+    check(counts == want, "%s: kernels in one replay %r, want %r a step; "
+          "by name in the replay %r, in an eager step %r"
+          % (leg, counts, want,
+             {k: c for k, c in kern_c.items() if re.search(pats, k, re.I)},
+             {k: c for k, c in kern_e.items() if re.search(pats, k, re.I)}))
 
     times = {"eager": [], "captured": []}
     hosts = {"eager": [], "captured": []}
@@ -3119,6 +3216,680 @@ def captured_leg(leg, main, loss, scope, feeds, amp, per_step,
     return counts
 
 
+# -- slice 13: the pass pipeline and gradient accumulation ---------------------
+
+# the non-causal attention sites of Transformer-base that
+# flash_attention_rewrite turns back into the fused op: 6 encoder
+# self-attentions and 6 decoder cross-attentions
+UNFUSED_SITES = 2 * TRAIN["n_layer"]
+# what the rewritten program keeps beside the fused-built one: the segment
+# ids lowered to an additive bias (layers/attention.py _segment_bias), one
+# chain for the encoder's (src, src) and one for the cross (trg, src)
+# attentions once CSE merged the layers' copies
+SEGMENT_BIAS_OPS = {"unsqueeze": 5, "equal": 2, "cast": 2, "scale": 2}
+ACCUM = 4          # microbatches of the accumulated step
+FLASH_DROPOUT_LAYERS = 2
+OPT_LOG = []       # one entry a pass-pipeline run (record_pipeline)
+
+
+def record_pipeline():
+    """Record, for every program the default pass pipeline optimizes, its
+    op count at level 0 (the source) and level 1 (the clone) and the op
+    types the pipeline removed and added, in ``OPT_LOG``. It wraps
+    ``passes.pipeline.optimize_program`` and changes nothing it returns."""
+    from collections import Counter
+
+    from paddle_tpu_torch.passes import pipeline
+
+    inner = pipeline.optimize_program
+
+    def optimize_program(program, fetch_names=None, scope=None, level=None):
+        out = inner(program, fetch_names, scope, level)
+        src = Counter(op.type for op in program.global_block.ops)
+        opt = Counter(op.type for op in out.global_block.ops)
+        OPT_LOG.append({"ops_level0": sum(src.values()),
+                        "ops_level1": sum(opt.values()),
+                        "removed": dict(src - opt), "added": dict(opt - src)})
+        return out
+
+    pipeline.optimize_program = optimize_program
+
+
+def op_types(program):
+    from collections import Counter
+
+    return Counter(op.type for op in program.global_block.ops)
+
+
+def bench_feed(batch, seq, seed=0):
+    """``bench_transformer``'s feed at another sequence length (``seed``
+    another batch of the same shapes)."""
+    vocab = TRAIN["vocab"]
+    rng = np.random.RandomState(seed)
+    return {
+        "src": rng.randint(2, vocab, (batch, seq)).astype("int64"),
+        "trg": rng.randint(2, vocab, (batch, seq)).astype("int64"),
+        "lbl": rng.randint(2, vocab, (batch, seq, 1)).astype("int64"),
+        "smask": np.ones((batch, seq), "float32"),
+        "tmask": np.ones((batch, seq), "float32"),
+    }
+
+
+def build_bench_transformer(fluid, seq=None, dropout=0.1, amp=True):
+    """``bench.py:247-275`` ``bench_transformer``'s program for the port's
+    package, built as the bench builds it: ``set_flag("unfused_attention",
+    True)`` around ``transformer_base`` (vocab 30000, ``max_length`` the
+    sequence length), Adam(1e-4), ``amp.decorate`` with ``amp``."""
+    from paddle_tpu_torch.models import transformer as tfm
+
+    seq, vocab = seq or TRAIN["seq"], TRAIN["vocab"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7
+    prev = fluid.get_flag("unfused_attention")
+    fluid.set_flag("unfused_attention", True)
+    try:
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            src = fluid.layers.data("src", shape=[seq], dtype="int64")
+            trg = fluid.layers.data("trg", shape=[seq], dtype="int64")
+            lbl = fluid.layers.data("lbl", shape=[seq, 1], dtype="int64")
+            smask = fluid.layers.data("smask", shape=[seq], dtype="float32")
+            tmask = fluid.layers.data("tmask", shape=[seq], dtype="float32")
+            _, loss = tfm.transformer_base(
+                src, trg, lbl, smask, tmask, src_vocab_size=vocab,
+                trg_vocab_size=vocab, max_length=seq, dropout_rate=dropout)
+            opt = fluid.optimizer.Adam(learning_rate=1e-4)
+            if amp:
+                opt = fluid.amp.decorate(opt)
+            opt.minimize(loss)
+    finally:
+        fluid.set_flag("unfused_attention", prev)
+    return main, startup, loss
+
+
+def clone_scope(fluid, scope):
+    out = fluid.Scope()
+    for k, v in scope.vars.items():
+        out.set_var(k, v.clone() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def state_norm_err(a, b):
+    """The norm-wise difference of the float tensors of scope a from scope
+    b's: (over the whole state, the largest of one tensor's), and whether
+    every tensor is bit-equal."""
+    err, equal, d2, n2 = 0.0, True, 0.0, 0.0
+    for k, v in a.vars.items():
+        if not isinstance(v, torch.Tensor):
+            continue
+        w = b.find_var(k)
+        equal = equal and torch.equal(v, w)
+        if v.is_floating_point():
+            d = float((v.double() - w.double()).norm())
+            n = float(w.double().norm())
+            d2, n2 = d2 + d * d, n2 + n * n
+            err = max(err, d / max(n, 1e-30))
+    return (d2 / max(n2, 1e-60)) ** 0.5, err, equal
+
+
+def loss_rel_err(got, want):
+    return max(abs(g - w) / max(abs(w), 1e-6) for g, w in zip(got, want))
+
+
+def time_in_turns(legs, turns=CAPTURED_TURNS, block=CAPTURED_BLOCK):
+    """Blocks of ``block`` steps of each leg ({name: step(k)}) in turns,
+    ``turns`` rounds; returns {name: median ms a step}, the host waiting
+    for each block's end."""
+    times = {name: [] for name in legs}
+    for _ in range(turns):
+        for name, run in legs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(block)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / block * 1e3)
+    return {name: float(np.median(t)) for name, t in times.items()}, times
+
+
+def eager_accumulated(exe, main, scope, feed, loss, accum):
+    """One eager accumulated step of ``main`` (the body its captured step
+    holds), on the pass pipeline's clone, with its step index from the
+    source program; returns the loss tensor (on the card)."""
+    step = exe._next_step_index(main)
+    prog = exe._maybe_optimize(main, (loss.name,), scope)
+    feeds = {n: exe._feed_tensor(prog.global_block, n, v)
+             for n, v in feed.items()}
+    env = exe._eager_step(prog, exe._plan(prog), scope, feeds, (loss.name,),
+                          step, accum)
+    return env[loss.name]
+
+
+def norm_diff(got, want):
+    """||got - want|| / ||want|| over lists of tensors taken as one."""
+    d2 = sum(float((g.double() - w.double()).norm()) ** 2
+             for g, w in zip(got, want))
+    n2 = sum(float(w.double().norm()) ** 2 for w in want)
+    return (d2 / max(n2, 1e-60)) ** 0.5
+
+
+def unfused_train_phase(xent_rows):
+    """``bench_transformer``'s program as ``bench.py`` builds it (attention
+    from primitives under ``FLAGS_unfused_attention``, AMP, batch 64 x 256,
+    vocab 30000): ``flash_attention_rewrite`` must match every non-causal
+    site (``UNFUSED_SITES``), the pipeline's op types must equal the
+    fused-built program's but for the segment-bias chain
+    (``SEGMENT_BIAS_OPS``), K2a/K2b must launch once a step eagerly and
+    inside one replay (``captured_leg``), and at dropout 0 three steps must
+    give the fused-built program's losses from the same state within 1e-6
+    relative and its state within ``PARITY_TOL`` on a padded batch
+    (``dropout0_parity``; under AMP the rewritten sites read a float32
+    bias and compute in float32, as in the JAX package, where the
+    fused-built program stays in bf16), and the same limits must reject
+    each of ``PLANTED_REWRITES``. Step ms eager
+    and captured in turns with the fused-built (``train`` phase's) AMP
+    program; op counts at level 0 and 1; peak memory."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.pass_framework import get_pass
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    t_phase = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    main, startup, loss = build_bench_transformer(fluid)
+    fused, _, floss, _ = build_transformer(fluid, train=True, amp=True,
+                                           **TRAIN)
+    rewrite = get_pass("flash_attention_rewrite")
+    rewrite.set_attr("fetch_names", (loss.name,))
+    rewrite.apply(main.clone())
+    rewrites = rewrite.attr("rewrites_matched")
+    check(rewrites == UNFUSED_SITES, "flash_attention_rewrite matched %s of "
+          "the %d non-causal sites" % (rewrites, UNFUSED_SITES))
+    scope = fluid.Scope()
+    exe = fluid.Executor(dev)
+    exe.run(startup, scope=scope)
+    fscope = clone_scope(fluid, scope)
+    opt = exe._maybe_optimize(main, (loss.name,), scope)
+    fopt = exe._maybe_optimize(fused, (floss.name,), fscope)
+    extra = dict(op_types(opt) - op_types(fopt))
+    missing = dict(op_types(fopt) - op_types(opt))
+    check(extra == SEGMENT_BIAS_OPS and not missing,
+          "op types after the pipeline beside the fused-built program's: "
+          "%r more, %r fewer" % (extra, missing))
+    ops = {"unfused": {"level0": len(main.global_block.ops),
+                       "level1": len(opt.global_block.ops)},
+           "fused_built": {"level0": len(fused.global_block.ops),
+                           "level1": len(fopt.global_block.ops)}}
+    feed = train_feed(TRAIN_BATCH)
+    warm, _ = train_steps(exe, main, loss, feed, scope, 2)
+    torch.cuda.reset_peak_memory_stats()
+    sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+    losses, secs = train_steps(exe, main, loss, feed, scope, 3)
+    k2 = (sx.LAUNCHES_FWD, sx.LAUNCHES_BWD)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(np.isfinite(warm + losses).all()),
+          "unfused_train: non-finite loss %r" % (warm + losses))
+    check(k2 == (3, 3), "unfused_train: K2 launches %r over 3 steps" % (k2,))
+    for row, n in zip(xent_rows, k2):
+        row["launches_unfused_train"] = n
+    counts = captured_leg(
+        "unfused_captured", main, loss, scope,
+        [train_feed(TRAIN_BATCH, seed=i) for i in range(CAPTURED_STEPS)],
+        True, {k: (pat, 1) for k, pat in K2_NAMES.items()})
+    for row, kern in zip(xent_rows, K2_NAMES):
+        row.setdefault("captured_launches_a_step", {})[
+            "unfused_amp"] = counts[kern]
+
+    # in turns with the fused-built AMP program, eager and captured
+    dfeed = {k: torch.as_tensor(v, device=dev) for k, v in feed.items()}
+    exe_u, exe_f = fluid.Executor(dev), fluid.Executor(dev)
+
+    def eager(prog, lv, sc):
+        def run(k):
+            for _ in range(k):
+                exe.run(prog, feed=dfeed, fetch_list=[lv], scope=sc,
+                        return_numpy=False)
+        return run
+
+    def captured(ex, prog, lv, sc):
+        def run(k):
+            ex.run_steps(prog, (dfeed for _ in range(k)), steps=k,
+                         fetch_list=[lv], fetch_every=k, scope=sc,
+                         return_numpy=False)
+        return run
+
+    ucap, fcap = clone_scope(fluid, scope), clone_scope(fluid, fscope)
+    for ex, prog, lv, sc in ((exe_u, main, loss, ucap),
+                             (exe_f, fused, floss, fcap)):
+        captured(ex, prog, lv, sc)(3)  # warm-ups and the capture
+    medians, turns = time_in_turns({
+        "unfused_eager": eager(main, loss, scope),
+        "fused_eager": eager(fused, floss, fscope),
+        "unfused_captured": captured(exe_u, main, loss, ucap),
+        "fused_captured": captured(exe_f, fused, floss, fcap)})
+    exe_u.close()
+    exe_f.close()
+    del ucap, fcap, fscope, scope, exe, exe_u, exe_f
+    torch.cuda.empty_cache()
+
+    # dropout 0: the rewritten program against the fused-built one
+    parity = {("bfloat16_amp" if amp else "float32"):
+              dropout0_parity(fluid, padded_feed(TRAIN_BATCH), amp)
+              for amp in (False, True)}
+    def within(p):
+        return (p["max_rel_diff"] <= p["tolerance"]["losses"]
+                and p["state_norm_diff"] <= p["tolerance"]["state"])
+
+    for mode, p in parity.items():
+        check(within(p),
+              "unfused vs fused-built at dropout 0 (%s): losses %r against "
+              "%r (%.3g), state after 3 steps %.3g norm-wise (tolerances "
+              "%r)" % (mode, p["losses_unfused"], p["losses_fused_built"],
+                       p["max_rel_diff"], p["state_norm_diff"],
+                       p["tolerance"]))
+    # the same limits reject a rewrite with a planted fault
+    planted = {}
+    for amp in (False, True):
+        for fault in PLANTED_REWRITES:
+            p = dropout0_parity(fluid, padded_feed(TRAIN_BATCH), amp, fault)
+            mode = "bfloat16_amp" if amp else "float32"
+            planted["%s_%s" % (mode, fault)] = {
+                k: p[k] for k in ("max_rel_diff", "state_norm_diff")}
+            check(not within(p), "unfused_train: the dropout-0 parity "
+                  "limits pass a rewrite with %s (%s): %r" % (fault, mode, p))
+    emit("unfused_train", batch=TRAIN_BATCH, seq=TRAIN["seq"],
+         rewrites_matched=rewrites, op_types_beside_fused_built=extra,
+         op_counts=ops, losses=warm + losses,
+         step_ms_first_eager=[s * 1e3 for s in secs],
+         k2_launches={"fwd": k2[0], "bwd": k2[1]}, peak_memory_bytes=peak,
+         step_ms_in_turns=medians, step_ms_turns=turns,
+         dropout0_parity=parity, dropout0_planted_faults_rejected=planted,
+         phase_seconds=time.perf_counter() - t_phase)
+
+
+# dropout-0 parity of the rewritten program with the fused-built one: the
+# losses (under AMP the fetched loss is bfloat16, resolution 0.0625 at 10.3)
+# and the state after 3 steps, which under AMP tells the float32 attention
+# of the rewritten sites from the fused-built program's bf16 one. The AMP
+# state limit lies between what the sound rewrite reads and what a planted
+# fault of the rewrite (PLANTED_REWRITES) reads; PERF.md has the readings.
+PARITY_TOL = {False: {"losses": 1e-6, "state": 1e-6},
+              True: {"losses": 1e-6, "state": 1e-3}}
+PLANTED_REWRITES = {
+    "sm_scale_dropped": lambda plan: dict(plan, sm_scale=1.0),
+    "bias_dropped": lambda plan: dict(plan, bias=None),
+}
+
+
+def padded_feed(batch, seed=0):
+    """``train_feed`` with padding: row i keeps its first ``seq - p_i``
+    tokens of source and target (p_i drawn in [0, seq / 2)), so the
+    rewritten sites' segment bias masks something."""
+    feed = train_feed(batch, seed)
+    seq = TRAIN["seq"]
+    pad = np.random.RandomState(seed + 1).randint(0, seq // 2, batch)
+    keep = (np.arange(seq)[None, :] < (seq - pad)[:, None]).astype("float32")
+    feed["smask"], feed["tmask"] = keep, keep.copy()
+    return feed
+
+
+def dropout0_parity(fluid, feed, amp, planted=None):
+    """``bench_transformer``'s program (rewritten by the pipeline) and the
+    fused-built one at dropout 0, from one start state, 3 steps on
+    ``feed``: their losses, largest relative loss difference, the state's
+    norm-wise difference after the steps, and ``PARITY_TOL[amp]``. With
+    ``planted`` (a key of ``PLANTED_REWRITES``) each rewritten site gets
+    that fault."""
+    from paddle_tpu_torch.passes import fuse_patterns as fp
+
+    dev = fluid.CUDAPlace(0)
+    um, us, ul = build_bench_transformer(fluid, dropout=0.0, amp=amp)
+    fm, _, fl, _ = build_transformer(fluid, train=True, dropout=0.0,
+                                     amp=amp, **TRAIN)
+    sc_u = fluid.Scope()
+    ex = fluid.Executor(dev)
+    ex.run(us, scope=sc_u)
+    sc_f = clone_scope(fluid, sc_u)
+    rewrite = fp.FlashAttentionRewritePass._rewrite
+    if planted is not None:
+        fault = PLANTED_REWRITES[planted]
+        fp.FlashAttentionRewritePass._rewrite = \
+            lambda self, block, plan: rewrite(self, block, fault(plan))
+    try:
+        # the pipeline runs (and rewrites) at the program's first step
+        got, _ = train_steps(ex, um, ul, feed, sc_u, 3)
+    finally:
+        fp.FlashAttentionRewritePass._rewrite = rewrite
+    want, _ = train_steps(ex, fm, fl, feed, sc_f, 3)
+    state, state_var, equal = state_norm_err(sc_u, sc_f)
+    out = {"losses_unfused": got, "losses_fused_built": want,
+           "max_rel_diff": loss_rel_err(got, want), "state_norm_diff": state,
+           "largest_var_norm_diff": state_var, "tolerance": PARITY_TOL[amp],
+           "bit_equal": bool(got == want and equal)}
+    del sc_u, sc_f, ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def unfused_flash_phase(flash_rows):
+    """``bench_transformer``'s program at sequence 2048, batch 8 (16,384
+    tokens a step, as ``longctx_train``), dropout 0, AMP: every site
+    reaches ``FLAGS_flash_attention_min_seq``, so the 12 rewritten sites
+    take K1a-c with their [B, 1, S, S] segment bias (a stride-0 view over
+    the heads, no [B, H, S, S] copy) and the 6 causal decoder sites with
+    their segment ids: 18 launches of each a step, counted by the
+    wrappers. Losses finite and falling; peak memory."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    seq, batch = LONGCTX_SEQ, LONGCTX_BATCH
+    main, startup, loss = build_bench_transformer(fluid, seq=seq,
+                                                  dropout=0.0)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = bench_feed(batch, seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm, _ = train_steps(exe, main, loss, feed, scope, 2)
+    fa.LAUNCHES_FWD = fa.LAUNCHES_DKV = fa.LAUNCHES_DQ = 0
+    losses, secs = train_steps(exe, main, loss, feed, scope, 3)
+    k1 = flash_launches()
+    peak = torch.cuda.max_memory_allocated()
+    dfeed = {k: torch.as_tensor(v, device=torch.device("cuda"))
+             for k, v in feed.items()}
+    syncs = host_syncs(lambda: exe.run(main, feed=dfeed, fetch_list=[loss],
+                                       scope=scope, return_numpy=False))
+    check(not syncs, "unfused_flash: an eager step syncs the host: %s"
+          % syncs)
+    sites = UNFUSED_SITES + TRAIN["n_layer"]
+    want = sites * len(losses)
+    all_losses = warm + losses
+    check(k1 == (want, want, want), "unfused_flash: K1 launches %r over %d "
+          "steps of %d sites" % (k1, len(losses), sites))
+    check(bool(np.isfinite(all_losses).all())
+          and all_losses[-1] < all_losses[0],
+          "unfused_flash: losses %r not finite and falling" % all_losses)
+    for row, n in zip(flash_rows, k1):
+        row["launches_unfused_flash"] = n
+    step_ms = float(np.median(secs)) * 1e3
+    emit("unfused_flash", batch=batch, seq=seq, sites_a_step=sites,
+         k1_launches=dict(zip(("fwd", "dkv", "dq"), k1)), losses=all_losses,
+         step_ms_median=step_ms, step_ms=[s * 1e3 for s in secs],
+         tokens_per_s=batch * seq / (step_ms / 1e3),
+         segment_bias_bytes_a_chain=batch * seq * seq * 4,
+         peak_memory_bytes=peak, eager_host_syncs=len(syncs),
+         phase_seconds=time.perf_counter() - t_phase)
+    del scope, exe
+    torch.cuda.empty_cache()
+
+
+def build_flash_dropout(fluid, train=True, n_layer=FLASH_DROPOUT_LAYERS):
+    """Causal encoder layers at the full ``LONGCTX`` width (d_model 1024,
+    16 heads, d_inner 4096, vocab 32000) with attention-probs dropout 0.1
+    and no other dropout, so at S = 2048 their attention takes the flash
+    route with the kernels' own mask; AMP and Adam with ``train``, else
+    the forward alone (the same parameter names). Returns (main, startup,
+    loss, the last layer's output)."""
+    from paddle_tpu_torch.models import transformer as tfm
+
+    seq, d = LONGCTX_SEQ, LONGCTX["d_model"]
+    dk = d // LONGCTX["n_head"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("ids", shape=[seq], dtype="int64")
+        lbl = fluid.layers.data("lbl", shape=[seq, 1], dtype="int64")
+        x = tfm.embed_inputs(ids, LONGCTX["vocab_size"], d, seq, "lm",
+                             dropout_rate=0.0)
+        for i in range(n_layer):
+            x = tfm.encoder_layer(
+                x, None, LONGCTX["n_head"], dk, dk, d, LONGCTX["d_inner"],
+                dropout_rate=0.0, name="lm_l%d" % i,
+                ffn_act={"type": "gelu", "approximate": True},
+                inner_dropout=0, attn_dropout=0.1, causal=True)
+        out = x
+        logits = fluid.layers.fc(tfm._pre_norm(x), size=LONGCTX["vocab_size"],
+                                 num_flatten_dims=2, name="lm_head")
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, lbl))
+        if train:
+            fluid.amp.decorate(
+                fluid.optimizer.Adam(learning_rate=1e-4)).minimize(loss)
+    return main, startup, loss, out
+
+
+def flash_dropout_captured_phase(flash_rows):
+    """The repair of the flash route's dropout seed: ``build_flash_dropout``
+    (2 causal layers at full ``LONGCTX`` width, batch 8 x 2048, AMP) run
+    eagerly and captured from one start (``captured_leg``: losses within
+    1e-3 (AMP) at every step, bit-equality reported, K1a-c once a layer and
+    K2 once inside one replay, no host sync in an eager step). Then its
+    forward run twice on one batch with the same parameters: the outputs
+    must differ (each step draws its own mask, on the card)."""
+    import paddle_tpu_torch as fluid
+
+    t_phase = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    main, startup, loss, _ = build_flash_dropout(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor(dev)
+    exe.run(startup, scope=scope)
+    feeds = [longctx_feed(LONGCTX_BATCH, LONGCTX_SEQ, seed=i)
+             for i in range(CAPTURED_STEPS)]
+    per_step = {k: (pat, FLASH_DROPOUT_LAYERS) for k, pat in K1_NAMES.items()}
+    per_step.update({k: (pat, 1) for k, pat in K2_NAMES.items()})
+    counts = captured_leg("flash_dropout_captured", main, loss, scope, feeds,
+                          True, per_step)
+    for row, kern in zip(flash_rows, K1_NAMES):
+        row.setdefault("captured_launches_a_step", {})[
+            "flash_dropout_amp"] = counts[kern]
+    fwd, _, _, out = build_flash_dropout(fluid, train=False)
+    dfeed = {k: torch.as_tensor(v, device=dev) for k, v in feeds[0].items()}
+    a = exe.run(fwd, feed=dfeed, fetch_list=[out], scope=scope,
+                return_numpy=False)[0].clone()
+    b = exe.run(fwd, feed=dfeed, fetch_list=[out], scope=scope,
+                return_numpy=False)[0]
+    differ = float((a.float() - b.float()).abs().max())
+    check(bool(torch.isfinite(a).all()) and differ > 0,
+          "flash_dropout: two steps of the forward on one batch gave the "
+          "same output (largest difference %g): the mask did not change"
+          % differ)
+    emit("flash_dropout_masks", layers=FLASH_DROPOUT_LAYERS,
+         batch=LONGCTX_BATCH, seq=LONGCTX_SEQ, attn_dropout=0.1,
+         output_max_abs_diff_between_steps=differ,
+         phase_seconds=time.perf_counter() - t_phase)
+    del scope, exe
+    torch.cuda.empty_cache()
+
+
+def accum_train_phase(xent_rows):
+    """Gradient accumulation on the card, Transformer-base (``TRAIN``),
+    through ``Executor.run`` of a ``CompiledProgram`` with
+    ``BuildStrategy.gradient_accumulation_steps = ACCUM``: (a) float32,
+    dropout 0, batch 64: 3 accumulated steps (two eager warm-ups, then one
+    captured) against 3 plain ``run()`` steps from one start: losses within
+    1e-5 relative, the first step's gradients (every parameter's, as one
+    vector) within 1e-3 norm-wise of the full batch's and within 1e-6 of
+    the mean of the gradients each microbatch gives alone (a plain step at
+    batch 16 from the start state), the state after 3 steps within 1e-4
+    norm-wise of the full batch's. A microbatch's forward takes other GEMM
+    kernels than the full batch's, so the accumulated gradients differ from
+    the full batch's by more than the sums' order would (1.27e-4 measured,
+    the state 1.94e-5; PERF.md); (b) AMP (dropout 0.1) at a global batch
+    of ``ACCUM`` x 64: peak memory against a batch-64 step's, step ms eager
+    (the captured step's body run eagerly, ``eager_accumulated``) and
+    captured in turns; (c) the captured accumulated steps (``run_steps``,
+    one graph for all microbatches) against eager ones from one start,
+    each run as the first step of a new ``Executor``, which runs it as an
+    eager warm-up: losses within 1e-3 relative (AMP) and the state,
+    bit-equality reported; one capture. K2a/K2b launch once a
+    microbatch."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.executor import WARMUP_STEPS
+    from paddle_tpu_torch.monitor import metrics
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    t_phase = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    exe = fluid.Executor(dev)
+
+    def accumulated(main, loss):
+        bs = fluid.BuildStrategy()
+        bs.gradient_accumulation_steps = ACCUM
+        return fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, build_strategy=bs)
+
+    # (a) accumulation against the full batch
+    main, startup, loss, _ = build_transformer(fluid, train=True, dropout=0.0,
+                                               amp=False, **TRAIN)
+    plain = fluid.Scope()
+    exe.run(startup, scope=plain)
+    start = clone_scope(fluid, plain)
+    acc = clone_scope(fluid, plain)
+    feeds = [train_feed(TRAIN_BATCH, seed=i) for i in range(3)]
+    grads = sorted(main._backward_info["param_to_grad"].values())
+    first = exe.run(main, feed=feeds[0], fetch_list=[loss] + grads,
+                    scope=plain, return_numpy=False)
+    want = [float(first[0])] + [
+        float(exe.run(main, feed=f, fetch_list=[loss], scope=plain)[0])
+        for f in feeds[1:]]
+    prog = accumulated(main, loss)
+    exe_a = fluid.Executor(dev)
+    caps0 = metrics.CAPTURES.value
+    sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+    outs = [exe_a.run(prog, feed=f, fetch_list=[loss] + grads, scope=acc,
+                      return_numpy=False) for f in feeds]
+    k2 = (sx.LAUNCHES_FWD, sx.LAUNCHES_BWD)
+    captures_a = metrics.CAPTURES.value - caps0
+    got = [float(o[0]) for o in outs]
+    first_acc = outs[0][1:]
+    del outs
+    exe_a.close()
+    # each microbatch alone, a plain step from the start state: the mean of
+    # their gradients, summed in the accumulation's order, is what the
+    # accumulated step must hold
+    m = TRAIN_BATCH // ACCUM
+    mean = None
+    for i in range(ACCUM):
+        sub = {k: v[i * m:(i + 1) * m] for k, v in feeds[0].items()}
+        g = exe.run(main, feed=sub, fetch_list=grads,
+                    scope=clone_scope(fluid, start), return_numpy=False)
+        mean = g if mean is None else [a + b for a, b in zip(mean, g)]
+    mean = [a / ACCUM for a in mean]
+    grad_micro = norm_diff(first_acc, mean)
+    micro_equal = all(torch.equal(a, b) for a, b in zip(first_acc, mean))
+    err_a = loss_rel_err(got, want)
+    grad_a = norm_diff(first_acc, first[1:])
+    state_a, state_a_var, _ = state_norm_err(acc, plain)
+    tol_a = {"losses": 1e-5, "gradients_from_full_batch": 1e-3,
+             "gradients_from_microbatch_mean": 1e-6, "state": 1e-4}
+    check(err_a <= tol_a["losses"]
+          and grad_a <= tol_a["gradients_from_full_batch"]
+          and grad_micro <= tol_a["gradients_from_microbatch_mean"]
+          and state_a <= tol_a["state"],
+          "accumulation %d against the full batch: losses %r against %r "
+          "(%.3g); gradients %.3g norm-wise from the full batch's, %.3g "
+          "from the mean of the microbatches' own; state after 3 steps "
+          "%.3g (tolerances %r)" % (ACCUM, got, want, err_a, grad_a,
+                                    grad_micro, state_a, tol_a))
+    check(captures_a == 1, "accumulation %d: %d captures in %d steps of "
+          "run(CompiledProgram)" % (ACCUM, captures_a, len(feeds)))
+    del first, first_acc, mean, start
+    check(k2 == (ACCUM * len(feeds),) * 2,
+          "accumulated steps launched K2 %r over %d steps of %d microbatches"
+          % (k2, len(feeds), ACCUM))
+    for row, n in zip(xent_rows, k2):
+        row["launches_accum"] = n
+    del plain, acc, exe_a
+    torch.cuda.empty_cache()
+
+    # (b) and (c): AMP at a global batch of ACCUM x 64
+    main, startup, loss, _ = build_transformer(fluid, train=True, amp=True,
+                                               **TRAIN)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    small = train_feed(TRAIN_BATCH)
+    train_steps(exe, main, loss, small, scope, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_steps(exe, main, loss, small, scope, 1)
+    peak_64 = torch.cuda.max_memory_allocated()
+    big = [train_feed(ACCUM * TRAIN_BATCH, seed=i)
+           for i in range(CAPTURED_STEPS)]
+    cap = clone_scope(fluid, scope)
+    step0 = getattr(main, "_tpu_step_counter", 0)
+    prog = accumulated(main, loss)
+    torch.cuda.reset_peak_memory_stats()
+    eager = [float(fluid.Executor(dev).run(prog, feed=f, fetch_list=[loss],
+                                           scope=scope)[0])
+             for f in big]
+    peak_accum_eager = torch.cuda.max_memory_allocated()
+    main._tpu_step_counter = step0
+    exe_c = fluid.Executor(dev)
+    caps0, reps0 = metrics.CAPTURES.value, metrics.REPLAYS.value
+    torch.cuda.reset_peak_memory_stats()
+    captured = [float(r[0]) for r in exe_c.run_steps(
+        prog, big, fetch_list=[loss], fetch_every=len(big), scope=cap)]
+    peak_accum_captured = torch.cuda.max_memory_allocated()
+    captures = metrics.CAPTURES.value - caps0
+    replays = metrics.REPLAYS.value - reps0
+    err_c = loss_rel_err(captured, eager)
+    _, state_c, equal_c = state_norm_err(cap, scope)
+    check(err_c <= 1e-3 and state_c <= 1e-3,
+          "captured accumulated steps: losses %r vs eager %r (%.3g), state "
+          "%.3g norm-wise (tolerance 1e-3)" % (captured, eager, err_c,
+                                               state_c))
+    check((captures, replays) == (1, len(big) - WARMUP_STEPS),
+          "accumulated step: %d captures and %d replays" % (captures,
+                                                           replays))
+    dfeed = {k: torch.as_tensor(v, device=dev) for k, v in big[0].items()}
+    syncs = host_syncs(
+        lambda: eager_accumulated(exe, main, scope, dfeed, loss, ACCUM))
+    check(not syncs, "accum_train: an eager accumulated step syncs the "
+          "host: %s" % syncs)
+
+    def eager_run(k):
+        for _ in range(k):
+            eager_accumulated(exe, main, scope, dfeed, loss, ACCUM)
+
+    def captured_run(k):
+        exe_c.run_steps(prog, (dfeed for _ in range(k)), steps=k,
+                        fetch_list=[loss], fetch_every=k, scope=cap,
+                        return_numpy=False)
+
+    medians, turns = time_in_turns({"eager": eager_run,
+                                    "captured": captured_run})
+    emit("accum_train", accumulation_steps=ACCUM,
+         full_batch_check={"mode": "float32", "batch": TRAIN_BATCH,
+                           "losses_accum": got, "losses_plain": want,
+                           "max_rel_diff": err_a,
+                           "grad_norm_diff_from_microbatch_mean":
+                               grad_micro,
+                           "grads_bit_equal_to_microbatch_mean":
+                               micro_equal,
+                           "grad_norm_diff_from_full_batch": grad_a,
+                           "state_norm_diff_after_3_steps": state_a,
+                           "largest_var_norm_diff": state_a_var,
+                           "captures": captures_a, "tolerance": tol_a},
+         global_batch=ACCUM * TRAIN_BATCH, mode="bfloat16_amp",
+         losses_eager=eager, losses_captured=captured,
+         loss_max_rel_diff=err_c, state_max_norm_diff=state_c,
+         bit_equal=bool(captured == eager and equal_c), tolerance=1e-3,
+         captures=captures, replays=replays,
+         peak_memory_batch64_step=peak_64,
+         peak_memory_accum_eager=peak_accum_eager,
+         peak_memory_accum_captured=peak_accum_captured,
+         step_ms_eager=medians["eager"], step_ms_captured=medians["captured"],
+         step_ms_turns=turns,
+         tokens_per_s_captured=ACCUM * TRAIN_BATCH * TRAIN["seq"]
+         / (medians["captured"] / 1e3),
+         k2_launches_float32={"fwd": k2[0], "bwd": k2[1]},
+         eager_host_syncs=len(syncs),
+         phase_seconds=time.perf_counter() - t_phase)
+    exe_c.close()
+    del scope, cap, exe, exe_c
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3146,11 +3917,15 @@ def main():
 
     def timed(fn, *args, **kw):
         t = time.perf_counter()
+        n_opt = len(OPT_LOG)
         out = fn(*args, **kw)
         name = fn.__name__ + ("_amp" if kw.get("amp") else "")
         phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t
+        # op counts at level 0 and 1 of each program the phase ran
+        emit("pipeline_ops", of=name, programs=OPT_LOG[n_opt:])
         return out
 
+    record_pipeline()
     row = timed(kernel_phase, dev)
     xent_rows = timed(xent_kernel_phase, dev)
     flash_rows = timed(flash_kernel_phase, dev)
@@ -3168,6 +3943,10 @@ def main():
     timed(resnet_train_phase, xent_rows, amp=True)
     timed(resnet_parity_phase)
     timed(mnist_train_phase, xent_rows)
+    timed(unfused_train_phase, xent_rows)
+    timed(unfused_flash_phase, flash_rows)
+    timed(flash_dropout_captured_phase, flash_rows)
+    timed(accum_train_phase, xent_rows)
     with tempfile.TemporaryDirectory() as ckpt:
         timed(bert_train_phase, xent_rows, amp=True, ckpt_dir=ckpt)
         timed(bert_train_phase, xent_rows, amp=False)

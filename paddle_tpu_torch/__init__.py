@@ -27,7 +27,13 @@ Ported so far:
   saved model.
 * the captured step: :class:`CompiledProgram` and
   ``Executor.run_steps`` warm a program's step up, capture it into a
-  CUDA graph and replay it (:mod:`.compiler`, :mod:`.executor`).
+  CUDA graph and replay it (:mod:`.compiler`, :mod:`.executor`), with
+  gradient accumulation (``BuildStrategy.gradient_accumulation_steps``);
+* the Program-pass pipeline (:mod:`.passes`, :mod:`.core.pass_framework`,
+  ``conv_bn_fuse_pass`` in :mod:`.transpiler`) that the Executor runs on
+  every program, which rewrites primitive-built attention
+  (``FLAGS_unfused_attention``) and ``softmax`` + ``cross_entropy`` back
+  onto the fused ops and their kernels.
 
 A Fluid script runs unchanged with::
 
@@ -41,12 +47,21 @@ from . import (  # noqa: F401
     layers,
     models,
     optimizer,
+    passes,
     serving,
+    transpiler,
 )
 from .backward import append_backward, calc_gradient, gradients  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
 from .core import unique_name  # noqa: F401
+from .core.pass_framework import (  # noqa: F401
+    Pass,
+    PassBuilder,
+    get_pass,
+    register_pass,
+    registered_passes,
+)
 from .core.framework import (  # noqa: F401
     Program,
     Variable,
@@ -69,4 +84,6 @@ __all__ = ["serving", "models", "CUDAPlace", "CPUPlace", "TPUPlace",
            "scope_guard", "global_scope", "unique_name", "ParamAttr",
            "WeightNormParamAttr", "amp", "flags", "get_flag", "set_flag",
            "append_backward", "gradients", "calc_gradient",
-           "CompiledProgram", "BuildStrategy", "ExecutionStrategy"]
+           "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
+           "passes", "transpiler", "Pass", "PassBuilder", "get_pass",
+           "register_pass", "registered_passes"]

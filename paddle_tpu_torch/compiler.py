@@ -11,9 +11,15 @@ into a CUDA graph for each feed signature and replay it
 as they were launched, so the strategies' scheduling and memory knobs
 have nothing to act on: they are accepted and warn.
 
+``BuildStrategy.pass_builder()`` is the user's Program-pass pipeline, run
+once at the first execution on a transactional clone after the fetch-safe
+default passes (``_apply_build_passes``); a failing pass leaves the
+program untouched and names itself. ``gradient_accumulation_steps``
+splits each step's batch into that many microbatches
+(``Executor._train_step``), captured as one graph.
+
 Left out against the JAX package: ``with_mesh`` and more than one place
-(ROADMAP Queue 1 item 7), gradient accumulation and the pass pipeline
-(Queue 1 item 3).
+(ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -103,12 +109,18 @@ class BuildStrategy(_StrategyBase):
         object.__setattr__(self, "_defaults", d)
         for k, v in d.items():
             object.__setattr__(self, k, v)
+        object.__setattr__(self, "_pass_builder", None)
 
     def pass_builder(self):
-        """The reference's Program-pass pipeline: not ported."""
-        raise NotImplementedError(
-            "BuildStrategy.pass_builder(): the port has no pass framework; "
-            "the passes are queued in ROADMAP Queue 1 item 3")
+        """The Program-pass pipeline applied in CompiledProgram's build step
+        (reference: BuildStrategy::CreatePassesFromStrategy + PassBuilder,
+        pybind.cc:981-1003). Created empty on first call; append registered
+        or custom passes."""
+        from .core.pass_framework import PassBuilder
+
+        if self._pass_builder is None:
+            object.__setattr__(self, "_pass_builder", PassBuilder())
+        return self._pass_builder
 
 
 class CompiledProgram:
@@ -146,15 +158,59 @@ class CompiledProgram:
             "CompiledProgram.with_mesh(): the port runs on one card; meshes "
             "and sharded state are queued in ROADMAP Queue 1 item 7")
 
-    def _checked_program(self) -> Program:
-        """The wrapped program, after refusing what the port lacks."""
+    def _checked_program(self, scope=None):
+        """(the program to run, gradient accumulation steps), after the
+        build passes (:meth:`_apply_build_passes`)."""
+        self._apply_build_passes(scope)
         bs = self._build_strategy
-        if bs is not None and bs.gradient_accumulation_steps > 1:
-            raise NotImplementedError(
-                "BuildStrategy.gradient_accumulation_steps = %d: gradient "
-                "accumulation is queued in ROADMAP Queue 1 item 3"
-                % bs.gradient_accumulation_steps)
-        return self._program
+        accum = 1 if bs is None else int(bs.gradient_accumulation_steps)
+        if accum < 1:
+            raise ValueError("BuildStrategy.gradient_accumulation_steps must "
+                             "be >= 1, got %d" % accum)
+        return self._program, accum
+
+    def _apply_build_passes(self, scope):
+        """Run the BuildStrategy's PassBuilder pipeline once, at first
+        execution (the reference applies its pass pipeline when the
+        ParallelExecutor graph is built, build_strategy.cc:44-150).
+
+        The default pipeline (``passes``, gated by ``PADDLE_TPU_OPT_LEVEL``)
+        runs first on the same transactional clone, so user pipelines
+        compose AFTER the defaults, as the reference's
+        BuildStrategy::CreatePassesFromStrategy orders them. With no fetch
+        info at build time only the FETCH-SAFE defaults run (conv+bn
+        folding, conservative DCE); the Executor runs the full fetch-seeded
+        pipeline on the result (memoized; every default pass is
+        idempotent)."""
+        if getattr(self, "_passes_applied", False):
+            return
+        bs = self._build_strategy
+        builder = getattr(bs, "_pass_builder", None) if bs is not None else None
+        if builder is None:
+            # no user pipeline: the Executor applies the defaults per fetch
+            # set, where DCE can seed liveness from real fetch targets
+            self._passes_applied = True
+            return
+        from .core.scope import global_scope
+        from .passes.analysis import stamp_rng_slots
+        from .passes.pipeline import default_pipeline
+
+        scope = scope if scope is not None else global_scope()
+        for p in builder.all_passes():
+            if not p.has_attr("scope"):
+                p.set_attr("scope", scope)
+        # transactional: passes may mutate the program in place, so run the
+        # pipeline on a clone — a mid-pipeline failure (PassError, naming
+        # the failing pass) leaves the original untouched and the retry
+        # starts from scratch instead of double-applying the passes that
+        # had already run
+        work = self._program.clone()
+        # freeze stochastic ops' positional streams before any rewrite
+        # (passes/analysis.py): op deletion must not shift them
+        stamp_rng_slots(work)
+        work = default_pipeline(scope=scope).apply_all(work)
+        self._program = builder.apply_all(work)
+        self._passes_applied = True
 
     # -- execution (called from Executor.run) ---------------------------------
     def _run(self, executor, feed, fetch_list, scope, return_numpy):

@@ -20,7 +20,9 @@
 // normalised probabilities and leaves the statistics alone; the keep mask
 // is a hash of (seed, b, h, q position, k position), the same uint32
 // arithmetic as the Pallas kernels' _dropout_keep_tile, so the three
-// kernels redraw one mask.
+// kernels redraw one mask. The seed lies on the card (one int64 the
+// caller drew from its generator there), and each kernel reads it once,
+// so no host ever reads it and a CUDA graph can replay the launch.
 // A row with no visible position (segment ids only) gives o = 0 and
 // lse = +inf, hence p = 0 and no gradient.
 //
@@ -174,7 +176,9 @@ struct FlashParams {
   int dtype;           // 0 = float32, 1 = bfloat16
   int ab_dtype;        // the bias's: 0 = float32, 1 = bfloat16 (dtype 1 only)
   int dropout;         // 0 = none
-  unsigned int seed, threshold;  // keep where hash >= threshold
+  const long long* seed;  // [1] on the card, its low 32 bits the mask's
+                          // seed; read only with dropout (may be null)
+  unsigned int threshold;  // keep where hash >= threshold
   float keep_scale;    // 1 / (1 - rate)
   float sm_scale;
 };
@@ -222,6 +226,7 @@ struct ScoreCtx {
   const int* seg_kv;
   int sq, sk, causal;
   float sm_scale;
+  uint32_t seed;        // the dropout mask's seed, read once a block
 
   __device__ __forceinline__ ScoreCtx(const FlashParams& p, int b, int h)
       : ab(p.ab ? static_cast<const AB*>(p.ab) + b * p.ab_st[0] +
@@ -234,7 +239,8 @@ struct ScoreCtx {
         sq(p.sq),
         sk(p.sk),
         causal(p.causal),
-        sm_scale(p.sm_scale) {}
+        sm_scale(p.sm_scale),
+        seed(p.dropout ? static_cast<uint32_t>(*p.seed) : 0u) {}
 
   // The masked score of (row, col) from the raw product: the mask value is
   // added, as the Pallas kernels add it; a column beyond Sk is -inf, so
@@ -278,7 +284,7 @@ __device__ __forceinline__ PAndDs p_and_ds(const FlashParams& p,
   PAndDs r;
   r.pd = pij;
   if (p.dropout) {
-    const bool keep = dropout_keep(p.seed, b, h, row, col, p.threshold);
+    const bool keep = dropout_keep(sc.seed, b, h, row, col, p.threshold);
     r.pd = keep ? pij * p.keep_scale : 0.f;
     dp = keep ? dp * p.keep_scale : 0.f;
   }
@@ -607,7 +613,7 @@ __global__ void __launch_bounds__(kMmaThreads, fwd_min_blocks(D))
             float pij = __expf(s[mt][nt][2 * hi + j] - m_new);
             rs += pij;  // the statistics see no dropout
             if (p.dropout)
-              pij = dropout_keep(p.seed, b, h, row, k0 + 8 * nt + 2 * t + j,
+              pij = dropout_keep(sc.seed, b, h, row, k0 + 8 * nt + 2 * t + j,
                                  p.threshold)
                         ? pij * p.keep_scale
                         : 0.f;
@@ -1167,7 +1173,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
         float pij = exp2_approx((s[i][j] - m_new) * kLog2e);
         rs += pij;  // the statistics see no dropout
         if (p.dropout)
-          pij = dropout_keep(p.seed, b, h, row, k0 + tx + 8 * j, p.threshold)
+          pij = dropout_keep(sc.seed, b, h, row, k0 + tx + 8 * j, p.threshold)
                     ? pij * p.keep_scale
                     : 0.f;
         Ps[(ty + TY * i) * kPitchP + tx + 8 * j] = pij;
@@ -1630,7 +1636,8 @@ int launch_one(Which which, const FlashParams& p, cudaStream_t st) {
 int dispatch(Which which, const FlashParams* p, void* stream) {
   if (p == nullptr || p->b < 1 || p->h < 1 || p->sq < 1 || p->sk < 1 ||
       p->h > 65535 || p->b > 65535 || (p->dtype != 0 && p->dtype != 1) ||
-      (p->ab_dtype != 0 && p->ab_dtype != p->dtype))
+      (p->ab_dtype != 0 && p->ab_dtype != p->dtype) ||
+      (p->dropout && p->seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (p->d) {

@@ -32,7 +32,24 @@ back only what an op rewrote, in the dtype the scope held.
 Stochastic ops draw from one ``torch.Generator`` per op position, made
 once per plan (:class:`_Plan`) and seeded before every step from (seed
 attr or ``program.random_seed``, step index, op position); the step index
-counts the steps of each program (``_next_step_index``).
+counts the steps of each program (``_next_step_index``). The op position
+is the ``__rng_slot__`` the pass pipeline stamps before it rewrites, so a
+pass that deletes or moves ops leaves every stream where it was.
+
+Before a program runs, the default pass pipeline (:mod:`.passes`,
+``PADDLE_TPU_OPT_LEVEL``, default 1) rewrites a memoized clone of it for
+the run's fetch set (:meth:`Executor._maybe_optimize`): dead ops go,
+constant chains fold, duplicates merge, ``softmax`` + ``cross_entropy``
+becomes the fused loss and the unfused attention composition the fused
+attention op. The plans and captured steps are made from that clone; the
+step counter stays on the source program.
+
+Gradient accumulation (``BuildStrategy.gradient_accumulation_steps``, a
+``CompiledProgram`` through ``run`` or ``run_steps``): every feed is split
+along dim 0 into that many microbatches, each runs the forward and its
+``torch.autograd.grad`` from the step's state, the gradients are summed
+and divided by the count, and the post-marker ops run once, on the last
+microbatch's env with the mean of the microbatch losses.
 
 The captured step (:class:`_CapturedStep`) is the counterpart of the JAX
 package's one compiled dispatch: ``Executor.run(CompiledProgram)`` and
@@ -42,9 +59,9 @@ replay it. The scope's tensors are the graph's static state, which the
 body updates with ``copy_``. On the CPU the same calls run the body step
 by step, without a graph.
 
-Left out against the JAX package: meshes, gradient accumulation, the
-numerics watchdog, the flight recorder, fault injection, the metrics
-histograms, ``prepare``, the trace-time optimizer passes and py_readers.
+Left out against the JAX package: meshes, the numerics watchdog, the
+flight recorder, fault injection, the metrics histograms, ``prepare`` and
+py_readers.
 """
 
 from __future__ import annotations
@@ -111,15 +128,19 @@ class TraceContext:
         self.generators = {} if generators is None else generators
 
     def op_rng(self, ctx) -> torch.Generator:
-        """The generator of the op at ``current_op_idx``, made on its first
-        draw and seeded for this step; the plan reseeds it before later
-        steps (:meth:`_Plan.reseed`)."""
-        entry = self.generators.get(self.current_op_idx)
+        """The generator of the running op, keyed by its ``__rng_slot__``
+        (its position in the source program, stamped by the pass pipeline)
+        or else its position ``current_op_idx``; made on its first draw and
+        seeded for this step, then reseeded by the plan before later steps
+        (:meth:`_Plan.reseed`)."""
+        idx = ctx.attr("__rng_slot__")
+        if idx is None:
+            idx = self.current_op_idx
+        entry = self.generators.get(idx)
         if entry is None:
             gen = torch.Generator(device=self.device)
-            gen.manual_seed(_op_seed(self.program, ctx.op, self.step,
-                                     self.current_op_idx))
-            entry = self.generators[self.current_op_idx] = (gen, ctx.op)
+            gen.manual_seed(_op_seed(self.program, ctx.op, self.step, idx))
+            entry = self.generators[idx] = (gen, ctx.op)
         return entry[0]
 
 
@@ -132,7 +153,7 @@ class _Plan:
     """What a program's step needs beside its state and feeds, resolved
     once for each (program, version, test mode, device): the op list and
     its backward marker, the AMP dtype, the persistable names, and one
-    generator per stochastic op position."""
+    generator per stochastic op slot."""
 
     def __init__(self, program: Program, is_test: bool):
         self.program_ref = weakref.ref(program)
@@ -250,6 +271,18 @@ class Executor:
         return tuple(names)
 
     @staticmethod
+    def _maybe_optimize(program: Program, fetch_names, scope) -> Program:
+        """The default pass pipeline's memoized clone of ``program`` for
+        this fetch set (``passes.pipeline.maybe_optimize``;
+        ``PADDLE_TPU_OPT_LEVEL=0`` returns ``program`` itself). Plans and
+        captured steps are made from the clone; callers keep the source for
+        ``_next_step_index``, so the step counter, and with it every dropout
+        stream, is shared by all fetch sets as at level 0."""
+        from .passes.pipeline import maybe_optimize
+
+        return maybe_optimize(program, fetch_names, scope)
+
+    @staticmethod
     def _next_step_index(program: Program, n: int = 1) -> int:
         """The step index of this run (of the first of ``n`` steps); the
         counter lives on the Program so it dies with it."""
@@ -328,12 +361,14 @@ class Executor:
             program = default_main_program()
         if scope is None:
             scope = global_scope()
-        block = program.global_block
         fetch_names = self._fetch_names(fetch_list)
+        step = self._next_step_index(program)
+        program = self._maybe_optimize(program, fetch_names, scope)
+        block = program.global_block
         feeds = {n: self._feed_tensor(block, n, v)
                  for n, v in (feed or {}).items()}
         env = self._eager_step(program, self._plan(program), scope, feeds,
-                               fetch_names, self._next_step_index(program))
+                               fetch_names, step)
         fetches = _fetches(env, fetch_names)
         if return_numpy:
             return [_to_numpy(t) for t in fetches]
@@ -367,14 +402,15 @@ class Executor:
         (``return_numpy=False``; a chunk of n > 1 steps resolves to arrays
         with a leading axis of n, a single-step chunk's to per-fetch
         arrays like ``run()``'s)."""
-        program = self._unwrap_program(program)
         if feed_iter is None:
             raise ValueError(
                 "run_steps() needs a feed_iter; the port has no py_reader "
                 "to drain instead")
         if scope is None:
             scope = global_scope()
+        src, accum = self._unwrap_program(program, scope)
         fetch_names = self._fetch_names(fetch_list)
+        program = self._maybe_optimize(src, fetch_names, scope)
         k = max(1, int(fetch_every))
         feed_iter = iter(feed_iter)
         rows: List[Any] = []
@@ -414,9 +450,10 @@ class Executor:
                 chunk.append(f)
             if not chunk:
                 break
-            cap = self._captured_step(program, scope, sig0, fetch_names)
+            cap = self._captured_step(program, scope, sig0, fetch_names,
+                                      accum)
             n = len(chunk)
-            step0 = self._next_step_index(program, n)
+            step0 = self._next_step_index(src, n)
             bufs = None
             for i, f in enumerate(chunk):
                 outs = cap.step(f, step0 + i)
@@ -447,48 +484,56 @@ class Executor:
         return rows if return_numpy else handles
 
     @staticmethod
-    def _unwrap_program(program):
-        """The plain program of a possibly wrapped ``CompiledProgram``
-        (reference: executor.py:870), after its strategy checks."""
+    def _unwrap_program(program, scope):
+        """(plain program, gradient accumulation steps) of a possibly
+        wrapped ``CompiledProgram`` (reference: executor.py:870), after its
+        strategy checks and its build passes."""
         from .compiler import CompiledProgram
 
+        accum = 1
         if isinstance(program, CompiledProgram):
-            program = program._checked_program()
-        return default_main_program() if program is None else program
+            program, accum = program._checked_program(scope)
+        return (default_main_program() if program is None else program,
+                accum)
 
-    def _captured_step(self, program, scope, sig, fetch_names):
+    def _captured_step(self, program, scope, sig, fetch_names, accum=1):
         """The captured step of (program, version, feed signature, fetch
-        names, test mode, AMP dtype, scope); made on first use."""
+        names, test mode, AMP dtype, scope, accumulation steps); made on
+        first use."""
         plan = self._plan(program)
         key = (id(program), program._version, sig, fetch_names,
-               plan.is_test, getattr(program, "_amp_dtype", None), id(scope))
+               plan.is_test, getattr(program, "_amp_dtype", None), id(scope),
+               accum)
         cap = self._captured.get(key)
         if cap is None or cap.plan is not plan or cap.scope_ref() is not scope:
             if cap is not None:
                 cap.release()
             cap = self._captured[key] = _CapturedStep(
-                self, program, plan, scope, sig, fetch_names)
+                self, program, plan, scope, sig, fetch_names, accum)
         return cap
 
     # -- the step body --------------------------------------------------------
-    def _eager_step(self, program, plan, scope, feeds, fetch_names, step):
+    def _eager_step(self, program, plan, scope, feeds, fetch_names, step,
+                    accum=1):
         """One eager step: the body on the scope's state, then every
         persistable it computed set into the scope. Returns the env."""
         state = self._gather_state(plan, scope)
         plan.reseed(program, step)
         trace = TraceContext(program, plan.is_test, self.place, step,
                              plan.generators)
-        env = self._body(plan, state, feeds, fetch_names, trace)
+        env = self._body(plan, state, feeds, fetch_names, trace, accum)
         for n in plan.state_names:
             val = env.get(n)
             if val is not None:
                 scope.set_var(n, val.detach())
         return env
 
-    def _body(self, plan: _Plan, state, feeds, fetch_names, trace):
+    def _body(self, plan: _Plan, state, feeds, fetch_names, trace, accum=1):
         """The step: ``(state, feeds, step) -> env`` of every var it
         computed (state writes and fetches among them). The same function
-        runs eagerly and under capture; it reads the host for nothing."""
+        runs eagerly and under capture; it reads the host for nothing.
+        ``accum`` > 1 splits a training step into that many microbatches
+        (:meth:`_train_step`); a program without a backward ignores it."""
         env: Dict[str, Any]
         if plan.bw is None or plan.marker_idx is None:
             env = dict(state)
@@ -511,17 +556,27 @@ class Executor:
                         env[n] = val.to(held.dtype)
             return env
         return self._train_step(plan.ops, plan.marker_idx, plan.bw, state,
-                                feeds, trace, fetch_names, plan.amp_dtype)
+                                feeds, trace, fetch_names, plan.amp_dtype,
+                                accum)
 
     @staticmethod
     def _train_step(ops, marker_idx, bw, state, feeds, trace, fetch_names,
-                    amp_dtype=None):
+                    amp_dtype=None, accum=1):
         """Forward under autograd, ``torch.autograd.grad`` into the
         ``p@GRAD`` names, then the post-marker ops under ``no_grad``. The
         forward's activations leave the env once the gradients exist,
         unless a fetch or a post-marker op reads them. With ``amp_dtype``
         the forward reads casts of the float32 leaves and feeds; the cast
-        is part of the graph, so each gradient is float32."""
+        is part of the graph, so each gradient is float32.
+
+        With ``accum`` > 1 (gradient accumulation, JAX package
+        ``executor.py:603-652``) each feed splits along dim 0 into ``accum``
+        microbatches; each runs the forward from the step's state and its
+        own ``autograd.grad``, so one microbatch's activations live at a
+        time. The gradients are summed in microbatch order and divided by
+        ``accum``, the loss is the mean of the microbatch losses, and the
+        post-marker ops read the last microbatch's env (its batch-norm
+        statistics and non-loss fetches), as in the JAX package."""
         loss_name = bw["loss"]
         param_to_grad = bw["param_to_grad"]
         block = trace.program.global_block
@@ -529,23 +584,41 @@ class Executor:
             block._find_var_recursive(p), "is_sparse_param", False)]
         param_names = [p for p in param_to_grad
                        if p in state and p not in sparse_names]
+        if accum > 1 and sparse_names:
+            raise NotImplementedError(
+                "is_sparse embeddings + gradient accumulation is not "
+                "supported (per-microbatch row shapes), as in the JAX "
+                "package: %s" % sparse_names)
         leaves = {n: state[n].detach().requires_grad_(True)
                   for n in param_names}
         trace.sparse_params = frozenset(sparse_names)
-        env = dict(state)
-        with torch.enable_grad():
-            env.update(_amp_cast(leaves, amp_dtype))
-            env.update(_amp_cast(feeds, amp_dtype))
-            run_block_ops(ops[:marker_idx], env, trace)
-            missing = [p for p in sparse_names if p not in trace.sparse_rows]
-            if missing:
-                raise ValueError("params marked is_sparse but never looked "
-                                 "up sparsely: %s" % missing)
-            virtuals = [trace.sparse_rows[p][1] for p in sparse_names]
-            loss = torch.sum(env[loss_name].float())
-            grads = torch.autograd.grad(
-                loss, [leaves[n] for n in param_names] + virtuals,
-                allow_unused=True)
+        grads, loss_sum = None, None
+        for sub in _microbatches(feeds, accum):
+            env = dict(state)
+            with torch.enable_grad():
+                env.update(_amp_cast(leaves, amp_dtype))
+                env.update(_amp_cast(sub, amp_dtype))
+                run_block_ops(ops[:marker_idx], env, trace)
+                missing = [p for p in sparse_names
+                           if p not in trace.sparse_rows]
+                if missing:
+                    raise ValueError("params marked is_sparse but never "
+                                     "looked up sparsely: %s" % missing)
+                virtuals = [trace.sparse_rows[p][1] for p in sparse_names]
+                loss = torch.sum(env[loss_name].float())
+                g_i = torch.autograd.grad(
+                    loss, [leaves[n] for n in param_names] + virtuals,
+                    allow_unused=True)
+            if grads is None:
+                grads, loss_sum = list(g_i), loss.detach()
+                continue
+            loss_sum = loss_sum + loss.detach()
+            for i, g in enumerate(g_i):
+                if g is not None:
+                    grads[i] = g if grads[i] is None else grads[i] + g
+        if accum > 1:
+            grads = [None if g is None else g / accum for g in grads]
+            env[loss_name] = loss_sum / accum
         post_ops = ops[marker_idx + 1:]
         keep = set(state) | set(fetch_names) | {
             n for op in post_ops for n in op.input_arg_names}
@@ -567,9 +640,11 @@ class Executor:
 
 
 class _CapturedStep:
-    """One program's step at one feed signature, the counterpart of the
-    JAX package's ``_CompiledStep``/``_DispatchPlan``
-    (``paddle_tpu/executor.py:442, 787``).
+    """One program's step at one feed signature (and gradient accumulation
+    count), the counterpart of the JAX package's
+    ``_CompiledStep``/``_DispatchPlan`` (``paddle_tpu/executor.py:442,
+    787``); an accumulated step is one graph holding all its
+    microbatches.
 
     Its first ``WARMUP_STEPS`` steps run eagerly (on a side stream on the
     card); they are real steps with their own step indexes. Then the scope's
@@ -583,13 +658,15 @@ class _CapturedStep:
     capture that fails raises, naming the op; nothing runs eagerly in its
     place."""
 
-    def __init__(self, exe: Executor, program, plan, scope, sig, fetch_names):
+    def __init__(self, exe: Executor, program, plan, scope, sig, fetch_names,
+                 accum=1):
         self.exe = exe
         self.program_ref = weakref.ref(program)
         self.plan = plan
         self.scope_ref = weakref.ref(scope)
         self.sig = sig
         self.fetch_names = fetch_names
+        self.accum = accum
         self.warm_left = WARMUP_STEPS
         self.state: Optional[Dict[str, torch.Tensor]] = None
         self.feeds: Dict[str, torch.Tensor] = {}
@@ -617,14 +694,14 @@ class _CapturedStep:
                      for n, v in feed.items()}
             if exe.place.type != "cuda":
                 env = exe._eager_step(program, self.plan, scope, feeds,
-                                      self.fetch_names, step)
+                                      self.fetch_names, step, self.accum)
                 return _fetches(env, self.fetch_names)
             cur = torch.cuda.current_stream(exe.place)
             side = exe._stream()
             side.wait_stream(cur)
             with torch.cuda.stream(side):
                 env = exe._eager_step(program, self.plan, scope, feeds,
-                                      self.fetch_names, step)
+                                      self.fetch_names, step, self.accum)
                 outs = _fetches(env, self.fetch_names)
             cur.wait_stream(side)
             return outs
@@ -651,7 +728,8 @@ class _CapturedStep:
         if trace is None:
             trace = TraceContext(program, plan.is_test, exe.place, step,
                                  plan.generators)
-        env = exe._body(plan, self.state, self.feeds, self.fetch_names, trace)
+        env = exe._body(plan, self.state, self.feeds, self.fetch_names, trace,
+                        self.accum)
         with torch.no_grad():
             for n, held in self.state.items():
                 val = env.get(n)
@@ -750,6 +828,21 @@ def _feed_signature(feed):
         conv[n] = v
         sig.append((n, tuple(v.shape), str(v.dtype).replace("torch.", "")))
     return tuple(sig), conv
+
+
+def _microbatches(feeds, accum):
+    """The feeds as ``accum`` microbatches, each a dict of dim-0 slices
+    (views); a batch that ``accum`` does not divide raises, as the JAX
+    package's reshape does."""
+    if accum <= 1:
+        return [feeds]
+    for n, v in feeds.items():
+        if v.dim() == 0 or v.shape[0] % accum:
+            raise ValueError(
+                "gradient_accumulation_steps = %d does not divide feed %r "
+                "of shape %s along dim 0" % (accum, n, list(v.shape)))
+    return [{n: v[i * (v.shape[0] // accum):(i + 1) * (v.shape[0] // accum)]
+             for n, v in feeds.items()} for i in range(accum)]
 
 
 def _fetches(env, fetch_names) -> List[torch.Tensor]:

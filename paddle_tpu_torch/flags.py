@@ -32,6 +32,13 @@ _DEFAULTS: Dict[str, Any] = {
                                      # send a program to the same kind of
                                      # kernel; it depends on shapes only,
                                      # never on the device.
+    "unfused_attention": False,      # layers.attention emits the primitive
+                                     # composition (matmul/softmax/dropout/
+                                     # matmul) instead of the fused op for
+                                     # non-causal attention; the default
+                                     # pass pipeline's flash_attention_rewrite
+                                     # (PADDLE_TPU_OPT_LEVEL >= 1) fuses it
+                                     # back onto the fused op
 }
 
 _flags: Dict[str, Any] = {}

@@ -1,13 +1,15 @@
 # ported from paddle_tpu/layers/__init__.py
 """``fluid.layers``: the layer functions ported so far (io, tensor, nn,
-attention and the generated wrappers). Control flow, sequence, rnn,
+attention, ``equal`` of control flow and the generated wrappers). The
+rest of control flow, sequence, rnn,
 detection, beam search and the learning-rate schedulers are not ported
 yet. Layer functions whose ops are not registered in the port still
 build; running them raises the registry's ``NotImplementedError`` naming
 the op."""
 
-from . import attention, io, nn, tensor  # noqa: F401
+from . import attention, control_flow, io, nn, tensor  # noqa: F401
 from .attention import multi_head_attention, scaled_dot_product_attention  # noqa: F401
+from .control_flow import equal  # noqa: F401
 from .io import data, load  # noqa: F401
 from .layer_helper import LayerHelper, ParamAttr  # noqa: F401
 from .nn import *  # noqa: F401,F403

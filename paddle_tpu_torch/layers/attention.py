@@ -3,7 +3,9 @@
 
 Fluid composes attention from primitives in model scripts (reference:
 tests/unittests/dist_transformer.py multi_head_attention); here it is a
-first-class layer backed by the fused ``scaled_dot_product_attention`` op.
+first-class layer backed by the fused ``scaled_dot_product_attention`` op,
+or, under ``FLAGS_unfused_attention``, that primitive composition, which
+the default pass pipeline rewrites back onto the fused op.
 """
 
 from __future__ import annotations
@@ -16,17 +18,55 @@ from . import nn, tensor
 __all__ = ["scaled_dot_product_attention", "multi_head_attention"]
 
 
+def _segment_bias(seg_q, seg_kv):
+    """[b, sq]/[b, sk] segment ids -> additive [b, 1, sq, sk] bias: 0 where
+    ids match, -1e9 where they don't (the primitive-composition equivalent
+    of the fused op's segment mask)."""
+    from . import control_flow as cf
+
+    sq = nn.unsqueeze(nn.unsqueeze(seg_q, axes=[1]), axes=[3])    # [b,1,sq,1]
+    skv = nn.unsqueeze(nn.unsqueeze(seg_kv, axes=[1]), axes=[2])  # [b,1,1,sk]
+    mask = tensor.cast(cf.equal(sq, skv), "float32")
+    return tensor.scale(mask, scale=1e9, bias=-1e9)
+
+
 def scaled_dot_product_attention(q, k, v, bias=None, causal=False, sm_scale=1.0,
                                  dropout_rate=0.0, is_test=False, name=None,
-                                 segment_ids_q=None, segment_ids_kv=None):
-    """q/k/v: [batch, heads, seq, head_dim]; one fused
-    ``scaled_dot_product_attention`` op.
+                                 segment_ids_q=None, segment_ids_kv=None,
+                                 unfused=None):
+    """q/k/v: [batch, heads, seq, head_dim].
 
-    The JAX package can also emit the primitive composition (matmul /
-    softmax / dropout / matmul, ``FLAGS_unfused_attention``) and fuse it
-    back with a rewrite pass; neither those ops nor the pass are ported
-    yet, so the port always emits the fused op.
+    ``unfused`` (default: ``FLAGS_unfused_attention``) emits the
+    reference-style primitive composition — ``matmul(Q, K^T, alpha) ->
+    [+bias] -> softmax -> [dropout] -> matmul(probs, V)`` — instead of the
+    fused op. The default pass pipeline's ``flash_attention_rewrite``
+    (``PADDLE_TPU_OPT_LEVEL >= 1``) fuses the composition back onto the
+    ``scaled_dot_product_attention`` op when the executor first runs it,
+    so the emitted graph stays inspectable and the fused kernels still run.
+    Segment ids are lowered to an additive-bias composition (CSE merges
+    identical chains across layers); CAUSAL attention always uses the
+    fused op (the primitive pattern cannot express the mask losslessly).
     """
+    if unfused is None:
+        from ..flags import get_flag
+
+        unfused = get_flag("unfused_attention")
+    if unfused and not causal:
+        if segment_ids_q is not None:
+            seg_bias = _segment_bias(
+                segment_ids_q,
+                segment_ids_kv if segment_ids_kv is not None else segment_ids_q)
+            bias = seg_bias if bias is None \
+                else nn.elementwise_add(bias, seg_bias)
+        scores = nn.matmul(q, k, transpose_y=True, alpha=float(sm_scale),
+                           name=name and name + "_qk")
+        if bias is not None:
+            scores = nn.elementwise_add(scores, bias)
+        probs = nn.softmax(scores)
+        if dropout_rate:
+            probs = nn.dropout(probs, dropout_rate, is_test=is_test,
+                               dropout_implementation="upscale_in_train")
+        return nn.matmul(probs, v, name=name and name + "_pv")
     helper = LayerHelper("sdpa", name=name)
     out = helper.create_variable_for_type_inference(q.dtype)
     inputs = {"Q": q, "K": k, "V": v}

@@ -473,3 +473,17 @@ REPLAYS = counter("executor/replays", help="replays of captured steps")
 CAPTURE_MS = gauge("executor/capture_ms",
                    help="wall ms of the last capture (the graph's "
                         "synchronize, capture and instantiation)")
+
+# The default pass pipeline's instruments (``passes.pipeline``), under the
+# JAX package's names; each pass adds ``passes/<name>/ops_removed`` and
+# ``passes/<name>/rewrites_matched`` counters and a ``passes/<name>/time_ms``
+# histogram as it first reports.
+PASS_RUNS = counter("passes/pipeline/runs",
+                    help="default-pipeline applications (one per program "
+                         "version x fetch-set, never per step)")
+PASS_TIME_MS = histogram("passes/pipeline/time_ms",
+                         help="wall time of one full default-pipeline run")
+PASS_OPS_BEFORE = gauge("passes/pipeline/op_count_before",
+                        help="global-block op count entering the last run")
+PASS_OPS_AFTER = gauge("passes/pipeline/op_count_after",
+                       help="global-block op count leaving the last run")

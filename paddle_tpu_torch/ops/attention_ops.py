@@ -80,17 +80,14 @@ def _flash_ok(q, k, causal) -> bool:
     return d in fa.HEAD_DIMS and q.dtype in (torch.float32, torch.bfloat16)
 
 
-def _draw_seed(gen: torch.Generator) -> int:
-    """One int32 from the op's generator: the seed of the kernels' mask.
-    It is read on the host (a sync on the card), which a captured step
-    cannot hold, so under capture it raises (ROADMAP Queue 3)."""
-    if gen.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(
-            "flash attention with dropout reads its mask seed on the host, "
-            "which a CUDA graph cannot capture (ROADMAP Queue 3); run this "
-            "program eagerly, or with attention dropout 0")
-    return int(torch.randint(-2 ** 31, 2 ** 31, (1,), generator=gen,
-                             device=gen.device, dtype=torch.int64))
+def _draw_seed(gen: torch.Generator) -> torch.Tensor:
+    """The seed of the kernels' mask: one int64 drawn from the op's
+    generator on the generator's device, as a one-element tensor that the
+    kernels read there. Nothing reads it on the host, so a CUDA graph can
+    capture the draw (its generator registered with the graph draws anew
+    on each replay)."""
+    return torch.randint(-2 ** 31, 2 ** 31, (1,), generator=gen,
+                         device=gen.device, dtype=torch.int64)
 
 
 def sdpa(q, k, v, bias=None, segment_ids_q=None, segment_ids_kv=None,

@@ -22,7 +22,10 @@ Dropout drops the normalised probabilities (upscale in train) and leaves
 the statistics alone. Its keep mask (:func:`dropout_keep_mask`) is a hash
 of (seed, b, h, q position, k position) in wrap-around uint32 arithmetic,
 bit for bit the JAX package's ``_dropout_keep_tile``, so the forward and
-both backward kernels redraw the same mask from the seed alone.
+both backward kernels redraw the same mask from the seed alone. The seed
+is an integer or a one-element integer tensor; the kernels take it as a
+device pointer and each reads it once, so a seed drawn on the card never
+crosses to the host and a CUDA graph can capture the launches.
 
 A query row that sees no position at all (possible only through segment
 ids) gets ``o = 0`` and ``lse = +inf``, so ``p = 0`` and no gradient
@@ -63,7 +66,7 @@ __all__ = ["flash_attention", "FlashAttention", "SegmentIds",
            "dropout_keep_mask", "dropout_threshold", "flash_fwd",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_reference",
            "flash_bwd_dkv_reference", "flash_bwd_dq_reference",
-           "MASK_VALUE", "HEAD_DIMS", "bind", "LAUNCHES_FWD",
+           "MASK_VALUE", "HEAD_DIMS", "bind", "seed_tensor", "LAUNCHES_FWD",
            "LAUNCHES_DKV", "LAUNCHES_DQ"]
 
 LAUNCHES_FWD = 0  # K1a launches since import (or since a caller reset it)
@@ -100,7 +103,7 @@ class _Params(ctypes.Structure):
         + [(n, ctypes.c_int) for n in
            ("b", "h", "sq", "sk", "d", "causal", "dtype", "ab_dtype",
             "dropout")]
-        + [("seed", ctypes.c_uint), ("threshold", ctypes.c_uint),
+        + [("seed", ctypes.c_void_p), ("threshold", ctypes.c_uint),
            ("keep_scale", ctypes.c_float), ("sm_scale", ctypes.c_float)])
 
 
@@ -129,6 +132,23 @@ def _kernels():
 _U32 = 0xFFFFFFFF
 
 
+def seed_tensor(seed, device) -> torch.Tensor:
+    """``seed`` as the one-element int64 tensor on ``device`` that the
+    kernels read: a tensor is moved (no copy when it already is one there),
+    an integer is filled in on the device, with no host-to-device copy."""
+    if isinstance(seed, torch.Tensor):
+        return seed.to(device=device, dtype=torch.int64).reshape(1)
+    return torch.full((1,), int(seed or 0), dtype=torch.int64, device=device)
+
+
+def _seed_value(seed):
+    """The seed's low 32 bits: an int, or an int64 0-d tensor for a tensor
+    seed, so the plain versions read a device seed without a sync."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(torch.int64) & _U32
+    return int(seed) & _U32
+
+
 def dropout_threshold(rate: float) -> int:
     """The uint32 threshold of ``rate``: an element is kept where its hash
     is ``>=`` it."""
@@ -140,7 +160,8 @@ def dropout_keep_mask(rate, seed, b_idx, h_idx, q_offset, k_offset, shape,
     """Bool keep mask of a ``shape = (rows, cols)`` tile whose first element
     is query position ``q_offset`` and key position ``k_offset`` of batch
     row ``b_idx`` and head ``h_idx``. ``b_idx`` and ``h_idx`` may be
-    tensors that broadcast against the tile (``[B,1,1,1]``, ``[1,H,1,1]``).
+    tensors that broadcast against the tile (``[B,1,1,1]``, ``[1,H,1,1]``),
+    ``seed`` an integer or a one-element integer tensor.
     uint32 arithmetic written in int64 masked to 32 bits: an int64 product
     may wrap, which leaves its low 32 bits right."""
     rows = torch.arange(shape[0], dtype=torch.int64, device=device)[:, None]
@@ -148,7 +169,7 @@ def dropout_keep_mask(rate, seed, b_idx, h_idx, q_offset, k_offset, shape,
     rows = (rows + int(q_offset)) & _U32
     cols = (cols + int(k_offset)) & _U32
     x = ((rows * 2654435761) & _U32) ^ ((cols * 0x85EBCA6B) & _U32)
-    x = x ^ (((int(seed) & _U32) + b_idx * 0x9E3779B9 + h_idx * 0xC2B2AE35)
+    x = x ^ ((_seed_value(seed) + b_idx * 0x9E3779B9 + h_idx * 0xC2B2AE35)
              & _U32)
     x = ((x ^ (x >> 16)) * 0x7FEB352D) & _U32
     x = ((x ^ (x >> 15)) * 0x846CA68B) & _U32
@@ -383,7 +404,9 @@ def _launch(which, q, k, v, ab, seg, causal, sm_scale, dropout_rate,
     p.dtype = _DTYPE_CODE[q.dtype]
     p.ab_dtype = p.dtype if ab is None else _DTYPE_CODE[ab.dtype]
     p.dropout = int(dropout_rate > 0.0)
-    p.seed = int(dropout_seed or 0) & _U32
+    if p.dropout:
+        seed = seed_tensor(dropout_seed, q.device)  # alive through the launch
+        p.seed = seed.data_ptr()
     p.threshold = dropout_threshold(dropout_rate)
     p.keep_scale = 1.0 / (1.0 - dropout_rate)
     p.sm_scale = float(sm_scale)
@@ -479,7 +502,8 @@ def flash_bwd_dq(q, k, v, ab, segment_ids, lse, do, di, causal=False,
 
 class FlashAttention(torch.autograd.Function):
     """``o`` [B,H,Sq,D]; the forward is K1a, the backward K1b and K1c (or
-    their plain versions). Saves q, k, v, the bias, ``o`` and ``lse``."""
+    their plain versions). Saves q, k, v, the bias, ``o``, ``lse`` and the
+    dropout seed tensor, so the backward redraws the forward's mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, ab, seg_q, seg_kv, causal, sm_scale,
@@ -487,23 +511,25 @@ class FlashAttention(torch.autograd.Function):
         seg = None if seg_q is None else SegmentIds(seg_q, seg_kv)
         o, lse = flash_fwd(q, k, v, ab, seg, causal, sm_scale, dropout_rate,
                            dropout_seed)
-        ctx.save_for_backward(q, k, v, ab, seg_q, seg_kv, o, lse)
-        ctx.args = (causal, sm_scale, dropout_rate, dropout_seed)
+        ctx.save_for_backward(q, k, v, ab, seg_q, seg_kv, o, lse,
+                              dropout_seed)
+        ctx.args = (causal, sm_scale, dropout_rate)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, ab, seg_q, seg_kv, o, lse = ctx.saved_tensors
+        q, k, v, ab, seg_q, seg_kv, o, lse, seed = ctx.saved_tensors
         seg = None if seg_q is None else SegmentIds(seg_q, seg_kv)
         ct = _compute_dtype(q)
         di = (o.to(ct) * do.to(ct)).sum(dim=-1)
         if do.stride(-1) != 1:
             do = do.contiguous()
-        dk, dv = flash_bwd_dkv(q, k, v, ab, seg, lse, do, di, *ctx.args)
+        dk, dv = flash_bwd_dkv(q, k, v, ab, seg, lse, do, di, *ctx.args,
+                               seed)
         # a bias that needs no gradient (a padding mask) costs no
         # [B,H,Sq,Sk] write
         dq, dab = flash_bwd_dq(q, k, v, ab, seg, lse, do, di, *ctx.args,
-                               need_dab=ctx.needs_input_grad[3])
+                               seed, need_dab=ctx.needs_input_grad[3])
         return dq, dk, dv, dab, None, None, None, None, None, None
 
 
@@ -512,15 +538,18 @@ def flash_attention(q, k, v, ab=None, segment_ids: Optional[SegmentIds] = None,
                     dropout_seed=None):
     """Attention over ``[B, H, S, D]`` tensors through the flash kernels,
     differentiable in q, k, v and the bias ``ab`` [B,H,Sq,Sk] (an expanded
-    view will do). ``dropout_seed`` is an integer (its low 32 bits count)
-    and is needed for ``dropout_rate`` > 0. On the ``meta`` device of shape
-    inference it returns an empty output."""
+    view will do). ``dropout_seed`` is an integer or a one-element integer
+    tensor (its low 32 bits count; a tensor on the card is never read on
+    the host) and is needed for ``dropout_rate`` > 0. On the ``meta``
+    device of shape inference it returns an empty output."""
     if q.device.type == "meta":
         return torch.empty_like(q)
-    if dropout_rate > 0.0 and dropout_seed is None:
-        raise ValueError("dropout_rate %r needs a dropout_seed"
-                         % (dropout_rate,))
+    seed = None
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("dropout_rate %r needs a dropout_seed"
+                             % (dropout_rate,))
+        seed = seed_tensor(dropout_seed, q.device)
     seg_q, seg_kv = (None, None) if segment_ids is None else segment_ids
     return FlashAttention.apply(q, k, v, ab, seg_q, seg_kv, bool(causal),
-                                float(sm_scale), float(dropout_rate),
-                                int(dropout_seed or 0))
+                                float(sm_scale), float(dropout_rate), seed)

@@ -1,8 +1,9 @@
 # ported from paddle_tpu/ops/math_ops.py
 """Core math ops of the training slice.
 
-Fluid equivalents: ``operators/mul_op.cc``, ``elementwise/*``,
-``scale_op.cc``, ``mean_op.cc``, ``cast_op.cc``. Each is a few torch calls;
+Fluid equivalents: ``operators/mul_op.cc``, ``matmul_op.cc``,
+``elementwise/*``, ``scale_op.cc``, ``mean_op.cc``, ``cast_op.cc``,
+``controlflow/compare_op.cc`` (``equal``). Each is a few torch calls;
 the products go to cuBLAS through ``torch.tensordot`` (the JAX package
 leaves them to XLA: no Pallas kernel sits here).
 """
@@ -28,9 +29,49 @@ def mul_op(ctx: OpContext):
         # reshape the weight side
         y = y.reshape(tuple(x.shape[xd:]) + tuple(y.shape[yd:]))
         yd = x.dim() - xd
+    x, y = _promoted(x, y)
     out = torch.tensordot(x, y, dims=(list(range(xd, x.dim())),
                                       list(range(yd))))
     ctx.set_output("Out", out)
+
+
+def _promoted(x, y):
+    """x and y in their common dtype, as ``jnp.dot_general`` / ``jnp.matmul``
+    promote mixed operands (a float32 activation under AMP's bfloat16
+    weights gives a float32 product); torch's products refuse them."""
+    if x.dtype == y.dtype:
+        return x, y
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
+
+
+@register_op("matmul")
+def matmul_op(ctx: OpContext):
+    """Batched matmul (reference: operators/matmul_op.cc): the last two
+    dims of X and Y, swapped by ``transpose_X`` / ``transpose_Y``, leading
+    dims broadcast; the product times ``alpha``, rounded to the product's
+    dtype first as the JAX package rounds it."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    if ctx.attr("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if ctx.attr("transpose_Y", False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(*_promoted(x, y))
+    alpha = float(ctx.attr("alpha", 1.0))
+    if alpha != 1.0:
+        # a Python scalar: no host-to-device copy
+        out = out * float(torch.tensor(alpha, dtype=out.dtype))
+    ctx.set_output("Out", out)
+
+
+@register_op("equal")
+def equal_op(ctx: OpContext):
+    """Elementwise ``X == Y`` (reference: operators/controlflow/compare_op.cc),
+    Y cast to X's dtype first, as the JAX package casts it."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    if x.dtype != y.dtype:
+        y = y.to(x.dtype)
+    ctx.set_output("Out", torch.eq(x, y))
 
 
 def _elementwise(ctx: OpContext, fn):

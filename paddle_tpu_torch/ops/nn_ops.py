@@ -1,11 +1,11 @@
 # ported from paddle_tpu/ops/nn_ops.py
 """NN ops of the training slices: softmax, softmax with cross-entropy,
-layer norm, batch norm, 2-D convolution and pooling, embedding (dense and
-``is_sparse``), accuracy, AUC.
+cross-entropy of probabilities, layer norm, batch norm, 2-D convolution
+and pooling, embedding (dense and ``is_sparse``), accuracy, AUC.
 
 Fluid equivalents: ``operators/softmax_op.cc``,
-``softmax_with_cross_entropy_op.cc``, ``layer_norm_op.cc``,
-``batch_norm_op.cc``, ``conv_op.cc``, ``pool_op.cc``,
+``softmax_with_cross_entropy_op.cc``, ``cross_entropy_op.cc``,
+``layer_norm_op.cc``, ``batch_norm_op.cc``, ``conv_op.cc``, ``pool_op.cc``,
 ``lookup_table_op.cc``, ``metrics/accuracy_op.cc``, ``metrics/auc_op.cc``.
 
 Convolution and pooling go to cuDNN and PyTorch's own pooling kernels
@@ -76,6 +76,29 @@ def softmax_with_cross_entropy_op(ctx: OpContext):
     if ctx.has_output("Softmax"):
         ctx.set_output("Softmax", torch.exp(log_p).to(out_dtype))
     ctx.set_output("Loss", loss.to(out_dtype))
+
+
+def _xent_from_probs(probs, label, soft_label, ignore_index=-100):
+    if soft_label:
+        return -torch.sum(label * torch.log(torch.clamp_min(probs, 1e-20)),
+                          dim=-1, keepdim=True)
+    lbl = _hard_labels(label)
+    picked = torch.gather(probs, -1, lbl.clamp(min=0)[..., None])
+    loss = -torch.log(torch.clamp_min(picked, 1e-20))
+    return torch.where((lbl != ignore_index)[..., None], loss, 0.0)
+
+
+@register_op("cross_entropy", "cross_entropy2")
+def cross_entropy_op(ctx: OpContext):
+    """Cross-entropy of probabilities (reference: operators/cross_entropy_op.cc):
+    ``-log(max(p[label], 1e-20))`` for hard labels, 0 where the label is
+    ``ignore_index``; ``-sum(label * log(max(p, 1e-20)))`` for soft ones. A
+    plain torch composition: the default pass pipeline's
+    ``softmax_xent_fuse_pass`` turns ``softmax`` + this op into
+    ``softmax_with_cross_entropy`` (K2a/K2b on the card)."""
+    ctx.set_output("Y", _xent_from_probs(
+        ctx.input("X"), ctx.input("Label"), ctx.attr("soft_label", False),
+        int(ctx.attr("ignore_index", -100))))
 
 
 @register_op("layer_norm")

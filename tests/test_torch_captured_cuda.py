@@ -3,7 +3,9 @@
 ``Executor.run_steps`` and ``Executor.run(CompiledProgram)`` warm a step
 up eagerly, capture it into a CUDA graph and replay it; these tests hold
 the replays against eager ``run()`` steps from the same start state, with
-the hand-written kernels (K2, K4) inside the graph. Every test carries the
+the hand-written kernels (K1 with its dropout seed on the card, K2, K4)
+inside the graph, an accumulated step as one graph, and the pass
+pipeline's rewrites reaching K1 and K2. Every test carries the
 ``cuda`` marker and skips without a GPU. The file imports neither ``jax``
 nor ``paddle_tpu``:
 
@@ -188,28 +190,187 @@ def test_handles_hold_device_tensors_and_an_event(cuda):
     exe.close()
 
 
-def test_capture_refuses_flash_attention_with_dropout(cuda):
-    """The flash route with dropout reads its seed on the host: the
-    capture raises, naming the op, and runs nothing in its place."""
+def flash_dropout_program():
+    """Two causal encoder layers whose attention takes the flash route
+    (S = 128 with ``flash_attention_min_seq`` 128) with attention dropout
+    0.1 and no other dropout, trained with SGD."""
+    from paddle_tpu_torch.models import transformer as tfm
+
     set_flag("flash_attention_min_seq", 128)
     main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 11
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        q, k, v = (fluid.layers.data(n, shape=[2, 128, 32],
-                                     dtype="float32") for n in "qkv")
-        out = fluid.layers.scaled_dot_product_attention(
-            q, k, v, causal=True, dropout_rate=0.1)
-        loss = fluid.layers.mean(out)
+        x = fluid.layers.data("x", shape=[128, 64], dtype="float32")
+        h = x
+        for i in range(2):
+            h = tfm.encoder_layer(h, None, 2, 32, 32, 64, 128,
+                                  dropout_rate=0.0, attn_dropout=0.1,
+                                  causal=True, name="l%d" % i)
+        loss = fluid.layers.mean(h)
+        fluid.optimizer.SGD(1e-2).minimize(loss)
     rng = np.random.RandomState(0)
-    feed = {n: rng.randn(2, 2, 128, 32).astype("float32") for n in "qkv"}
-    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feeds = [{"x": rng.randn(2, 128, 64).astype("float32")}] * 6
+    return main, startup, loss, feeds
+
+
+def test_capture_replays_flash_attention_with_dropout(cuda):
+    """The flash route with dropout draws its seed on the card: the step
+    captures, its replays give the eager steps' losses (each step its own
+    masks, so the same feed gives another loss), and K1a-c run in it."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    main, startup, loss, feeds = flash_dropout_program()
+    f0, k0, q0 = fa.LAUNCHES_FWD, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ
+    want, got, scope_e, scope_c, counts = eager_and_captured(
+        main, startup, loss, feeds, fetch_every=2)
+    assert counts == (1, len(feeds) - WARMUP_STEPS)
+    n = 2 * (len(feeds) + WARMUP_STEPS + 1)  # two sites a step
+    assert (fa.LAUNCHES_FWD - f0, fa.LAUNCHES_DKV - k0,
+            fa.LAUNCHES_DQ - q0) == (n, n, n)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert len(set(want)) == len(want)
+    assert_state_close(scope_e, scope_c, rtol=1e-5, atol=1e-6)
+
+
+def test_flash_dropout_step_makes_no_host_sync(cuda):
+    """An eager step of the flash-dropout program with its feed on the
+    card runs under the sync debug mode's "error"."""
+    main, startup, loss, feeds = flash_dropout_program()
     scope = fluid.Scope()
-    reps = metrics.REPLAYS.value
-    with pytest.raises(RuntimeError,
-                       match="scaled_dot_product_attention") as err:
-        exe.run_steps(main, [feed] * (WARMUP_STEPS + 2), fetch_list=[loss],
-                      scope=scope)
-    assert "Queue 3" in str(err.value.__cause__)
-    assert metrics.REPLAYS.value == reps
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = {"x": torch.as_tensor(feeds[0]["x"], device=cuda)}
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    exe.close()
+
+
+def eager_accumulated(exe, main, scope, feed, loss, accum):
+    """One eager accumulated step (the body a captured accumulated step
+    holds), on the pipeline's clone of ``main``; returns the loss."""
+    names = (loss.name,)
+    step = exe._next_step_index(main)
+    prog = exe._maybe_optimize(main, names, scope)
+    feeds = {n: exe._feed_tensor(prog.global_block, n, v)
+             for n, v in feed.items()}
+    env = exe._eager_step(prog, exe._plan(prog), scope, feeds, names, step,
+                          accum)
+    return float(env[loss.name])
+
+
+def test_captured_accumulated_step_matches_eager(cuda):
+    """An MLP at dropout 0.1 with 4 microbatches a step: one graph holds
+    them all; its replays give the eager accumulated steps' losses and
+    state (each microbatch its own masks)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", shape=[64])
+        y = fluid.layers.data("y", shape=[1], dtype="int64")
+        h = fluid.layers.fc(x, 128, act="relu")
+        h = fluid.layers.dropout(h, 0.1,
+                                 dropout_implementation="upscale_in_train")
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.fc(h, 10), y))
+        fluid.optimizer.Adam(1e-2).minimize(loss)
+    rng = np.random.RandomState(0)
+    feeds = [{"x": rng.randn(64, 64).astype("float32"),
+              "y": rng.randint(0, 10, (64, 1)).astype("int64")}
+             for _ in range(6)]
+    dev = fluid.CUDAPlace(0)
+    scope_e = fluid.Scope()
+    exe = fluid.Executor(dev)
+    exe.run(startup, scope=scope_e)
+    scope_c = fluid.Scope()
+    for n, v in scope_e.vars.items():
+        scope_c.set_var(n, v.clone())
+    step0 = getattr(main, "_tpu_step_counter", 0)
+    f0 = sx.LAUNCHES_FWD
+    want = [eager_accumulated(exe, main, scope_e, f, loss, 4) for f in feeds]
+    assert sx.LAUNCHES_FWD - f0 == 4 * len(feeds)  # one a microbatch
+    main._tpu_step_counter = step0
+    bs = fluid.BuildStrategy()
+    bs.gradient_accumulation_steps = 4
+    prog = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, build_strategy=bs)
+    caps = metrics.CAPTURES.value
+    exe_c = fluid.Executor(dev)
+    rows = exe_c.run_steps(prog, feeds, fetch_list=[loss], fetch_every=3,
+                           scope=scope_c)
+    assert metrics.CAPTURES.value - caps == 1
+    np.testing.assert_allclose([float(r[0]) for r in rows], want, rtol=1e-6)
+    assert len(set(want)) == len(want)
+    assert_state_close(scope_e, scope_c, rtol=1e-5, atol=1e-6)
+    exe_c.close()
+
+
+@pytest.mark.parametrize("level", ["0", "1"])
+def test_softmax_xent_fuse_reaches_k2(cuda, monkeypatch, level):
+    """``softmax`` + ``cross_entropy`` launch K2a/K2b once a step at
+    PADDLE_TPU_OPT_LEVEL=1 (the fused loss) and never at 0."""
+    monkeypatch.setenv("PADDLE_TPU_OPT_LEVEL", level)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", shape=[32])
+        y = fluid.layers.data("y", shape=[1], dtype="int64")
+        probs = fluid.layers.fc(x, size=10, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(probs, y))
+        acc = fluid.layers.accuracy(probs, y)
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.randn(64, 32).astype("float32"),
+            "y": rng.randint(0, 10, (64, 1)).astype("int64")}
+    f0, b0 = sx.LAUNCHES_FWD, sx.LAUNCHES_BWD
+    out = [exe.run(main, feed=feed, fetch_list=[loss, acc], scope=scope)
+           for _ in range(3)]
+    want = 3 if level == "1" else 0
+    assert (sx.LAUNCHES_FWD - f0, sx.LAUNCHES_BWD - b0) == (want, want)
+    assert out[-1][0] < out[0][0]
+    exe.close()
+
+
+def test_flash_attention_rewrite_reaches_k1(cuda):
+    """The unfused attention composition at S = 128 (with
+    ``flash_attention_min_seq`` 128) is rewritten onto the fused op and
+    launches K1a-c once a site a step."""
+    from paddle_tpu_torch.layers import attention as attn
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    set_flag("flash_attention_min_seq", 128)
+    set_flag("unfused_attention", True)
+    main, startup = fluid.Program(), fluid.Program()
+    try:
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            x = fluid.layers.data("x", shape=[128, 64], dtype="float32")
+            seg = fluid.layers.data("seg", shape=[128], dtype="int32")
+            h = attn.multi_head_attention(x, None, None, None, 32, 32, 64, 2,
+                                          segment_ids_q=seg,
+                                          segment_ids_kv=seg)
+            loss = fluid.layers.mean(h)
+            fluid.optimizer.SGD(1e-2).minimize(loss)
+    finally:
+        set_flag("unfused_attention", False)
+    assert sum(op.type == "matmul" for op in main.global_block.ops) == 2
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.randn(2, 128, 64).astype("float32"),
+            "seg": np.ones((2, 128), "int32")}
+    f0, k0, q0 = fa.LAUNCHES_FWD, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ
+    for _ in range(2):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert (fa.LAUNCHES_FWD - f0, fa.LAUNCHES_DKV - k0,
+            fa.LAUNCHES_DQ - q0) == (2, 2, 2)
     exe.close()
 
 

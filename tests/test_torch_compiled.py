@@ -7,7 +7,7 @@ the graph is held here (the graph: ``tests/test_torch_captured_cuda.py``):
 
 * ``BuildStrategy``/``ExecutionStrategy`` have the JAX package's knobs and
   defaults; an inert knob warns once; what the port lacks raises with its
-  ROADMAP pointer;
+  ROADMAP pointer, and what it refuses as the JAX package does raises;
 * ``run_steps`` rows are bit-equal to per-step ``run()`` from the same
   start (dropout 0.1 on: each step its own masks), at several
   ``fetch_every``; handles stack a chunk's fetches on a leading axis; a
@@ -256,25 +256,29 @@ def _refuse_places(main, exe, scope):
 
 def _refuse_accumulation(main, exe, scope):
     bs = tfluid.BuildStrategy()
-    bs.gradient_accumulation_steps = 2
+    bs.gradient_accumulation_steps = 4
     prog = tfluid.CompiledProgram(main).with_data_parallel(build_strategy=bs)
-    exe.run(prog, feed=mlp_feeds(1)[0], scope=scope)
+    exe.run(prog, feed=mlp_feeds(1)[0], scope=scope)  # batch 6
 
 
 def _refuse_pass_builder(main, exe, scope):
-    tfluid.BuildStrategy().pass_builder()
+    tfluid.BuildStrategy().pass_builder().append_pass("no_such_pass")
 
 
-@pytest.mark.parametrize("refusal,pointer", [
-    (_refuse_mesh, "Queue 1 item 7"), (_refuse_places, "Queue 1 item 7"),
-    (_refuse_accumulation, "Queue 1 item 3"),
-    (_refuse_pass_builder, "Queue 1 item 3")],
+# Gradient accumulation and the pass builder are ported; what they still
+# refuse, as the JAX package does, is a batch the microbatch count does
+# not divide and a pass that is not registered.
+@pytest.mark.parametrize("refusal,error,pointer", [
+    (_refuse_mesh, NotImplementedError, "Queue 1 item 7"),
+    (_refuse_places, NotImplementedError, "Queue 1 item 7"),
+    (_refuse_accumulation, ValueError, "does not divide"),
+    (_refuse_pass_builder, KeyError, "not registered")],
     ids=["with_mesh", "two_places", "accumulation", "pass_builder"])
-def test_what_the_port_lacks_raises_with_its_roadmap_pointer(refusal,
+def test_what_the_port_lacks_raises_with_its_roadmap_pointer(refusal, error,
                                                              pointer):
     main, startup, _ = mlp_dropout()
     scope = started(startup)
-    with pytest.raises(NotImplementedError, match=pointer):
+    with pytest.raises(error, match=pointer):
         refusal(main, tfluid.Executor(CPU), scope)
 
 

@@ -121,17 +121,24 @@ def test_deepfm_matches_jax_over_4_steps(opt):
 def build_embedding(fluid, vocab, dim, opt, padding_idx=None,
                     is_sparse=True, lookups=1):
     """``tests/test_sparse_kernel.py``'s program: an embedding of 4 ids a
-    row into a two-class head."""
+    row into a two-class head. With ``lookups`` > 1 the table is also
+    looked up on feeds ``ids1``, ... and the lookups summed, so that every
+    lookup stays live and distinct through the pass pipeline (DCE drops
+    an unused one, CSE merges equal ones)."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = 7
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        ids = fluid.layers.data("ids", shape=[4], dtype="int64")
+        ids = [fluid.layers.data("ids%s" % (i or ""), shape=[4],
+                                 dtype="int64") for i in range(lookups)]
         label = fluid.layers.data("label", shape=[1], dtype="int64")
         embs = [fluid.layers.embedding(
-            ids, size=[vocab, dim], is_sparse=is_sparse,
+            x, size=[vocab, dim], is_sparse=is_sparse,
             padding_idx=padding_idx, param_attr=fluid.ParamAttr(name="table"))
-            for _ in range(lookups)]
-        flat = fluid.layers.reshape(embs[-1], [-1, 4 * dim])
+            for x in ids]
+        emb = embs[0]
+        for e in embs[1:]:
+            emb = fluid.layers.elementwise_add(emb, e)
+        flat = fluid.layers.reshape(emb, [-1, 4 * dim])
         logits = fluid.layers.fc(flat, size=2)
         loss = fluid.layers.mean(
             fluid.layers.softmax_with_cross_entropy(logits, label))
@@ -200,7 +207,8 @@ def port_run(prog, feed, steps=1, arrays=None):
 
 def test_sparse_table_looked_up_twice_raises():
     prog = build_embedding(tfluid, 50, 4, "sgd", lookups=2)
-    feed = {"ids": np.ones((8, 4), "int64"), "label": np.ones((8, 1), "int64")}
+    feed = {"ids": np.ones((8, 4), "int64"), "ids1": np.ones((8, 4), "int64"),
+            "label": np.ones((8, 1), "int64")}
     with pytest.raises(NotImplementedError, match="more than once"):
         port_run(prog, feed)
 

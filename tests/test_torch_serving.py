@@ -176,7 +176,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.ops.kernels.flash_attention, "
             "paddle_tpu_torch.core.sparse, "
             "paddle_tpu_torch.ops.kernels.sparse_adam, "
-            "paddle_tpu_torch.models.deepfm; "
+            "paddle_tpu_torch.models.deepfm, paddle_tpu_torch.passes, "
+            "paddle_tpu_torch.transpiler, "
+            "paddle_tpu_torch.core.pass_framework; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']; "
             "assert not bad, bad")
@@ -204,7 +206,18 @@ def test_port_sources_name_no_jax_import():
             "paddle_tpu_torch/models/deepfm.py",
             "paddle_tpu_torch/models/bert.py", "paddle_tpu_torch/io.py",
             "paddle_tpu_torch/core/serialization.py",
-            "paddle_tpu_torch/inference/predictor.py"} <= names
+            "paddle_tpu_torch/inference/predictor.py",
+            "paddle_tpu_torch/core/pass_framework.py",
+            "paddle_tpu_torch/passes/__init__.py",
+            "paddle_tpu_torch/passes/analysis.py",
+            "paddle_tpu_torch/passes/constant_fold.py",
+            "paddle_tpu_torch/passes/cse.py",
+            "paddle_tpu_torch/passes/dce.py",
+            "paddle_tpu_torch/passes/fuse_patterns.py",
+            "paddle_tpu_torch/passes/pipeline.py",
+            "paddle_tpu_torch/transpiler/__init__.py",
+            "paddle_tpu_torch/transpiler/fuse_passes.py",
+            "paddle_tpu_torch/layers/control_flow.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
