@@ -58,13 +58,36 @@ paths through the entry points a user calls:
   layers, batch 8, dropout 0 the card's losses must match the CPU's, in
   float32 and under AMP.
 
-Seven programs also run as a captured step (``Executor.run_steps``: two
+The vision and word2vec zoo: ``vgg_train`` trains VGG-16 with batch norm
+(``paddle_tpu/models/vgg.py``) at 64 x 3 x 224 x 224, 1000 classes, under
+Adam(1e-3), float32 and AMP; ``se_resnext_train`` SE-ResNeXt-50 (32 x 4d,
+squeeze-excitation gates) at the same size under Momentum(0.1, 0.9) with
+L2Decay(1e-4), float32 and AMP, plus its captured AMP leg and the
+grouped convolutions timed alone; both run 2 warm-up and 4 timed steps
+(6 timed steps as elsewhere do not fit the smoke's time), K2a/K2b once a
+step at [64, 1000] counted by shape, losses finite, VGG's falling,
+SE-ResNeXt's first step descending, its weight decay's ``sum`` once a
+parameter a step. ``lars_train`` runs ResNet-50 under
+``LarsMomentumOptimizer`` in turns with Momentum (one ``lars_momentum`` a
+parameter a step, no host sync). ``word2vec_train`` trains the book's
+N-gram model (V = 2073, batch 100, SGD(0.001)) at
+``PADDLE_TPU_OPT_LEVEL`` 1, where K2a/K2b run once a step at [100, 2073],
+and at level 0, where they do not; card vs CPU losses within 1e-5.
+``conv_family`` holds ``conv2d_transpose`` (DCGAN's generator widths),
+``depthwise_conv2d_transpose``, ``conv3d``/``pool3d`` (C3D's conv2 and
+pool2) and ``conv3d_transpose`` on the card, forward and gradients, to
+the same op in float64 on the CPU (float32 1e-4, bf16 1e-2), with their
+times. ``zoo_parity`` holds VGG-16 and SE-ResNeXt at test size to the
+CPU (first loss 1e-4, AMP 2e-2).
+
+Eight programs also run as a captured step (``Executor.run_steps``: two
 eager warm-up steps, one CUDA graph capture, then replays), each at its
 phase's full width, on its phase's program and state: ``bert_captured``
 (float32 and AMP), ``transformer_captured`` (AMP, driven by
 ``bench.py``'s ``_timeit_pipeline`` calls), ``resnet_captured`` (AMP),
 ``ctr_captured`` (Adam and SGD), ``longctx_captured`` (AMP),
-``unfused_captured`` and ``flash_dropout_captured`` (AMP, below). Each
+``se_resnext_captured`` (AMP), ``unfused_captured`` and
+``flash_dropout_captured`` (AMP, below). Each
 runs six steps (eight for the Transformer) eagerly and the same steps
 captured from the same start state; the losses must agree within 1e-6
 relative at every step and the state within 1e-6 norm-wise (AMP 1e-3),
@@ -163,6 +186,16 @@ VISION_XENT = ((RESNET_BATCH, RESNET_CLASSES, torch.float32),
 BERT_BATCH, BERT_SEQ, BERT_MASK, BERT_VOCAB = 32, 128, 20, 30522
 BERT_INFER_BATCH, BERT_INFER_SEQ = 64, 256
 BERT_FEEDS = ["ids", "pos", "sent", "mask", "chain"]
+# the card's name and power limit as nvidia-smi prints them (set by main),
+# repeated in the lines of the zoo's legs
+SMI = [None]
+# the book's word2vec N-gram model (tests/book/test_word2vec.py): its
+# dictionary, widths and batch; K2 meets its loss at [100, 2073]
+W2V = dict(dict_size=2073, embed_size=32, hidden_size=256)
+W2V_BATCH = 100
+# warm-up and timed steps of the zoo's vision legs: 2 + 6 as in
+# resnet_train do not fit the smoke's time, so 2 + 4
+ZOO_WARM, ZOO_TIMED = 2, 4
 BERT_XENT = tuple((n, v, dt) for n, v in ((BERT_BATCH * BERT_MASK, BERT_VOCAB),
                                           (BERT_BATCH, 2))
                   for dt in (torch.float32, torch.bfloat16))
@@ -694,6 +727,10 @@ def xent_kernel_phase(dev):
     bert = {vision_key(n_, v_, dt): xent_shape_check(
         dev, flush, n_, v_, dt, seed=8 + i, kernel="softmax_xent_bert")
         for i, (n_, v_, dt) in enumerate(BERT_XENT)}
+    word2vec = {vision_key(W2V_BATCH, W2V["dict_size"], torch.float32):
+                xent_shape_check(dev, flush, W2V_BATCH, W2V["dict_size"],
+                                 torch.float32, seed=12,
+                                 kernel="softmax_xent_word2vec")}
     del xr, lib_loss, flush
 
     def row(name, fn_line, ms, dev, plain, lib, nbytes, flops, err):
@@ -732,7 +769,8 @@ def xent_kernel_phase(dev):
               "bound_ms": rows[1]["bound_ms"]})
     for row, key in zip(rows, ("fwd", "bwd")):
         for field, shapes in (("vision_shapes", vision),
-                              ("bert_shapes", bert)):
+                              ("bert_shapes", bert),
+                              ("word2vec_shapes", word2vec)):
             row[field] = {
                 name: {"launches": None, "max_err": c["max_err"],
                        **{k[len(key) + 1:]: val for k, val in c.items()
@@ -872,8 +910,9 @@ def train_phase(xent_rows, amp=False):
 
 def train_profile_phase(exe, main, loss, feed, scope,
                         phase="train_profile", groups=None):
-    """Where a training step's time goes: ``profile_step`` of one step."""
-    profile_step(lambda: train_steps(exe, main, loss, feed, scope, 1)[1][0],
+    """Where a training step's time goes: ``profile_step`` of one step
+    (returns its busy share and ``by_group``)."""
+    return profile_step(lambda: train_steps(exe, main, loss, feed, scope, 1)[1][0],
                  phase, groups)
 
 
@@ -906,8 +945,9 @@ def profile_step(step, phase, groups=None):
     host_all = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CPU]
     host = sorted(host_all, key=lambda e: -e.self_cpu_time_total)[:8]
+    share = busy_ms / (secs[0] * 1e3) if busy_ms else None
     emit(phase, wall_ms=secs[0] * 1e3, device_busy_ms=busy_ms,
-         device_busy_share=busy_ms / (secs[0] * 1e3) if busy_ms else None,
+         device_busy_share=share,
          kernels_launched=sum(e.count for e in kern), by_group=by_group,
          host_syncs={e.key: e.count for e in host_all
                      if "Synchronize" in e.key},
@@ -916,6 +956,7 @@ def profile_step(step, phase, groups=None):
          host_top=[{"name": e.key[:60], "count": e.count,
                     "self_cpu_ms": e.self_cpu_time_total / 1e3}
                    for e in host])
+    return share, by_group
 
 
 def train_parity_phase():
@@ -2099,10 +2140,12 @@ def ctr_parity_phase():
 
 
 def build_resnet(fluid, amp, depth=50, image=RESNET_IMAGE,
-                 classes=RESNET_CLASSES, dataset="imagenet", lr=0.1):
+                 classes=RESNET_CLASSES, dataset="imagenet", lr=0.1,
+                 lars=False):
     """``bench.py``'s ``bench_resnet50`` program for the port's package
     (Momentum(0.1, 0.9); ``amp`` decorates the optimizer as the bench
-    does), or at another depth, size and learning rate."""
+    does), or at another depth, size and learning rate; ``lars`` trains
+    it under ``LarsMomentumOptimizer(lr, 0.9)`` instead."""
     from paddle_tpu_torch.models import resnet as rn
 
     main, startup = fluid.Program(), fluid.Program()
@@ -2111,7 +2154,8 @@ def build_resnet(fluid, amp, depth=50, image=RESNET_IMAGE,
         label = fluid.layers.data("label", shape=[1], dtype="int64")
         _, loss, acc = rn.resnet(img, label, depth=depth, class_num=classes,
                                  dataset=dataset)
-        opt = fluid.optimizer.Momentum(lr, 0.9)
+        opt = (fluid.optimizer.LarsMomentumOptimizer if lars
+               else fluid.optimizer.Momentum)(lr, 0.9)
         if amp:
             opt = fluid.amp.decorate(opt)
         opt.minimize(loss)
@@ -3890,6 +3934,634 @@ def accum_train_phase(xent_rows):
     torch.cuda.empty_cache()
 
 
+# -- the zoo: VGG-16, SE-ResNeXt-50, LARS, word2vec, the conv family ---------
+
+
+class OpCalls:
+    """Counts the calls of some of the port's registered op implementations
+    while active (each wrapped in the registry, restored on exit)."""
+
+    def __init__(self, *types):
+        self.counts = dict.fromkeys(types, 0)
+
+    def __enter__(self):
+        from paddle_tpu_torch.core import registry
+
+        self._saved = {t: registry._OP_REGISTRY[t] for t in self.counts}
+        for t, impl in self._saved.items():
+            def counted(ctx, t=t, impl=impl):
+                self.counts[t] += 1
+                impl(ctx)
+            registry._OP_REGISTRY[t] = counted
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.core import registry
+
+        registry._OP_REGISTRY.update(self._saved)
+
+
+def zero_dropout(main):
+    """Dropout off, for a card-vs-CPU comparison (the two devices draw
+    different masks)."""
+    for op in main.global_block.ops:
+        if op.type == "dropout":
+            op.attrs["dropout_prob"] = 0.0
+
+
+def build_vgg(fluid, amp, image=RESNET_IMAGE, classes=RESNET_CLASSES):
+    """``paddle_tpu/models/vgg.py``'s VGG-16 with batch norm under
+    ``Adam(1e-3)``, the optimizer of Paddle's benchmark ``vgg.py``."""
+    from paddle_tpu_torch.models import vgg
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", shape=[3, image, image])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        loss, _ = vgg.vgg16(img, label, class_num=classes)
+        opt = fluid.optimizer.Adam(1e-3)
+        if amp:
+            opt = fluid.amp.decorate(opt)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def build_se_resnext(fluid, amp, image=RESNET_IMAGE, classes=RESNET_CLASSES,
+                     layers_cfg=(3, 4, 6, 3), cardinality=32,
+                     base_filters=(128, 256, 512, 1024), lr=0.1):
+    """``se_resnext()`` as it builds by default (SE-ResNeXt-50, 32 x 4d)
+    under the published recipe's Momentum(lr, 0.9) with L2Decay(1e-4), at
+    a constant rate (the port has no learning-rate scheduler)."""
+    from paddle_tpu_torch.models import se_resnext
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", shape=[3, image, image])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        loss, _ = se_resnext.se_resnext(
+            img, label, class_num=classes, layers_cfg=layers_cfg,
+            cardinality=cardinality, base_filters=base_filters)
+        opt = fluid.optimizer.Momentum(
+            lr, 0.9, regularization=fluid.regularizer.L2Decay(1e-4))
+        if amp:
+            opt = fluid.amp.decorate(opt)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def k2_by_shape(xent_rows, leg, n, v, dt, steps):
+    """Check K2a and K2b at one launch a step at [n, v] in ``dt`` and none
+    elsewhere since ``LAUNCHES_BY_SHAPE`` was cleared; record each count in
+    the kernel rows under ``leg``. Returns the counts by shape."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    by_shape = dict(sx.LAUNCHES_BY_SHAPE)
+    want = {(kern, n, v, dt): steps for kern in ("K2a", "K2b")}
+    check(by_shape == want, "%s: K2 launches by (kernel, N, V, dtype) %r "
+          "over %d steps, want %r" % (leg, by_shape, steps, want))
+    field = "word2vec_shapes" if (n, v) == (W2V_BATCH, W2V["dict_size"]) \
+        else "vision_shapes"
+    for row, kern in zip(xent_rows, ("K2a", "K2b")):
+        row[field][vision_key(n, v, dt)].setdefault("launches_by_leg", {})[
+            leg] = by_shape.get((kern, n, v, dt), 0)
+    return {"%s_%s" % (k, vision_key(n_, v_, d)): c
+            for (k, n_, v_, d), c in sorted(by_shape.items(), key=str)}
+
+
+def grouped_conv_ms(main, batch, dtype):
+    """Each grouped conv2d shape of ``main`` (groups > 1) at ``batch``,
+    forward and both gradients timed by CUDA events on its own, times the
+    number of such convs a step: (ms a step, [per shape])."""
+    F = torch.nn.functional
+    blk = main.global_block
+    shapes = {}
+    for op in blk.ops:
+        if op.type == "backward_marker":
+            break
+        if op.type == "conv2d" and op.attrs.get("groups", 1) > 1:
+            key = (tuple(blk.var(op.inputs["Input"][0]).shape[1:]),
+                   tuple(blk.var(op.inputs["Filter"][0]).shape),
+                   tuple(op.attrs["strides"]), tuple(op.attrs["paddings"]),
+                   op.attrs["groups"])
+            shapes[key] = shapes.get(key, 0) + 1
+    dev = torch.device("cuda", torch.cuda.current_device())
+    flush = l2_flusher(dev)
+    total, rows = 0.0, []
+    for (xs, ws, st, pd, g), count in shapes.items():
+        x = torch.randn((batch,) + xs, device=dev, dtype=dtype,
+                        requires_grad=True)
+        w = torch.randn(ws, device=dev, dtype=dtype, requires_grad=True)
+        dy = torch.randn_like(F.conv2d(x, w, None, st, pd, 1, g))
+
+        def fwd_bwd():
+            y = F.conv2d(x, w, None, st, pd, 1, g)
+            torch.autograd.grad(y, [x, w], dy)
+
+        ms = cuda_ms(fwd_bwd, reps=10, flush=flush)
+        total += count * ms
+        rows.append({"input": list(xs), "filter": list(ws), "stride": st[0],
+                     "groups": g, "count": count, "fwd_bwd_ms": ms})
+        del x, w, dy
+    del flush
+    torch.cuda.empty_cache()
+    return total, rows
+
+
+def conv_device_ms_by_kind(step):
+    """One ``step()`` under torch.profiler with the ops' input shapes: the
+    device ms of the kernels each convolution and its backward launch
+    (``aten::convolution``, ``aten::convolution_backward``), summed by
+    kind: "grouped" where the filter's input channels are fewer than the
+    input's (groups > 1), else "dense"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+    kinds = {k: {"device_ms": 0.0, "count": 0} for k in ("grouped", "dense")}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key == "aten::convolution":
+            x, w = e.input_shapes[0], e.input_shapes[1]
+        elif e.key == "aten::convolution_backward":
+            x, w = e.input_shapes[1], e.input_shapes[2]
+        else:
+            continue
+        kind = kinds["grouped" if x[1] != w[1] else "dense"]
+        kind["device_ms"] += e.device_time_total / 1e3
+        kind["count"] += e.count
+    return kinds
+
+
+def zoo_train(leg, build, amp, xent_rows, **extra):
+    """One vision leg of the zoo at full width: the program ``build(fluid,
+    amp)`` on 64 x 3 x 224 x 224 images (``resnet_feed``), cuDNN's
+    algorithm search on, ``ZOO_WARM`` warm-up and ``ZOO_TIMED`` timed
+    steps (their median the step time), K2a/K2b once a step at [64, 1000]
+    in the leg's dtype (counted by shape), every loss finite and the
+    parameters float32; one step profiled. Returns (exe, scope, main,
+    loss, feed, losses, fields of its line)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    mode = "bfloat16_amp" if amp else "float32"
+    t0 = time.perf_counter()
+    main, startup, loss = build(fluid, amp)
+    build_s = time.perf_counter() - t0
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    params = main.all_parameters()
+    ops = [op.type for op in main.global_block.ops]
+    flop = 3 * forward_flops(main, RESNET_BATCH)
+    bound_ms = flop / (H100_BF16_FLOP_PER_S if amp
+                       else H100_F32_FLOP_PER_S) * 1e3
+    feed = resnet_feed(RESNET_BATCH)
+    warm, warm_secs = train_steps(exe, main, loss, feed, scope, ZOO_WARM)
+    torch.cuda.reset_peak_memory_stats()
+    sx.LAUNCHES_BY_SHAPE.clear()
+    with OpCalls("sum") as calls:
+        losses, secs = train_steps(exe, main, loss, feed, scope, ZOO_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    dt = torch.bfloat16 if amp else torch.float32
+    by_shape = k2_by_shape(xent_rows, leg + "_" + mode, RESNET_BATCH,
+                           RESNET_CLASSES, dt, ZOO_TIMED)
+    all_losses = warm + losses
+    masters = {str(scope.find_var(p.name).dtype) for p in params}
+    check(bool(np.isfinite(all_losses).all()),
+          "non-finite %s loss (%s): %r" % (leg, mode, all_losses))
+    check(masters == {"torch.float32"}, "%s parameters not float32: %r"
+          % (leg, masters))
+    busy, by_group = train_profile_phase(
+        exe, main, loss, feed, scope, phase=leg + "_profile_" + mode,
+        groups=RESNET_GROUPS)
+    step_ms = float(np.median(secs)) * 1e3
+    fields = dict(
+        mode=mode, batch=RESNET_BATCH, image=RESNET_IMAGE,
+        classes=RESNET_CLASSES, params=len(params),
+        weights=sum(int(np.prod(p.shape)) for p in params), ops=len(ops),
+        conv2d=ops.count("conv2d"), batch_norm=ops.count("batch_norm"),
+        cudnn_benchmark=torch.backends.cudnn.benchmark, build_s=build_s,
+        warm_ms=[x * 1e3 for x in warm_secs], steps=len(all_losses),
+        timed_steps=len(losses), step_ms_median=step_ms,
+        step_ms=[x * 1e3 for x in secs],
+        images_per_s=RESNET_BATCH / (step_ms / 1e3),
+        peak_memory_bytes=peak, device_busy_share=busy,
+        conv_device_ms=by_group["conv_cudnn"]["device_ms"],
+        train_flop=flop, compute_bound_ms=bound_ms,
+        compute_bound_share=bound_ms / step_ms, losses=all_losses,
+        k2_launches_by_shape=by_shape, sum_calls=calls.counts["sum"],
+        nvidia_smi=SMI[0], **extra)
+    return exe, scope, main, loss, feed, all_losses, fields
+
+
+def vgg_train_phase(xent_rows, amp):
+    """VGG-16 with batch norm (``paddle_tpu/models/vgg.py``: five conv
+    groups, dropout 0.5 and a 2-D batch norm after the first fc) at 64 x 3
+    x 224 x 224, 1000 classes, Adam(1e-3), in float32 or under
+    ``fluid.amp.decorate``: K2 once a step at [64, 1000], the last of the
+    six losses below the first (``tests/test_models.py``'s
+    ``test_vgg16_tiny_step`` rule)."""
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    exe, scope, main, loss, feed, losses, fields = zoo_train(
+        "vgg", build_vgg, amp, xent_rows, optimizer="Adam", lr=1e-3)
+    emit("vgg_train", **fields)
+    check(losses[-1] < losses[0], "VGG-16 loss did not fall (%s): %r"
+          % (fields["mode"], losses))
+    torch.backends.cudnn.benchmark = prev
+    del scope, exe
+    torch.cuda.empty_cache()
+
+
+def se_resnext_train_phase(xent_rows, amp):
+    """SE-ResNeXt-50 as ``se_resnext()`` builds it by default
+    (``layers_cfg`` (3, 4, 6, 3), cardinality 32, base filters 128-1024)
+    at 64 x 3 x 224 x 224, 1000 classes, Momentum(0.1, 0.9) with
+    L2Decay(1e-4) at a constant rate, in float32 or under AMP: K2 once a
+    step at [64, 1000], the weight decay's ``sum`` once a parameter a
+    step, every loss finite and the first step descending (the
+    ``resnet_train`` rule). The grouped convolutions are timed alone at
+    their shapes in the leg's dtype (forward and both gradients, times
+    their count) and in one profiled step (the device ms their ops
+    launch, ``conv_device_ms_by_kind``). Under AMP also the captured leg
+    (``captured_leg``)."""
+    dt = torch.bfloat16 if amp else torch.float32
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    exe, scope, main, loss, feed, losses, fields = zoo_train(
+        "se_resnext", build_se_resnext, amp, xent_rows,
+        optimizer="Momentum+L2Decay(1e-4)", lr=0.1, momentum=0.9)
+    n_params = len(main.all_parameters())
+    by_kind = conv_device_ms_by_kind(
+        lambda: train_steps(exe, main, loss, feed, scope, 1))
+    grouped_ms, grouped = grouped_conv_ms(main, RESNET_BATCH, dt)
+    emit("se_resnext_train", conv_device_ms_by_kind=by_kind,
+         grouped_conv_ms_a_step=grouped_ms, grouped_convs=grouped, **fields)
+    check(losses[1] < losses[0], "SE-ResNeXt-50's first step did not "
+          "descend (%s): %r" % (fields["mode"], losses))
+    check(fields["sum_calls"] == n_params * ZOO_TIMED,
+          "SE-ResNeXt-50: %d sum calls over %d steps, want one a parameter "
+          "(%d) a step" % (fields["sum_calls"], ZOO_TIMED, n_params))
+    if amp:
+        counts = captured_leg(
+            "se_resnext_captured", main, loss, scope,
+            [resnet_feed(RESNET_BATCH, seed=i)
+             for i in range(CAPTURED_STEPS)], amp,
+            {k: (pat, 1) for k, pat in K2_NAMES.items()})
+        for row, kern in zip(xent_rows, K2_NAMES):
+            row.setdefault("captured_launches_a_step", {})[
+                "se_resnext_amp"] = counts[kern]
+    torch.backends.cudnn.benchmark = prev
+    del scope, exe
+    torch.cuda.empty_cache()
+
+
+def lars_train_phase():
+    """ResNet-50 as ``build_resnet`` builds it for ``resnet_train`` (64 x
+    224, float32), once under LarsMomentumOptimizer(0.1, 0.9) (coefficient
+    0.001, decay 0.0005) and once under Momentum(0.1, 0.9): 2 warm-up
+    steps each, then 3 turns of 2 steps of each, the median the step time.
+    One ``lars_momentum`` a parameter a step; losses finite; an eager LARS
+    step on feeds already on the card syncs the host nowhere (the norms
+    and the choice stay on the card, so the step captures)."""
+    import paddle_tpu_torch as fluid
+
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    legs = {}
+    for name, lars in (("lars", True), ("momentum", False)):
+        main, startup, loss, _ = build_resnet(fluid, False, lars=lars)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        legs[name] = [exe, main, loss, scope, []]
+    feed = resnet_feed(RESNET_BATCH)
+    dfeed = {k: torch.as_tensor(v, device="cuda") for k, v in feed.items()}
+    losses = {}
+    for name, (exe, main, loss, scope, _) in legs.items():
+        losses[name] = train_steps(exe, main, loss, feed, scope, 2)[0]
+    n_params = len(legs["lars"][1].all_parameters())
+    with OpCalls("lars_momentum") as calls:
+        for _ in range(3):
+            for name, (exe, main, loss, scope, secs) in legs.items():
+                ls, ss = train_steps(exe, main, loss, dfeed, scope, 2)
+                losses[name] += ls
+                secs += ss
+    exe, main, loss, scope, _ = legs["lars"]
+    syncs = host_syncs(lambda: exe.run(main, feed=dfeed, fetch_list=[loss],
+                                       scope=scope, return_numpy=False))
+    step = {name: float(np.median(leg[4])) * 1e3
+            for name, leg in legs.items()}
+    emit("lars_train", model="resnet50", batch=RESNET_BATCH,
+         image=RESNET_IMAGE, mode="float32", lr=0.1, momentum=0.9,
+         lars_coeff=0.001, lars_weight_decay=0.0005,
+         step_ms_median=step, step_ms={n: [x * 1e3 for x in leg[4]]
+                                       for n, leg in legs.items()},
+         images_per_s={n: RESNET_BATCH / (ms / 1e3)
+                       for n, ms in step.items()},
+         lars_over_momentum_ms=step["lars"] - step["momentum"],
+         lars_momentum_calls=calls.counts["lars_momentum"],
+         params=n_params, losses=losses, eager_host_syncs=syncs,
+         nvidia_smi=SMI[0])
+    for name, ls in losses.items():
+        check(bool(np.isfinite(ls).all()),
+              "non-finite ResNet-50 %s loss: %r" % (name, ls))
+    check(calls.counts["lars_momentum"] == n_params * 6,
+          "%d lars_momentum calls in 6 steps, want one a parameter (%d) a "
+          "step" % (calls.counts["lars_momentum"], n_params))
+    check(not syncs, "an eager LARS step syncs the host: %s" % syncs)
+    torch.backends.cudnn.benchmark = prev
+    del legs, exe, scope
+    torch.cuda.empty_cache()
+
+
+def build_word2vec(fluid):
+    """The book's N-gram model (``tests/book/test_word2vec.py``) at its
+    widths under SGD(0.001)."""
+    from paddle_tpu_torch.models import word2vec
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        words = [fluid.layers.data(n, shape=[1], dtype="int64")
+                 for n in ("firstw", "secondw", "thirdw", "forthw", "nextw")]
+        loss, _ = word2vec.word2vec_ngram(*words, **W2V)
+        fluid.optimizer.SGD(0.001).minimize(loss)
+    return main, startup, loss
+
+
+def ngram_feed(seed=0):
+    """Synthetic 5-grams whose fifth word is (w0 + w1) mod V
+    (``tests/test_models.py``), batch 100."""
+    rng = np.random.RandomState(seed)
+    v = W2V["dict_size"]
+    ctx = rng.randint(0, v, (W2V_BATCH, 4)).astype("int64")
+    feed = {n: ctx[:, j:j + 1]
+            for j, n in enumerate(("firstw", "secondw", "thirdw", "forthw"))}
+    feed["nextw"] = ((ctx[:, 0] + ctx[:, 1]) % v).reshape(-1, 1)
+    return feed
+
+
+def word2vec_train_phase(xent_rows, steps=10):
+    """The book's word2vec (V = 2073, embedding 32, hidden 256, batch 100,
+    SGD(0.001)) on the card from a CPU startup carried by
+    ``io.state_from_numpy``, ``steps`` steps at ``PADDLE_TPU_OPT_LEVEL`` 1,
+    where the fuse pass turns ``softmax`` + ``cross_entropy`` into K2a/K2b
+    (once a step each at [100, 2073]), and at level 0 (no K2); the losses
+    fall at both, and the level-1 card run matches the CPU's within 1e-5
+    relative at every step. Words a second: predicted words (one an
+    example) over the median step."""
+    import os
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    main, startup, loss = build_word2vec(fluid)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    arrays = {n: init.as_numpy(n) for n in init.vars}
+    feed = ngram_feed()
+    prev = os.environ.get("PADDLE_TPU_OPT_LEVEL")
+    out = {}
+    try:
+        for level in (1, 0):
+            os.environ["PADDLE_TPU_OPT_LEVEL"] = str(level)
+            scope = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                              fluid.CUDAPlace(0))
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sx.LAUNCHES_BY_SHAPE.clear()
+            losses, secs = train_steps(exe, main, loss, feed, scope, steps)
+            by_shape = dict(sx.LAUNCHES_BY_SHAPE)
+            if level:
+                k2_by_shape(xent_rows, "word2vec", W2V_BATCH,
+                            W2V["dict_size"], torch.float32, steps)
+            else:
+                check(not by_shape, "word2vec at level 0 launched K2: %r"
+                      % by_shape)
+            peak = torch.cuda.max_memory_allocated()
+            busy, _ = train_profile_phase(
+                exe, main, loss, feed, scope,
+                phase="word2vec_profile_level%d" % level)
+            step_ms = float(np.median(secs[1:])) * 1e3
+            out[level] = dict(
+                losses=losses, step_ms_median=step_ms,
+                step_ms=[x * 1e3 for x in secs],
+                words_per_s=W2V_BATCH / (step_ms / 1e3),
+                peak_memory_bytes=peak, device_busy_share=busy,
+                k2_launches_by_shape={"%s_%s" % (k, vision_key(n, v, d)): c
+                                      for (k, n, v, d), c
+                                      in sorted(by_shape.items(), key=str)})
+            check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+                  "word2vec losses at level %d: %r" % (level, losses))
+        os.environ["PADDLE_TPU_OPT_LEVEL"] = "1"
+        cpu = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                        fluid.CPUPlace())
+        cpu_losses, _ = train_steps(fluid.Executor(fluid.CPUPlace()), main,
+                                    loss, feed, cpu, steps)
+    finally:
+        if prev is None:
+            os.environ.pop("PADDLE_TPU_OPT_LEVEL", None)
+        else:
+            os.environ["PADDLE_TPU_OPT_LEVEL"] = prev
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out[1]["losses"],
+                                                  cpu_losses))
+    emit("word2vec_train", config=W2V, batch=W2V_BATCH, optimizer="SGD",
+         lr=0.001, steps=steps, level1=out[1], level0=out[0],
+         cpu_losses=cpu_losses, card_vs_cpu_max_rel=rel, tol=1e-5,
+         nvidia_smi=SMI[0])
+    check(rel <= 1e-5, "word2vec card %r vs CPU %r losses (rel %g)"
+          % (out[1]["losses"], cpu_losses, rel))
+    torch.cuda.empty_cache()
+
+
+def run_op(op_type, attrs, inputs, out_slot, cot=None):
+    """The port's registered op on ``inputs`` ({slot: tensor}); with a
+    cotangent ``cot``, also the gradients of every input. Returns (out,
+    {slot: grad})."""
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+
+    names = sorted(inputs)
+    op = SimpleNamespace(type=op_type, attrs=dict(attrs), block=None,
+                         inputs={k: [k] for k in names},
+                         outputs={out_slot: ["out"]})
+    env = dict(inputs)
+    with torch.set_grad_enabled(cot is not None):
+        get_op_impl(op_type)(OpContext(op, env, None))
+    out = env["out"]
+    if cot is None:
+        return out, {}
+    grads = torch.autograd.grad(out, [inputs[n] for n in names], cot)
+    return out, dict(zip(names, grads))
+
+
+# DCGAN's generator transposes: (C_in, C_out, input size)
+DCGAN = [(1024, 512, 4), (512, 256, 7), (256, 128, 13)]
+
+
+def conv_family_cases():
+    """The new convolution and pooling ops at their sources' widths:
+    DCGAN's generator transposes (Radford et al. 2015: 1024 -> 512 -> 256
+    -> 128 channels, 5 x 5, stride 2 from 4 x 4, batch 64; padding 2, so
+    4 -> 7 -> 13 -> 25 without an output size), a depthwise transpose
+    [64, 256, 32, 32] (groups 256, 4 x 4, stride 2), C3D's conv2/pool2
+    (Tran et al. 2015: [8, 64, 16, 56, 56] -> 128 channels, 3^3, pad 1;
+    pool 2^3) and a 3-D transpose [8, 128, 8, 28, 28] -> 64, 2^3, stride
+    2. Yields (name, op, input shape, filter shape, attrs, slot)."""
+    t2 = {"strides": [2, 2], "paddings": [2, 2], "dilations": [1, 1],
+          "groups": 1}
+    for ci, co, hw in DCGAN:
+        yield ("dcgan_%d_%d" % (ci, co), "conv2d_transpose",
+               (64, ci, hw, hw), (ci, co, 5, 5), t2, "Output")
+    yield ("depthwise_transpose", "depthwise_conv2d_transpose",
+           (64, 256, 32, 32), (256, 1, 4, 4),
+           {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
+            "groups": 256}, "Output")
+    yield ("c3d_conv2", "conv3d", (8, 64, 16, 56, 56), (128, 64, 3, 3, 3),
+           {"strides": [1] * 3, "paddings": [1] * 3, "dilations": [1] * 3,
+            "groups": 1}, "Output")
+    for ptype in ("max", "avg"):
+        yield ("c3d_pool2_" + ptype, "pool3d", (8, 128, 16, 56, 56), None,
+               {"pooling_type": ptype, "ksize": [2] * 3, "strides": [2] * 3,
+                "paddings": [0] * 3}, "Out")
+    yield ("conv3d_transpose", "conv3d_transpose", (8, 128, 8, 28, 28),
+           (128, 64, 2, 2, 2), {"strides": [2] * 3, "paddings": [0] * 3,
+                                "dilations": [1] * 3, "groups": 1}, "Output")
+
+
+def conv_flop(op_type, x_shape, w_shape, out_shape):
+    """Forward FLOP: 2 a multiply-add. A conv: every output element sums
+    C_in/g·k... products; a transpose: every input element scatters into
+    C_out/g·k... outputs (its filter is [C_in, C_out/g, k...])."""
+    if w_shape is None:
+        return 0
+    if "transpose" in op_type:
+        return 2 * int(np.prod(x_shape)) * int(np.prod(w_shape[1:]))
+    return 2 * int(np.prod(out_shape)) * int(np.prod(w_shape[1:]))
+
+
+def conv_family_phase():
+    """Each case of ``conv_family_cases`` through the port's op: forward
+    and both gradients (input and filter; pooling the input) on the card
+    in float32 against the same op on the CPU in float64, to 1e-4
+    norm-wise, and in bf16 against the same float64, to 1e-2. The inputs
+    and the cotangent are drawn as bf16 values, so the float32 and bf16
+    runs read the same numbers and one CPU run serves both. Times by CUDA
+    events (forward, forward + gradients), each with its bound: FLOP over
+    67 TFLOP/s (float32) or 989 (bf16) for a conv, bytes (input read,
+    output written) over 3.35 TB/s for a pool."""
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    dev = torch.device("cuda", torch.cuda.current_device())
+    flush = l2_flusher(dev)
+    for seed, (name, op, xs, ws, attrs, slot) in enumerate(
+            conv_family_cases()):
+        rng = np.random.RandomState(seed)
+
+        def bf16_values(a):
+            return torch.tensor(a).to(torch.bfloat16).double()
+
+        ref_in = {("Input" if ws is not None else "X"):
+                  bf16_values(rng.randn(*xs))}
+        if ws is not None:
+            ref_in["Filter"] = bf16_values(rng.randn(*ws)
+                                           / np.sqrt(np.prod(ws[1:])))
+        for v in ref_in.values():
+            v.requires_grad_(True)
+        want, _ = run_op(op, attrs, ref_in, slot)
+        cot = bf16_values(np.random.RandomState(99).randn(*want.shape))
+        want, want_g = run_op(op, attrs, ref_in, slot, cot)
+        want = want.detach().numpy()
+        want_g = {k: g.numpy() for k, g in want_g.items()}
+        row = {"name": name, "op": op, "input": list(xs),
+               "filter": None if ws is None else list(ws), "attrs": attrs}
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            key = str(dt).replace("torch.", "")
+            ins = {k: v.detach().to(dev, dt).requires_grad_(True)
+                   for k, v in ref_in.items()}
+            dcot = cot.to(dev, dt)
+            out, grads = run_op(op, attrs, ins, slot, dcot)
+            errs = {"out": norm_err(out.detach().double().cpu().numpy(),
+                                    want)}
+            for k, g in grads.items():
+                errs["d" + k] = norm_err(g.double().cpu().numpy(),
+                                         want_g[k])
+            check(max(errs.values()) <= tol, "%s %s: card vs CPU float64 "
+                  "%r (tolerance %g)" % (name, key, errs, tol))
+
+            def fwd(ins=ins):
+                run_op(op, attrs, ins, slot)
+
+            def fwd_bwd(ins=ins, dcot=dcot):
+                run_op(op, attrs, ins, slot, dcot)
+
+            flop = conv_flop(op, xs, ws, tuple(out.shape))
+            nbytes = (int(np.prod(xs)) + out.numel()) * out.element_size()
+            peak = H100_BF16_FLOP_PER_S if dt == torch.bfloat16 \
+                else H100_F32_FLOP_PER_S
+            bound = max(flop / peak, nbytes / H100_BYTES_PER_S) * 1e3
+            fms = cuda_ms(fwd, reps=10, flush=flush)
+            row[key] = {"output": list(out.shape), "max_err": errs,
+                        "tol": tol, "fwd_ms": fms,
+                        "fwd_bwd_ms": cuda_ms(fwd_bwd, reps=10, flush=flush),
+                        "fwd_flop": flop, "fwd_bound_ms": bound,
+                        "fwd_bound_share": bound / fms}
+            del ins, out, grads, dcot
+        emit("conv_family", nvidia_smi=SMI[0], **row)
+        del ref_in, want, want_g, cot
+    torch.backends.cudnn.benchmark = prev
+    del flush
+    torch.cuda.empty_cache()
+
+
+def zoo_parity_phase():
+    """VGG-16 at 3 x 32 x 32 (batch 4, 10 classes) and SE-ResNeXt at
+    ``layers_cfg=(1, 1)``, cardinality 8, base (32, 64) (the CPU tests'
+    sizes), dropout 0, one step on the card and on the CPU from one CPU
+    startup carried by ``io.state_from_numpy``, cuDNN deterministic, TF32
+    off: the first losses within 1e-4 relative in float32 and 2e-2 under
+    AMP."""
+    import paddle_tpu_torch as fluid
+
+    prev = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    feed = resnet_feed(4, 32, 10)
+    builds = {
+        "vgg16": lambda amp: build_vgg(fluid, amp, image=32, classes=10),
+        "se_resnext": lambda amp: build_se_resnext(
+            fluid, amp, image=32, classes=10, layers_cfg=(1, 1),
+            cardinality=8, base_filters=(32, 64), lr=0.01)}
+    for model, build in builds.items():
+        for amp in (False, True):
+            main, startup, loss = build(amp)
+            zero_dropout(main)
+            init = fluid.Scope()
+            fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+            arrays = {n: init.as_numpy(n) for n in init.vars}
+            got = {}
+            for dev in ("card", "cpu"):
+                place = fluid.CUDAPlace(0) if dev == "card" \
+                    else fluid.CPUPlace()
+                scope = fluid.io.state_from_numpy(main, arrays,
+                                                  fluid.Scope(), place)
+                got[dev] = train_steps(fluid.Executor(place), main, loss,
+                                       feed, scope, 1)[0][0]
+            rel = abs(got["card"] - got["cpu"]) / abs(got["cpu"])
+            tol = 2e-2 if amp else 1e-4
+            emit("zoo_parity", model=model,
+                 mode="bfloat16_amp" if amp else "float32", image=32,
+                 batch=4, card_loss=got["card"], cpu_loss=got["cpu"],
+                 rel_err=rel, tol=tol)
+            check(rel <= tol, "%s first loss card %r vs CPU %r (rel %g)"
+                  % (model, got["card"], got["cpu"], rel))
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = prev
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3907,6 +4579,7 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    SMI[0] = smi
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
@@ -3943,6 +4616,14 @@ def main():
     timed(resnet_train_phase, xent_rows, amp=True)
     timed(resnet_parity_phase)
     timed(mnist_train_phase, xent_rows)
+    timed(vgg_train_phase, xent_rows, amp=False)
+    timed(vgg_train_phase, xent_rows, amp=True)
+    timed(se_resnext_train_phase, xent_rows, amp=False)
+    timed(se_resnext_train_phase, xent_rows, amp=True)
+    timed(lars_train_phase)
+    timed(word2vec_train_phase, xent_rows)
+    timed(conv_family_phase)
+    timed(zoo_parity_phase)
     timed(unfused_train_phase, xent_rows)
     timed(unfused_flash_phase, flash_rows)
     timed(flash_dropout_captured_phase, flash_rows)

@@ -19,8 +19,10 @@ Ported so far:
   (:mod:`.ops.kernels.flash_attention`), in float32 or under
   :mod:`.amp` (bfloat16 forward and backward, float32 master weights);
   CTR training (:mod:`.models.deepfm`), vision training
-  (:mod:`.models.resnet`, :mod:`.models.mnist`) and BERT pretraining and
-  inference (:mod:`.models.bert`);
+  (:mod:`.models.resnet`, :mod:`.models.mnist`, :mod:`.models.vgg`,
+  :mod:`.models.se_resnext`, with :mod:`.nets`), the word2vec N-gram
+  model (:mod:`.models.word2vec`) and BERT pretraining and inference
+  (:mod:`.models.bert`);
 * the model files of :mod:`.io` (``save_inference_model``,
   ``load_inference_model``, ``save_params``, ...), the JAX package's
   files name for name, and the :mod:`.inference` ``Predictor`` that runs a
@@ -46,6 +48,7 @@ from . import (  # noqa: F401
     io,
     layers,
     models,
+    nets,
     optimizer,
     passes,
     serving,
@@ -79,7 +82,7 @@ from .layers.layer_helper import ParamAttr, WeightNormParamAttr  # noqa: F401
 
 __all__ = ["serving", "models", "CUDAPlace", "CPUPlace", "TPUPlace",
            "Program", "Variable", "program_guard", "default_main_program",
-           "default_startup_program", "name_scope", "test_mode", "layers",
+           "default_startup_program", "name_scope", "test_mode", "layers", "nets",
            "optimizer", "initializer", "io", "Executor", "Scope",
            "scope_guard", "global_scope", "unique_name", "ParamAttr",
            "WeightNormParamAttr", "amp", "flags", "get_flag", "set_flag",

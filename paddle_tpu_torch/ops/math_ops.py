@@ -2,8 +2,9 @@
 """Core math ops of the training slice.
 
 Fluid equivalents: ``operators/mul_op.cc``, ``matmul_op.cc``,
-``elementwise/*``, ``scale_op.cc``, ``mean_op.cc``, ``cast_op.cc``,
-``controlflow/compare_op.cc`` (``equal``). Each is a few torch calls;
+``elementwise/*``, ``scale_op.cc``, ``sum_op.cc``, ``mean_op.cc``,
+``sign_op.cc``, ``cast_op.cc``, ``controlflow/compare_op.cc``
+(``equal``). Each is a few torch calls;
 the products go to cuBLAS through ``torch.tensordot`` (the JAX package
 leaves them to XLA: no Pallas kernel sits here).
 """
@@ -140,9 +141,26 @@ def scale_op(ctx: OpContext):
         ctx.set_output("Out", (x + bias) * scale)
 
 
+@register_op("sum")
+def sum_op(ctx: OpContext):
+    """add_n over the inputs (reference: operators/sum_op.cc), in input
+    order. The result is a new tensor bound to ``Out``, so ``Out`` may name
+    one of the inputs, as the weight-decay ops write ``grad`` back."""
+    xs = ctx.inputs("X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    ctx.set_output("Out", out)
+
+
 @register_op("mean")
 def mean_op(ctx: OpContext):
     ctx.set_output("Out", torch.mean(ctx.input("X")))
+
+
+@register_op("sign")
+def sign_op(ctx: OpContext):
+    ctx.set_output("Out", torch.sign(ctx.input("X")))
 
 
 @register_op("cast")

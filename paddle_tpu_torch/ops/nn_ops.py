@@ -1,15 +1,18 @@
 # ported from paddle_tpu/ops/nn_ops.py
 """NN ops of the training slices: softmax, softmax with cross-entropy,
-cross-entropy of probabilities, layer norm, batch norm, 2-D convolution
-and pooling, embedding (dense and ``is_sparse``), accuracy, AUC.
+cross-entropy of probabilities, layer norm, batch norm, 2-D and 3-D
+convolution, transposed convolution and pooling, embedding (dense and
+``is_sparse``), accuracy, AUC.
 
 Fluid equivalents: ``operators/softmax_op.cc``,
 ``softmax_with_cross_entropy_op.cc``, ``cross_entropy_op.cc``,
-``layer_norm_op.cc``, ``batch_norm_op.cc``, ``conv_op.cc``, ``pool_op.cc``,
+``layer_norm_op.cc``, ``batch_norm_op.cc``, ``conv_op.cc``,
+``conv_transpose_op.cc``, ``pool_op.cc``,
 ``lookup_table_op.cc``, ``metrics/accuracy_op.cc``, ``metrics/auc_op.cc``.
 
 Convolution and pooling go to cuDNN and PyTorch's own pooling kernels
-through ``F.conv2d`` / ``F.max_pool2d`` / ``F.avg_pool2d``, and batch norm
+through ``F.conv{2,3}d``, ``F.conv_transpose{2,3}d`` and
+``F.{max,avg}_pool{2,3}d``, and batch norm
 is a ``torch.autograd.Function`` of torch reductions: the JAX package
 computes them outside any Pallas kernel too (``conv_general_dilated``,
 ``reduce_window``, a ``custom_vjp`` of jnp reductions).
@@ -312,72 +315,124 @@ def batch_norm_op(ctx: OpContext):
 # -- conv / pool ------------------------------------------------------------
 
 
-def _nchw(x, nhwc):
-    """An NHWC tensor's NCHW view (a channels-last tensor, which cuDNN
-    takes as it is), or x itself."""
-    return x.permute(0, 3, 1, 2) if nhwc else x
+def _channels_first(x, last):
+    """A channels-last (NHWC, NDHWC) tensor's channels-first view (which
+    cuDNN takes as it is), or x itself."""
+    return x.movedim(-1, 1) if last else x
 
 
-def _nhwc(out, nhwc):
-    return out.permute(0, 2, 3, 1) if nhwc else out
+def _channels_last(out, last):
+    return out.movedim(1, -1) if last else out
+
+
+_CONV = {(2, False): F.conv2d, (3, False): F.conv3d,
+         (2, True): F.conv_transpose2d, (3, True): F.conv_transpose3d}
+
+
+def _conv_nd(ctx: OpContext, nd: int, transpose: bool = False):
+    """Reference: operators/conv_op.cc, conv_transpose_op.cc. Strides,
+    symmetric paddings, dilations and groups; NCHW/NCDHW or channels last
+    (``data_format``), the filter in Fluid's layout either way.
+
+    A convolution's filter is [C_out, C_in/g, k...], a transposed one's
+    [C_in, C_out/g, k...]: PyTorch's ``conv_transpose`` weight layout, so
+    it is taken with no flip and no swap, for any ``groups``. Its output
+    is (H−1)·s − 2p + d·(k−1) + 1 a spatial dim."""
+    last = ctx.attr("data_format", "NCHW") in ("NHWC", "NDHWC")
+    x = _channels_first(ctx.input("Input"), last)
+    strides = tuple(ctx.attr("strides", [1] * nd))
+    paddings = tuple(ctx.attr("paddings", [0] * nd))
+    dilations = tuple(ctx.attr("dilations", [1] * nd))
+    groups = ctx.attr("groups", 1) or 1
+    conv = _CONV[(nd, transpose)]
+    if transpose:
+        out = conv(x, ctx.input("Filter"), None, strides, paddings, 0,
+                   groups, dilations)
+    else:
+        out = conv(x, ctx.input("Filter"), None, strides, paddings,
+                   dilations, groups)
+    ctx.set_output("Output", _channels_last(out, last))
 
 
 @register_op("conv2d", "depthwise_conv2d")
 def conv2d_op(ctx: OpContext):
-    """Reference: operators/conv_op.cc. Filters stay OIHW in both layouts;
-    strides, symmetric paddings [ph, pw], dilations and groups."""
-    nhwc = ctx.attr("data_format", "NCHW") == "NHWC"
-    out = F.conv2d(_nchw(ctx.input("Input"), nhwc), ctx.input("Filter"),
-                   None, tuple(ctx.attr("strides", [1, 1])),
-                   tuple(ctx.attr("paddings", [0, 0])),
-                   tuple(ctx.attr("dilations", [1, 1])),
-                   ctx.attr("groups", 1) or 1)
-    ctx.set_output("Output", _nhwc(out, nhwc))
+    _conv_nd(ctx, 2)
 
 
-@register_op("pool2d")
-def pool2d_op(ctx: OpContext):
-    """Reference: operators/pool_op.cc, max or avg, NCHW or NHWC.
+@register_op("conv3d")
+def conv3d_op(ctx: OpContext):
+    _conv_nd(ctx, 3)
+
+
+@register_op("conv2d_transpose", "depthwise_conv2d_transpose")
+def conv2d_transpose_op(ctx: OpContext):
+    _conv_nd(ctx, 2, transpose=True)
+
+
+@register_op("conv3d_transpose")
+def conv3d_transpose_op(ctx: OpContext):
+    _conv_nd(ctx, 3, transpose=True)
+
+
+_POOL = {2: (F.max_pool2d, F.avg_pool2d, F.adaptive_max_pool2d,
+             F.adaptive_avg_pool2d),
+         3: (F.max_pool3d, F.avg_pool3d, F.adaptive_max_pool3d,
+             F.adaptive_avg_pool3d)}
+
+
+def _pool_nd(ctx: OpContext, nd: int):
+    """Reference: operators/pool_op.cc, max or avg, channels first or last
+    (``data_format``).
 
     ``global_pooling`` (or ``adaptive`` with ksize 1) reduces the whole
-    plane; ``adaptive`` takes ksize as the output size, windows
+    volume; ``adaptive`` takes ksize as the output size, windows
     [floor(i·in/out), ceil((i+1)·in/out)) as in the JAX package. Padding
     is -inf for max; avg divides by the window (``exclusive`` false) or by
     the elements inside the input (``exclusive`` true). The JAX package
     never reads ``ceil_mode``, so neither does the port: windows always
     fit the padded input (floor mode)."""
-    nhwc = ctx.attr("data_format", "NCHW") == "NHWC"
-    x = _nchw(ctx.input("X"), nhwc)
+    last = ctx.attr("data_format", "NCHW") in ("NHWC", "NDHWC")
+    x = _channels_first(ctx.input("X"), last)
+    max_pool, avg_pool, adaptive_max, adaptive_avg = _POOL[nd]
     is_max = ctx.attr("pooling_type", "max") == "max"
-    ksize = [int(k) for k in ctx.attr("ksize", [1, 1])]
-    strides = [int(s) for s in ctx.attr("strides", [1, 1])]
-    pads = [int(p) for p in ctx.attr("paddings", [0, 0])]
+    ksize = [int(k) for k in ctx.attr("ksize", [1] * nd)]
+    strides = [int(s) for s in ctx.attr("strides", [1] * nd)]
+    pads = [int(p) for p in ctx.attr("paddings", [0] * nd)]
     exclusive = ctx.attr("exclusive", True) and any(pads)
     adaptive = ctx.attr("adaptive", False)
+    spatial = tuple(range(2, 2 + nd))
     if ctx.attr("global_pooling", False) or (
             adaptive and all(k == 1 for k in ksize)):
-        out = torch.amax(x, (2, 3), keepdim=True) if is_max \
-            else torch.mean(x, (2, 3), keepdim=True)
+        out = torch.amax(x, spatial, keepdim=True) if is_max \
+            else torch.mean(x, spatial, keepdim=True)
     elif adaptive:
-        out = (F.adaptive_max_pool2d if is_max else F.adaptive_avg_pool2d)(
-            x, ksize)
+        out = (adaptive_max if is_max else adaptive_avg)(x, ksize)
     elif any(2 * p > k for p, k in zip(pads, ksize)):
         # torch pads at most half a window: pad explicitly
-        pad = (pads[1], pads[1], pads[0], pads[0])
+        pad = tuple(q for p in reversed(pads) for q in (p, p))
         if is_max:
-            out = F.max_pool2d(F.pad(x, pad, value=-math.inf), ksize,
-                               strides)
+            out = max_pool(F.pad(x, pad, value=-math.inf), ksize, strides)
         else:
-            out = F.avg_pool2d(F.pad(x, pad), ksize, strides)
+            out = avg_pool(F.pad(x, pad), ksize, strides)
             if exclusive:
                 ones = F.pad(torch.ones_like(x[:1, :1]), pad)
-                out = out / F.avg_pool2d(ones, ksize, strides)
+                out = out / avg_pool(ones, ksize, strides)
     elif is_max:
-        out = F.max_pool2d(x, ksize, strides, pads)
+        out = max_pool(x, ksize, strides, pads)
     else:
-        out = F.avg_pool2d(x, ksize, strides, pads,
-                           count_include_pad=not exclusive)
-    ctx.set_output("Out", _nhwc(out, nhwc))
+        out = avg_pool(x, ksize, strides, pads,
+                       count_include_pad=not exclusive)
+    ctx.set_output("Out", _channels_last(out, last))
+
+
+@register_op("pool2d")
+def pool2d_op(ctx: OpContext):
+    _pool_nd(ctx, 2)
+
+
+@register_op("pool3d")
+def pool3d_op(ctx: OpContext):
+    _pool_nd(ctx, 3)
 
 
 # -- metrics ----------------------------------------------------------------

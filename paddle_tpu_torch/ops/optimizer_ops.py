@@ -1,6 +1,7 @@
 # ported from paddle_tpu/ops/optimizer_ops.py
 """Optimizer update ops of the training slices (reference:
-``operators/optimizers/sgd_op.h``, ``momentum_op.h``, ``adam_op.h``).
+``operators/optimizers/sgd_op.h``, ``momentum_op.h``,
+``lars_momentum_op.h``, ``adam_op.h``).
 
 The Executor runs these ops after the backward, under ``torch.no_grad()``.
 The dense branches return new tensors, as the JAX package's do. A
@@ -15,8 +16,7 @@ tensors.
 
 Left out against the JAX package: the mesh-sharded tables' branch,
 ``FLAGS_sparse_update_kernel`` (the wrappers pick kernel or plain version
-by the tensors' device), the sparse branch of ``momentum`` (it raises) and
-``lars_momentum``.
+by the tensors' device) and the sparse branch of ``momentum`` (it raises).
 """
 
 from __future__ import annotations
@@ -67,6 +67,31 @@ def momentum_op(ctx: OpContext):
     else:
         p_new = p - lr * v_new
     ctx.set_output("ParamOut", p_new)
+    ctx.set_output("VelocityOut", v_new)
+
+
+@register_op("lars_momentum")
+def lars_momentum_op(ctx: OpContext):
+    """Layer-wise adaptive rate (reference: lars_momentum_op.h): local_lr =
+    lr·coeff·‖p‖ / (‖g‖ + decay·‖p‖) where both norms are positive, else
+    lr; v = mu·v + local_lr·(g + decay·p); p -= v. The norms and the choice
+    stay on the device: no host read, so the step captures."""
+    p, g, v = ctx.input("Param"), ctx.input("Grad"), ctx.input("Velocity")
+    if isinstance(g, SparseGrad):
+        raise NotImplementedError(
+            "lars_momentum: an is_sparse table's gradient is not supported; "
+            "use is_sparse=False")
+    lr = _lr(ctx).to(p.dtype)
+    mu = ctx.attr("mu")
+    coeff = ctx.attr("lars_coeff", 0.001)
+    decay = ctx.attr("lars_weight_decay", 0.0005)
+    g = g.to(p.dtype)
+    pn = torch.sqrt(torch.sum(torch.square(p)))
+    gn = torch.sqrt(torch.sum(torch.square(g)))
+    local_lr = torch.where((pn > 0) & (gn > 0),
+                           lr * coeff * pn / (gn + decay * pn), lr)
+    v_new = mu * v + local_lr * (g + decay * p)
+    ctx.set_output("ParamOut", p - v_new)
     ctx.set_output("VelocityOut", v_new)
 
 

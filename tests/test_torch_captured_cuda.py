@@ -4,8 +4,9 @@
 up eagerly, capture it into a CUDA graph and replay it; these tests hold
 the replays against eager ``run()`` steps from the same start state, with
 the hand-written kernels (K1 with its dropout seed on the card, K2, K4)
-inside the graph, an accumulated step as one graph, and the pass
-pipeline's rewrites reaching K1 and K2. Every test carries the
+inside the graph, an accumulated step as one graph, the pass
+pipeline's rewrites reaching K1 and K2, and the weight decay's in-place
+``sum`` and LARS's norms inside the graph. Every test carries the
 ``cuda`` marker and skips without a GPU. The file imports neither ``jax``
 nor ``paddle_tpu``:
 
@@ -422,3 +423,34 @@ def test_accuracy_makes_no_host_copy(cuda):
                 return_numpy=False)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("opt", ["l2decay", "l1decay", "lars"])
+def test_captured_weight_decay_and_lars_match_eager(cuda, opt):
+    """The weight decay's ``sum`` writes each gradient in place (``Out`` is
+    its first input) inside the graph's static buffers; LARS keeps its norms
+    and its choice on the card. The replays give the eager steps."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", shape=[16])
+        y = fluid.layers.data("y", shape=[1], dtype="int64")
+        h = fluid.layers.fc(x, 32, act="sigmoid")
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.fc(h, 4), y))
+        if opt == "lars":
+            fluid.optimizer.LarsMomentumOptimizer(0.1, 0.9).minimize(loss)
+        else:
+            decay = (fluid.regularizer.L2Decay if opt == "l2decay"
+                     else fluid.regularizer.L1Decay)(1e-2)
+            fluid.optimizer.Momentum(0.1, 0.9,
+                                     regularization=decay).minimize(loss)
+    feeds = []
+    for seed in range(6):
+        rng = np.random.RandomState(seed)
+        feeds.append({"x": rng.randn(8, 16).astype("float32"),
+                      "y": rng.randint(0, 4, (8, 1)).astype("int64")})
+    want, got, scope_e, scope_c, counts = eager_and_captured(
+        main, startup, loss, feeds, fetch_every=6)
+    assert counts == (1, len(feeds) - WARMUP_STEPS)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert_state_close(scope_e, scope_c, rtol=1e-6, atol=1e-7)

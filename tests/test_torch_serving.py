@@ -178,7 +178,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.ops.kernels.sparse_adam, "
             "paddle_tpu_torch.models.deepfm, paddle_tpu_torch.passes, "
             "paddle_tpu_torch.transpiler, "
-            "paddle_tpu_torch.core.pass_framework; "
+            "paddle_tpu_torch.core.pass_framework, paddle_tpu_torch.nets, "
+            "paddle_tpu_torch.models.vgg, paddle_tpu_torch.models.se_resnext, "
+            "paddle_tpu_torch.models.word2vec; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']; "
             "assert not bad, bad")
@@ -217,7 +219,10 @@ def test_port_sources_name_no_jax_import():
             "paddle_tpu_torch/passes/pipeline.py",
             "paddle_tpu_torch/transpiler/__init__.py",
             "paddle_tpu_torch/transpiler/fuse_passes.py",
-            "paddle_tpu_torch/layers/control_flow.py"} <= names
+            "paddle_tpu_torch/layers/control_flow.py",
+            "paddle_tpu_torch/nets.py", "paddle_tpu_torch/models/vgg.py",
+            "paddle_tpu_torch/models/se_resnext.py",
+            "paddle_tpu_torch/models/word2vec.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
