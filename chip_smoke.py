@@ -122,6 +122,27 @@ The MNIST MLP in the book's form (softmax, ``cross_entropy``) must reach
 K2 at level 1 only. Every phase reports the op counts of its programs at
 ``PADDLE_TPU_OPT_LEVEL`` 0 and 1 (``pipeline_ops``).
 
+The training tail: ``bert_recipe_train`` trains BERT-base under AMP with
+Devlin et al.'s recipes, AdamW(0.01, epsilon 1e-6) and LAMB(0.01), the
+global-norm clip at 1.0 and a linear warm-up then linear decay (2 and 8
+steps, cut from 10,000 and the run's length), eager and captured: the
+rate equal to Fluid's closed form at every step (1e-6), the counter the
+steps run, the rate-0 first step leaving every parameter as it was,
+LAMB's first moving step lowering the dropout-0 loss, K2 once a step at
+each BERT shape, captured = eager (1e-3); then eager and captured steps
+in turns with the bench's Adam(1e-4) program, and the optimizer tail's
+device ms by group (each group's ops replayed alone as a CUDA graph)
+beside its byte bound. ``transformer_noam_train`` does the same for
+``bench_transformer`` under ``noam_decay(512, 8000) * 2.0`` with
+Adam(0.9, 0.997, 1e-9), in turns with its constant-rate Adam program.
+``optimizer_parity`` holds every optimizer class, ModelAverage, the three
+clips and the eight schedules on BERT at 2 layers, card against CPU
+(losses 1e-5, state 1e-5 norm-wise, rates 1e-6) and captured against
+eager (1e-6). ``ctr_parity`` runs DeepFM's ``is_sparse`` tables under
+Adagrad, Momentum, ProximalGD and ProximalAdagrad too (their rows-only
+branches), and ``ctr_train`` Adagrad at V = 1e6, whose step must stay
+below one [V, D] tensor above the state.
+
 Each phase prints one JSON line; any failed check exits non-zero. The line
 before the last holds every kernel's numbers, the last line the device.
 
@@ -1547,9 +1568,24 @@ def ctr_feed(batch=None, vocab=None, seed=0):
             "label": rng.randint(0, 2, (batch, 1)).astype("int64")}
 
 
+# the optimizers DeepFM's is_sparse tables train under: Adam (K4a) and SGD
+# (K4b), and from PR 15 the rows-only branches of the other four
+CTR_OPTIMIZERS = {
+    "adam": lambda fluid: fluid.optimizer.Adam(learning_rate=1e-3),
+    "sgd": lambda fluid: fluid.optimizer.SGD(learning_rate=1e-3),
+    "adagrad": lambda fluid: fluid.optimizer.Adagrad(learning_rate=1e-3),
+    "momentum": lambda fluid: fluid.optimizer.Momentum(1e-3, 0.9),
+    "proximal_gd": lambda fluid: fluid.optimizer.ProximalGD(
+        1e-3, l1_regularization_strength=1e-4),
+    "proximal_adagrad": lambda fluid: fluid.optimizer.ProximalAdagrad(
+        1e-3, l1_regularization_strength=1e-4),
+}
+
+
 def build_deepfm(fluid, vocab, opt="adam", is_sparse=True):
     """``bench.py``'s ``bench_deepfm`` program, for the port's package, at
-    full width; ``opt`` is "adam" (Adam(1e-3), as the bench) or "sgd"."""
+    full width; ``opt`` names one of ``CTR_OPTIMIZERS`` ("adam" is the
+    bench's Adam(1e-3))."""
     from paddle_tpu_torch.models import deepfm
 
     cfg = dict(CTR, sparse_feature_dim=vocab)
@@ -1561,8 +1597,7 @@ def build_deepfm(fluid, vocab, opt="adam", is_sparse=True):
         label = fluid.layers.data("label", shape=[1], dtype="int64")
         _, loss, auc = deepfm.deepfm(ids, dense, label, is_sparse=is_sparse,
                                      **cfg)
-        (fluid.optimizer.Adam(learning_rate=1e-3) if opt == "adam"
-         else fluid.optimizer.SGD(learning_rate=1e-3)).minimize(loss)
+        CTR_OPTIMIZERS[opt](fluid).minimize(loss)
     return main, startup, loss, auc
 
 
@@ -2030,6 +2065,22 @@ def ctr_train_phase(k4_rows, xent_rows, k2_ctr):
           "DeepFM SGD launches %r over %d steps (want K4b 2 a step)"
           % (sgd["launches"], steps))
     emit("ctr_train", config=CTR, **sgd)
+    # the rows-only Adagrad branch (torch calls, no hand-written kernel):
+    # its step allocates no [V, D] gradient, so the peak stays below one
+    # [V, D] float32 tensor above the state
+    ada = ctr_run(fluid, vocab, "adagrad")
+    dense_bytes = vocab * CTR["embedding_size"] * 4
+    check(ada["launches"] == {"k4a": 0, "k4b": 0, "k2a": steps,
+                              "k2b": steps},
+          "DeepFM Adagrad launches %r over %d steps" % (ada["launches"],
+                                                        steps))
+    check(ada["peak_minus_state_bytes"] < dense_bytes,
+          "DeepFM Adagrad step at V = %d: peak %d B is %d B above the "
+          "state's %d B, more than one [V, D] tensor (%d B)"
+          % (vocab, ada["peak_memory_bytes"], ada["peak_minus_state_bytes"],
+             ada["state_bytes"], dense_bytes))
+    emit("ctr_train", config=CTR, one_dense_table_bytes=dense_bytes,
+         step_ms_adam=adam["step_ms_median"], **ada)
     k4_rows[0]["launches"] = adam["launches"]["k4a"]
     k4_rows[1]["launches"] = sgd["launches"]["k4b"]
     k4_rows[0]["captured_launches_a_step"] = {
@@ -2070,42 +2121,54 @@ def ctr_train_phase(k4_rows, xent_rows, k2_ctr):
              **dense)
 
 
+CTR_PARITY_OPTIMIZERS = ("adam", "adagrad", "momentum", "proximal_gd",
+                         "proximal_adagrad")
+
+
 def ctr_parity_phase():
-    """DeepFM at full width but V = 1e4, batch 64: four Adam steps on the
-    card (K4a, K2) and four on the CPU (their plain versions) from one CPU
-    startup. Losses to 1e-5 relative; every parameter to 1e-5 absolute and
-    relative, the other state (Adam's moments span many decades) to 1e-5
-    relative plus 1e-5 of its largest |value|; the AUC histograms, whose
-    bucket is floor(4096·p), as counts: the same totals, each cumulative
-    count within 2 (a probability the devices round to either side of a
-    bucket edge moves one count to the next bucket)."""
+    """DeepFM at full width but V = 1e4, batch 64, for each of
+    ``CTR_PARITY_OPTIMIZERS`` (every one at a rate of 1e-3): four steps on
+    the card (K4a under Adam, the rows-only branches of the others) and
+    four on the CPU (their plain versions) from one CPU startup. Losses to
+    1e-5 relative; every parameter to 1e-5 absolute and relative, the other
+    state (Adam's moments span many decades) to 1e-5 relative plus 1e-5 of
+    its largest |value|; the AUC histograms, whose bucket is floor(4096·p),
+    as counts: the same totals, each cumulative count within 2 (a
+    probability the devices round to either side of a bucket edge moves
+    one count to the next bucket)."""
+    for opt in CTR_PARITY_OPTIMIZERS:
+        ctr_parity_run(opt)
+
+
+def ctr_parity_run(opt):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops.kernels import sparse_adam as sa
 
     vocab, batch = 10_000, 64
-    main, startup, loss, _ = build_deepfm(fluid, vocab)
+    main, startup, loss, _ = build_deepfm(fluid, vocab, opt)
     init = fluid.Scope()
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
     arrays = {n: init.as_numpy(n) for n in init.vars}
     feed = ctr_feed(batch, vocab)
     card = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
                                      fluid.CUDAPlace(0))
+    k4 = 8 if opt == "adam" else 0
     a0 = sa.LAUNCHES_ADAM
     card_losses, _ = train_steps(fluid.Executor(fluid.CUDAPlace(0)), main,
                                  loss, feed, card, 4)
-    check(sa.LAUNCHES_ADAM - a0 == 8,
-          "the card run launched K4a %d times over 4 steps"
-          % (sa.LAUNCHES_ADAM - a0))
+    check(sa.LAUNCHES_ADAM - a0 == k4,
+          "the card run (%s) launched K4a %d times over 4 steps, want %d"
+          % (opt, sa.LAUNCHES_ADAM - a0, k4))
     cpu = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
                                     fluid.CPUPlace())
     cpu_losses, _ = train_steps(fluid.Executor(fluid.CPUPlace()), main, loss,
                                 feed, cpu, 4)
-    check(sa.LAUNCHES_ADAM - a0 == 8, "the CPU run launched K4a")
+    check(sa.LAUNCHES_ADAM - a0 == k4, "the CPU run launched K4a")
     rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
     check(bool(np.isfinite(card_losses + cpu_losses).all())
           and max(rel) <= 1e-5,
-          "DeepFM card %r vs CPU %r losses (rel %r > 1e-5)"
-          % (card_losses, cpu_losses, rel))
+          "DeepFM (%s) card %r vs CPU %r losses (rel %r > 1e-5)"
+          % (opt, card_losses, cpu_losses, rel))
     params = {p.name for p in main.all_parameters()}
     worst, hist, bad = {}, {}, []
     for n in sorted(arrays):
@@ -2118,8 +2181,9 @@ def ctr_parity_phase():
         # a parameter within 1e-5 absolute (+ 1e-5 relative): 1 % of an
         # Adam step (lr 1e-3), which moves a weight by up to lr whatever the
         # size of its gradient, so a gradient that cancels to near 0 moves
-        # it by another share of lr on each device. Other state (moments,
-        # beta pows) within 1e-5 relative + 1e-5 of its largest |value|.
+        # it by another share of lr on each device (Adagrad's first step
+        # moves it by lr too). Other state (moments, accumulators, beta
+        # pows) within 1e-5 relative + 1e-5 of its largest |value|.
         atol = 1e-5 if n in params else 1e-5 * float(np.abs(b).max())
         err = float((np.abs(a - b) / np.maximum(
             1e-5 * np.abs(b) + atol, 1e-30)).max())
@@ -2127,14 +2191,21 @@ def ctr_parity_phase():
         if err > 1:
             bad.append(n)
     top = max(worst, key=worst.get)
-    emit("ctr_parity", vocab=vocab, batch=batch, card_losses=card_losses,
-         cpu_losses=cpu_losses, rel_err=rel, tol=1e-5, k4a_launches_card=8,
-         persistables=len(arrays), worst_state=top,
-         worst_state_of_bound=worst[top],
+    tables = [n for n in params if arrays[n].shape[0] == vocab]
+    moved = {n: int((card.as_numpy(n) != arrays[n]).any(axis=1).sum())
+             for n in tables}
+    emit("ctr_parity", optimizer=opt, vocab=vocab, batch=batch,
+         card_losses=card_losses, cpu_losses=cpu_losses, rel_err=rel,
+         tol=1e-5, k4a_launches_card=k4, persistables=len(arrays),
+         worst_state=top, worst_state_of_bound=worst[top],
          state_of_bound={n: e for n, e in worst.items() if e > 0.01},
-         auc_cumulative_moved=hist)
-    check(not bad, "card vs CPU state beyond its bound: %s"
-          % {n: worst.get(n, hist.get(n)) for n in bad})
+         auc_cumulative_moved=hist, table_rows_moved=moved)
+    check(not bad, "card vs CPU state (%s) beyond its bound: %s"
+          % (opt, {n: worst.get(n, hist.get(n)) for n in bad}))
+    n_ids = len(np.unique(feed["ids"]))
+    check(all(0 < m <= n_ids for m in moved.values()),
+          "DeepFM (%s): table rows moved %r, the batch names %d ids"
+          % (opt, moved, n_ids))
     del card, cpu
     torch.cuda.empty_cache()
 
@@ -2595,11 +2666,12 @@ def bert_fwd_flop(batch, seq=BERT_INFER_SEQ, n_layer=12, d=768, di=3072):
                       + 4 * seq * d * di) * batch
 
 
-def build_bert(fluid, amp, n_layer=None, dropout=None):
+def build_bert(fluid, amp, n_layer=None, dropout=None, optimizer=None):
     """``bench.py``'s ``bench_bert`` program for the port's package:
     ``BERT_BASE_CONFIG`` (or ``n_layer`` layers of it), MLM + NSP losses,
-    Adam(1e-4), decorated by ``fluid.amp.decorate`` when ``amp``; dropout
-    0.1 unless given."""
+    Adam(1e-4) (or ``optimizer(fluid)``, called inside the program guard
+    after the losses), decorated by ``fluid.amp.decorate`` when ``amp``;
+    dropout 0.1 unless given."""
     from paddle_tpu_torch.models import bert
 
     cfg = dict(bert.BERT_BASE_CONFIG)
@@ -2618,7 +2690,8 @@ def build_bert(fluid, amp, n_layer=None, dropout=None):
         nsp = fluid.layers.data("nsp", shape=[1], dtype="int64")
         loss, _, _ = bert.bert_pretrain(ids, pos, sent, mask, mpos, mlbl, nsp,
                                         **cfg)
-        opt = fluid.optimizer.Adam(learning_rate=1e-4)
+        opt = fluid.optimizer.Adam(learning_rate=1e-4) if optimizer is None \
+            else optimizer(fluid)
         if amp:
             opt = fluid.amp.decorate(opt)
         opt.minimize(loss)
@@ -3090,6 +3163,36 @@ def step_profile(step):
              for e in host})
 
 
+REPLAY_PROFILE_TRIES = 3
+
+
+def replay_profile(replay, per_step):
+    """``step_profile`` of ``replay()`` (one CUDA graph replay) with each
+    kernel of ``per_step`` ({name: (profiler name pattern, launches a
+    step)}) counted in it by name. A replay runs every kernel its graph
+    holds, so its counts cannot vary between replays; a profile whose
+    counts differ from ``per_step`` is taken again, up to
+    ``REPLAY_PROFILE_TRIES`` times, because CUPTI has been seen to drop
+    the kernel records of a whole replay (an H100 run whose profiled
+    replay held no kernel of the graph, while its losses matched the
+    eager ones). Returns ``step_profile``'s tuple of the first matching
+    profile (else the last), its counts, and each try's counts and
+    kernels recorded."""
+    want = {name: c for name, (_, c) in per_step.items()}
+    tries = []
+    for _ in range(REPLAY_PROFILE_TRIES):
+        prof = step_profile(replay)
+        kern = prof[2]
+        counts = {name: sum(c for k, c in kern.items()
+                            if re.search(pat, k, re.I))
+                  for name, (pat, _) in per_step.items()}
+        tries.append({"counts": counts, "kernels": sum(kern.values()),
+                      "graph_launches": prof[3]})
+        if counts == want:
+            break
+    return prof, counts, tries
+
+
 def host_syncs(step):
     """The synchronizing CUDA calls of ``step()``, as the sync debug mode
     reports them (one warning each)."""
@@ -3193,20 +3296,19 @@ def captured_leg(leg, main, loss, scope, feeds, amp, per_step,
     want = {name: c for name, (_, c) in per_step.items()}
     pats = "|".join(pat for pat, _ in per_step.values())
 
-    wall_c, busy_c, kern_c, graph_launches, calls_c, host_c = step_profile(
-        lambda: captured_steps(1))
+    (wall_c, busy_c, kern_c, graph_launches, calls_c, host_c), counts, \
+        tries = replay_profile(lambda: captured_steps(1), per_step)
     host_block = step_profile(lambda: captured_steps(CAPTURED_BLOCK))[-1]
     block_syncs = host_syncs(lambda: captured_steps(CAPTURED_BLOCK))
     check(graph_launches == 1, "%s: %d cudaGraphLaunch in one replay"
           % (leg, graph_launches))
-    counts = {name: sum(c for k, c in kern_c.items() if re.search(pat, k,
-                                                                  re.I))
-              for name, (pat, _) in per_step.items()}
     check(counts == want, "%s: kernels in one replay %r, want %r a step; "
-          "by name in the replay %r, in an eager step %r"
-          % (leg, counts, want,
-             {k: c for k, c in kern_c.items() if re.search(pats, k, re.I)},
-             {k: c for k, c in kern_e.items() if re.search(pats, k, re.I)}))
+          "by name in the replay %r, in an eager step %r; each profile "
+          "taken %r" % (leg, counts, want,
+                        {k: c for k, c in kern_c.items()
+                         if re.search(pats, k, re.I)},
+                        {k: c for k, c in kern_e.items()
+                         if re.search(pats, k, re.I)}, tries))
 
     times = {"eager": [], "captured": []}
     hosts = {"eager": [], "captured": []}
@@ -3247,7 +3349,7 @@ def captured_leg(leg, main, loss, scope, feeds, amp, per_step,
          launches_eager=sum(kern_e.values()),
          launches_captured=sum(kern_c.values()), graph_launches=graph_launches,
          host_launch_calls_eager=calls_e, host_launch_calls_captured=calls_c,
-         kernels_a_replay=counts,
+         kernels_a_replay=counts, replay_profiles=tries,
          capture_s=metrics.CAPTURE_MS.value / 1e3, run_steps_s=run_steps_s,
          peak_memory_eager=peak_e, peak_memory_captured=peak_c,
          eager_host_syncs=len(syncs), captured_block_host_syncs=block_syncs,
@@ -3319,11 +3421,13 @@ def bench_feed(batch, seq, seed=0):
     }
 
 
-def build_bench_transformer(fluid, seq=None, dropout=0.1, amp=True):
+def build_bench_transformer(fluid, seq=None, dropout=0.1, amp=True,
+                            optimizer=None):
     """``bench.py:247-275`` ``bench_transformer``'s program for the port's
     package, built as the bench builds it: ``set_flag("unfused_attention",
     True)`` around ``transformer_base`` (vocab 30000, ``max_length`` the
-    sequence length), Adam(1e-4), ``amp.decorate`` with ``amp``."""
+    sequence length), Adam(1e-4) (or ``optimizer(fluid)``),
+    ``amp.decorate`` with ``amp``."""
     from paddle_tpu_torch.models import transformer as tfm
 
     seq, vocab = seq or TRAIN["seq"], TRAIN["vocab"]
@@ -3341,7 +3445,8 @@ def build_bench_transformer(fluid, seq=None, dropout=0.1, amp=True):
             _, loss = tfm.transformer_base(
                 src, trg, lbl, smask, tmask, src_vocab_size=vocab,
                 trg_vocab_size=vocab, max_length=seq, dropout_rate=dropout)
-            opt = fluid.optimizer.Adam(learning_rate=1e-4)
+            opt = fluid.optimizer.Adam(learning_rate=1e-4) \
+                if optimizer is None else optimizer(fluid)
             if amp:
                 opt = fluid.amp.decorate(opt)
             opt.minimize(loss)
@@ -3359,13 +3464,13 @@ def clone_scope(fluid, scope):
 
 def state_norm_err(a, b):
     """The norm-wise difference of the float tensors of scope a from scope
-    b's: (over the whole state, the largest of one tensor's), and whether
-    every tensor is bit-equal."""
+    b's (b's moved to a's device): (over the whole state, the largest of
+    one tensor's), and whether every tensor is bit-equal."""
     err, equal, d2, n2 = 0.0, True, 0.0, 0.0
     for k, v in a.vars.items():
         if not isinstance(v, torch.Tensor):
             continue
-        w = b.find_var(k)
+        w = b.find_var(k).to(v.device)
         equal = equal and torch.equal(v, w)
         if v.is_floating_point():
             d = float((v.double() - w.double()).norm())
@@ -3373,6 +3478,18 @@ def state_norm_err(a, b):
             d2, n2 = d2 + d * d, n2 + n * n
             err = max(err, d / max(n, 1e-30))
     return (d2 / max(n2, 1e-60)) ** 0.5, err, equal
+
+
+def most_different(a, b, n=4):
+    """The ``n`` float tensors of scope a furthest from scope b's,
+    norm-wise: [(relative difference, name)], largest first."""
+    diffs = []
+    for k, v in a.vars.items():
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            w = b.find_var(k).to(v.device).double()
+            diffs.append((float((v.double() - w).norm())
+                          / max(float(w.norm()), 1e-30), k))
+    return sorted(diffs, reverse=True)[:n]
 
 
 def loss_rel_err(got, want):
@@ -4562,6 +4679,727 @@ def zoo_parity_phase():
     torch.cuda.empty_cache()
 
 
+# -- slice 15: the optimizer family, gradient clipping, lr schedules --------
+
+LR_COUNTER = "@LR_DECAY_COUNTER@"
+# Devlin et al.'s BERT recipe (google-research/bert optimization.py): peak
+# rate 1e-4, linear warm-up over 10,000 steps, then linear decay to 0. The
+# one cut: warm-up and decay scaled to the smoke's steps (2 and 8), so that
+# both branches of the schedule run
+RECIPE_PEAK, RECIPE_WARMUP, RECIPE_DECAY = 1e-4, 2, 8
+# Fluid's Transformer (PaddlePaddle/models neural_machine_translation/
+# transformer/config.py): noam_decay(d_model, 8000) * 2.0, Adam(0.9, 0.997,
+# 1e-9)
+NOAM_D_MODEL, NOAM_WARMUP, NOAM_SCALE = 512, 8000, 2.0
+# the ops after the backward marker (the optimizer tail), by group
+TAIL_GROUPS = {"squared_l2_norm": "clip", "sum": "clip", "sqrt": "clip",
+               "fill_constant": "clip", "elementwise_max": "clip",
+               "elementwise_div": "clip", "elementwise_mul": "clip",
+               "adam": "update", "adamw": "update", "lamb": "update",
+               "scale": "update"}
+# tensors of the parameters' size each group must move at the least: the
+# update reads p, g, m, v and writes p, m, v; the clip reads g for its norm,
+# then reads and writes it scaled. LAMB's trust ratio needs the update's
+# norm before p is written, so one pass holds the update or a second one
+# recomputes it (p, m, v read again): 10 tensors
+TAIL_PASSES = {"update": 7, "clip": 3, "lamb_two_pass": 10}
+
+
+class Recipe:
+    """An optimizer factory for the builders that keeps the rate it
+    schedules (``lr``): "adamw" / "lamb" Devlin's recipe (the global-norm
+    clip at 1.0, ``linear_lr_warmup(polynomial_decay(...))``, weight decay
+    0.01), "noam" Fluid's Transformer recipe."""
+
+    def __init__(self, name):
+        self.name, self.lr = name, None
+
+    def __call__(self, fluid):
+        layers = fluid.layers
+        if self.name == "noam":
+            self.lr = layers.noam_decay(NOAM_D_MODEL, NOAM_WARMUP) \
+                * NOAM_SCALE
+            return fluid.optimizer.Adam(self.lr, beta1=0.9, beta2=0.997,
+                                        epsilon=1e-9)
+        self.lr = layers.linear_lr_warmup(
+            layers.polynomial_decay(RECIPE_PEAK, RECIPE_DECAY, 0.0, 1.0),
+            RECIPE_WARMUP, 0.0, RECIPE_PEAK)
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(1.0))
+        if self.name == "adamw":
+            return fluid.optimizer.AdamW(self.lr, weight_decay=0.01,
+                                         epsilon=1e-6)
+        return fluid.optimizer.Lamb(self.lr, lamb_weight_decay=0.01)
+
+
+def recipe_rate(step):
+    """Devlin's rate at counter value ``step`` (0 at the first step), as
+    Fluid computes the nested schedule (one increment a step)."""
+    if step < RECIPE_WARMUP:
+        return RECIPE_PEAK * step / RECIPE_WARMUP
+    return RECIPE_PEAK * (1.0 - min(step, RECIPE_DECAY) / RECIPE_DECAY)
+
+
+def noam_rate(step):
+    """The Transformer recipe's rate at counter value ``step`` (1 first)."""
+    return NOAM_SCALE * NOAM_D_MODEL ** -0.5 * min(
+        step ** -0.5, step * NOAM_WARMUP ** -1.5)
+
+
+def rate_err(got, want):
+    """The largest relative difference of fetched rates from the host's
+    closed form; a rate of 0 must come out exactly 0."""
+    return max((abs(g - w) / abs(w)) if w else (0.0 if g == 0 else np.inf)
+               for g, w in zip(got, want))
+
+
+def tail_device_ms(exe, main, fetch, scope, feed, reps=20):
+    """Device time of the optimizer tail by group (``TAIL_GROUPS``): the
+    inputs the ops after the backward marker read in one eager step, then
+    each group's ops (a contiguous run of them) captured alone into a CUDA
+    graph and replayed ``reps`` times between CUDA events, so its kernels
+    run back to back with no host gap between launches; CUPTI's busy ms
+    and kernel count of one replay beside it."""
+    import paddle_tpu_torch.executor as ex
+
+    names = tuple(v if isinstance(v, str) else v.name for v in fetch)
+    opt = exe._maybe_optimize(main, names, scope)
+    ops = opt.global_block.ops
+    marker = next(i for i, op in enumerate(ops)
+                  if op.type == "backward_marker")
+    seen = {}
+    inner = ex.run_block_ops
+
+    def spy(ops_, env, trace, offset=0):
+        if offset == marker + 1 and not seen:
+            seen.update(env=dict(env), trace=trace)
+        return inner(ops_, env, trace, offset)
+
+    ex.run_block_ops = spy
+    try:
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                return_numpy=False)
+    finally:
+        ex.run_block_ops = inner
+    post = ops[marker + 1:]
+    segs = []
+    for i, op in enumerate(post):
+        g = TAIL_GROUPS.get(op.type, "other")
+        if segs and segs[-1][0] == g:
+            segs[-1][1].append(i)
+        else:
+            segs.append((g, [i]))
+    env, out = seen["env"], {}
+    side = torch.cuda.Stream()
+    for g, idxs in segs:
+        seg = [post[i] for i in idxs]
+        offset = marker + 1 + idxs[0]
+        nxt = dict(env)
+        with torch.no_grad():
+            inner(seg, nxt, seen["trace"], offset)
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.no_grad(), torch.cuda.graph(graph, stream=side):
+            inner(seg, dict(env), seen["trace"], offset)
+        torch.cuda.current_stream().wait_stream(side)
+        graph.replay()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        for _ in range(reps):
+            graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        _, busy, kern, _, _, _ = step_profile(graph.replay)
+        row = out.setdefault(g, {"ms": 0.0, "device_ms": 0.0, "ops": 0,
+                                 "kernels": 0})
+        row["ms"] += t0.elapsed_time(t1) / reps
+        row["device_ms"] += busy
+        row["ops"] += len(seg)
+        row["kernels"] += sum(kern.values())
+        graph.reset()
+        del graph
+        env = nxt
+    del seen, env
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_loss(fluid, exe, test_main, loss, scope, feed):
+    """The loss of ``feed`` at dropout 0 (``test_main``, the program's
+    ``clone(for_test=True)``) on a copy of ``scope``: the clone keeps the
+    schedule's ``increment``, which must not move the leg's counter. K2's
+    launch counters are left as they were."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    saved = (sx.LAUNCHES_FWD, sx.LAUNCHES_BWD, dict(sx.LAUNCHES_BY_SHAPE))
+    copy = clone_scope(fluid, scope)
+    out = float(exe.run(test_main, feed=feed, fetch_list=[loss],
+                        scope=copy)[0])
+    del copy
+    sx.LAUNCHES_FWD, sx.LAUNCHES_BWD = saved[:2]
+    sx.LAUNCHES_BY_SHAPE.clear()
+    sx.LAUNCHES_BY_SHAPE.update(saved[2])
+    return out
+
+
+def scheduled_leg(leg, main, loss, lr, scope, feeds, rate_fn, begin,
+                  per_step):
+    """One program's recipe eager, then captured, from one start state on
+    ``feeds``: each eager ``run()`` and each step of ``run_steps`` (two
+    warm-ups, one capture, replays) fetches the loss, the scheduled rate
+    ``lr`` and, when ``rate_fn`` is given, the step counter. The rates
+    must equal ``rate_fn`` of the counter on the host (1e-6 relative; a
+    constant rate must stay what it was), the counter run ``begin``,
+    ``begin + 1``, ..., the captured losses and the whole state equal the
+    eager ones norm-wise (1e-3, the AMP tolerance: every leg runs under
+    AMP; the largest one tensor's difference and bit-equality reported), one capture and
+    ``len(feeds) - 2`` replays, no host sync in an eager step, and each
+    kernel of ``per_step`` at its count in one replay. Returns the leg's
+    numbers and its ``eager_step`` / ``captured_steps(k)`` for the timing
+    in turns (the executors stay open: close them with ``close``)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.executor import WARMUP_STEPS
+    from paddle_tpu_torch.monitor import metrics
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    t_leg = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    n = len(feeds)
+    fetch = [loss, lr] + ([LR_COUNTER] if rate_fn else [])
+    scope_c = clone_scope(fluid, scope)
+    scope_r = clone_scope(fluid, scope)
+    step0 = getattr(main, "_tpu_step_counter", 0)
+    exe = fluid.Executor(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sx.LAUNCHES_BY_SHAPE.clear()
+    f0, b0 = sx.LAUNCHES_FWD, sx.LAUNCHES_BWD
+    eager, secs, eval_losses = [], [], []
+    test_main = main.clone(for_test=True)
+    params = [p.name for p in main.all_parameters()]
+    first_rate0_kept = None
+    for i, f in enumerate(feeds):
+        if rate_fn and i < 3:
+            # the dropout-0 loss of the first feed before each of the first
+            # steps: the start, after the rate-0 step, after the first step
+            # that moves the weights
+            eval_losses.append(eval_loss(fluid, exe, test_main, loss, scope,
+                                         feeds[0]))
+        t0 = time.perf_counter()
+        eager.append([float(np.ravel(v)[0]) for v in exe.run(
+            main, feed=f, fetch_list=fetch, scope=scope)])
+        secs.append(time.perf_counter() - t0)
+        if i == 0 and rate_fn and rate_fn(begin) == 0:
+            first_rate0_kept = all(torch.equal(scope.find_var(n),
+                                               scope_c.find_var(n))
+                                   for n in params)
+    peak_e = torch.cuda.max_memory_allocated()
+    k2 = {"fwd": sx.LAUNCHES_FWD - f0, "bwd": sx.LAUNCHES_BWD - b0}
+    k2_by_shape = {"%s_%s" % (k, vision_key(r, v, d)): c for (k, r, v, d), c
+                   in sorted(sx.LAUNCHES_BY_SHAPE.items(), key=str)}
+    by_shape = dict(sx.LAUNCHES_BY_SHAPE)
+    main._tpu_step_counter = step0
+    exe_c = fluid.Executor(dev)
+    caps0, reps0 = metrics.CAPTURES.value, metrics.REPLAYS.value
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = exe_c.run_steps(main, feeds, fetch_list=fetch, fetch_every=n,
+                           scope=scope_c)
+    run_steps_s = time.perf_counter() - t0
+    peak_c = torch.cuda.max_memory_allocated()
+    got = [[float(np.ravel(v)[0]) for v in r] for r in rows]
+    captures = metrics.CAPTURES.value - caps0
+    replays = metrics.REPLAYS.value - reps0
+    losses_e, rates_e = [r[0] for r in eager], [r[1] for r in eager]
+    losses_c, rates_c = [r[0] for r in got], [r[1] for r in got]
+    if rate_fn:
+        counters_e = [int(r[2]) for r in eager]
+        counters_c = [int(r[2]) for r in got]
+        want_rates = [rate_fn(c) for c in counters_e]
+        check(counters_e == counters_c == list(range(begin, begin + n)),
+              "%s: counter eager %r, captured %r, want %d..%d"
+              % (leg, counters_e, counters_c, begin, begin + n - 1))
+    else:
+        counters_e = counters_c = None
+        want_rates = [rates_e[0]] * n
+    err_e, err_c = rate_err(rates_e, want_rates), rate_err(rates_c,
+                                                           want_rates)
+    check(err_e <= 1e-6 and err_c <= 1e-6,
+          "%s: rates eager %r, captured %r against the closed form %r "
+          "(relative %.3g / %.3g > 1e-6)"
+          % (leg, rates_e, rates_c, want_rates, err_e, err_c))
+    tol = 1e-3
+    # the same eager steps again from the same start: how far two eager
+    # runs of the step part on the card
+    main._tpu_step_counter = step0
+    rerun = [float(exe.run(main, feed=f, fetch_list=[loss],
+                           scope=scope_r)[0]) for f in feeds]
+    rerun_whole, rerun_worst, rerun_equal = state_norm_err(scope_r, scope)
+    del scope_r
+    loss_err = loss_rel_err(losses_c, losses_e)
+    whole_err, state_err, state_equal = state_norm_err(scope_c, scope)
+    differing = most_different(scope_c, scope)
+    check(bool(np.isfinite(losses_e + losses_c).all()),
+          "%s: non-finite loss: %r / %r" % (leg, losses_e, losses_c))
+    # the whole state norm-wise: two eager runs of a recipe step from one
+    # start already part in a few tensors on the card (one run in three
+    # for LAMB: a second moment 1.5 % apart, the whole state 3.6e-6),
+    # so one tensor alone is reported, not held
+    check(loss_err <= tol and whole_err <= tol,
+          "%s: captured losses %r against eager %r (%.3g), state %.3g "
+          "norm-wise (tolerance %g)" % (leg, losses_c, losses_e, loss_err,
+                                        whole_err, tol))
+    check((captures, replays) == (1, n - WARMUP_STEPS),
+          "%s: %d captures and %d replays in %d steps" % (leg, captures,
+                                                          replays, n))
+    dfeed = {k: torch.as_tensor(v, device=dev) for k, v in feeds[0].items()}
+
+    def eager_step():
+        exe.run(main, feed=dfeed, fetch_list=fetch, scope=scope,
+                return_numpy=False)
+
+    def captured_steps(k):
+        return exe_c.run_steps(main, (dfeed for _ in range(k)), steps=k,
+                               fetch_list=fetch, fetch_every=k,
+                               scope=scope_c, return_numpy=False)
+
+    syncs = host_syncs(eager_step)
+    check(not syncs, "%s: an eager step syncs the host: %s" % (leg, syncs))
+    wall_e, busy_e, kern_e, _, calls_e, _ = step_profile(eager_step)
+    (wall_c, busy_c, kern_c, graph_launches, calls_c, _), counts, tries = \
+        replay_profile(lambda: captured_steps(1), per_step)
+    want = {name: c for name, (_, c) in per_step.items()}
+    check(graph_launches == 1 and counts == want,
+          "%s: %d graph launches, kernels in one replay %r, want %r; each "
+          "profile taken %r" % (leg, graph_launches, counts, want, tries))
+    tail = tail_device_ms(exe, main, fetch, scope, dfeed)
+
+    def close():
+        exe.close()
+        exe_c.close()
+
+    return {
+        "numbers": dict(
+            steps=n, warmup_steps=WARMUP_STEPS, captures=captures,
+            replays=replays, losses_eager=losses_e, losses_captured=losses_c,
+            rates_eager=rates_e, rates_captured=rates_c,
+            rates_closed_form=want_rates, rate_rel_err=max(err_e, err_c),
+            counters=counters_e, loss_max_rel_diff=loss_err,
+            state_max_norm_diff=state_err, state_whole_norm_diff=whole_err,
+            state_most_different=differing,
+            eager_rerun_losses_equal=rerun == losses_e,
+            eager_rerun_state_whole_norm_diff=rerun_whole,
+            eager_rerun_state_max_norm_diff=rerun_worst,
+            eager_rerun_bit_equal=bool(rerun_equal and rerun == losses_e),
+            bit_equal=bool(losses_c == losses_e and state_equal),
+            tolerance=tol, eager_step_ms=[x * 1e3 for x in secs],
+            rate0_step_kept_params=first_rate0_kept,
+            eval_losses_dropout0=eval_losses,
+            k2_launches_eager=k2, k2_launches_by_shape=k2_by_shape,
+            kernels_a_replay=counts, replay_profiles=tries,
+            launches_eager=sum(kern_e.values()),
+            launches_captured=sum(kern_c.values()),
+            host_launch_calls_eager=calls_e,
+            host_launch_calls_captured=calls_c,
+            busy_share_eager=busy_e / wall_e,
+            busy_share_captured=busy_c / wall_c,
+            device_busy_ms_eager=busy_e, device_busy_ms_captured=busy_c,
+            eager_host_syncs=len(syncs), run_steps_s=run_steps_s,
+            peak_memory_eager=peak_e, peak_memory_captured=peak_c,
+            memory_at_leg_start=base, tail=tail,
+            leg_seconds=time.perf_counter() - t_leg),
+        "by_shape": by_shape, "eager_step": eager_step,
+        "captured_steps": captured_steps, "close": close,
+        "scopes": (scope, scope_c)}
+
+
+def turns_of(runs):
+    """``time_in_turns`` over the eager and captured steps of ``runs``
+    ({leg: scheduled_leg result}); returns (medians, all blocks)."""
+    legs = {}
+    for name, run in runs.items():
+        legs[name + "_eager"] = (
+            lambda k, step=run["eager_step"]: [step() for _ in range(k)])
+        legs[name + "_captured"] = run["captured_steps"]
+    return time_in_turns(legs)
+
+
+def bert_recipe_train_phase(xent_rows):
+    """BERT-base pretraining at full width and depth (``bench_bert``: 32 x
+    128, 20 masked, dropout 0.1) under AMP, with Devlin et al.'s recipe:
+    ``AdamW(weight_decay=0.01, epsilon=1e-6)`` (leg a) or
+    ``Lamb(lamb_weight_decay=0.01)`` (leg b), the global-norm clip at 1.0
+    and ``linear_lr_warmup(polynomial_decay(1e-4, 8, 0, 1), 2, 0, 1e-4)``
+    (warm-up and decay cut from 10,000 steps to the smoke's), each
+    ``scheduled_leg`` on the bench's fixed batch: K2a/K2b once a step at
+    [640, 30522] and [32, 2] (by shape), the rates Fluid's closed form,
+    the counter the steps run, captured = eager. Then the captured and
+    eager steps of both legs and of ``bench_bert``'s Adam(1e-4) program in
+    turns: step ms, sequences/s, busy share, peak memory, and the device
+    ms of the optimizer tail by group beside its byte bound."""
+    import paddle_tpu_torch as fluid
+
+    t_phase = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    dt = torch.bfloat16
+    shapes = ((BERT_BATCH * BERT_MASK, BERT_VOCAB), (BERT_BATCH, 2))
+    per_step = {k: (pat, 2) for k, pat in K2_NAMES.items()}
+    feed = bert_feed(BERT_BATCH)
+    runs, weights = {}, None
+    for name in ("adamw", "lamb", "adam"):
+        recipe = Recipe(name) if name != "adam" else None
+        main, startup, loss = build_bert(fluid, True, optimizer=recipe)
+        lr = recipe.lr if recipe else main.global_block.var(
+            main._lr_var_name)
+        if weights is None:
+            weights = sum(int(np.prod(p.shape))
+                          for p in main.all_parameters())
+        types_ = [op.type for op in main.global_block.ops]
+        scope = fluid.Scope()
+        fluid.Executor(dev).run(startup, scope=scope)
+        run = scheduled_leg(
+            "bert_recipe_" + name, main, loss, lr, scope,
+            [feed] * CAPTURED_STEPS, recipe_rate if recipe else None, 0,
+            per_step)
+        want = {(kern, r, v, dt): CAPTURED_STEPS
+                for kern in ("K2a", "K2b") for r, v in shapes}
+        check(run["by_shape"] == want,
+              "bert_recipe_%s: K2 launches by shape %r, want %r"
+              % (name, run["by_shape"], want))
+        nums = run["numbers"]
+        nums["ops"] = {t: types_.count(t) for t in (
+            "increment", "squared_l2_norm", "adamw", "lamb", "adam")}
+        if recipe:
+            # the first step's rate is 0 (Fluid's warm-up from 0): it must
+            # leave every parameter as it was. The next step is the first
+            # that moves the weights: under LAMB (each layer moved by ~5e-5
+            # of its norm) it must lower the dropout-0 loss of the batch;
+            # under AdamW at this cut warm-up (the peak rate at step 2) it
+            # raises it, as the bench's Adam(1e-4) does at its first step:
+            # reported, not checked
+            evals = nums["eval_losses_dropout0"]
+            nums["first_moving_step_descends"] = evals[2] < evals[1]
+            check(nums["rate0_step_kept_params"] is True,
+                  "bert_recipe_%s: the rate-0 step moved a parameter" % name)
+            check(name != "lamb" or nums["first_moving_step_descends"],
+                  "bert_recipe_lamb: the first step that moves the weights "
+                  "did not lower the dropout-0 loss: %r" % evals)
+            for row, kern in zip(xent_rows, ("K2a", "K2b")):
+                for r, v in shapes:
+                    row["bert_shapes"][vision_key(r, v, dt)].setdefault(
+                        "launches_by_leg", {})["bert_recipe_" + name] = \
+                        run["by_shape"].get((kern, r, v, dt), 0)
+        runs[name] = run
+    medians, blocks = turns_of(runs)
+    n_bytes = weights * 4
+    bound_ms = {g: n_bytes * k / H100_BYTES_PER_S * 1e3
+                for g, k in TAIL_PASSES.items()}
+    for name, run in runs.items():
+        nums = run["numbers"]
+        step_c = medians[name + "_captured"]
+        emit("bert_recipe_train", leg=name, mode="bfloat16_amp",
+             config="BERT_BASE_CONFIG", batch=BERT_BATCH, seq=BERT_SEQ,
+             n_mask=BERT_MASK, dropout=0.1, weights=weights,
+             recipe={"adamw": "AdamW(0.01, eps 1e-6) + global norm 1.0",
+                     "lamb": "Lamb(0.01) + global norm 1.0",
+                     "adam": "Adam(1e-4), constant"}[name],
+             warmup_steps_schedule=RECIPE_WARMUP if name != "adam" else None,
+             decay_steps_schedule=RECIPE_DECAY if name != "adam" else None,
+             reduced="warm-up 10,000 -> 2 steps, decay -> 8 steps"
+             if name != "adam" else None,
+             step_ms_eager=medians[name + "_eager"], step_ms_captured=step_c,
+             sequences_per_s_captured=BERT_BATCH / (step_c / 1e3),
+             sequences_per_s_eager=BERT_BATCH
+             / (medians[name + "_eager"] / 1e3),
+             step_ms_turns={m: blocks[name + "_" + m]
+                            for m in ("eager", "captured")},
+             tail_bound_ms=bound_ms, tail_bytes_one_tensor=n_bytes,
+             nvidia_smi=SMI[0], **nums)
+        run["close"]()
+    del runs
+    torch.cuda.empty_cache()
+    emit("bert_recipe_phase", seconds=time.perf_counter() - t_phase)
+
+
+def transformer_noam_train_phase(xent_rows):
+    """``bench_transformer`` (6+6 layers, d_model 512, 64 x 256, vocab
+    30000, label smoothing 0.1, dropout 0.1) under AMP with Fluid's
+    Transformer recipe, ``noam_decay(512, 8000) * 2.0`` and Adam(0.9,
+    0.997, 1e-9), as ``scheduled_leg`` on the bench's fixed batch: K2a/K2b
+    once a step, the rate the closed form, the counter 1, 2, ...,
+    captured = eager; then eager and captured steps in turns with the
+    bench's constant-rate Adam(1e-4) program: step ms of both and the eager
+    launch delta."""
+    import paddle_tpu_torch as fluid
+
+    t_phase = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    per_step = {k: (pat, 1) for k, pat in K2_NAMES.items()}
+    feed = train_feed(TRAIN_BATCH)
+    runs = {}
+    for name in ("noam", "adam"):
+        recipe = Recipe(name) if name == "noam" else None
+        main, startup, loss = build_bench_transformer(fluid, optimizer=recipe)
+        lr = recipe.lr if recipe else main.global_block.var(
+            main._lr_var_name)
+        scope = fluid.Scope()
+        fluid.Executor(dev).run(startup, scope=scope)
+        run = scheduled_leg("transformer_" + name, main, loss, lr, scope,
+                            [feed] * CAPTURED_STEPS,
+                            noam_rate if recipe else None, 1, per_step)
+        nums = run["numbers"]
+        check(nums["k2_launches_eager"] == {"fwd": CAPTURED_STEPS,
+                                            "bwd": CAPTURED_STEPS},
+              "transformer_%s: K2 launches %r over %d steps"
+              % (name, nums["k2_launches_eager"], CAPTURED_STEPS))
+        runs[name] = run
+    medians, blocks = turns_of(runs)
+    delta = runs["noam"]["numbers"]["launches_eager"] - \
+        runs["adam"]["numbers"]["launches_eager"]
+    for name, run in runs.items():
+        emit("transformer_noam_train", leg=name, mode="bfloat16_amp",
+             config=TRAIN, batch=TRAIN_BATCH,
+             recipe="noam_decay(512, 8000) * 2.0, Adam(0.9, 0.997, 1e-9)"
+             if name == "noam" else "Adam(1e-4), constant",
+             step_ms_eager=medians[name + "_eager"],
+             step_ms_captured=medians[name + "_captured"],
+             step_ms_turns={m: blocks[name + "_" + m]
+                            for m in ("eager", "captured")},
+             eager_launch_delta_noam_minus_adam=delta,
+             nvidia_smi=SMI[0], **run["numbers"])
+        run["close"]()
+    for row, kern in zip(xent_rows, ("K2a", "K2b")):
+        row.setdefault("launches_by_leg", {})["transformer_noam"] = \
+            runs["noam"]["numbers"]["k2_launches_eager"][
+                "fwd" if kern == "K2a" else "bwd"]
+    del runs
+    torch.cuda.empty_cache()
+    emit("transformer_noam_phase", seconds=time.perf_counter() - t_phase)
+
+
+# optimizer_parity: each optimizer class, the clips and the schedules on
+# BERT at 2 layers (float32, dropout 0, batch 8)
+# the rates keep every run descending: the adaptive updates move each
+# weight by about their rate (Adagrad, FTRL, Adamax, Adam) or a few times
+# it (RMSProp and DecayedAdagrad at decay 0.95: 1/sqrt(0.05) = 4.5; Adadelta
+# by sqrt(epsilon)), and a step much past 1e-4 sends this BERT's loss up
+# (it doubles within 3 steps at 1e-3), where card and CPU drift apart
+PARITY_OPTIMIZERS = {
+    "SGD": lambda O: O.SGD(1e-2),
+    "Momentum": lambda O: O.Momentum(1e-3, 0.9),
+    "Momentum_nesterov": lambda O: O.Momentum(1e-3, 0.9, use_nesterov=True),
+    "LarsMomentum": lambda O: O.LarsMomentum(1e-1, 0.9),
+    "Adagrad": lambda O: O.Adagrad(1e-4),
+    "Adam": lambda O: O.Adam(1e-4),
+    "AdamW": lambda O: O.AdamW(1e-4, weight_decay=0.01),
+    "Adamax": lambda O: O.Adamax(1e-4),
+    "DecayedAdagrad": lambda O: O.DecayedAdagrad(2e-5),
+    "Adadelta": lambda O: O.Adadelta(1.0, epsilon=1e-9),
+    "RMSProp": lambda O: O.RMSProp(2e-5),
+    "RMSProp_centered": lambda O: O.RMSProp(2e-5, momentum=0.9,
+                                            centered=True),
+    # FTRL's first step from a dense start is lr·sign(g) with no epsilon,
+    # so a gradient that cancels to rounding noise moves its weight by ±lr
+    # on either device (the state 1.3e-5 apart norm-wise at lr 1e-4); with
+    # l1 or l2 above 0 such a gradient also decides whether the weight is
+    # zeroed or shrunk (2.7e-4 apart at l1 = l2 = 1e-4)
+    "Ftrl": lambda O: O.Ftrl(1e-5),
+    "ProximalGD": lambda O: O.ProximalGD(
+        1e-2, l1_regularization_strength=1e-4,
+        l2_regularization_strength=1e-4),
+    "ProximalAdagrad": lambda O: O.ProximalAdagrad(
+        1e-4, l1_regularization_strength=1e-4,
+        l2_regularization_strength=1e-4),
+    "Lamb": lambda O: O.Lamb(1e-3, lamb_weight_decay=0.01),
+}
+PARITY_CLIPS = {
+    "clip_by_value": lambda C: C.GradientClipByValue(1e-3),
+    "clip_by_norm": lambda C: C.GradientClipByNorm(0.1),
+    "clip_by_global_norm": lambda C: C.GradientClipByGlobalNorm(1.0),
+}
+PARITY_SCHEDULES = {
+    "noam_decay": lambda L: L.noam_decay(768, 2),
+    "exponential_decay": lambda L: L.exponential_decay(1e-2, 2, 0.5,
+                                                       staircase=True),
+    "natural_exp_decay": lambda L: L.natural_exp_decay(1e-2, 2, 0.5),
+    "inverse_time_decay": lambda L: L.inverse_time_decay(1e-2, 2, 0.5),
+    "polynomial_decay": lambda L: L.polynomial_decay(1e-2, 3, 1e-3),
+    "piecewise_decay": lambda L: L.piecewise_decay([1], [1e-2, 5e-3]),
+    "cosine_decay": lambda L: L.cosine_decay(1e-2, 1, 3),
+    "linear_lr_warmup": lambda L: L.linear_lr_warmup(1e-2, 2, 0.0, 1e-2),
+}
+PARITY_STEPS = 3
+
+
+def parity_config(name):
+    """(optimizer factory for ``build_bert``, whether a ModelAverage
+    follows, {"lr": the scheduled rate} once built) of one configuration:
+    an optimizer class alone, a clip under SGD(0.1), a schedule under SGD,
+    or Momentum(1e-2, 0.9) with ModelAverage(0.15, windows 2..3)."""
+    average = name == "ModelAverage"
+    state = {}
+
+    def make(fluid):
+        O = fluid.optimizer
+        if name in PARITY_OPTIMIZERS:
+            return PARITY_OPTIMIZERS[name](O)
+        if name in PARITY_CLIPS:
+            fluid.clip.set_gradient_clip(PARITY_CLIPS[name](fluid.clip))
+            return O.SGD(0.1)
+        if name in PARITY_SCHEDULES:
+            state["lr"] = PARITY_SCHEDULES[name](fluid.layers)
+            return O.SGD(state["lr"])
+        return O.Momentum(1e-2, 0.9)
+
+    return make, average, state
+
+
+def optimizer_parity_phase():
+    """BERT at full width, 2 layers, batch 8, dropout 0, float32 (as
+    ``bert_parity``), 3 steps under each of the 16 optimizer
+    configurations (``PARITY_OPTIMIZERS``: the 14 classes, Momentum with
+    and without Nesterov, RMSProp centered and not, ProximalGD and
+    ProximalAdagrad with l1 > 0), ModelAverage, the three clips and the
+    eight schedules, from one startup state: on the card, and on the CPU
+    (losses 1e-5 relative, the state 1e-5 norm-wise over all its float
+    tensors, the fetched rates 1e-6; the worst single tensor reported: a
+    bias of 2 values whose gradient cancels over the batch keeps fewer
+    digits on either device); the same 3 steps captured on the card
+    (``run_steps``: two warm-ups, one capture, one replay) against the
+    card's eager steps (every tensor 1e-6, bit-equality reported);
+    ``ModelAverage.apply()`` on the card equal to the float64 average of
+    the card's own sums (1e-6 of each tensor's largest value) and to the
+    CPU's averages (1e-6 norm-wise), ``restore()`` back to the trained
+    parameters bit for bit."""
+    import paddle_tpu_torch as fluid
+
+    t_phase = time.perf_counter()
+    feed = bert_feed(8)
+    names_all = (list(PARITY_OPTIMIZERS) + ["ModelAverage"]
+                 + list(PARITY_CLIPS) + list(PARITY_SCHEDULES))
+    results, secs = {}, {"build": 0.0, "card": 0.0, "captured": 0.0,
+                         "cpu": 0.0, "compare": 0.0}
+    for name in names_all:
+        t = time.perf_counter()
+        make, average, state = parity_config(name)
+        main, startup, loss = build_bert(fluid, False, n_layer=2,
+                                         dropout=0.0, optimizer=make)
+        if average:
+            # after the update ops, as a user script appends it
+            with fluid.program_guard(main, startup):
+                ma = fluid.optimizer.ModelAverage(
+                    0.15, min_average_window=2, max_average_window=3)
+        fetch = [loss] + ([state["lr"]] if "lr" in state else [])
+        card = fluid.Scope()
+        fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=card)
+        start = clone_scope(fluid, card)
+        cap = clone_scope(fluid, card)
+        cpu = fluid.Scope()
+        for n, v in card.vars.items():
+            cpu.set_var(n, v.cpu())
+        names = sorted(card.vars)
+        secs["build"] += time.perf_counter() - t
+        t = time.perf_counter()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        card_rows = [[float(np.ravel(v)[0]) for v in exe.run(
+            main, feed=feed, fetch_list=fetch, scope=card)]
+            for _ in range(PARITY_STEPS)]
+        secs["card"] += time.perf_counter() - t
+        t = time.perf_counter()
+        main._tpu_step_counter = 0
+        exe_c = fluid.Executor(fluid.CUDAPlace(0))
+        cap_rows = [[float(np.ravel(v)[0]) for v in r] for r in
+                    exe_c.run_steps(main, [feed] * PARITY_STEPS,
+                                    fetch_list=fetch,
+                                    fetch_every=PARITY_STEPS, scope=cap)]
+        exe_c.close()
+        secs["captured"] += time.perf_counter() - t
+        t = time.perf_counter()
+        main._tpu_step_counter = 0
+        cpu_exe = fluid.Executor(fluid.CPUPlace())
+        cpu_rows = [[float(np.ravel(v)[0]) for v in cpu_exe.run(
+            main, feed=feed, fetch_list=fetch, scope=cpu)]
+            for _ in range(PARITY_STEPS)]
+        secs["cpu"] += time.perf_counter() - t
+        t = time.perf_counter()
+        card_l, cpu_l = [r[0] for r in card_rows], [r[0] for r in cpu_rows]
+        cap_l = [r[0] for r in cap_rows]
+        loss_err = loss_rel_err(card_l, cpu_l)
+        cap_err = loss_rel_err(cap_l, card_l)
+        state_err, worst, _ = state_norm_err(card, cpu)
+        _, cap_worst, cap_equal = state_norm_err(cap, card)
+        moved = sum(not torch.equal(card.find_var(n), start.find_var(n))
+                    for n in names)
+        res = {"losses_card": card_l, "losses_cpu": cpu_l,
+               "losses_captured": cap_l, "loss_rel_err": loss_err,
+               "state_rel_err": state_err, "worst_tensor_rel_err": worst,
+               "worst_tensor": most_different(card, cpu, 1)[0][1],
+               "captured_loss_rel_err": cap_err,
+               "captured_worst_tensor_rel_err": cap_worst,
+               "captured_bit_equal": bool(cap_equal and cap_l == card_l),
+               "persistables_moved": moved, "persistables": len(names)}
+        check(bool(np.isfinite(card_l + cpu_l).all()) and loss_err <= 1e-5
+              and state_err <= 1e-5,
+              "optimizer_parity %s: card %r vs CPU %r losses (%.3g), state "
+              "%.3g norm-wise (1e-5)" % (name, card_l, cpu_l, loss_err,
+                                         state_err))
+        check(cap_err <= 1e-6 and cap_worst <= 1e-6,
+              "optimizer_parity %s: captured %r vs eager %r (%.3g), state "
+              "%.3g (1e-6)" % (name, cap_l, card_l, cap_err, cap_worst))
+        if "lr" in state:
+            rates = ([r[1] for r in card_rows], [r[1] for r in cpu_rows],
+                     [r[1] for r in cap_rows])
+            res["rates"] = rates[0]
+            r_err = max(rate_err(rates[0], rates[1]),
+                        rate_err(rates[2], rates[1]))
+            check(r_err <= 1e-6 and len(set(rates[1])) > 1,
+                  "optimizer_parity %s: rates card %r, CPU %r, captured %r"
+                  % (name, *rates))
+        if average:
+            params = [p.name for p in main.all_parameters()]
+            trained = {n: card.find_var(n).clone() for n in params}
+            with fluid.scope_guard(cpu), ma.apply():
+                cpu_avg = {n: cpu.find_var(n).clone() for n in params}
+            with fluid.scope_guard(card):
+                with ma.apply():
+                    card_avg = {n: card.find_var(n).clone() for n in params}
+                restored = all(torch.equal(card.find_var(n), trained[n])
+                               for n in params)
+            on_card = all(t.is_cuda for t in card_avg.values())
+            own = 0.0
+            for n in params:
+                acc = ma._accumulators
+                total = sum(card.find_var(acc[k][n].name).double()
+                            for k in ("sum_1", "sum_2", "sum_3"))
+                cnt = sum(float(card.find_var(acc[k][n].name)[0])
+                          for k in ("num_accumulates",
+                                    "old_num_accumulates"))
+                want = total / max(cnt, 1.0)
+                own = max(own, float((card_avg[n].double() - want).abs().max()
+                                     / max(float(want.abs().max()), 1e-30)))
+            d2 = sum(float((card_avg[n].double() - cpu_avg[n].to(
+                card_avg[n].device).double()).norm()) ** 2 for n in params)
+            n2 = sum(float(cpu_avg[n].double().norm()) ** 2 for n in params)
+            avg_err = (d2 / n2) ** 0.5
+            res.update(average_vs_own_sums=own, average_vs_cpu=avg_err,
+                       average_on_card=on_card, restored_bit_equal=restored)
+            check(on_card and own <= 1e-6 and avg_err <= 1e-6 and restored,
+                  "optimizer_parity ModelAverage: on the card %s, averages "
+                  "%.3g from its own sums, %.3g from the CPU's norm-wise "
+                  "(1e-6), restored %s" % (on_card, own, avg_err, restored))
+        secs["compare"] += time.perf_counter() - t
+        results[name] = res
+        exe.close()
+        del card, cap, cpu, start
+    torch.cuda.empty_cache()
+    emit("optimizer_parity", n_layer=2, batch=8, seq=BERT_SEQ, dropout=0.0,
+         steps=PARITY_STEPS, configurations=len(results), seconds_by_part=secs,
+         seconds=time.perf_counter() - t_phase, results=results)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4628,6 +5466,7 @@ def main():
     timed(unfused_flash_phase, flash_rows)
     timed(flash_dropout_captured_phase, flash_rows)
     timed(accum_train_phase, xent_rows)
+    timed(transformer_noam_train_phase, xent_rows)
     with tempfile.TemporaryDirectory() as ckpt:
         timed(bert_train_phase, xent_rows, amp=True, ckpt_dir=ckpt)
         timed(bert_train_phase, xent_rows, amp=False)
@@ -4635,6 +5474,8 @@ def main():
     timed(bert_predictor_phase, infer)
     del infer
     timed(bert_parity_phase)
+    timed(bert_recipe_train_phase, xent_rows)
+    timed(optimizer_parity_phase)
     # the card again, so the end of a long log still names it
     emit("phase_seconds", nvidia_smi=smi, total=time.perf_counter() - t0,
          **phase_s)

@@ -1,15 +1,35 @@
 # ported from paddle_tpu/layers/__init__.py
 """``fluid.layers``: the layer functions ported so far (io, tensor, nn,
-attention, ``equal`` of control flow and the generated wrappers). The
-rest of control flow, sequence, rnn,
-detection, beam search and the learning-rate schedulers are not ported
-yet. Layer functions whose ops are not registered in the port still
-build; running them raises the registry's ``NotImplementedError`` naming
-the op."""
+attention, the comparisons and logical layers of control flow, the
+learning-rate schedulers and the generated wrappers). The rest of control
+flow, sequence, rnn, detection and beam search are not ported yet. Layer
+functions whose ops are not registered in the port still build; running
+them raises the registry's ``NotImplementedError`` naming the op."""
 
-from . import attention, control_flow, io, nn, tensor  # noqa: F401
+from . import attention, control_flow, io, learning_rate_scheduler, nn, tensor  # noqa: F401
 from .attention import multi_head_attention, scaled_dot_product_attention  # noqa: F401
-from .control_flow import equal  # noqa: F401
+from .control_flow import (  # noqa: F401
+    equal,
+    greater_equal,
+    greater_than,
+    less_equal,
+    less_than,
+    logical_and,
+    logical_not,
+    logical_or,
+    not_equal,
+)
+from .learning_rate_scheduler import (  # noqa: F401
+    append_LARS,
+    cosine_decay,
+    exponential_decay,
+    inverse_time_decay,
+    linear_lr_warmup,
+    natural_exp_decay,
+    noam_decay,
+    piecewise_decay,
+    polynomial_decay,
+)
 from .io import data, load  # noqa: F401
 from .layer_helper import LayerHelper, ParamAttr  # noqa: F401
 from .nn import *  # noqa: F401,F403

@@ -1176,15 +1176,24 @@ def shuffle_channel(x, group, name=None):
 
 
 def autoincreased_step_counter(counter_name=None, begin=1, step=1):
-    """Global step counter (reference: layers/nn.py autoincreased_step_counter)."""
+    """Global step counter (reference: layers/nn.py
+    autoincreased_step_counter): an int64 [1] persistable starting at
+    ``begin - 1``. As in Fluid, the ``increment`` is appended only when the
+    counter is created, so every schedule built on one counter reads the
+    same step and the counter advances once a step. (The JAX package
+    appends one on every call: two schedules on one counter advance it
+    twice a step.)"""
     from .. import initializer as init_mod
 
     helper = LayerHelper("global_step_counter")
     name = counter_name or "@STEP_COUNTER@"
+    is_new = not helper.main_program.global_block.has_var(name)
     counter = helper.create_or_get_global_variable(
         [1], "int64", name, initializer=init_mod.Constant(begin - 1))
-    helper.append_op("increment", inputs={"X": counter}, outputs={"Out": counter},
-                     attrs={"step": float(step)})
+    if is_new:
+        helper.append_op("increment", inputs={"X": counter},
+                         outputs={"Out": counter},
+                         attrs={"step": float(step)})
     counter.stop_gradient = True
     return counter
 

@@ -5,6 +5,7 @@ the hand-written kernels under :mod:`.kernels`."""
 from . import (  # noqa: F401
     activation_ops,
     attention_ops,
+    compare_ops,
     math_ops,
     nn_ops,
     optimizer_ops,

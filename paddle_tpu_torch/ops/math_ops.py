@@ -3,8 +3,8 @@
 
 Fluid equivalents: ``operators/mul_op.cc``, ``matmul_op.cc``,
 ``elementwise/*``, ``scale_op.cc``, ``sum_op.cc``, ``mean_op.cc``,
-``sign_op.cc``, ``cast_op.cc``, ``controlflow/compare_op.cc``
-(``equal``). Each is a few torch calls;
+``sign_op.cc``, ``cast_op.cc``, ``clip_op.cc``, ``clip_by_norm_op.cc``,
+``squared_l2_norm_op.cc``, ``increment_op.cc``. Each is a few torch calls;
 the products go to cuBLAS through ``torch.tensordot`` (the JAX package
 leaves them to XLA: no Pallas kernel sits here).
 """
@@ -65,16 +65,6 @@ def matmul_op(ctx: OpContext):
     ctx.set_output("Out", out)
 
 
-@register_op("equal")
-def equal_op(ctx: OpContext):
-    """Elementwise ``X == Y`` (reference: operators/controlflow/compare_op.cc),
-    Y cast to X's dtype first, as the JAX package casts it."""
-    x, y = ctx.input("X"), ctx.input("Y")
-    if x.dtype != y.dtype:
-        y = y.to(x.dtype)
-    ctx.set_output("Out", torch.eq(x, y))
-
-
 def _elementwise(ctx: OpContext, fn):
     x, y = ctx.input("X"), ctx.input("Y")
     # AMP autocast: a mixed bf16/f32 binary op computes in the AMP dtype
@@ -128,6 +118,21 @@ def elementwise_div(ctx):
     _elementwise(ctx, torch.div)
 
 
+@register_op("elementwise_max")
+def elementwise_max(ctx):
+    _elementwise(ctx, torch.maximum)
+
+
+@register_op("elementwise_min")
+def elementwise_min(ctx):
+    _elementwise(ctx, torch.minimum)
+
+
+@register_op("elementwise_pow")
+def elementwise_pow(ctx):
+    _elementwise(ctx, torch.pow)
+
+
 @register_op("scale")
 def scale_op(ctx: OpContext):
     x = ctx.input("X")
@@ -167,3 +172,42 @@ def sign_op(ctx: OpContext):
 def cast_op(ctx: OpContext):
     x = ctx.input("X")
     ctx.set_output("Out", x.to(to_torch_dtype(ctx.attr("out_dtype", "float32"))))
+
+
+@register_op("increment")
+def increment_op(ctx: OpContext):
+    """X + step in X's dtype: an integer counter adds ``int(step)`` (an
+    int64 tensor plus a Python float would promote to float32)."""
+    x = ctx.input("X")
+    step = ctx.attr("step", 1.0)
+    ctx.set_output("Out", x + (step if x.is_floating_point() else int(step)))
+
+
+@register_op("clip")
+def clip_op(ctx: OpContext):
+    """``jnp.clip``: min(max(x, min), max), the bounds filled on x's device
+    (no host-to-device copy)."""
+    x = ctx.input("X")
+    ctx.set_output("Out", torch.minimum(
+        torch.maximum(x, x.new_full((), ctx.attr("min"))),
+        x.new_full((), ctx.attr("max"))))
+
+
+@register_op("clip_by_norm")
+def clip_by_norm_op(ctx: OpContext):
+    """x·max_norm/‖x‖ where ‖x‖ > max_norm, else x. The norm and the choice
+    stay on the device (``torch.where``), so the step captures."""
+    x = ctx.input("X")
+    max_norm = ctx.attr("max_norm")
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12), 1.0)
+    ctx.set_output("Out", x * scale.to(x.dtype))
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm_op(ctx: OpContext):
+    """sum(x²) as a 0-d tensor, the JAX package's shape: the global-norm
+    clip's ``sum`` -> ``sqrt`` -> ``elementwise_max`` with a [1] constant
+    then broadcasts to [1] as it does there."""
+    ctx.set_output("Out", torch.sum(torch.square(ctx.input("X"))))

@@ -145,6 +145,14 @@ def top_k_op(ctx: OpContext):
     ctx.set_output("Indices", indices[..., :k].int())
 
 
+@register_op("where")
+def where_op(ctx: OpContext):
+    """``Condition ? X : Y`` elementwise (the ternary form; reference:
+    operators/where_op.cc), broadcast as ``jnp.where`` does."""
+    ctx.set_output("Out", torch.where(ctx.input("Condition"), ctx.input("X"),
+                                      ctx.input("Y")))
+
+
 # -- fill / init ops ----------------------------------------------------------
 
 

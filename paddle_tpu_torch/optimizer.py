@@ -7,14 +7,18 @@ to the program after the backward marker). The optimize ops are torch
 updates (paddle_tpu_torch/ops/optimizer_ops.py) that the Executor runs
 after the backward under ``torch.no_grad()``.
 
-Left out against the JAX package until dygraph is ported: the imperative
-path (``_imperative_minimize`` and the eager accumulators), and the
-``PADDLE_TPU_GRAD_NORM`` probe of the monitor.
+Every optimizer, ``ModelAverage``, the clips of :mod:`.clip` and the
+schedules of ``layers.learning_rate_scheduler`` build ops the port
+registers. Left out against the JAX package until dygraph and the monitor
+are ported: the imperative path (``_imperative_minimize`` and the eager
+accumulators), and the ``PADDLE_TPU_GRAD_NORM`` probe of the monitor.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from . import initializer as init_mod
 from .backward import append_backward
@@ -586,18 +590,22 @@ class ModelAverage(Optimizer):
                    "min_average_window": self.min_average_window})
 
     def _averaged(self, scope, param):
-        import numpy as _np
-
-        g = lambda acc: _np.asarray(scope.find_var(
-            self._accumulators[acc][param.name].name), dtype=_np.float64)
-        total = g("sum_1") + g("sum_2") + g("sum_3")
-        n = float(g("num_accumulates").reshape(())) + float(
-            g("old_num_accumulates").reshape(()))
-        return (total / max(n, 1.0)).astype("float32")
+        """The window average of ``param`` as a tensor on the scope's
+        device: (sum_1 + sum_2 + sum_3) / max(num_accumulates +
+        old_num_accumulates, 1) in float64, cast to the parameter's dtype."""
+        acc = lambda name: scope.find_var(
+            self._accumulators[name][param.name].name).double()
+        total = acc("sum_1") + acc("sum_2") + acc("sum_3")
+        n = (acc("num_accumulates") + acc("old_num_accumulates")).reshape(())
+        return (total / torch.clamp(n, min=1.0)).to(
+            scope.find_var(param.name).dtype)
 
     def apply(self, executor=None, need_restore=True):
         """Context manager: params ← window average (reference:
-        optimizer.py ModelAverage.apply)."""
+        optimizer.py ModelAverage.apply), on the scope's device. The
+        parameters are kept as copies until :meth:`restore`: a captured
+        step that runs meanwhile writes the average into its own static
+        tensors."""
         import contextlib
 
         from .core.scope import global_scope
@@ -606,11 +614,10 @@ class ModelAverage(Optimizer):
         def _ctx():
             scope = global_scope()
             self._backup = {}
-            import numpy as _np
-
-            for p in self.params_grads:
-                self._backup[p.name] = _np.asarray(scope.find_var(p.name))
-                scope.set_var(p.name, self._averaged(scope, p))
+            with torch.no_grad():
+                for p in self.params_grads:
+                    self._backup[p.name] = scope.find_var(p.name).clone()
+                    scope.set_var(p.name, self._averaged(scope, p))
             try:
                 yield
             finally:

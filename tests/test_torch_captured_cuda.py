@@ -5,8 +5,11 @@ up eagerly, capture it into a CUDA graph and replay it; these tests hold
 the replays against eager ``run()`` steps from the same start state, with
 the hand-written kernels (K1 with its dropout seed on the card, K2, K4)
 inside the graph, an accumulated step as one graph, the pass
-pipeline's rewrites reaching K1 and K2, and the weight decay's in-place
-``sum`` and LARS's norms inside the graph. Every test carries the
+pipeline's rewrites reaching K1 and K2, the weight decay's in-place
+``sum`` and LARS's norms inside the graph, and a learning-rate schedule
+with the global-norm clip (its counter advanced once a replay), the
+rows-only branches of the other sparse optimizers and ``ModelAverage`` on
+the card. Every test carries the
 ``cuda`` marker and skips without a GPU. The file imports neither ``jax``
 nor ``paddle_tpu``:
 
@@ -71,6 +74,18 @@ def bert_program(amp):
     return main, startup, loss, feeds
 
 
+SPARSE_OPTIMIZERS = {
+    "adam": lambda: fluid.optimizer.Adam(1e-2),
+    "sgd": lambda: fluid.optimizer.SGD(1e-1),
+    "momentum": lambda: fluid.optimizer.Momentum(1e-2, 0.9),
+    "adagrad": lambda: fluid.optimizer.Adagrad(1e-2),
+    "proximal_gd": lambda: fluid.optimizer.ProximalGD(
+        1e-1, l1_regularization_strength=1e-4),
+    "proximal_adagrad": lambda: fluid.optimizer.ProximalAdagrad(
+        1e-2, l1_regularization_strength=1e-4),
+}
+
+
 def deepfm_program(opt):
     from paddle_tpu_torch.models import deepfm
 
@@ -82,8 +97,7 @@ def deepfm_program(opt):
         _, loss, _ = deepfm.deepfm(ids, dense, label, sparse_feature_dim=1000,
                                    embedding_size=4, num_fields=8,
                                    layer_sizes=(16, 16))
-        (fluid.optimizer.Adam(1e-2) if opt == "adam"
-         else fluid.optimizer.SGD(1e-1)).minimize(loss)
+        SPARSE_OPTIMIZERS[opt]().minimize(loss)
     feeds = []
     for seed in range(6):
         rng = np.random.RandomState(seed)
@@ -454,3 +468,130 @@ def test_captured_weight_decay_and_lars_match_eager(cuda, opt):
     assert counts == (1, len(feeds) - WARMUP_STEPS)
     np.testing.assert_allclose(got, want, rtol=1e-6)
     assert_state_close(scope_e, scope_c, rtol=1e-6, atol=1e-7)
+
+
+COUNTER = "@LR_DECAY_COUNTER@"
+
+
+def scheduled_program(opt):
+    """A 2-layer MLP under Devlin's recipe at test size: the nested
+    warm-up/decay schedule, the global-norm clip, and AdamW or LAMB."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", shape=[16])
+        y = fluid.layers.data("y", shape=[1], dtype="int64")
+        h = fluid.layers.fc(x, 32, act="sigmoid")
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.fc(h, 4), y))
+        lr = fluid.layers.linear_lr_warmup(
+            fluid.layers.polynomial_decay(1e-2, 8, 0.0, 1.0), 2, 0.0, 1e-2)
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(1.0))
+        if opt == "adamw":
+            fluid.optimizer.AdamW(lr, weight_decay=0.01,
+                                  epsilon=1e-6).minimize(loss)
+        else:
+            fluid.optimizer.Lamb(lr, lamb_weight_decay=0.01).minimize(loss)
+    feeds = []
+    for seed in range(8):
+        rng = np.random.RandomState(seed)
+        feeds.append({"x": rng.randn(8, 16).astype("float32"),
+                      "y": rng.randint(0, 4, (8, 1)).astype("int64")})
+    return main, startup, loss, lr, feeds
+
+
+@pytest.mark.parametrize("opt", ["adamw", "lamb"])
+def test_captured_schedule_advances_the_counter_once_a_replay(cuda, opt):
+    """Each replay advances the counter by one from the static state and
+    fetches the eager step's rate; an eager ``run()`` after the replays
+    sees the advanced counter."""
+    main, startup, loss, lr, feeds = scheduled_program(opt)
+    dev = fluid.CUDAPlace(0)
+    scope_e, scope_c = fluid.Scope(), fluid.Scope()
+    exe = fluid.Executor(dev)
+    exe.run(startup, scope=scope_e)
+    for n, v in scope_e.vars.items():
+        scope_c.set_var(n, v.clone())
+    want = [[float(np.ravel(a)[0]) for a in exe.run(
+        main, feed=f, fetch_list=[loss, lr, COUNTER], scope=scope_e)]
+        for f in feeds]
+    main._tpu_step_counter = 0
+    caps, reps = metrics.CAPTURES.value, metrics.REPLAYS.value
+    exe_c = fluid.Executor(dev)
+    rows = exe_c.run_steps(main, feeds, fetch_list=[loss, lr, COUNTER],
+                           fetch_every=4, scope=scope_c)
+    got = [[float(np.ravel(a)[0]) for a in r] for r in rows]
+    assert (metrics.CAPTURES.value - caps,
+            metrics.REPLAYS.value - reps) == (1, len(feeds) - WARMUP_STEPS)
+    assert [r[2] for r in got] == [r[2] for r in want] == list(
+        range(len(feeds)))
+    assert [r[1] for r in got] == [r[1] for r in want]
+    np.testing.assert_allclose([r[0] for r in got], [r[0] for r in want],
+                               rtol=1e-6)
+    assert int(scope_c.as_numpy(COUNTER)[0]) == len(feeds) - 1
+    lv, cv = exe.run(main, feed=feeds[0], fetch_list=[loss, COUNTER],
+                     scope=scope_c)
+    assert int(np.ravel(cv)[0]) == len(feeds)
+    more = exe_c.run_steps(main, feeds[:2], fetch_list=[COUNTER],
+                           fetch_every=2, scope=scope_c)
+    assert [int(np.ravel(r[0])[0]) for r in more] == [len(feeds) + 1,
+                                                      len(feeds) + 2]
+    exe_c.close()
+
+
+def test_scheduled_clipped_step_makes_no_host_sync(cuda):
+    main, startup, loss, lr, feeds = scheduled_program("lamb")
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = {k: torch.as_tensor(v, device=cuda) for k, v in feeds[0].items()}
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope,
+                return_numpy=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    exe.close()
+
+
+@pytest.mark.parametrize("opt", ["momentum", "adagrad", "proximal_gd",
+                                 "proximal_adagrad"])
+def test_captured_sparse_branches_match_eager(cuda, opt):
+    """The rows-only branches write the tables in place inside the graph:
+    the replays give the eager steps' losses and state."""
+    main, startup, loss, feeds = deepfm_program(opt)
+    want, got, scope_e, scope_c, counts = eager_and_captured(
+        main, startup, loss, feeds, fetch_every=4)
+    assert counts == (1, len(feeds) - WARMUP_STEPS)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert_state_close(scope_e, scope_c, rtol=1e-4, atol=1e-6)
+
+
+def test_model_average_applies_on_the_card(cuda):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", shape=[16])
+        y = fluid.layers.data("y", shape=[1], dtype="int64")
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.fc(x, 4), y))
+        fluid.optimizer.Momentum(0.1, 0.9).minimize(loss)
+        ma = fluid.optimizer.ModelAverage(0.15, min_average_window=2,
+                                          max_average_window=3)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    for _ in range(5):
+        exe.run(main, feed={"x": rng.randn(8, 16).astype("float32"),
+                            "y": rng.randint(0, 4, (8, 1)).astype("int64")},
+                fetch_list=[loss], scope=scope)
+    name = main.all_parameters()[0].name
+    trained = scope.find_var(name).clone()
+    with fluid.scope_guard(scope):
+        with ma.apply(exe):
+            avg = scope.find_var(name)
+            assert avg.is_cuda and avg.dtype == torch.float32
+            assert not torch.equal(avg, trained)
+        assert torch.equal(scope.find_var(name), trained)

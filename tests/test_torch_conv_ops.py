@@ -281,16 +281,28 @@ def test_accuracy_matches_jax(k):
 
 
 def test_momentum_sparse_gradient_raises():
-    """The rows-only branch waits for the CTR leftovers: an ``is_sparse``
-    table's gradient raises, naming the op."""
+    """``momentum`` takes an ``is_sparse`` table's gradient through its
+    rows-only branch (the rows it names move, in place, the others keep
+    their values and velocity); ``lars_momentum``, dense only in the JAX
+    package too, still raises on it, naming the op."""
     op = _op(tfw, "momentum", ["Param", "Grad", "Velocity", "LearningRate"],
              {"ParamOut": 1, "VelocityOut": 1}, dict(mu=0.9))
     env = {"Param@in": torch.zeros(10, 3), "Velocity@in": torch.zeros(10, 3),
-           "Grad@in": SparseGrad(torch.tensor([1, 4]), torch.ones(2, 3)),
+           "Grad@in": SparseGrad(torch.tensor([1, 4, 1]), torch.ones(3, 3)),
            "LearningRate@in": torch.tensor([0.1])}
     trace = TraceContext(tfw.Program(), False, torch.device("cpu"), 0)
-    with pytest.raises(NotImplementedError, match="momentum"):
-        treg.get_op_impl("momentum")(treg.OpContext(op, env, trace))
+    treg.get_op_impl("momentum")(treg.OpContext(op, env, trace))
+    p, v = env["ParamOut@0"], env["VelocityOut@0"]
+    assert p is env["Param@in"] and v is env["Velocity@in"]
+    want_v = torch.zeros(10, 3)
+    want_v[1], want_v[4] = 2.0, 1.0
+    assert torch.equal(v, want_v)
+    assert torch.allclose(p, -0.1 * want_v)
+    lars = _op(tfw, "lars_momentum",
+               ["Param", "Grad", "Velocity", "LearningRate"],
+               {"ParamOut": 1, "VelocityOut": 1}, dict(mu=0.9))
+    with pytest.raises(NotImplementedError, match="lars_momentum"):
+        treg.get_op_impl("lars_momentum")(treg.OpContext(lars, env, trace))
 
 
 def test_registry_holds_the_conv_slice_ops():

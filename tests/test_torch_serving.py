@@ -180,7 +180,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.transpiler, "
             "paddle_tpu_torch.core.pass_framework, paddle_tpu_torch.nets, "
             "paddle_tpu_torch.models.vgg, paddle_tpu_torch.models.se_resnext, "
-            "paddle_tpu_torch.models.word2vec; "
+            "paddle_tpu_torch.models.word2vec, "
+            "paddle_tpu_torch.ops.compare_ops, "
+            "paddle_tpu_torch.layers.learning_rate_scheduler, "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.clip; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']; "
             "assert not bad, bad")
@@ -222,7 +225,12 @@ def test_port_sources_name_no_jax_import():
             "paddle_tpu_torch/layers/control_flow.py",
             "paddle_tpu_torch/nets.py", "paddle_tpu_torch/models/vgg.py",
             "paddle_tpu_torch/models/se_resnext.py",
-            "paddle_tpu_torch/models/word2vec.py"} <= names
+            "paddle_tpu_torch/models/word2vec.py",
+            "paddle_tpu_torch/ops/compare_ops.py",
+            "paddle_tpu_torch/ops/optimizer_ops.py",
+            "paddle_tpu_torch/layers/learning_rate_scheduler.py",
+            "paddle_tpu_torch/optimizer.py",
+            "paddle_tpu_torch/clip.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
