@@ -143,6 +143,26 @@ Adagrad, Momentum, ProximalGD and ProximalAdagrad too (their rows-only
 branches), and ``ctr_train`` Adagrad at V = 1e6, whose step must stay
 below one [V, D] tensor above the state.
 
+The dense op remainder: ``dist_transformer_train`` trains
+``bench_transformer`` under the noam recipe with Fluid's
+``dist_transformer.py`` loss (``label_smooth(one_hot(label))``, a
+soft-label cross-entropy: no K2) eager and captured, in turns with the
+fused loss (K2), and at dropout 0 holds the two forms to each other (AMP
+1e-3, float32 1e-5). ``dense_ops`` runs every op of the slice forward and
+backward on the card against the same call on the CPU (1e-5 float32,
+1e-2 bf16 norm-wise, integer and bool outputs equal), at the shapes of
+the models that use them, with ``fluid.gradients`` through a double grad
+and ``WeightNormParamAttr``. ``lookup_determinism`` checks that the dense
+lookup's table gradient gives the same bits on every run and stream; the
+recipe legs (``scheduled_leg``) hold two eager runs from one start
+bit-equal and captured against eager tensor by tensor.
+
+Diagnostics, not run by default: ``python3 chip_smoke.py
+--recipe-bisect [--deterministic] lamb adamw adam`` checksums every op's
+outputs and gradients over two eager runs of BERT-base's recipe step from
+one start, a side-stream run and a captured run, and names the first
+that part (``recipe_bisect``).
+
 Each phase prints one JSON line; any failed check exits non-zero. The line
 before the last holds every kernel's numbers, the last line the device.
 
@@ -152,6 +172,7 @@ a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -3422,12 +3443,14 @@ def bench_feed(batch, seq, seed=0):
 
 
 def build_bench_transformer(fluid, seq=None, dropout=0.1, amp=True,
-                            optimizer=None):
+                            optimizer=None, one_hot_loss=False):
     """``bench.py:247-275`` ``bench_transformer``'s program for the port's
     package, built as the bench builds it: ``set_flag("unfused_attention",
     True)`` around ``transformer_base`` (vocab 30000, ``max_length`` the
     sequence length), Adam(1e-4) (or ``optimizer(fluid)``),
-    ``amp.decorate`` with ``amp``."""
+    ``amp.decorate`` with ``amp``; with ``one_hot_loss`` the loss is
+    ``dist_transformer.py``'s (``one_hot`` -> ``label_smooth`` -> soft-label
+    cross-entropy), not the fused one."""
     from paddle_tpu_torch.models import transformer as tfm
 
     seq, vocab = seq or TRAIN["seq"], TRAIN["vocab"]
@@ -3444,7 +3467,8 @@ def build_bench_transformer(fluid, seq=None, dropout=0.1, amp=True,
             tmask = fluid.layers.data("tmask", shape=[seq], dtype="float32")
             _, loss = tfm.transformer_base(
                 src, trg, lbl, smask, tmask, src_vocab_size=vocab,
-                trg_vocab_size=vocab, max_length=seq, dropout_rate=dropout)
+                trg_vocab_size=vocab, max_length=seq, dropout_rate=dropout,
+                one_hot_loss=one_hot_loss)
             opt = fluid.optimizer.Adam(learning_rate=1e-4) \
                 if optimizer is None else optimizer(fluid)
             if amp:
@@ -4762,7 +4786,7 @@ def tail_device_ms(exe, main, fetch, scope, feed, reps=20):
     and kernel count of one replay beside it."""
     import paddle_tpu_torch.executor as ex
 
-    names = tuple(v if isinstance(v, str) else v.name for v in fetch)
+    names = fetch_names(fetch)
     opt = exe._maybe_optimize(main, names, scope)
     ops = opt.global_block.ops
     marker = next(i for i, op in enumerate(ops)
@@ -4844,19 +4868,236 @@ def eval_loss(fluid, exe, test_main, loss, scope, feed):
     return out
 
 
+def bits_checksum(t):
+    """Two int64 sums over a tensor's bits (its words, and its words
+    weighted by position modulo a prime): equal for bit-equal tensors,
+    unequal for almost any other pair. Integer sums do not depend on their
+    order, so the checksum itself is reproducible."""
+    t = t.detach().contiguous().reshape(-1)
+    if t.numel() == 0:
+        return torch.zeros(2, dtype=torch.int64, device=t.device)
+    word = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[t.element_size()]
+    w = t.view(word).to(torch.int64)
+    pos = torch.arange(1, w.numel() + 1, device=t.device) % 1_000_003
+    return torch.stack([w.sum(), (w * pos).sum()])
+
+
+class OpTrace:
+    """While installed, every op the executor runs records the checksum
+    (``bits_checksum``) of each tensor it writes, keyed by (step, op index,
+    op type, var), and each forward output that carries a gradient records
+    the checksum of the gradient that reaches it (a tensor hook: it runs in
+    the backward, and inside a CUDA graph capture it is captured with the
+    step). ``result()`` reads them on the host."""
+
+    def __init__(self):
+        self.step, self.fwd, self.grads = 0, {}, {}
+
+    def __enter__(self):
+        import paddle_tpu_torch.executor as ex
+        from paddle_tpu_torch.core.interpreter import SKIP_OPS
+        from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+
+        self.inner = ex.run_block_ops
+
+        def traced(ops, env, trace, offset=0):
+            for i, op in enumerate(ops):
+                if op.type in SKIP_OPS:
+                    continue
+                trace.current_op_idx = offset + i
+                get_op_impl(op.type)(OpContext(op, env, trace))
+                for n in op.output_arg_names:
+                    v = env.get(n)
+                    if not isinstance(v, torch.Tensor):
+                        continue
+                    key = (self.step, offset + i, op.type, n)
+                    self.fwd[key] = bits_checksum(v)
+                    if v.requires_grad and torch.is_grad_enabled():
+                        v.register_hook(
+                            lambda g, key=key: self.grads.__setitem__(
+                                key, bits_checksum(g)))
+
+        ex.run_block_ops = traced
+        return self
+
+    def __exit__(self, *exc):
+        import paddle_tpu_torch.executor as ex
+
+        ex.run_block_ops = self.inner
+
+    def result(self):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        return ({k: tuple(v.tolist()) for k, v in self.fwd.items()},
+                {k: tuple(v.tolist()) for k, v in self.grads.items()})
+
+
+def first_parting(a, b, ops, n=6):
+    """Where two ``OpTrace`` results part: the first forward outputs (in
+    program order) and the first gradients (in backward order: the
+    gradient of a later op's output first) whose bits differ, each with
+    the types of the ops that read the var (a gradient that differs while
+    its consumers' output gradients agree was made by their backward)."""
+    fa, ga = a
+    fb, gb = b
+    fwd = [k for k in fa if k in fb and fa[k] != fb[k]]
+    order = sorted((k for k in ga if k in gb),
+                   key=lambda k: (k[0], -k[1]))
+    grad = [k for k in order if ga[k] != gb[k]]
+
+    def readers(k):
+        return sorted({op.type for op in ops[k[1] + 1:]
+                       if k[3] in op.input_arg_names})
+
+    return {"forward_differing": len(fwd), "forward_compared": len(
+        [k for k in fa if k in fb]),
+        "forward_first": [list(k) + [readers(k)] for k in fwd[:n]],
+        "grads_differing": len(grad), "grads_compared": len(order),
+        "grads_first": [list(k) + [readers(k)] for k in grad[:n]]}
+
+
+def recipe_bisect(name, steps=CAPTURED_STEPS, deterministic=False):
+    """Where the recipe step parts run to run on the card (BERT-base AMP,
+    the bench's batch, ``Recipe(name)``, or the bench's constant Adam for
+    "adam"): two eager runs of ``steps`` steps from one start with every
+    op's outputs and gradients checksummed (``OpTrace``), compared step by
+    step; an eager run inside ``torch.cuda.stream(side)`` and the captured
+    run (``run_steps`` one step a call: two warm-ups on the executor's
+    side stream, the capture, replays), each against the first; three
+    untraced eager reruns' whole states; one eager step's kernels counted
+    twice. ``deterministic``: the same under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (the
+    process must have ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA
+    starts), with the ops torch flags as nondeterministic."""
+    import warnings
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.executor import WARMUP_STEPS
+
+    t0 = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    recipe = Recipe(name) if name != "adam" else None
+    main, startup, loss = build_bert(fluid, True, optimizer=recipe)
+    lr = recipe.lr if recipe else main.global_block.var(main._lr_var_name)
+    fetch = [loss, lr]
+    start = fluid.Scope()
+    fluid.Executor(dev).run(startup, scope=start)
+    feed = bert_feed(BERT_BATCH)
+    exe0 = fluid.Executor(dev)
+    ops = exe0._maybe_optimize(main, fetch_names(fetch), start) \
+        .global_block.ops
+    caught = []
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def run(mode, traced=True):
+        scope = clone_scope(fluid, start)
+        main._tpu_step_counter = 0
+        exe = fluid.Executor(dev)
+        tr = OpTrace()
+        losses = []
+        side = torch.cuda.Stream()
+        with warnings.catch_warnings(record=True) as w, \
+                (tr if traced else contextlib.nullcontext()):
+            warnings.simplefilter("always")
+            for i in range(steps):
+                tr.step = i
+                if mode == "captured":
+                    out = exe.run_steps(main, [feed], fetch_list=fetch,
+                                        scope=scope)[0]
+                    if traced and i == WARMUP_STEPS:
+                        # the graph's own checksum tensors, which each
+                        # replay writes anew
+                        live = [{k[1:]: v for k, v in d.items()
+                                 if k[0] == i} for d in (tr.fwd, tr.grads)]
+                    if traced and i >= WARMUP_STEPS:
+                        for d, lv in zip((tr.fwd, tr.grads), live):
+                            d.update({(i,) + k: v.clone()
+                                      for k, v in lv.items()})
+                elif mode == "side":
+                    side.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(side):
+                        out = exe.run(main, feed=feed, fetch_list=fetch,
+                                      scope=scope)
+                    torch.cuda.current_stream().wait_stream(side)
+                else:
+                    out = exe.run(main, feed=feed, fetch_list=fetch,
+                                  scope=scope)
+                losses.append(float(np.ravel(out[0])[0]))
+            res = tr.result() if traced else None
+        caught.extend(str(x.message)[:200] for x in w)
+        exe.close()
+        return scope, losses, res
+
+    e1, l1, r1 = run("eager")
+    e2, l2, r2 = run("eager")
+    out = {"recipe": name, "deterministic": deterministic,
+           "eager_vs_eager": dict(first_parting(r1, r2, ops),
+                                  losses_equal=l1 == l2,
+                                  state=state_norm_err(e2, e1),
+                                  most_different=most_different(e2, e1))}
+    del e2, r2
+    s, ls, rs = run("side")
+    out["side_stream_vs_eager"] = dict(
+        first_parting(r1, rs, ops), losses_equal=ls == l1,
+        state=state_norm_err(s, e1), most_different=most_different(s, e1))
+    del s, rs
+    c, lc, rc = run("captured")
+    out["captured_vs_eager"] = dict(
+        first_parting(r1, rc, ops), losses_equal=lc == l1,
+        state=state_norm_err(c, e1), most_different=most_different(c, e1))
+    del c, rc, r1
+    u = [run("eager", traced=False) for _ in range(3)]
+    out["untraced_reruns"] = [dict(losses_equal=x[1] == u[0][1],
+                                   state=state_norm_err(x[0], u[0][0]),
+                                   most_different=most_different(x[0],
+                                                                 u[0][0]))
+                              for x in u[1:]]
+    out["traced_vs_untraced_state"] = state_norm_err(u[0][0], e1)
+    scope = u[0][0]
+    del u
+
+    def one_step():
+        exe0.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                 return_numpy=False)
+
+    one_step()
+    counts = [step_profile(one_step)[2] for _ in range(2)]
+    out["eager_kernels"] = [sum(c.values()) for c in counts]
+    out["eager_kernels_differing"] = {
+        k: [counts[0].get(k, 0), counts[1].get(k, 0)]
+        for k in set(counts[0]) | set(counts[1])
+        if counts[0].get(k, 0) != counts[1].get(k, 0)}
+    if deterministic:
+        torch.use_deterministic_algorithms(False)
+        out["nondeterministic_alerts"] = sorted(
+            {m for m in caught if "deterministic" in m})
+    exe0.close()
+    out["seconds"] = time.perf_counter() - t0
+    emit("recipe_bisect", **out)
+    return out
+
+
+def fetch_names(fetch):
+    return tuple(v if isinstance(v, str) else v.name for v in fetch)
+
+
 def scheduled_leg(leg, main, loss, lr, scope, feeds, rate_fn, begin,
-                  per_step):
+                  per_step, tail=True):
     """One program's recipe eager, then captured, from one start state on
     ``feeds``: each eager ``run()`` and each step of ``run_steps`` (two
     warm-ups, one capture, replays) fetches the loss, the scheduled rate
     ``lr`` and, when ``rate_fn`` is given, the step counter. The rates
     must equal ``rate_fn`` of the counter on the host (1e-6 relative; a
     constant rate must stay what it was), the counter run ``begin``,
-    ``begin + 1``, ..., the captured losses and the whole state equal the
-    eager ones norm-wise (1e-3, the AMP tolerance: every leg runs under
-    AMP; the largest one tensor's difference and bit-equality reported), one capture and
+    ``begin + 1``, ..., the captured losses and each tensor of the state
+    equal the eager ones norm-wise (1e-3, the AMP tolerance: every leg
+    runs under AMP; bit-equality reported), the same eager steps rerun
+    from the start bit-equal, one capture and
     ``len(feeds) - 2`` replays, no host sync in an eager step, and each
-    kernel of ``per_step`` at its count in one replay. Returns the leg's
+    kernel of ``per_step`` at its count in one replay; with ``tail``, the
+    optimizer tail's device ms (``tail_device_ms``). Returns the leg's
     numbers and its ``eager_step`` / ``captured_steps(k)`` for the timing
     in turns (the executors stay open: close them with ``close``)."""
     import paddle_tpu_torch as fluid
@@ -4944,14 +5185,21 @@ def scheduled_leg(leg, main, loss, lr, scope, feeds, rate_fn, begin,
     differing = most_different(scope_c, scope)
     check(bool(np.isfinite(losses_e + losses_c).all()),
           "%s: non-finite loss: %r / %r" % (leg, losses_e, losses_c))
-    # the whole state norm-wise: two eager runs of a recipe step from one
-    # start already part in a few tensors on the card (one run in three
-    # for LAMB: a second moment 1.5 % apart, the whole state 3.6e-6),
-    # so one tensor alone is reported, not held
-    check(loss_err <= tol and whole_err <= tol,
-          "%s: captured losses %r against eager %r (%.3g), state %.3g "
-          "norm-wise (tolerance %g)" % (leg, losses_c, losses_e, loss_err,
-                                        whole_err, tol))
+    # each tensor of the state norm-wise. The step's gradients used to
+    # part between two eager runs and between streams (a 4,096-fold
+    # repeated embedding row summed by F.embedding's backward, which
+    # LAMB's trust ratio spread to 1.5 % in a second moment); the port's
+    # lookup gradient now takes torch's deterministic path, so two eager
+    # runs of the leg from one start must be bit-equal, and captured
+    # against eager is held tensor by tensor
+    check(loss_err <= tol and state_err <= tol,
+          "%s: captured losses %r against eager %r (%.3g), the most "
+          "different tensor %.3g norm-wise (tolerance %g): %r"
+          % (leg, losses_c, losses_e, loss_err, state_err, tol, differing))
+    check(rerun == losses_e and rerun_equal,
+          "%s: two eager runs from one start parted: losses %r / %r, state "
+          "%.3g whole, %.3g in one tensor" % (leg, rerun, losses_e,
+                                              rerun_whole, rerun_worst))
     check((captures, replays) == (1, n - WARMUP_STEPS),
           "%s: %d captures and %d replays in %d steps" % (leg, captures,
                                                           replays, n))
@@ -4975,13 +5223,13 @@ def scheduled_leg(leg, main, loss, lr, scope, feeds, rate_fn, begin,
     check(graph_launches == 1 and counts == want,
           "%s: %d graph launches, kernels in one replay %r, want %r; each "
           "profile taken %r" % (leg, graph_launches, counts, want, tries))
-    tail = tail_device_ms(exe, main, fetch, scope, dfeed)
+    tail = tail_device_ms(exe, main, fetch, scope, dfeed) if tail else None
 
     def close():
         exe.close()
         exe_c.close()
 
-    return {
+    return {"release_graphs": exe_c.close,
         "numbers": dict(
             steps=n, warmup_steps=WARMUP_STEPS, captures=captures,
             replays=replays, losses_eager=losses_e, losses_captured=losses_c,
@@ -5178,6 +5426,685 @@ def transformer_noam_train_phase(xent_rows):
     del runs
     torch.cuda.empty_cache()
     emit("transformer_noam_phase", seconds=time.perf_counter() - t_phase)
+
+
+# -- the dense op remainder and dist_transformer.py's loss --------------------
+
+
+def kernel_device_ms(step):
+    """``step()`` once under torch.profiler: {kernel name: [launches,
+    device ms]} (copies and memsets left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    return {e.key: [e.count, e.self_device_time_total / 1e3]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))}
+
+
+# kernel kinds of the loss's ops, by name (the first pattern that matches)
+LOSS_KINDS = (("one_hot (compare, cast)", r"CompareEq|compare|eq_kernel"),
+              ("log_softmax", r"softmax|SoftMax"),
+              ("reduce", r"reduce|Reduce"),
+              ("copy/cast", r"copy|Copy|cast"),
+              ("elementwise", r"elementwise|vectorized|unrolled|Functor"))
+
+
+def loss_kernels(one_hot_replay, fused_replay, top=12):
+    """Where the one-hot form's extra device time goes: each kernel's
+    device ms in one replay of the one-hot form's step less its ms in one
+    replay of the fused form's, by kind (``LOSS_KINDS``) and the largest
+    by name."""
+    a = kernel_device_ms(one_hot_replay)
+    b = kernel_device_ms(fused_replay)
+    delta = {k: a.get(k, [0, 0.0])[1] - b.get(k, [0, 0.0])[1]
+             for k in set(a) | set(b)}
+    kinds = {}
+    for k, d in delta.items():
+        kind = next((n for n, pat in LOSS_KINDS if re.search(pat, k)),
+                    "other")
+        kinds[kind] = kinds.get(kind, 0.0) + d
+    largest = sorted(delta.items(), key=lambda kv: -abs(kv[1]))[:top]
+    return {"device_ms_one_hot": sum(v[1] for v in a.values()),
+            "device_ms_fused": sum(v[1] for v in b.values()),
+            "delta_ms_by_kind": kinds,
+            "delta_ms_largest": [[k[:90], d, a.get(k, [0])[0],
+                                  b.get(k, [0])[0]] for k, d in largest]}
+
+
+def dist_parity(fluid, amp):
+    """``bench_transformer`` at dropout 0 with ``dist_transformer.py``'s
+    loss and with the fused one, from one start state, one step on one
+    padded batch: the loss and the whole state after the step must agree
+    (1e-3 relative under AMP, 1e-5 in float32)."""
+    dev = fluid.CUDAPlace(0)
+    feed = padded_feed(TRAIN_BATCH, seed=3)
+    om, ostart, ol = build_bench_transformer(fluid, dropout=0.0, amp=amp,
+                                             one_hot_loss=True)
+    fm, _, fl = build_bench_transformer(fluid, dropout=0.0, amp=amp)
+    sc_o = fluid.Scope()
+    ex = fluid.Executor(dev)
+    ex.run(ostart, scope=sc_o)
+    sc_f = clone_scope(fluid, sc_o)
+    lo = float(ex.run(om, feed=feed, fetch_list=[ol], scope=sc_o)[0])
+    lf = float(ex.run(fm, feed=feed, fetch_list=[fl], scope=sc_f)[0])
+    whole, worst, equal = state_norm_err(sc_o, sc_f)
+    tol = 1e-3 if amp else 1e-5
+    out = {"loss_one_hot": lo, "loss_fused": lf,
+           "loss_rel_diff": abs(lo - lf) / abs(lf),
+           "state_whole_norm_diff": whole, "state_max_norm_diff": worst,
+           "most_different": most_different(sc_o, sc_f, 3),
+           "bit_equal": bool(lo == lf and equal), "tolerance": tol}
+    check(np.isfinite([lo, lf]).all() and out["loss_rel_diff"] <= tol
+          and whole <= tol,
+          "dist_transformer parity (%s): one-hot form against fused %r"
+          % ("amp" if amp else "float32", out))
+    ex.close()
+    del sc_o, sc_f
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_transformer_train_phase(xent_rows):
+    """``bench_transformer`` (6+6 layers, d_model 512, 64 x 256, vocab
+    30000, dropout 0.1, AMP) under Fluid's Transformer recipe
+    (``noam_decay(512, 8000) * 2.0``, Adam(0.9, 0.997, 1e-9)) with the loss
+    of Fluid's ``dist_transformer.py``: ``label_smooth(one_hot(label),
+    0.1)``, a soft-label ``softmax_with_cross_entropy``, ``reduce_sum(cost
+    * weights) / reduce_sum(weights)``; as ``scheduled_leg`` (rates,
+    counter, captured = eager, eager reruns bit-equal), in turns with the
+    fused form (K2 at epsilon 0.1). K2 must not launch in the one-hot
+    form and launch once a step each way in the fused one. Reports step
+    ms eager and captured, tokens/s, busy share, peak memory over the
+    leg's start and the device ms the one-hot form adds by kind (one
+    profiled replay of each). At dropout 0 on one state and one padded
+    batch the two forms must agree (``dist_parity``, AMP and float32)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.executor import WARMUP_STEPS
+
+    t_phase = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    feed = train_feed(TRAIN_BATCH)
+    tokens = TRAIN_BATCH * TRAIN["seq"]
+    runs = {}
+    for name, one_hot in (("one_hot", True), ("fused", False)):
+        recipe = Recipe("noam")
+        main, startup, loss = build_bench_transformer(
+            fluid, optimizer=recipe, one_hot_loss=one_hot)
+        types_ = [op.type for op in main.global_block.ops]
+        scope = fluid.Scope()
+        fluid.Executor(dev).run(startup, scope=scope)
+        per_step = {k: (pat, 0 if one_hot else 1)
+                    for k, pat in K2_NAMES.items()}
+        run = scheduled_leg("dist_transformer_" + name, main, loss,
+                            recipe.lr, scope, [feed] * CAPTURED_STEPS,
+                            noam_rate, 1, per_step, tail=False)
+        nums = run["numbers"]
+        want = 0 if one_hot else CAPTURED_STEPS
+        check(nums["k2_launches_eager"] == {"fwd": want, "bwd": want},
+              "dist_transformer_%s: K2 launches %r over %d steps"
+              % (name, nums["k2_launches_eager"], CAPTURED_STEPS))
+        nums["loss_ops"] = {t: types_.count(t) for t in (
+            "one_hot", "label_smooth", "softmax_with_cross_entropy",
+            "reduce_sum")}
+        check(nums["loss_ops"]["one_hot"] == (1 if one_hot else 0),
+              "dist_transformer_%s: loss ops %r" % (name, nums["loss_ops"]))
+        # both legs' graphs and an eager one-hot step do not fit the card
+        # together (~46 GB of graph pools): each graph is dropped after
+        # its leg and captured again for the captured turns
+        run["release_graphs"]()
+        torch.cuda.empty_cache()
+        runs[name] = run
+    medians, blocks = time_in_turns({
+        name + "_eager": (lambda k, step=run["eager_step"]:
+                          [step() for _ in range(k)])
+        for name, run in runs.items()})
+    for run in runs.values():
+        run["captured_steps"](WARMUP_STEPS + 1)
+    m_c, b_c = time_in_turns({name + "_captured": run["captured_steps"]
+                              for name, run in runs.items()})
+    medians.update(m_c)
+    blocks.update(b_c)
+    kernels = loss_kernels(lambda: runs["one_hot"]["captured_steps"](1),
+                           lambda: runs["fused"]["captured_steps"](1))
+    for run in runs.values():
+        run["close"]()
+    parity = {"amp": dist_parity(fluid, True),
+              "float32": dist_parity(fluid, False)}
+    for name, run in runs.items():
+        nums = run["numbers"]
+        step_c = medians[name + "_captured"]
+        emit("dist_transformer_train", leg=name, mode="bfloat16_amp",
+             config=TRAIN, batch=TRAIN_BATCH,
+             loss_form="label_smooth(one_hot) + soft-label xent"
+             if name == "one_hot" else "fused label smoothing (K2)",
+             recipe="noam_decay(512, 8000) * 2.0, Adam(0.9, 0.997, 1e-9)",
+             step_ms_eager=medians[name + "_eager"], step_ms_captured=step_c,
+             tokens_per_s_captured=tokens / (step_c / 1e3),
+             tokens_per_s_eager=tokens / (medians[name + "_eager"] / 1e3),
+             step_ms_turns={m: blocks[name + "_" + m]
+                            for m in ("eager", "captured")},
+             peak_gb_over_start_eager=(nums["peak_memory_eager"]
+                                       - nums["memory_at_leg_start"]) / 1e9,
+             peak_gb_over_start_captured=(nums["peak_memory_captured"]
+                                          - nums["memory_at_leg_start"])
+             / 1e9, nvidia_smi=SMI[0], **nums)
+    emit("dist_transformer_loss", kernels_one_hot_minus_fused=kernels,
+         dropout0_parity=parity, nvidia_smi=SMI[0])
+    for row, kern in zip(xent_rows, ("K2a", "K2b")):
+        launches = row.setdefault("launches_by_leg", {})
+        for name, run in runs.items():
+            launches["dist_transformer_" + name] = \
+                run["numbers"]["k2_launches_eager"][
+                    "fwd" if kern == "K2a" else "bwd"]
+    del runs
+    torch.cuda.empty_cache()
+    emit("dist_transformer_phase", seconds=time.perf_counter() - t_phase)
+
+
+def _grad_embedding(ids, rows, v):
+    """``F.embedding``'s own backward."""
+    return torch.ops.aten.embedding_dense_backward(rows, ids, v, -1, False)
+
+
+def lookup_determinism(dev, reps=5):
+    """The dense lookup's table gradient on the card, run ``reps`` times
+    on the default stream and on a side stream, bf16, at BERT's shapes
+    (the sentence table: 4,096 lookups of one id; the position table: 512
+    ids 32 times each; the word table: 4,096 ids of 30,522) and the
+    Transformer's (16,384 ids of 30,000; and with 30 % of them the padding
+    id 0): whether every run gives the same bits, the host syncs of one
+    call, and its ms, for the port's table gradient (``nn_ops._table_grad``,
+    the backward of ``nn_ops._Lookup``, which must give the same bits) and
+    for ``F.embedding``'s own backward (the library's, which parts on the
+    sentence table)."""
+    from paddle_tpu_torch.ops.nn_ops import _table_grad
+
+    cases = {"bert_sent": (2, BERT_BATCH * BERT_SEQ, 768, "one"),
+             "bert_pos": (512, BERT_BATCH * BERT_SEQ, 768, "tiled"),
+             "bert_word": (BERT_VOCAB, BERT_BATCH * BERT_SEQ, 768, "random"),
+             "transformer_word": (TRAIN["vocab"], TRAIN_BATCH * TRAIN["seq"],
+                                  TRAIN["d_model"], "random"),
+             "transformer_padded": (TRAIN["vocab"],
+                                    TRAIN_BATCH * TRAIN["seq"],
+                                    TRAIN["d_model"], "padded")}
+    out = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    side = torch.cuda.Stream()
+    for case, (v, n, d, kind) in cases.items():
+        if kind == "one":
+            ids = torch.zeros(n, dtype=torch.long, device=dev)
+        elif kind == "tiled":
+            ids = torch.arange(n, device=dev) % BERT_SEQ
+        else:
+            ids = torch.randint(0, v, (n,), generator=gen, device=dev)
+            if kind == "padded":
+                pad = torch.rand(n, generator=gen, device=dev) < 0.3
+                ids = torch.where(pad, 0, ids)
+        g = torch.randn(n, d, generator=gen, device=dev).bfloat16()
+        fns = {"F.embedding": _grad_embedding, "port": _table_grad}
+        for name, fn in fns.items():
+            def grad(fn=fn):
+                return fn(ids, g, v)
+
+            first = grad()
+            same_default = all(torch.equal(grad(), first)
+                               for _ in range(reps))
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                on_side = [grad() for _ in range(reps)]
+            torch.cuda.current_stream().wait_stream(side)
+            want = _grad_embedding(ids, g.float(), v)
+            out["%s_%s" % (case, name)] = {
+                "bit_equal_default_stream": same_default,
+                "bit_equal_side_stream": all(torch.equal(x, first)
+                                             for x in on_side),
+                "host_syncs": len(host_syncs(grad)),
+                "norm_err_vs_float32": float((first.float() - want).norm()
+                                             / want.norm()),
+                "ms": cuda_ms(grad, reps=10)}
+    emit("lookup_determinism", nvidia_smi=SMI[0], **out)
+    check(all(v["bit_equal_default_stream"] and v["bit_equal_side_stream"]
+              and v["host_syncs"] == 0
+              for k, v in out.items() if k.endswith("_port")),
+          "the port's lookup gradient parted between runs or synced the "
+          "host: %r" % out)
+    return out
+
+
+def registered_op(op_type, attrs, inputs, outs, dev, cot_seed=1):
+    """The port's registered op on ``inputs`` ({slot: tensor or [tensors]},
+    copied to ``dev``; the float ones take gradients) with a trace on
+    ``dev``; returns ({out name: tensor}, {input name: gradient}) for the
+    float outputs against cotangents drawn on the CPU from
+    ``cot_seed``."""
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+
+    names, env = {}, {}
+    for slot, v in inputs.items():
+        vs = v if isinstance(v, list) else [v]
+        names[slot] = [slot] if not isinstance(v, list) else [
+            "%s%d" % (slot, i) for i in range(len(v))]
+        for n, t in zip(names[slot], vs):
+            t = t.to(dev)
+            env[n] = t.requires_grad_(True) if t.is_floating_point() else t
+    leaves = {n: t for n, t in env.items() if t.requires_grad}
+    out_names = {s: [s] if k == 1 else ["%s%d" % (s, i) for i in range(k)]
+                 for s, k in outs.items()}
+    op = SimpleNamespace(type=op_type, attrs=dict(attrs), block=None,
+                         inputs=names, outputs=out_names)
+    trace = SimpleNamespace(is_test=False, device=dev, program=None)
+    get_op_impl(op_type)(OpContext(op, env, trace))
+    got = {n: env[n] for ns in out_names.values() for n in ns if n in env}
+    fl = [n for n, t in got.items() if t.requires_grad]
+    grads = {}
+    if fl and leaves:
+        g = torch.Generator().manual_seed(cot_seed)
+
+        def cot(shape):
+            # a [16384, 30000] draw on the host takes seconds: past 2^27
+            # elements one random row, repeated
+            if int(np.prod(shape)) <= 1 << 27:
+                return torch.randn(shape, generator=g)
+            return torch.randn(shape[-1], generator=g).expand(shape)
+
+        cots = [cot(got[n].shape).to(dtype=got[n].dtype, device=dev)
+                for n in fl]
+        gs = torch.autograd.grad([got[n] for n in fl], list(leaves.values()),
+                                 cots, allow_unused=True)
+        grads = {n: x for n, x in zip(leaves, gs) if x is not None}
+    return ({n: t.detach() for n, t in got.items()},
+            {n: t.detach() for n, t in grads.items()})
+
+
+def card_cpu_err(card, cpu):
+    """Largest norm-wise relative difference of the float tensors of
+    ``card`` from ``cpu`` ({name: tensor}), and whether every other one
+    is equal (dtype and shape included)."""
+    err, exact = 0.0, True
+    for n, want in cpu.items():
+        got = card[n]
+        if got.dtype != want.dtype or got.shape != want.shape:
+            return float("inf"), False
+        want = want.to(got.device)
+        if want.is_floating_point():
+            d = float((got.double() - want.double()).norm())
+            err = max(err, d / max(float(want.double().norm()), 1e-30))
+        else:
+            exact = exact and torch.equal(got, want)
+    return err, exact
+
+
+def dense_op_cases():
+    """(name, op type, attrs, inputs (a thunk of CPU tensors), outputs,
+    dtypes) of every op of the dense slice: at the shapes of the models
+    that use them where the slice names one (group/instance norm and
+    pad2d at ResNet-50's [64, 256, 56, 56], bilinear 56 -> 112 at batch
+    16, the reductions and cumsum at [64, 256, 512], log_softmax at
+    BERT's [640, 30522], one_hot and label_smooth at the Transformer's
+    [16384, 30000]), else at small ones."""
+    g = torch.Generator().manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g)
+
+    def ri(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g)
+
+    big = (64, 256, 56, 56)
+    red = (64, 256, 512)
+    n_tok, v = TRAIN_BATCH * TRAIN["seq"], TRAIN["vocab"]
+    both = (torch.float32, torch.bfloat16)
+    f32 = (torch.float32,)
+    cases = [
+        ("group_norm", "group_norm", {"groups": 32}, lambda: {
+            "X": rn(*big), "Scale": rn(256), "Bias": rn(256)},
+         {"Y": 1, "Mean": 1, "Variance": 1}, both),
+        ("instance_norm", "instance_norm", {}, lambda: {
+            "X": rn(*big), "Scale": rn(256), "Bias": rn(256)}, {"Y": 1},
+         both),
+        ("pad2d_reflect", "pad2d", {"paddings": [1, 1, 2, 2],
+                                    "mode": "reflect"},
+         lambda: {"X": rn(*big)}, {"Out": 1}, both),
+        ("pad2d_constant_nhwc", "pad2d", {
+            "paddings": [1, 0, 0, 1], "pad_value": 0.5,
+            "data_format": "NHWC"}, lambda: {"X": rn(8, 56, 56, 256)},
+         {"Out": 1}, f32),
+        ("pad2d_edge", "pad2d", {"paddings": [0, 2, 1, 0], "mode": "edge"},
+         lambda: {"X": rn(8, 256, 56, 56)}, {"Out": 1}, f32),
+        ("bilinear_interp", "bilinear_interp", {
+            "out_h": 112, "out_w": 112, "align_corners": False,
+            "align_mode": 0}, lambda: {"X": rn(16, 256, 56, 56)},
+         {"Out": 1}, both),
+        ("nearest_interp", "nearest_interp", {"out_h": 112, "out_w": 112},
+         lambda: {"X": rn(16, 256, 56, 56)}, {"Out": 1}, f32),
+        ("log_softmax", "log_softmax", {}, lambda: {"X": rn(640, 30522)},
+         {"Out": 1}, both),
+        ("one_hot", "one_hot", {"depth": v},
+         lambda: {"X": ri(v, n_tok, 1)}, {"Out": 1}, f32),
+        ("label_smooth", "label_smooth", {"epsilon": 0.1}, lambda: {
+            "X": (ri(v, n_tok, 1) == torch.arange(v)).float()},
+         {"Out": 1}, f32),
+        ("cumsum", "cumsum", {"axis": 2, "exclusive": True,
+                              "reverse": True}, lambda: {"X": rn(*red)},
+         {"Out": 1}, f32),
+    ]
+    for op in ("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+               "logsumexp"):
+        cases.append((op, op, {"dim": [2]}, lambda: {"X": rn(*red)},
+                      {"Out": 1}, f32))
+    cases += [
+        ("reduce_prod", "reduce_prod", {"dim": [1]},
+         lambda: {"X": 1 + rn(*red) / 64}, {"Out": 1}, f32),
+        ("reduce_all", "reduce_all", {"dim": [2]},
+         lambda: {"X": rn(*red) > -3}, {"Out": 1}, f32),
+        ("reduce_any", "reduce_any", {"dim": [2]},
+         lambda: {"X": rn(*red) > 3}, {"Out": 1}, f32),
+    ]
+    small = {
+        "flatten2": ({"axis": 2}, lambda: {"X": rn(4, 6, 5)},
+                     {"Out": 1, "XShape": 1}),
+        "flatten": ({"axis": 1}, lambda: {"X": rn(4, 6, 5)}, {"Out": 1}),
+        "stack": ({"axis": 1}, lambda: {"X": [rn(4, 5) for _ in range(3)]},
+                  {"Y": 1}),
+        "unstack": ({"axis": 1}, lambda: {"X": rn(4, 3, 5)}, {"Y": 3}),
+        "strided_slice": ({"axes": [1, 2], "starts": [-1, 4],
+                           "ends": [0, -6], "strides": [-2, -1]},
+                          lambda: {"Input": rn(4, 6, 5)}, {"Out": 1}),
+        "gather_nd": ({}, lambda: {"X": rn(4, 6, 5), "Index": torch.stack(
+            [ri(4, 7), ri(6, 7)], -1)}, {"Out": 1}),
+        "scatter": ({"overwrite": True}, lambda: {
+            "X": rn(64, 32), "Ids": torch.tensor([3, 0, 3, 6, 3, 0]),
+            "Updates": rn(6, 32)}, {"Out": 1}),
+        "expand": ({"expand_times": [2, 1, 3]}, lambda: {"X": rn(4, 6, 5)},
+                   {"Out": 1}),
+        "expand_as": ({}, lambda: {"X": rn(4, 1, 5),
+                                   "target_tensor": rn(4, 6, 10)},
+                      {"Out": 1}),
+        "tile": ({"repeat_times": [3, 2]}, lambda: {"X": rn(4, 6, 5)},
+                 {"Out": 1}),
+        "pad": ({"paddings": [0, 1, 2, 0, 1, 1], "pad_value": 0.5},
+                lambda: {"X": rn(4, 6, 5)}, {"Out": 1}),
+        "pad_constant_like": ({"pad_value": 2.0}, lambda: {
+            "X": rn(5, 7, 4), "Y": rn(3, 7, 2)}, {"Out": 1}),
+        "crop": ({"offsets": [1, 2, 0], "shape": [2, 3, 5]},
+                 lambda: {"X": rn(4, 6, 5)}, {"Out": 1}),
+        "reverse": ({"axis": [0, 2]}, lambda: {"X": rn(4, 6, 5)},
+                    {"Out": 1}),
+        "shape": ({}, lambda: {"Input": rn(4, 6, 5)}, {"Out": 1}),
+        "argsort": ({"axis": -1}, lambda: {"X": ri(3, 64, 50).float()},
+                    {"Out": 1, "Indices": 1}),
+        "arg_max": ({"axis": -1}, lambda: {"X": ri(2, 64, 50).float()},
+                    {"Out": 1}),
+        "arg_min": ({"axis": 0}, lambda: {"X": ri(2, 64, 50).float()},
+                    {"Out": 1}),
+        "multiplex": ({}, lambda: {"X": [rn(6, 5) for _ in range(3)],
+                                   "Ids": ri(3, 6, 1)}, {"Out": 1}),
+        "is_empty": ({}, lambda: {"X": rn(0, 5)}, {"Out": 1}),
+        "fill_constant_batch_size_like": (
+            {"shape": [-1, 3], "value": 2.5, "input_dim_idx": 0,
+             "output_dim_idx": 0}, lambda: {"Input": rn(7, 2)}, {"Out": 1}),
+        "assign": ({}, lambda: {"X": rn(4, 6)}, {"Out": 1}),
+        "range": ({}, lambda: {"Start": torch.tensor([0.5]),
+                               "End": torch.tensor([7.0]),
+                               "Step": torch.tensor([1.5])}, {"Out": 1}),
+        "linspace": ({}, lambda: {"Start": torch.tensor([-1.0]),
+                                  "Stop": torch.tensor([2.0]),
+                                  "Num": torch.tensor([7])}, {"Out": 1}),
+        "shuffle_channel": ({"group": 4}, lambda: {"X": rn(2, 8, 6, 6)},
+                            {"Out": 1}),
+        "pixel_shuffle": ({"upscale_factor": 2},
+                          lambda: {"X": rn(2, 8, 6, 6)}, {"Out": 1}),
+        "space_to_depth": ({"blocksize": 3}, lambda: {"X": rn(2, 8, 6, 6)},
+                           {"Out": 1}),
+        "elementwise_mod": ({}, lambda: {"X": ri(40, 64, 8) - 20,
+                                         "Y": ri(5, 64, 8) + 1}, {"Out": 1}),
+        "elementwise_floordiv": ({}, lambda: {"X": ri(40, 64, 8) - 20,
+                                              "Y": ri(5, 64, 8) + 1},
+                                 {"Out": 1}),
+        "norm": ({"axis": 1}, lambda: {"X": rn(8, 64)},
+                 {"Out": 1, "Norm": 1}),
+        "l1_norm": ({}, lambda: {"X": rn(8, 64)}, {"Out": 1}),
+        "squared_l2_distance": ({}, lambda: {"X": rn(8, 64),
+                                             "Y": rn(8, 64)},
+                                {"Out": 1, "sub_result": 1}),
+        "cos_sim": ({}, lambda: {"X": rn(8, 64), "Y": rn(8, 64)},
+                    {"Out": 1, "XNorm": 1, "YNorm": 1}),
+        "minus": ({}, lambda: {"X": rn(8, 64), "Y": rn(8, 64)}, {"Out": 1}),
+        "bilinear_tensor_product": ({}, lambda: {
+            "X": rn(8, 16), "Y": rn(8, 24), "Weight": rn(32, 16, 24),
+            "Bias": rn(1, 32)}, {"Out": 1}),
+        "dot": ({}, lambda: {"X": rn(8, 64), "Y": rn(8, 64)}, {"Out": 1}),
+        "isfinite": ({}, lambda: {"X": rn(8, 64)}, {"Out": 1}),
+        "has_inf": ({}, lambda: {"X": rn(8, 64) / 0}, {"Out": 1}),
+        "has_nan": ({}, lambda: {"X": rn(8, 64)}, {"Out": 1}),
+        "sigmoid_cross_entropy_with_logits": (
+            {"ignore_index": -1, "normalize": True}, lambda: {
+                "X": rn(64, 10), "Label": ri(3, 64, 10).float() - 1},
+            {"Out": 1}),
+        "log_loss": ({}, lambda: {"Predicted": torch.rand(64, 1,
+                                                          generator=g),
+                                  "Labels": ri(2, 64, 1).float()},
+                     {"Loss": 1}),
+        "huber_loss": ({"delta": 0.8}, lambda: {"X": rn(64, 1),
+                                                "Y": rn(64, 1)},
+                       {"Out": 1, "Residual": 1}),
+        "smooth_l1_loss": ({"sigma": 1.5}, lambda: {"X": rn(64, 4),
+                                                    "Y": rn(64, 4)},
+                           {"Out": 1, "Diff": 1}),
+        "hinge_loss": ({}, lambda: {"Logits": rn(64, 1),
+                                    "Labels": ri(2, 64, 1).float()},
+                       {"Loss": 1}),
+        "rank_loss": ({}, lambda: {"Label": ri(2, 64, 1).float(),
+                                   "Left": rn(64, 1), "Right": rn(64, 1)},
+                      {"Out": 1}),
+        "bpr_loss": ({}, lambda: {"X": rn(64, 9), "Label": ri(9, 64, 1)},
+                     {"Y": 1}),
+        "margin_rank_loss": ({"margin": 0.1}, lambda: {
+            "Label": ri(2, 64, 1).float() * 2 - 1, "X1": rn(64, 1),
+            "X2": rn(64, 1)}, {"Out": 1, "Activated": 1}),
+        "lrn": ({"n": 5, "alpha": 1e-2}, lambda: {"X": rn(8, 64, 14, 14)},
+                {"Out": 1, "MidOut": 1}),
+        "data_norm": ({}, lambda: {
+            "X": rn(64, 16), "BatchSize": torch.full((16,), 10.0),
+            "BatchSum": rn(16) * 10,
+            "BatchSquareSum": 20 + rn(16).abs() * 10},
+            {"Y": 1, "Means": 1, "Scales": 1}),
+        "affine_channel": ({}, lambda: {"X": rn(8, 64, 14, 14),
+                                        "Scale": rn(64), "Bias": rn(64)},
+                           {"Out": 1}),
+        "mean_iou": ({"num_classes": 21}, lambda: {
+            "Predictions": ri(21, 4, 64, 64),
+            "Labels": ri(21, 4, 64, 64)}, {"OutMeanIou": 1}),
+    }
+    for op, (attrs, inputs, outs) in small.items():
+        cases.append((op, op, attrs, inputs, outs, f32))
+    return cases
+
+
+def load_case(tmp):
+    """``load`` of a ``.npy`` written as ``io.save_vars`` writes one."""
+    path = tmp + "/dense_load.npy"
+    np.save(path, np.random.RandomState(0).randn(64, 32).astype("float32"))
+    return ("load", "load", {"file_path": path}, lambda: {}, {"Out": 1},
+            (torch.float32,))
+
+
+RANDOM_OPS = {
+    "uniform_random_batch_size_like": (
+        {"shape": [-1, 1000], "min": -2.0, "max": 4.0}, 1.0, 6 / 12 ** 0.5),
+    "gaussian_random_batch_size_like": (
+        {"shape": [-1, 1000], "mean": 1.5, "std": 0.5}, 1.5, 0.5),
+    "randint": ({"shape": [1000, 1000], "low": -3, "high": 7}, 1.5,
+                (100 - 1) ** 0.5 / 12 ** 0.5),
+}
+
+
+def random_op_check(dev):
+    """The random ops on the card: shape, dtype, range and mean within 4
+    sigma (their draws are the card generator's, not the CPU's), and the
+    same bits from the same seed."""
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+    from paddle_tpu_torch.executor import TraceContext
+
+    out = {}
+    for op_type, (attrs, mean, std) in RANDOM_OPS.items():
+        draws = []
+        for _ in range(2):
+            env = {"Input": torch.zeros(1000, 3, device=dev)}
+            op = SimpleNamespace(
+                type=op_type, attrs=dict(attrs), block=None,
+                inputs={} if op_type == "randint" else {"Input": ["Input"]},
+                outputs={"Out": ["Out"]})
+            trace = TraceContext(SimpleNamespace(random_seed=5), False, dev,
+                                 0)
+            get_op_impl(op_type)(OpContext(op, env, trace))
+            draws.append(env["Out"])
+        x = draws[0].double()
+        lo, hi = attrs.get("min", attrs.get("low", -np.inf)), \
+            attrs.get("max", attrs.get("high", np.inf))
+        ok = (tuple(x.shape) == (1000, 1000)
+              and abs(float(x.mean()) - mean) < 4 * std / 1000
+              and float(x.min()) >= lo and float(x.max()) <= hi
+              and torch.equal(draws[0], draws[1]))
+        out[op_type] = {"ok": bool(ok), "mean": float(x.mean()),
+                        "dtype": str(draws[0].dtype)}
+    check(all(v["ok"] for v in out.values()),
+          "dense_ops: random ops on the card %r" % out)
+    return out
+
+
+def gradients_card_vs_cpu():
+    """``fluid.gradients`` through a double grad (a WGAN-GP penalty
+    ||dD/dx||^2 on a 3-layer MLP at width 1024, trained 3 Adam steps) and
+    ``WeightNormParamAttr`` on an ``fc`` under a ``reduce_mean`` loss (3
+    SGD steps), each from one start state on the card and on the CPU:
+    fetches within 1e-5 norm-wise."""
+    import paddle_tpu_torch as fluid
+
+    def penalty(width=1024):
+        x = fluid.layers.data("x", shape=[width])
+        h = x
+        for i in range(2):
+            h = fluid.layers.fc(h, size=width, act="tanh", name="d%d" % i)
+        d = fluid.layers.fc(h, size=1, name="d_out")
+        (gx,) = fluid.gradients(fluid.layers.reduce_sum(d), x)
+        pen = fluid.layers.reduce_mean(fluid.layers.reduce_sum(
+            fluid.layers.square(gx), dim=[1]))
+        loss = fluid.layers.elementwise_add(fluid.layers.reduce_mean(d),
+                                            fluid.layers.scale(pen, 10.0))
+        fluid.optimizer.Adam(1e-4).minimize(loss)
+        return [loss, pen, gx], {"x": np.random.RandomState(0).randn(
+            64, width).astype("float32")}
+
+    def weight_norm():
+        x = fluid.layers.data("x", shape=[256])
+        out = fluid.layers.fc(x, size=512, act="relu", param_attr=(
+            fluid.WeightNormParamAttr(dim=1, name="wn")))
+        loss = fluid.layers.reduce_mean(fluid.layers.square(
+            fluid.layers.fc(out, size=1)))
+        fluid.optimizer.SGD(0.05).minimize(loss)
+        return [loss], {"x": np.random.RandomState(1).randn(
+            64, 256).astype("float32")}
+
+    out = {}
+    for name, build in (("gradient_penalty", penalty),
+                        ("weight_norm_fc", weight_norm)):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            fetch, feed = build()
+        rows = {}
+        cpu_scope = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu_scope)
+        card_scope = fluid.Scope()
+        for k, v in cpu_scope.vars.items():
+            card_scope.set_var(k, v.cuda() if isinstance(v, torch.Tensor)
+                               else v)
+        for key, place, scope in (("cpu", fluid.CPUPlace(), cpu_scope),
+                                  ("card", fluid.CUDAPlace(0), card_scope)):
+            exe = fluid.Executor(place)
+            main._tpu_step_counter = 0
+            rows[key] = [[torch.as_tensor(np.asarray(v)) for v in
+                          exe.run(main, feed=feed, fetch_list=fetch,
+                                  scope=scope)] for _ in range(3)]
+        cpu_rows, card_rows = rows["cpu"], rows["card"]
+        err = max(card_cpu_err({i: t for i, t in enumerate(c)},
+                               {i: t for i, t in enumerate(w)})[0]
+                  for c, w in zip(card_rows, cpu_rows))
+        out[name] = {"max_norm_diff": err,
+                     "losses_card": [float(r[0]) for r in card_rows],
+                     "losses_cpu": [float(r[0]) for r in cpu_rows]}
+        check(err <= 1e-5, "dense_ops %s: card against CPU %r"
+              % (name, out[name]))
+    return out
+
+
+def dense_ops_phase():
+    """Every op of the dense slice forward and backward on the card
+    against the same call on CPU tensors (``dense_op_cases``): float
+    outputs and gradients within 1e-5 norm-wise in float32 and 1e-2 in
+    bf16, integer and bool outputs equal; the random ops by their
+    moments (``random_op_check``); ``fluid.gradients`` and
+    ``WeightNormParamAttr`` card = CPU (``gradients_card_vs_cpu``)."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows, ops = {}, set()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, op_type, attrs, inputs, outs, dtypes in \
+                dense_op_cases() + [load_case(tmp)]:
+            base = inputs()
+            for dt in dtypes:
+                tol = 1e-5 if dt == torch.float32 else 1e-2
+                inp = {k: ([t.to(dt) for t in v] if isinstance(v, list)
+                           else v.to(dt) if v.is_floating_point() else v)
+                       for k, v in base.items()}
+                t0 = time.perf_counter()
+                cpu_out, cpu_g = registered_op(op_type, attrs, inp, outs,
+                                               torch.device("cpu"))
+                card_out, card_g = registered_op(op_type, attrs, inp, outs,
+                                                 dev)
+                torch.cuda.synchronize()
+                e_out, exact = card_cpu_err(card_out, cpu_out)
+                e_grad, _ = card_cpu_err(card_g, cpu_g)
+                key = "%s_%s" % (name, str(dt).replace("torch.", ""))
+                rows[key] = {"out_err": e_out, "grad_err": e_grad,
+                             "exact": exact, "grads": len(cpu_g),
+                             "shape": list(next(iter(cpu_out.values()))
+                                           .shape),
+                             "s": time.perf_counter() - t0}
+                check(e_out <= tol and e_grad <= tol and exact
+                      and set(card_g) == set(cpu_g),
+                      "dense_ops %s: card against CPU %r (tolerance %g)"
+                      % (key, rows[key], tol))
+                ops.add(op_type)
+                del cpu_out, cpu_g, card_out, card_g, inp
+            del base
+            torch.cuda.empty_cache()
+    random_ops = random_op_check(dev)
+    ops |= set(random_ops)
+    grads = gradients_card_vs_cpu()
+    ops |= {"calc_gradient", "assign"}
+    emit("dense_ops", cases=rows, random_ops=random_ops, gradients=grads,
+         ops_held=len(ops - {"reduce_sum"}),
+         seconds=time.perf_counter() - t_phase)
+    held = ops - {"reduce_sum"}
+    check(len(held) == DENSE_OPS, "dense_ops: %d of the slice's %d ops "
+          "held: %s" % (len(held), DENSE_OPS, sorted(held)))
+
+
+# the op names the dense slice registers
+DENSE_OPS = 72
 
 
 # optimizer_parity: each optimizer class, the clips and the schedules on
@@ -5400,6 +6327,23 @@ def optimizer_parity_phase():
          seconds=time.perf_counter() - t_phase, results=results)
 
 
+def diagnose(args):
+    """``--recipe-bisect [--deterministic] NAME...``: ``recipe_bisect`` of
+    each recipe ("lamb", "adamw", "adam"; run ``--deterministic`` with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in the environment). The kernels
+    are built first."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    if "--recipe-bisect" not in args:
+        print("usage: chip_smoke.py [--recipe-bisect [--deterministic] "
+              "lamb|adamw|adam ...]", file=sys.stderr)
+        return 2
+    _build.build_all()
+    for name in [a for a in args if not a.startswith("--")]:
+        recipe_bisect(name, deterministic="--deterministic" in args)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5418,6 +6362,8 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     SMI[0] = smi
+    if sys.argv[1:]:
+        return diagnose(sys.argv[1:])
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
@@ -5467,6 +6413,7 @@ def main():
     timed(flash_dropout_captured_phase, flash_rows)
     timed(accum_train_phase, xent_rows)
     timed(transformer_noam_train_phase, xent_rows)
+    timed(dist_transformer_train_phase, xent_rows)
     with tempfile.TemporaryDirectory() as ckpt:
         timed(bert_train_phase, xent_rows, amp=True, ckpt_dir=ckpt)
         timed(bert_train_phase, xent_rows, amp=False)
@@ -5474,8 +6421,10 @@ def main():
     timed(bert_predictor_phase, infer)
     del infer
     timed(bert_parity_phase)
+    timed(lookup_determinism, dev)
     timed(bert_recipe_train_phase, xent_rows)
     timed(optimizer_parity_phase)
+    timed(dense_ops_phase)
     # the card again, so the end of a long log still names it
     emit("phase_seconds", nvidia_smi=smi, total=time.perf_counter() - t0,
          **phase_s)

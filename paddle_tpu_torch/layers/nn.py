@@ -894,13 +894,17 @@ def pad(x, paddings, pad_value=0.0, name=None):
 
 def pad2d(input, paddings=[0, 0, 0, 0], mode="constant", pad_value=0.0, data_format="NCHW", name=None):
     return _single_op_layer("pad2d", "pad2d", input,
-                            {"paddings": list(paddings), "mode": mode, "pad_value": pad_value}, name=name)
+                            {"paddings": list(paddings), "mode": mode, "pad_value": pad_value,
+                             "data_format": data_format}, name=name)
 
 
 def image_resize(input, out_shape=None, scale=None, name=None, resample="BILINEAR",
                  actual_shape=None, align_corners=True, align_mode=1):
     op = "bilinear_interp" if resample.upper() == "BILINEAR" else "nearest_interp"
-    attrs = {"scale": scale or 0.0}
+    # Fluid's interpolation rules (the JAX package's layer drops both
+    # attrs, and its op centres at half pixels)
+    attrs = {"scale": scale or 0.0, "align_corners": bool(align_corners),
+             "align_mode": int(align_mode)}
     if out_shape is not None:
         attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
     helper = LayerHelper(op, name=name)
@@ -910,11 +914,11 @@ def image_resize(input, out_shape=None, scale=None, name=None, resample="BILINEA
 
 
 def resize_bilinear(input, out_shape=None, scale=None, name=None, **kw):
-    return image_resize(input, out_shape, scale, name, "BILINEAR")
+    return image_resize(input, out_shape, scale, name, "BILINEAR", **kw)
 
 
 def resize_nearest(input, out_shape=None, scale=None, name=None, **kw):
-    return image_resize(input, out_shape, scale, name, "NEAREST")
+    return image_resize(input, out_shape, scale, name, "NEAREST", **kw)
 
 
 def pixel_shuffle(x, upscale_factor):

@@ -149,11 +149,19 @@ def transformer(
     label_smooth_eps=0.1,
     is_test=False,
     weight_sharing=False,
+    one_hot_loss=False,
 ):
     """Transformer-base seq2seq with teacher forcing (training graph).
 
     src_ids/trg_ids: [batch, seq] int64; trg_labels: [batch, seq, 1] int64
     (next-token targets); masks: [batch, seq] float 1.0 on real tokens.
+
+    ``one_hot_loss`` writes the loss as Fluid's ``dist_transformer.py``
+    (and PaddlePaddle/models' NMT ``transformer/model.py``) do, from
+    primitives: ``label_smooth(one_hot(label))`` and a soft-label
+    ``softmax_with_cross_entropy``, two [batch, seq, vocab] float32
+    tensors more than the fused form, which smooths inside the loss op.
+    The two are the same function.
     """
     d_key = d_value = d_model // n_head
 
@@ -180,9 +188,16 @@ def transformer(
                        name="predict")
     # label smoothing fused into the single log_softmax pass — the [B, S, V]
     # logits array is the HBM-bandwidth hot spot, traverse it once.
-    per_tok = layers.softmax_with_cross_entropy(
-        logits, trg_labels,
-        label_smoothing=(label_smooth_eps or 0.0) if not is_test else 0.0)
+    smooth = (label_smooth_eps or 0.0) if not is_test else 0.0
+    if one_hot_loss:
+        soft = layers.one_hot(trg_labels, depth=trg_vocab_size)
+        if smooth:
+            soft = layers.label_smooth(soft, epsilon=smooth)
+        per_tok = layers.softmax_with_cross_entropy(logits, soft,
+                                                    soft_label=True)
+    else:
+        per_tok = layers.softmax_with_cross_entropy(
+            logits, trg_labels, label_smoothing=smooth)
     # mask out padding positions; normalize by token count
     masked = layers.elementwise_mul(per_tok, layers.unsqueeze(trg_mask, axes=[2]))
     token_count = layers.reduce_sum(trg_mask)

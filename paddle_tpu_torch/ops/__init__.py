@@ -6,6 +6,7 @@ from . import (  # noqa: F401
     activation_ops,
     attention_ops,
     compare_ops,
+    gradient_ops,
     math_ops,
     nn_ops,
     optimizer_ops,

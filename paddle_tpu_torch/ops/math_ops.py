@@ -4,9 +4,14 @@
 Fluid equivalents: ``operators/mul_op.cc``, ``matmul_op.cc``,
 ``elementwise/*``, ``scale_op.cc``, ``sum_op.cc``, ``mean_op.cc``,
 ``sign_op.cc``, ``cast_op.cc``, ``clip_op.cc``, ``clip_by_norm_op.cc``,
-``squared_l2_norm_op.cc``, ``increment_op.cc``. Each is a few torch calls;
+``squared_l2_norm_op.cc``, ``increment_op.cc``, ``cumsum_op.cc``,
+``norm_op.cc``, ``l1_norm_op.cc``, ``squared_l2_distance_op.cc``,
+``cos_sim_op.cc``, ``minus_op.cc``, ``bilinear_tensor_product_op.cc``,
+``isfinite_op.cc``. Each is a few torch calls;
 the products go to cuBLAS through ``torch.tensordot`` (the JAX package
-leaves them to XLA: no Pallas kernel sits here).
+leaves them to XLA: no Pallas kernel sits here). ``isfinite``,
+``has_inf`` and ``has_nan`` answer with a 0-d bool on the device: nothing
+is read on the host.
 """
 
 from __future__ import annotations
@@ -133,6 +138,18 @@ def elementwise_pow(ctx):
     _elementwise(ctx, torch.pow)
 
 
+@register_op("elementwise_mod")
+def elementwise_mod(ctx):
+    """Python's sign rule (``jnp.mod``): the result takes y's sign."""
+    _elementwise(ctx, torch.remainder)
+
+
+@register_op("elementwise_floordiv")
+def elementwise_floordiv(ctx):
+    """``jnp.floor_divide``: the quotient rounded toward -inf."""
+    _elementwise(ctx, lambda x, y: torch.div(x, y, rounding_mode="floor"))
+
+
 @register_op("scale")
 def scale_op(ctx: OpContext):
     x = ctx.input("X")
@@ -211,3 +228,96 @@ def squared_l2_norm_op(ctx: OpContext):
     clip's ``sum`` -> ``sqrt`` -> ``elementwise_max`` with a [1] constant
     then broadcasts to [1] as it does there."""
     ctx.set_output("Out", torch.sum(torch.square(ctx.input("X"))))
+
+
+def _abs(x):
+    """``jnp.abs`` with its gradient: +1 at 0 (``torch.abs`` gives 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+@register_op("cumsum")
+def cumsum_op(ctx: OpContext):
+    """The JAX package's formulation: ``reverse`` flips, sums and flips
+    back, ``exclusive`` subtracts x from the inclusive sum."""
+    x = ctx.input("X")
+    axis = ctx.attr("axis", -1)
+    rev = ctx.attr("reverse", False)
+    if rev:
+        x = torch.flip(x, (axis,))
+    out = torch.cumsum(x, axis, dtype=x.dtype)
+    if ctx.attr("exclusive", False):
+        out = out - x
+    if rev:
+        out = torch.flip(out, (axis,))
+    ctx.set_output("Out", out)
+
+
+@register_op("norm")
+def norm_op(ctx: OpContext):
+    x = ctx.input("X")
+    norm = torch.sqrt(torch.sum(torch.square(x), ctx.attr("axis", -1),
+                                keepdim=True) + ctx.attr("epsilon", 1e-10))
+    ctx.set_output("Out", x / norm)
+    ctx.set_output("Norm", norm)
+
+
+@register_op("l1_norm")
+def l1_norm_op(ctx):
+    ctx.set_output("Out", torch.sum(_abs(ctx.input("X"))))
+
+
+@register_op("squared_l2_distance")
+def squared_l2_distance_op(ctx):
+    x, y = ctx.input("X"), ctx.input("Y")
+    diff = x - y
+    ctx.set_output("sub_result", diff)
+    ctx.set_output("Out", torch.sum(torch.square(diff),
+                                    tuple(range(1, diff.dim())))
+                   .reshape(x.shape[0], 1))
+
+
+@register_op("cos_sim")
+def cos_sim_op(ctx):
+    x, y = ctx.input("X"), ctx.input("Y")
+    xn = torch.sqrt(torch.sum(torch.square(x), -1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), -1, keepdim=True))
+    ctx.set_output("XNorm", xn)
+    ctx.set_output("YNorm", yn)
+    ctx.set_output("Out", torch.sum(x * y, -1, keepdim=True) / (xn * yn))
+
+
+@register_op("minus")
+def minus_op(ctx):
+    ctx.set_output("Out", ctx.input("X") - ctx.input("Y"))
+
+
+@register_op("bilinear_tensor_product")
+def bilinear_tensor_product_op(ctx: OpContext):
+    """out[b, o] = x[b]·W[o]·y[b] (+ bias), W [out, dx, dy]."""
+    x, y, w = ctx.input("X"), ctx.input("Y"), ctx.input("Weight")
+    out = torch.einsum("bi,oij,bj->bo", x, w, y)
+    bias = ctx.input("Bias")
+    if bias is not None:
+        out = out + bias
+    ctx.set_output("Out", out)
+
+
+@register_op("dot")
+def dot_op(ctx):
+    x, y = ctx.input("X"), ctx.input("Y")
+    ctx.set_output("Out", torch.sum(x * y, -1, keepdim=True))
+
+
+@register_op("isfinite")
+def isfinite_op(ctx):
+    ctx.set_output("Out", torch.all(torch.isfinite(ctx.input("X"))))
+
+
+@register_op("has_inf")
+def has_inf_op(ctx):
+    ctx.set_output("Out", torch.any(torch.isinf(ctx.input("X"))))
+
+
+@register_op("has_nan")
+def has_nan_op(ctx):
+    ctx.set_output("Out", torch.any(torch.isnan(ctx.input("X"))))

@@ -1,8 +1,10 @@
 # ported from paddle_tpu/ops/nn_ops.py
-"""NN ops of the training slices: softmax, softmax with cross-entropy,
-cross-entropy of probabilities, layer norm, batch norm, 2-D and 3-D
+"""NN ops: softmax, log-softmax, softmax with cross-entropy,
+cross-entropy of probabilities, the elementwise losses, layer, batch,
+group and instance norm, LRN, data norm, affine channel, 2-D and 3-D
 convolution, transposed convolution and pooling, embedding (dense and
-``is_sparse``), accuracy, AUC.
+``is_sparse``), accuracy, AUC, mean IoU, bilinear and nearest
+interpolation.
 
 Fluid equivalents: ``operators/softmax_op.cc``,
 ``softmax_with_cross_entropy_op.cc``, ``cross_entropy_op.cc``,
@@ -30,13 +32,17 @@ the JAX package.
 from __future__ import annotations
 
 import math
+import threading
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.dtypes import to_torch_dtype
 from ..core.registry import OpContext, register_op
 from .kernels.softmax_xent import softmax_xent
+from .math_ops import _abs
+from .tensor_ops import _cached
 
 
 def _hard_labels(label):
@@ -133,13 +139,160 @@ def softmax_op(ctx: OpContext):
                                         dim=ctx.attr("axis", -1)))
 
 
+@register_op("log_softmax")
+def log_softmax_op(ctx: OpContext):
+    ctx.set_output("Out", torch.log_softmax(ctx.input("X"),
+                                            dim=ctx.attr("axis", -1)))
+
+
+# -- elementwise losses -----------------------------------------------------
+# Each is the JAX package's expression. At a kink torch's autograd takes
+# the subgradient JAX's does: |x| branches on x >= 0 (1 at 0), a hinge is
+# torch.maximum against 0 (half the gradient at the tie, as jnp.maximum).
+
+
+def _relu_tie(x):
+    """``jnp.maximum(x, 0)``: half the gradient at 0."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def sigmoid_xent_op(ctx: OpContext):
+    """max(x, 0) − x·z + log(1 + exp(−|x|)); 0 where the label is
+    ``ignore_index``; ``normalize`` divides by the labels not ignored."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    loss = _relu_tie(x) - x * label + torch.log1p(torch.exp(-_abs(x)))
+    ignore = ctx.attr("ignore_index", -100)
+    loss = torch.where(label == ignore, 0.0, loss)
+    if ctx.attr("normalize", False):
+        n = torch.clamp_min(torch.sum((label != ignore).to(x.dtype)), 1.0)
+        loss = loss / n
+    ctx.set_output("Out", loss)
+
+
+@register_op("log_loss")
+def log_loss_op(ctx: OpContext):
+    p, y = ctx.input("Predicted"), ctx.input("Labels")
+    eps = ctx.attr("epsilon", 1e-4)
+    ctx.set_output("Loss", -y * torch.log(p + eps)
+                   - (1 - y) * torch.log(1 - p + eps))
+
+
+@register_op("huber_loss")
+def huber_loss_op(ctx: OpContext):
+    x, y = ctx.input("X"), ctx.input("Y")
+    d = ctx.attr("delta", 1.0)
+    r = y - x
+    ar = _abs(r)
+    ctx.set_output("Residual", r)
+    ctx.set_output("Out", torch.where(ar <= d, 0.5 * r * r,
+                                      d * (ar - 0.5 * d)))
+
+
+@register_op("smooth_l1_loss")
+def smooth_l1_loss_op(ctx: OpContext):
+    x, y = ctx.input("X"), ctx.input("Y")
+    s2 = ctx.attr("sigma", 1.0) ** 2
+    diff = x - y
+    if ctx.has_input("InsideWeight"):
+        diff = diff * ctx.input("InsideWeight")
+    ad = _abs(diff)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+    if ctx.has_input("OutsideWeight"):
+        loss = loss * ctx.input("OutsideWeight")
+    ctx.set_output("Diff", diff)
+    ctx.set_output("Out", torch.sum(loss, tuple(range(1, loss.dim())))
+                   .reshape(x.shape[0], 1))
+
+
+@register_op("hinge_loss")
+def hinge_loss_op(ctx: OpContext):
+    logits, labels = ctx.input("Logits"), ctx.input("Labels")
+    ctx.set_output("Loss", _relu_tie(1.0 - (2.0 * labels - 1.0) * logits))
+
+
+@register_op("rank_loss")
+def rank_loss_op(ctx: OpContext):
+    d = ctx.input("Left") - ctx.input("Right")
+    ctx.set_output("Out", torch.log1p(torch.exp(d)) - ctx.input("Label") * d)
+
+
+@register_op("bpr_loss")
+def bpr_loss_op(ctx: OpContext):
+    x = ctx.input("X")
+    label = ctx.input("Label").reshape(-1).long()
+    diff = x - torch.gather(x, -1, label[:, None])
+    ctx.set_output("Y", torch.mean(torch.log1p(torch.exp(diff)), -1,
+                                   keepdim=True))
+
+
+@register_op("margin_rank_loss")
+def margin_rank_loss_op(ctx: OpContext):
+    label, x1, x2 = ctx.input("Label"), ctx.input("X1"), ctx.input("X2")
+    out = _relu_tie(-label * (x1 - x2) + ctx.attr("margin", 0.0))
+    ctx.set_output("Out", out)
+    ctx.set_output("Activated", (out > 0).to(x1.dtype))
+
+
+# held while a table gradient has torch's deterministic setting on
+_DETERMINISTIC = threading.Lock()
+
+
+def _table_grad(ids, rows, num_rows):
+    """The [num_rows, D] table gradient of a dense lookup: ``rows`` [N, D]
+    summed by ``ids`` [N], by ``F.embedding``'s own backward under
+    ``torch.use_deterministic_algorithms(True)`` for this one call. Left
+    to itself that backward sums the rows of an id repeated thousands of
+    times (BERT's sentence id 0: 4,096 rows a step) in an order that
+    changes between runs on the H100, a few ulp apart, which LAMB's trust
+    ratio then spread over the whole state; torch's deterministic path
+    gives the same bits on every run and stream, 0.04-0.05 ms slower
+    on an H100.
+
+    The setting is the process's, held for this call only. Two such calls
+    on two threads take it in turn (``_DETERMINISTIC``), so each restores
+    what it found. An op that another thread launches while it is held
+    runs under it too: the same function by torch's deterministic kernel
+    where torch has one, else its usual kernel with a warning
+    (``warn_only``). The executor's own thread launches nothing
+    meanwhile: it waits on the backward that makes this call."""
+    with _DETERMINISTIC:
+        prev = torch.are_deterministic_algorithms_enabled()
+        warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            return torch.ops.aten.embedding_dense_backward(
+                rows, ids, num_rows, -1, False)
+        finally:
+            torch.use_deterministic_algorithms(prev, warn_only=warn_only)
+
+
+class _Lookup(torch.autograd.Function):
+    """Rows of a table at ``ids`` (the dense lookup), whose backward is
+    :func:`_table_grad`: the same bits in every run and on every
+    stream."""
+
+    @staticmethod
+    def forward(ctx, w, ids):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = w.shape[0]
+        return F.embedding(ids, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return _table_grad(ids.reshape(-1), g.reshape(-1, g.shape[-1]),
+                           ctx.num_rows), None
+
+
 @register_op("lookup_table", "lookup_table_v2")
 def lookup_table_op(ctx: OpContext):
     """Reference: operators/lookup_table_op.cc. Ids [..., 1] int → [..., D].
 
     Ids are clamped to the table for the gather; negative ids and
     ``padding_idx`` give zero rows. Dense mode is a gather differentiable
-    in the table.
+    in the table (:class:`_Lookup`: its backward sums repeated ids in the
+    same order every run).
 
     ``is_sparse=True`` in a training step (the executor names the step's
     sparse tables in ``trace.sparse_params``) is the SelectedRows gradient
@@ -178,7 +331,7 @@ def lookup_table_op(ctx: OpContext):
         out = (w.detach()[flat].to(vdt) + virt).reshape(
             tuple(ids.shape) + (dim,))
     else:
-        out = F.embedding(ids.clamp(0, vocab - 1), w)
+        out = _Lookup.apply(w, ids.clamp(0, vocab - 1))
     keep = ids >= 0
     if padding_idx is not None and padding_idx >= 0:
         keep = keep & (ids != padding_idx)
@@ -310,6 +463,88 @@ def batch_norm_op(ctx: OpContext):
         ctx.set_output("SavedVariance", bvar.to(var.dtype))
     ctx.set_output("Y", _BatchNormTrain.apply(x, scale, bias, bmean, inv,
                                               ch_axis))
+
+
+def _var_mean(x, axes):
+    """(biased variance, mean) over ``axes``, kept, as ``jnp.var`` /
+    ``jnp.mean`` give them."""
+    return torch.var_mean(x, axes, unbiased=False, keepdim=True)
+
+
+@register_op("group_norm")
+def group_norm_op(ctx: OpContext):
+    """Reference: operators/group_norm_op.cc, NCHW: each sample's channels
+    in ``groups`` groups, normalised over the group's channels and space;
+    ``Mean``/``Variance`` [N, groups]."""
+    x = ctx.input("X")
+    groups = ctx.attr("groups")
+    eps = ctx.attr("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    var, mean = _var_mean(xg, tuple(range(2, xg.dim())))
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    bshape = (1, c) + (1,) * (x.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(bshape)
+    if bias is not None:
+        y = y + bias.reshape(bshape)
+    ctx.set_output("Y", y)
+    ctx.set_output("Mean", mean.reshape(n, groups))
+    ctx.set_output("Variance", var.reshape(n, groups))
+
+
+@register_op("instance_norm")
+def instance_norm_op(ctx: OpContext):
+    """Reference: operators/instance_norm_op.cc: each (sample, channel)
+    normalised over space, then ``Scale``/``Bias`` per channel."""
+    x = ctx.input("X")
+    var, mean = _var_mean(x, tuple(range(2, x.dim())))
+    y = (x - mean) * torch.rsqrt(var + ctx.attr("epsilon", 1e-5))
+    scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    if scale is not None:
+        bshape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+        y = y * scale.reshape(bshape) + bias.reshape(bshape)
+    ctx.set_output("Y", y)
+
+
+@register_op("lrn")
+def lrn_op(ctx: OpContext):
+    """Reference: operators/lrn_op.cc, NCHW: mid = k + α·Σ x² over the
+    ``n`` channels around each (zero beyond the edges), out = x / mid^β."""
+    x = ctx.input("X")
+    n_size = ctx.attr("n", 5)
+    half = n_size // 2
+    sq = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    acc = torch.zeros_like(x)
+    for i in range(n_size):
+        acc = acc + sq[:, i:i + x.shape[1]]
+    mid = ctx.attr("k", 2.0) + ctx.attr("alpha", 1e-4) * acc
+    ctx.set_output("MidOut", mid)
+    ctx.set_output("Out", x / torch.pow(mid, ctx.attr("beta", 0.75)))
+
+
+@register_op("data_norm")
+def data_norm_op(ctx: OpContext):
+    """(x − mean)·scale from the running ``BatchSize``, ``BatchSum`` and
+    ``BatchSquareSum`` (the JAX package's formula: scale =
+    rsqrt(E[x²] − mean² + 1e-4))."""
+    size = ctx.input("BatchSize")
+    means = ctx.input("BatchSum") / size
+    scales = torch.rsqrt(ctx.input("BatchSquareSum") / size
+                         - torch.square(means) + 1e-4)
+    ctx.set_output("Means", means)
+    ctx.set_output("Scales", scales)
+    ctx.set_output("Y", (ctx.input("X") - means) * scales)
+
+
+@register_op("affine_channel")
+def affine_channel_op(ctx: OpContext):
+    x = ctx.input("X")
+    ch = 1 if ctx.attr("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    shape = _bn_shape(x, ch)
+    ctx.set_output("Out", x * ctx.input("Scale").reshape(shape)
+                   + ctx.input("Bias").reshape(shape))
 
 
 # -- conv / pool ------------------------------------------------------------
@@ -453,3 +688,92 @@ def accuracy_op(ctx: OpContext):
     # host-to-device copy every step, which a captured step cannot hold
     ctx.set_output("Total", torch.full((), total, dtype=torch.int32,
                                        device=indices.device))
+
+
+@register_op("mean_iou")
+def mean_iou_op(ctx: OpContext):
+    """Mean over the classes present of intersection / union, from the
+    confusion matrix of the flattened ``Labels`` and ``Predictions``. The
+    counts are float32 sums of ones (exact below 2^24 a cell), so their
+    order does not matter; nothing is read on the host."""
+    preds = ctx.input("Predictions").reshape(-1).long()
+    labels = ctx.input("Labels").reshape(-1).long()
+    c = ctx.attr("num_classes")
+    ones = torch.ones(preds.shape, dtype=torch.float32, device=preds.device)
+    cm = torch.zeros(c * c, dtype=torch.float32, device=preds.device) \
+        .index_put((labels * c + preds,), ones, accumulate=True).reshape(c, c)
+    inter = torch.diagonal(cm)
+    union = cm.sum(0) + cm.sum(1) - inter
+    valid = union > 0
+    iou = torch.where(valid, inter / union.clamp_min(1.0), 0.0)
+    ctx.set_output("OutMeanIou", iou.sum() / valid.sum().clamp_min(1))
+
+
+# -- interpolation ----------------------------------------------------------
+
+
+def _interp_weights(n_in, n_out, nearest, align_corners, align_mode):
+    """The [n_out, n_in] float64 matrix of Fluid's interpolation along one
+    dim (operators/interpolate_op.h). ratio = (in − 1)/(out − 1) with
+    ``align_corners``, else in/out. Bilinear: the source is ratio·(k + ½)
+    − ½ clamped at 0 when ``align_mode`` is 0 without corners (half-pixel
+    centres), else ratio·k; it mixes its floor and the next index, the
+    last clamped. Nearest: int(ratio·k + ½) with corners, int(ratio·k)
+    without."""
+    if align_corners:
+        ratio = (n_in - 1) / (n_out - 1) if n_out > 1 else 0.0
+    else:
+        ratio = n_in / n_out
+    w = np.zeros((n_out, n_in))
+    for k in range(n_out):
+        if nearest:
+            w[k, min(int(ratio * k + 0.5) if align_corners
+                     else int(ratio * k), n_in - 1)] = 1.0
+            continue
+        half = align_mode == 0 and not align_corners
+        src = max(ratio * (k + 0.5) - 0.5, 0.0) if half else ratio * k
+        lo = max(int(src), 0)
+        hi = min(lo + 1, n_in - 1)
+        d = src - lo
+        w[k, lo] += 1.0 - d
+        w[k, hi] += d
+    return w
+
+
+def _interp(ctx: OpContext, nearest: bool):
+    """NCHW resize to (``out_h``, ``out_w``), or by ``scale``, or to the
+    ``OutSize`` input (read on the host). It is Fluid's arithmetic as two
+    products with the per-dim weight matrices (made once per shape and
+    device, kept on the op), so its gradient has no atomics.
+    ``align_corners`` / ``align_mode`` as in Fluid; where the op carries
+    neither (the JAX package's layer writes neither), half-pixel centres:
+    the JAX package's ``jax.image.resize``, which agrees with it up to
+    antialiasing when shrinking (bilinear) and at fractional ratios
+    (nearest, which the JAX package centres at half pixels)."""
+    x = ctx.input("X")
+    out_h, out_w = ctx.attr("out_h", 0), ctx.attr("out_w", 0)
+    if ctx.has_input("OutSize"):
+        out_h, out_w = (int(v) for v in ctx.input("OutSize").reshape(-1)
+                        .tolist()[:2])
+    scale = ctx.attr("scale", 0.0)
+    if (not out_h or out_h <= 0) and scale:
+        out_h, out_w = int(x.shape[2] * scale), int(x.shape[3] * scale)
+    corners = ctx.attr("align_corners", False)
+    mode = ctx.attr("align_mode", 0)
+    key = (x.device, x.dtype, tuple(x.shape[2:]), out_h, out_w, corners,
+           mode)
+    wh, ww = _cached(ctx, key, lambda: tuple(
+        torch.from_numpy(_interp_weights(n, m, nearest, corners, mode))
+        .to(device=x.device, dtype=x.dtype)
+        for n, m in ((x.shape[2], out_h), (x.shape[3], out_w))), slot=None)
+    ctx.set_output("Out", torch.matmul(torch.matmul(wh, x), ww.t()))
+
+
+@register_op("bilinear_interp")
+def bilinear_interp_op(ctx):
+    _interp(ctx, nearest=False)
+
+
+@register_op("nearest_interp")
+def nearest_interp_op(ctx):
+    _interp(ctx, nearest=True)

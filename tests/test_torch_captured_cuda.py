@@ -9,7 +9,10 @@ pipeline's rewrites reaching K1 and K2, the weight decay's in-place
 ``sum`` and LARS's norms inside the graph, and a learning-rate schedule
 with the global-norm clip (its counter advanced once a replay), the
 rows-only branches of the other sparse optimizers and ``ModelAverage`` on
-the card. Every test carries the
+the card, and the recipe step's reproducibility (BERT at 2 layers under
+AMP with AdamW or LAMB and the global-norm clip: two eager runs from one
+start bit-equal, captured against eager within 1e-3 in every tensor; the
+lookup's table gradient the same on every stream). Every test carries the
 ``cuda`` marker and skips without a GPU. The file imports neither ``jax``
 nor ``paddle_tpu``:
 
@@ -595,3 +598,117 @@ def test_model_average_applies_on_the_card(cuda):
             assert avg.is_cuda and avg.dtype == torch.float32
             assert not torch.equal(avg, trained)
         assert torch.equal(scope.find_var(name), trained)
+
+
+def recipe_bert(opt):
+    """BERT at 2 layers of BERT-base's widths under AMP with Devlin's
+    recipe (warm-up then decay, the global-norm clip at 1.0, AdamW or
+    LAMB), dropout 0.1, on the bench's batch shape (32 x 128, 20 masked):
+    every sentence id 0, the 4,096-fold repeated lookup whose table
+    gradient once parted between runs."""
+    from paddle_tpu_torch.models import bert
+
+    cfg = dict(bert.BERT_BASE_CONFIG, n_layer=2)
+    s, n_mask, batch = 128, 20, 32
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        names = ("ids", "pos", "sent")
+        ins = [fluid.layers.data(n, shape=[s], dtype="int64") for n in names]
+        mask = fluid.layers.data("mask", shape=[s], dtype="float32")
+        mpos = fluid.layers.data("mpos", shape=[n_mask], dtype="int64")
+        mlbl = fluid.layers.data("mlbl", shape=[1], dtype="int64")
+        nsp = fluid.layers.data("nsp", shape=[1], dtype="int64")
+        loss, _, _ = bert.bert_pretrain(*ins, mask, mpos, mlbl, nsp, **cfg)
+        lr = fluid.layers.linear_lr_warmup(
+            fluid.layers.polynomial_decay(1e-4, 8, 0.0, 1.0), 2, 0.0, 1e-4)
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(1.0))
+        inner = fluid.optimizer.AdamW(lr, weight_decay=0.01, epsilon=1e-6) \
+            if opt == "adamw" else fluid.optimizer.Lamb(
+                lr, lamb_weight_decay=0.01)
+        fluid.amp.decorate(inner).minimize(loss)
+    vocab = cfg["vocab_size"]
+    rng = np.random.RandomState(0)
+    feed = {
+        "ids": rng.randint(0, vocab, (batch, s)).astype("int64"),
+        "pos": np.tile(np.arange(s), (batch, 1)).astype("int64"),
+        "sent": np.zeros((batch, s), "int64"),
+        "mask": np.ones((batch, s), "float32"),
+        "mpos": (np.arange(batch)[:, None] * s
+                 + rng.randint(0, s, (batch, n_mask))).astype("int64"),
+        "mlbl": rng.randint(0, vocab, (batch * n_mask, 1)).astype("int64"),
+        "nsp": rng.randint(0, 2, (batch, 1)).astype("int64")}
+    return main, startup, loss, [feed] * 6
+
+
+def largest_tensor_diff(a, b):
+    worst = 0.0
+    for n, v in a.vars.items():
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            w = b.find_var(n).double()
+            worst = max(worst, float((v.double() - w).norm())
+                        / max(float(w.norm()), 1e-30))
+    return worst
+
+
+@pytest.mark.parametrize("opt", ["adamw", "lamb"])
+def test_recipe_step_is_reproducible(cuda, opt):
+    """Two eager runs of the recipe's steps from one start are bit-equal,
+    and the captured steps hold every tensor within the AMP tolerance."""
+    main, startup, loss, feeds = recipe_bert(opt)
+    dev = fluid.CUDAPlace(0)
+    start = fluid.Scope()
+    fluid.Executor(dev).run(startup, scope=start)
+
+    def copy():
+        out = fluid.Scope()
+        for n, v in start.vars.items():
+            out.set_var(n, v.clone())
+        return out
+
+    runs = []
+    for _ in range(2):
+        scope = copy()
+        main._tpu_step_counter = 0
+        exe = fluid.Executor(dev)
+        runs.append(([float(exe.run(main, feed=f, fetch_list=[loss],
+                                    scope=scope)[0]) for f in feeds], scope))
+    (l1, s1), (l2, s2) = runs
+    assert l1 == l2
+    for n, v in s1.vars.items():
+        assert torch.equal(v, s2.find_var(n)), n
+    main._tpu_step_counter = 0
+    scope_c = copy()
+    exe_c = fluid.Executor(dev)
+    rows = exe_c.run_steps(main, feeds, fetch_list=[loss], fetch_every=6,
+                           scope=scope_c)
+    exe_c.close()
+    np.testing.assert_allclose([float(r[0]) for r in rows], l1, rtol=1e-3)
+    assert largest_tensor_diff(scope_c, s1) <= 1e-3
+
+
+def test_lookup_table_gradient_is_the_same_on_every_stream(cuda):
+    """The dense lookup's table gradient, 4,096 rows into one id and
+    16,384 ids into 30,000 rows, in bf16: the same bits on every run and
+    on a side stream."""
+    from paddle_tpu_torch.ops.nn_ops import _Lookup
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    side = torch.cuda.Stream()
+    for v, n, d, same in ((2, 4096, 768, True), (30000, 16384, 512, False)):
+        ids = torch.zeros(n, dtype=torch.long, device="cuda") if same else \
+            torch.randint(0, v, (n,), generator=gen, device="cuda")
+        w = torch.randn(v, d, generator=gen, device="cuda").bfloat16()
+        g = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+
+        def grad():
+            leaf = w.detach().requires_grad_(True)
+            return torch.autograd.grad(_Lookup.apply(leaf, ids), leaf, g)[0]
+
+        first = grad()
+        assert all(torch.equal(grad(), first) for _ in range(4))
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            again = [grad() for _ in range(4)]
+        torch.cuda.current_stream().wait_stream(side)
+        assert all(torch.equal(x, first) for x in again)

@@ -514,22 +514,14 @@ def layer_op_types():
 
 
 # the op types of layers/nn.py the port does not register yet (ROADMAP
-# Queue 3 item 3); a slice that registers one takes it off this list
+# Queue 3 item 2); a slice that registers one takes it off this list
 LAYER_OPS_LEFT = {
-    "arg_max", "arg_min", "argsort", "bilinear_tensor_product", "chunk_eval",
-    "cos_sim", "crf_decoding", "ctc_align", "dot", "edit_distance",
-    "elementwise_mod", "expand", "flatten", "gather_nd",
-    "gaussian_random_batch_size_like", "get_tensor_from_selected_rows",
-    "grid_sampler", "group_norm", "hash", "hierarchical_sigmoid",
-    "huber_loss", "instance_norm", "label_smooth", "linear_chain_crf",
-    "log_loss", "log_softmax", "lrn", "max_pool2d_with_index", "mean_iou",
-    "merge_selected_rows", "multiplex", "nce", "norm", "one_hot", "pad",
-    "pad2d", "pixel_shuffle", "print", "psroi_pool", "py_func", "reduce_max",
-    "reduce_mean", "reduce_min", "reduce_prod", "sample_logits", "scatter",
-    "shape", "shuffle_channel", "sigmoid_cross_entropy_with_logits",
-    "smooth_l1_loss", "space_to_depth", "spectral_norm", "spp", "stack",
-    "strided_slice", "tree_conv", "uniform_random_batch_size_like",
-    "unpool", "unstack", "warpctc",
+    "chunk_eval", "crf_decoding", "ctc_align", "edit_distance",
+    "get_tensor_from_selected_rows", "grid_sampler", "hash",
+    "hierarchical_sigmoid", "linear_chain_crf", "max_pool2d_with_index",
+    "merge_selected_rows", "nce", "print", "psroi_pool", "py_func",
+    "sample_logits", "spectral_norm", "spp", "tree_conv", "unpool",
+    "warpctc",
 }
 
 
@@ -537,7 +529,84 @@ def test_layer_op_types_left_unregistered():
     from paddle_tpu_torch.core.registry import registered_ops
 
     named = layer_op_types()
-    assert len(LAYER_OPS_LEFT) == 60
+    assert len(LAYER_OPS_LEFT) == 21
     assert named - set(registered_ops()) == LAYER_OPS_LEFT
     assert {"clip", "clip_by_norm", "increment", "where", "elementwise_max",
             "elementwise_min", "elementwise_pow"} <= named
+
+
+def appended_op_types():
+    """The op types every front end of the port appends: in
+    ``layers/*.py``, ``nets.py``, ``backward.py``, ``optimizer.py``,
+    ``clip.py`` and ``regularizer.py``, the string given as the op type
+    to ``append_op`` (and its relatives, positionally or as ``type=``),
+    ``_act``, ``_reduce_layer``, ``_elementwise_layer`` and
+    ``_single_op_layer``, an optimizer class's ``type``, and every other
+    string literal that names an op of the JAX package (an op type held
+    in a table, as the generated layers and the comparison layers
+    keep them). Markers the executor skips are left out."""
+    import ast
+    import pathlib
+
+    import paddle_tpu_torch
+    from paddle_tpu.core.registry import registered_ops as jax_ops
+    from paddle_tpu_torch.core.interpreter import SKIP_OPS
+
+    root = pathlib.Path(paddle_tpu_torch.__file__).parent
+    files = sorted(root.glob("layers/*.py")) + [
+        root / n for n in ("nets.py", "backward.py", "optimizer.py",
+                           "clip.py", "regularizer.py")]
+    type_pos = {"append_op": 0, "_append_op": 0, "prepend_op": 0,
+                "_insert_op": 0, "_act": 0, "_reduce_layer": 0,
+                "_elementwise_layer": 0, "_single_op_layer": 1}
+    names = set(jax_ops())
+    found = set()
+    for f in files:
+        tree = ast.parse(f.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call):
+                fn = node.func
+                name = fn.attr if isinstance(fn, ast.Attribute) \
+                    else getattr(fn, "id", None)
+                pos = type_pos.get(name)
+                if pos is not None and len(node.args) > pos \
+                        and isinstance(node.args[pos], ast.Constant):
+                    found.add(node.args[pos].value)
+                if pos is not None:
+                    found |= {k.value.value for k in node.keywords
+                              if k.arg == "type"
+                              and isinstance(k.value, ast.Constant)}
+            elif isinstance(node, ast.ClassDef) and any(
+                    getattr(b, "name", "") == "_append_optimize_op"
+                    for b in node.body):
+                found |= {b.value.value for b in node.body
+                          if isinstance(b, ast.Assign)
+                          and isinstance(b.value, ast.Constant)
+                          and any(getattr(t, "id", "") == "type"
+                                  for t in b.targets)}
+            elif isinstance(node, ast.Constant) and node.value in names:
+                found.add(node.value)
+    return found - SKIP_OPS
+
+
+# the op types some front end of the port appends that it does not
+# register yet; a slice that registers one takes it off this list
+FRONT_END_OPS_LEFT = LAYER_OPS_LEFT | {
+    "add_position_encoding", "affine_grid", "lod_reset", "random_crop",
+    "sampling_id", "similarity_focus", "teacher_student_sigmoid_loss",
+    "tensor_array_to_tensor",
+}
+
+
+def test_front_end_op_types_left_unregistered():
+    from paddle_tpu_torch.core.registry import registered_ops
+
+    named = appended_op_types()
+    assert len(FRONT_END_OPS_LEFT) == 29
+    assert named - set(registered_ops()) == FRONT_END_OPS_LEFT
+    # what the dense slice made run: layers/tensor.py, layers.load, crop,
+    # WeightNormParamAttr's assign, fluid.gradients, the optimizers
+    assert {"assign", "fill_constant_batch_size_like", "reverse", "cumsum",
+            "range", "linspace", "isfinite", "has_inf", "has_nan", "load",
+            "crop", "calc_gradient", "one_hot", "label_smooth", "adam",
+            "lamb", "squared_l2_norm", "increment"} <= named
