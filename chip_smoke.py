@@ -12,9 +12,13 @@ launch timed like them (``launch_floor_ms``). Then it drives the ported
 paths through the entry points a user calls:
 
 * serving: a GPT-2-small-width ``DecoderLM`` (seeded random weights)
-  through ``ServingEngine.submit``/``run``; decode attention must go
-  through K3, the streams must match the gather path and the no-cache
-  reference, and no page may leak;
+  through ``ServingEngine.submit``/``run``, its decode dispatch replayed
+  from a CUDA graph with K3 inside (K3 counted in a replay by CUPTI) and
+  eagerly, in turns; decode attention must go through K3, the streams
+  must match the eager dispatch bit for bit, the gather path and the
+  no-cache reference, and no page may leak; then sampled requests
+  (threefry bits card = CPU), speculation, the prefix cache, drain,
+  deadlines and a fault plan's retry/fail ladder;
 * training: the Transformer-base program of
   ``__graft_entry__._build_transformer``, built with
   ``import paddle_tpu_torch as fluid`` and trained through
@@ -536,15 +540,24 @@ def make_stream(vocab):
     return out
 
 
-def serve(model, stream, collect_logits=False):
-    """Serve ``stream`` on a fresh engine; returns (engine, requests,
-    seconds)."""
+def serve(model, stream, collect_logits=False, graphs=False, fuse=1, kw=None,
+          warm=True, hook=None, **cfg):
+    """Serve ``stream`` on a fresh engine (``graphs``: the decode and
+    verify dispatches replayed from CUDA graphs; ``kw(i)``: request i's
+    extra submit arguments; ``hook(engine)`` before anything runs), after
+    ``warmup()`` unless ``warm`` is False; returns (engine, requests,
+    seconds of ``run()``)."""
     from paddle_tpu_torch import serving
 
     eng = serving.ServingEngine(model, serving.ServingConfig(
-        slots=16, page_size=16, max_seq=1024,
-        collect_logits=collect_logits))
-    reqs = [eng.submit(p, m) for p, m in stream]
+        slots=16, page_size=16, max_seq=1024, decode_fuse=fuse,
+        collect_logits=collect_logits, cuda_graphs=graphs, **cfg))
+    if hook is not None:
+        hook(eng)
+    if warm:
+        eng.warmup()
+    reqs = [eng.submit(p, m, **(kw(i) if kw else {}))
+            for i, (p, m) in enumerate(stream)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.run()
@@ -553,17 +566,17 @@ def serve(model, stream, collect_logits=False):
 
 
 def serve_metrics(eng, reqs, secs):
-    from paddle_tpu_torch.serving import metrics as sm
-
     ttft = sorted(r.ttft_s * 1e3 for r in reqs)
-    hist = sm.DECODE_STEP_MS
+    n = max(1, eng.dispatches)
     return {"tokens": sum(len(r.tokens_out) for r in reqs),
             "seconds": secs,
             "tokens_per_s": sum(len(r.tokens_out) for r in reqs) / secs,
             "ttft_p50_ms": float(np.percentile(ttft, 50)),
-            "decode_dispatch_ms_mean": hist.sum / max(1, hist.count),
-            "decode_dispatches": hist.count,
-            "decode_steps": eng.decode_steps, "prefills": eng.prefills}
+            "decode_dispatch_ms_mean": eng.dispatch_s / n * 1e3,
+            "decode_dispatch_host_ms_mean": eng.dispatch_host_s / n * 1e3,
+            "decode_dispatches": eng.dispatches,
+            "decode_steps": eng.decode_steps, "prefills": eng.prefills,
+            "resumes": eng.resumes}
 
 
 def first_divergence(a, b):
@@ -576,6 +589,54 @@ def first_divergence(a, b):
 def near_tie(logits_row, tol=1e-4):
     top2 = np.sort(np.asarray(logits_row, np.float64))[-2:]
     return float(top2[1] - top2[0]) <= tol
+
+
+def perturbed_scores(row, req, t):
+    """The scores the sampler takes the argmax of for token ``t`` of the
+    sampled request ``req`` (its logits ``row``): the logits over the
+    temperature, top-k masked, plus the Gumbel draw keyed (seed, position
+    of the consumed token), computed on the CPU."""
+    from paddle_tpu_torch.core import threefry
+    from paddle_tpu_torch.ops.attention_ops import neg_inf_value
+
+    x = torch.as_tensor(np.asarray(row, np.float32))[None]
+    scaled = x / max(req.temperature, 1e-6)
+    v = x.shape[-1]
+    k = min(max(req.top_k if req.top_k > 0 else v, 1), v)
+    kth = torch.sort(scaled, descending=True).values[:, k - 1:k]
+    masked = torch.where(scaled >= kth, scaled, neg_inf_value(torch.float32))
+    key = threefry.fold_in(threefry.prng_key(req.seed),
+                           req.prompt_len - 1 + t)
+    return (masked + threefry.gumbel(key, v))[0].numpy()
+
+
+def tie_divergences(got, want, logits_of, what):
+    """Requests of ``got`` whose stream parts from ``want``'s; each must
+    part at a near tie: the top two logits (greedy) or perturbed scores
+    (sampled) of ``want``'s engine within 1e-4 (``logits_of(i)``: request
+    i's collected rows there). Returns [(request, token)]."""
+    ties = []
+    for i, (a, g) in enumerate(zip(got, want)):
+        pos = first_divergence(a.tokens_out, g.tokens_out)
+        if pos is None:
+            continue
+        row = logits_of(i)[pos]
+        scores = (perturbed_scores(row, g, pos) if g.temperature > 0
+                  else row)
+        check(np.isfinite(row).all() and near_tie(scores),
+              "%s: request %d diverges at token %d without a top-2 tie"
+              % (what, i, pos))
+        ties.append((i, pos))
+    return ties
+
+
+def sampled_kw(i):
+    """The sampled mix of the stream: every third request greedy (8 of
+    24), the rest at temperature 1.0 and top-k 40 (the GPT-2 paper's
+    samples), seed 1000 + i."""
+    if i % 3 == 0:
+        return {}
+    return {"temperature": 1.0, "top_k": 40, "seed": 1000 + i}
 
 
 def serve_phase(kernel_row):
@@ -592,52 +653,66 @@ def serve_phase(kernel_row):
     t0 = time.perf_counter()
     model = decoder_lm.DecoderLM(cfg, seed=0)
     stream = make_stream(cfg.vocab_size)
-    serve(model, stream[:2])  # warm-up: cuBLAS handles, allocator
+    serve(model, stream[:2], warm=False)  # the process's first use
     emit("model", config=repr(cfg),
          params=sum(p.numel() for p in model.parameters()),
          setup_s=time.perf_counter() - t0)
 
     set_flag("paged_attention_kernel", "auto")
-    metrics.reset()
+    # the main path: the engine as a user gets it, its decode dispatch a
+    # CUDA graph with K3 inside; K3's wrapper counts the launches it makes
+    # on the host (the warm-ups' and the captures'), CUPTI the replays'
+    pa.LAUNCHES = 0
+    eng_c, reqs_c, secs_c = serve(model, stream, graphs=True)
+    launches = pa.LAUNCHES
+    check(launches > 0, "the captured serve launched no K3")
+    check(all(r.state == FINISHED for r in reqs_c),
+          "not every request finished (captured)")
+    check(eng_c.page_accounting_ok(), "page accounting broken (captured)")
+    check(eng_c.decode_kernel_info() == ("paged", "cuda"),
+          "decode kernel not armed: %r" % (eng_c.decode_kernel_info(),))
+    torch.cuda.synchronize()
+    check(pa.counters_at_zero(), "K3 arrival counters not at 0 after the "
+          "replays")
+    per_replay, replay_k = replay_counts(eng_c, cfg.n_layer)
+    kernel_row["launches"] = launches
+    kernel_row["launches_per_replay"] = per_replay
+    kernel_row["replays"] = sum(d["replays"]
+                                for d in eng_c.graph_info().values())
+
+    # the eager yardstick: every K3 launch counted on the host
     pa.LAUNCHES = 0
     eng, reqs, secs = serve(model, stream)
-    launches = pa.LAUNCHES
+    eager_launches = pa.LAUNCHES
     check(all(r.state == FINISHED for r in reqs),
           "not every request finished")
     check(eng.page_accounting_ok(), "page accounting broken")
-    check(eng.decode_kernel_info() == ("paged", "cuda"),
-          "decode kernel not armed: %r" % (eng.decode_kernel_info(),))
-    check(launches > 0 and launches == cfg.n_layer * eng.decode_steps,
-          "kernel launches %d != n_layer %d x decode steps %d"
-          % (launches, cfg.n_layer, eng.decode_steps))
-    kern = serve_metrics(eng, reqs, secs)
-    kernel_row["launches"] = launches
-    emit("serve_kernel", launches=launches, **kern,
-         stats=eng.stats())
+    check(eager_launches == cfg.n_layer * eng.decode_steps,
+          "eager kernel launches %d != n_layer %d x decode steps %d"
+          % (eager_launches, cfg.n_layer, eng.decode_steps))
+    check([r.tokens_out for r in reqs_c] == [r.tokens_out for r in reqs],
+          "captured and eager streams differ")
+    emit("serve_kernel", launches=eager_launches,
+         **serve_metrics(eng, reqs, secs), stats=eng.stats())
 
     # the gather path, timed with the same config as the kernel serve; its
     # logits for the tie rule come from a second, untimed gather serve
     set_flag("paged_attention_kernel", "off")
-    metrics.reset()
+    n0 = pa.LAUNCHES
     eng_g, reqs_g, secs_g = serve(model, stream)
     gather = serve_metrics(eng_g, reqs_g, secs_g)
     eng_l, reqs_l, _ = serve(model, stream, collect_logits=True)
     set_flag("paged_attention_kernel", "auto")
-    check(pa.LAUNCHES == launches, "the gather run launched the kernel")
+    check(pa.LAUNCHES == n0, "the gather run launched the kernel")
     check(eng_g.page_accounting_ok(), "page accounting broken (gather)")
     check([g.tokens_out for g in reqs_g] == [g.tokens_out for g in reqs_l],
           "collecting logits changed the gather streams")
-    ties = []
-    for i, (a, g) in enumerate(zip(reqs, reqs_l)):
-        pos = first_divergence(a.tokens_out, g.tokens_out)
-        if pos is None:
-            continue
-        row = eng_l.captured_logits(g)[pos]
-        check(np.isfinite(row).all() and near_tie(row),
-              "request %d: kernel and gather streams diverge at token %d "
-              "without a top-2 tie" % (i, pos))
-        ties.append({"request": i, "token": pos})
-    emit("serve_gather", **gather, diverged_at_ties=ties)
+    ties = tie_divergences(reqs, reqs_l,
+                           lambda i: eng_l.captured_logits(reqs_l[i]),
+                           "kernel vs gather")
+    emit("serve_gather", **gather,
+         diverged_at_ties=[{"request": i, "token": t} for i, t in ties])
+    del eng_l, reqs_l
 
     # the engine's greedy stream against the O(S^2) no-cache reference, on
     # the two shortest requests
@@ -654,29 +729,423 @@ def serve_phase(kernel_row):
                   "request %d: engine and no-cache reference diverge at "
                   "token %d without a top-2 tie" % (i, pos))
     emit("reference", requests=short, agree=True)
-    profile_phase(model, stream)
+    secs = {"main_eager_gather_reference": time.perf_counter() - t0}
+
+    def leg(fn, *args, **kw):
+        t = time.perf_counter()
+        fn(*args, **kw)
+        name = fn.__name__ + ("_captured" if kw.get("graphs") else "")
+        secs[name] = time.perf_counter() - t
+
+    leg(serve_captured_phase, model, cfg, stream, reqs_c, eng_c, secs_c,
+        replay_k, launches)
+    del eng_c, eng
+    leg(profile_phase, model, stream, graphs=False)
+    leg(profile_phase, model, stream, graphs=True)
+    leg(serve_sampled_phase, model, stream, reqs_c)
+    leg(serve_speculative_phase, model, stream)
+    leg(serve_prefix_phase, model, cfg)
+    leg(serve_lifecycle_phase, model, stream)
+    emit("serve_leg_seconds", **secs)
 
 
-def profile_phase(model, stream):
+def replay_counts(eng, n_layer, fuse=1):
+    """K3 launches inside one replay of ``eng``'s greedy decode graph at
+    ``fuse`` (idle engine: every slot inactive, so the replay changes no
+    state), counted by CUPTI; returns (K3 a replay, replay_profile's
+    result)."""
+    d = eng._dispatches[("decode", fuse, False)]
+    prof, counts, tries = replay_profile(
+        d.graph.replay, {"K3": (r"paged_attn", n_layer * fuse)})
+    check(counts["K3"] == n_layer * fuse,
+          "K3 ran %d times in one replay at fuse %d, want n_layer x fuse = "
+          "%d (tries %s)" % (counts["K3"], fuse, n_layer * fuse, tries))
+    return counts["K3"], (prof, tries)
+
+
+SERVE_TURNS = 3  # eager and captured serves a fuse width, in turns
+
+
+def serve_captured_phase(model, cfg, stream, reqs_c, eng_c, secs_c,
+                         replay_k, launches):
+    """The 24-request stream eager and captured in turns (``SERVE_TURNS``
+    each) at decode_fuse 1 and 4, each after ``warmup()``; captured streams
+    bit-identical to eager, collected logits within 1e-6; K3 n_layer x
+    fuse times in one replay (CUPTI); host ms and kernels a dispatch,
+    capture seconds, graphs and their pools."""
+    from paddle_tpu_torch.serving import FINISHED
+
+    want = [r.tokens_out for r in reqs_c]
+    legs = {}
+    for fuse in (1, 4):
+        runs = {"eager": [], "captured": []}
+        for turn in range(SERVE_TURNS):
+            for mode in ("eager", "captured"):
+                eng, reqs, secs = serve(model, stream, fuse=fuse,
+                                        graphs=mode == "captured")
+                check(all(r.state == FINISHED for r in reqs)
+                      and eng.page_accounting_ok(),
+                      "%s fuse %d: unfinished requests or page accounting"
+                      % (mode, fuse))
+                check([r.tokens_out for r in reqs] == want,
+                      "%s fuse %d stream differs from the captured fuse 1 "
+                      "stream" % (mode, fuse))
+                m = serve_metrics(eng, reqs, secs)
+                if mode == "captured":
+                    info = eng.graph_info()
+                    m["graphs"] = sum(d["captured"] for d in info.values())
+                    m["capture_s"] = sum(d["capture_s"]
+                                         for d in info.values())
+                    m["graph_pool_bytes"] = sum(d["pool_bytes"]
+                                                for d in info.values())
+                    if turn == 0:
+                        k3, (prof, tries) = replay_counts(eng, cfg.n_layer,
+                                                          fuse)
+                        m.update(k3_per_replay=k3,
+                                 kernels_per_dispatch=sum(prof[2].values()),
+                                 replay_device_ms=prof[1],
+                                 replay_wall_ms=prof[0],
+                                 replay_profiles=tries)
+                runs[mode].append(m)
+                eng.close()
+        legs[fuse] = runs
+
+    def mean(rows, key):
+        return float(np.mean([r[key] for r in rows]))
+
+    # captured logits against eager ones, fuse 1 (collected on the host)
+    eng_e, reqs_e, _ = serve(model, stream, collect_logits=True)
+    eng_l, reqs_l, _ = serve(model, stream, collect_logits=True, graphs=True)
+    check([r.tokens_out for r in reqs_l] == want,
+          "collecting logits changed the captured stream")
+    err = max(float(np.abs(np.stack(eng_l.captured_logits(a))
+                           - np.stack(eng_e.captured_logits(b))).max())
+              for a, b in zip(reqs_l, reqs_e))
+    check(err <= 1e-6, "captured logits %g from eager ones (1e-6)" % err)
+    del eng_e, eng_l
+    summary = {}
+    for fuse, runs in legs.items():
+        for mode, rows in runs.items():
+            summary["fuse%d_%s" % (fuse, mode)] = {
+                k: mean(rows, k) for k in (
+                    "tokens_per_s", "ttft_p50_ms", "decode_dispatch_ms_mean",
+                    "decode_dispatch_host_ms_mean")}
+    emit("serve_captured", nvidia_smi=SMI[0], turns=SERVE_TURNS,
+         main_path={"k3_host_launches": launches,
+                    "k3_per_replay": replay_k[0], "seconds": secs_c,
+                    "graphs": eng_c.graph_info()},
+         logits_max_abs_vs_eager=err, summary=summary,
+         runs={str(f): r for f, r in legs.items()})
+
+
+def profile_phase(model, stream, graphs=False):
     """Where the serve time goes: the kernel-path serve once more under
-    torch.profiler; device busy share = kernel time summed over the CUDA
-    events / wall time of the run (the profiler's own host cost is in the
-    wall time), and the largest kernels by device time."""
+    torch.profiler (eager, or with the dispatches replayed from graphs);
+    device busy share = kernel time summed over the CUDA events / wall
+    time of the run (the profiler's own host cost is in the wall time),
+    and the largest kernels by device time. (Recording the card's
+    activity alone cut the two runs from 77 to 30 s on the H100, and in
+    that run the sampled leg's profiled replays recorded too few kernels;
+    the cause was not found.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from paddle_tpu_torch import serving
+
+    eng = serving.ServingEngine(model, serving.ServingConfig(
+        slots=16, page_size=16, max_seq=1024, cuda_graphs=graphs))
+    eng.warmup()
+    reqs = [eng.submit(p, m) for p, m in stream]
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, secs = serve(model, stream)
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    check(all(r.tokens_out for r in reqs), "profiled serve emitted nothing")
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    emit("serve_profile", wall_ms=secs * 1e3, device_busy_ms=busy_ms,
+    emit("serve_profile_captured" if graphs else "serve_profile",
+         wall_ms=secs * 1e3, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / (secs * 1e3) if busy_ms else None,
          kernels_launched=sum(e.count for e in kern),
+         decode_dispatches=eng.dispatches,
          top=[{"name": e.key[:80], "count": e.count,
                "device_ms": e.self_device_time_total / 1e3} for e in top])
+    eng.close()
+
+
+def serve_sampled_phase(model, stream, reqs_greedy):
+    """The stream's sampled mix (``sampled_kw``): threefry's bits on the
+    card equal the CPU's for a [16, 50257] draw; the greedy requests equal
+    the greedy-only run; the sampled streams are the same at fuse 1 and 4
+    and captured = eager; kernel and gather streams part only at near ties
+    of the perturbed scores; the sampler's device ms a step from one
+    profiled replay of the sampled and the greedy graph."""
+    from paddle_tpu_torch.core import threefry
+    from paddle_tpu_torch.flags import set_flag
+    from paddle_tpu_torch.serving import FINISHED
+
+    seeds = torch.arange(1000, 1016, dtype=torch.int32)
+    pos = torch.arange(16, dtype=torch.int32) * 61
+    want_bits = threefry.random_bits(
+        threefry.fold_in(threefry.prng_key(seeds), pos), 50257)
+    got_bits = threefry.random_bits(threefry.fold_in(
+        threefry.prng_key(seeds.cuda()), pos.cuda()), 50257)
+    check(torch.equal(got_bits.cpu(), want_bits),
+          "threefry bits on the card differ from the CPU's")
+    g_err = float((threefry.gumbel(threefry.fold_in(threefry.prng_key(
+        seeds.cuda()), pos.cuda()), 50257).cpu() - threefry.gumbel(
+        threefry.fold_in(threefry.prng_key(seeds), pos), 50257)).abs().max())
+
+    eng_c, reqs_c, secs_c = serve(model, stream, graphs=True, kw=sampled_kw,
+                                  collect_logits=True)
+    check(all(r.state == FINISHED for r in reqs_c)
+          and eng_c.page_accounting_ok(), "sampled serve broken")
+    toks = [r.tokens_out for r in reqs_c]
+    greedy_idx = [i for i in range(len(stream)) if not sampled_kw(i)]
+    check(all(toks[i] == reqs_greedy[i].tokens_out for i in greedy_idx),
+          "greedy requests moved when sampled ones shared their batch")
+    check(any(toks[i] != reqs_greedy[i].tokens_out
+              for i in range(len(stream)) if sampled_kw(i)),
+          "no sampled request left the greedy stream")
+    runs = {}
+    for name, fuse, graphs in (("fuse1_eager", 1, False),
+                               ("fuse1_captured", 1, True),
+                               ("fuse4_captured", 4, True)):
+        eng, reqs, secs = serve(model, stream, graphs=graphs, fuse=fuse,
+                                kw=sampled_kw)
+        check([r.tokens_out for r in reqs] == toks,
+              "sampled %s stream differs from the captured fuse 1 one"
+              % name)
+        runs[name] = serve_metrics(eng, reqs, secs)
+        if name == "fuse1_captured":
+            # the sampler a step: the sampled graph's replay less the
+            # greedy graph's, one profiled replay each, taken again while
+            # CUPTI lost records (K3 short of n_layer)
+            k3 = {"K3": (r"paged_attn", model.cfg.n_layer)}
+            prof_s, got_s, tries_s = replay_profile(
+                eng._dispatches[("decode", 1, True)].graph.replay, k3)
+            prof_g, got_g, tries_g = replay_profile(
+                eng._dispatches[("decode", 1, False)].graph.replay, k3)
+            check(got_s == got_g == {"K3": model.cfg.n_layer},
+                  "sampled / greedy replay: K3 %s / %s, want %d (tries %s, "
+                  "%s)" % (got_s, got_g, model.cfg.n_layer, tries_s,
+                           tries_g))
+            runs[name].update(
+                sampled_replay_device_ms=prof_s[1],
+                greedy_replay_device_ms=prof_g[1],
+                sampler_device_ms_per_step=prof_s[1] - prof_g[1],
+                sampled_kernels_per_dispatch=sum(prof_s[2].values()),
+                greedy_kernels_per_dispatch=sum(prof_g[2].values()))
+        eng.close()
+    set_flag("paged_attention_kernel", "off")
+    eng_g, reqs_g, _ = serve(model, stream, kw=sampled_kw,
+                             collect_logits=True)
+    set_flag("paged_attention_kernel", "auto")
+    ties = tie_divergences(reqs_c, reqs_g,
+                           lambda i: eng_g.captured_logits(reqs_g[i]),
+                           "sampled kernel vs gather")
+    emit("serve_sampled", nvidia_smi=SMI[0], requests=len(stream),
+         greedy_requests=len(greedy_idx), temperature=1.0, top_k=40,
+         threefry_bits_equal=True, gumbel_card_vs_cpu_max_abs=g_err,
+         runs=runs,
+         diverged_at_ties=[{"request": i, "token": t} for i, t in ties])
+    SAMPLED_REF[0] = (reqs_c, eng_c)
+
+
+SAMPLED_REF = [None]  # the sampled mix's captured requests and engine
+
+
+def serve_speculative_phase(model, stream):
+    """speculation=4, greedy and the sampled mix, captured: streams equal
+    plain decode (parting only at near ties of plain decode's own scores,
+    reported), the accept rate, dispatches against plain, tokens/s."""
+    from paddle_tpu_torch.serving import FINISHED
+    from paddle_tpu_torch.serving import metrics as sm
+
+    reqs_s, eng_s = SAMPLED_REF[0]
+    eng_p, reqs_p, _ = serve(model, stream, graphs=True, collect_logits=True)
+    out = {}
+    for name, kw, ref_reqs, ref_eng in (
+            ("greedy", None, reqs_p, eng_p),
+            ("sampled", sampled_kw, reqs_s, eng_s)):
+        eng_r, reqs_r, secs_r = serve(model, stream, graphs=True, kw=kw)
+        p0, a0 = sm.SPEC_PROPOSED.value, sm.SPEC_ACCEPTED.value
+        eng, reqs, secs = serve(model, stream, graphs=True, kw=kw,
+                                speculation=4)
+        proposed = sm.SPEC_PROPOSED.value - p0
+        accepted = sm.SPEC_ACCEPTED.value - a0
+        check(all(r.state == FINISHED for r in reqs)
+              and eng.page_accounting_ok(), "speculative serve broken")
+        check([r.tokens_out for r in reqs_r]
+              == [r.tokens_out for r in ref_reqs],
+              "plain %s stream moved between runs" % name)
+        ties = tie_divergences(
+            reqs, ref_reqs, lambda i: ref_eng.captured_logits(ref_reqs[i]),
+            "speculative %s vs plain" % name)
+        out[name] = {
+            "identical": not ties,
+            "diverged_at_ties": [{"request": i, "token": t}
+                                 for i, t in ties],
+            "proposed": proposed, "accepted": accepted,
+            "accept_rate": accepted / max(1.0, proposed),
+            "dispatches": eng.dispatches, "plain_dispatches": eng_r.dispatches,
+            "tokens_per_s": serve_metrics(eng, reqs, secs)["tokens_per_s"],
+            "plain_tokens_per_s":
+                serve_metrics(eng_r, reqs_r, secs_r)["tokens_per_s"],
+            "graphs": eng.graph_info()}
+        check(proposed > 0, "the drafter proposed nothing (%s)" % name)
+        eng.close()
+        eng_r.close()
+    emit("serve_speculative", nvidia_smi=SMI[0], speculation=4, **out)
+    SAMPLED_REF[0] = None
+
+
+PREFIX_SYS = 512  # the shared system prompt's tokens (32 pages of 16)
+
+
+def prefix_stream(vocab):
+    """48 chat requests behind one 512-token system prompt: each its own
+    16-128-token suffix and 16-64 new tokens; a primer first, the system
+    prompt and one token, that leaves the system prompt's 32 pages in the
+    prefix cache when it finishes."""
+    rng = np.random.RandomState(1)
+    sys_prompt = rng.randint(0, vocab, PREFIX_SYS).tolist()
+    out = [(sys_prompt + [int(rng.randint(vocab))], 1)]
+    for _ in range(48):
+        suffix = rng.randint(0, vocab, int(rng.randint(16, 129))).tolist()
+        out.append((sys_prompt + suffix, int(rng.randint(16, 65))))
+    return out
+
+
+def serve_prefix_phase(model, cfg):
+    """``serve_prefix``: the chat stream on an engine with
+    prefix_cache_pages=64 against a cold engine (no prefix cache), both
+    captured: hits and resumes > 0, fewer prefills, streams equal to the
+    cold engine's (parting only at near ties, reported), page accounting
+    after drain(); TTFT p50 of hits against misses."""
+    from paddle_tpu_torch.serving import FINISHED
+
+    stream = prefix_stream(cfg.vocab_size)
+    eng_c, reqs_c, secs_c = serve(model, stream, graphs=True,
+                                  collect_logits=True)
+    cold = serve_metrics(eng_c, reqs_c, secs_c)
+    admit_ms, hit_ids = {}, set()
+
+    def record(eng):
+        """Time each admission's prefill or resume (each ends in a host
+        read of its first token) and note which requests hit."""
+        prefill, resume = eng._prefill, eng._prefill_from_prefix
+
+        def timed_prefill(req, slot, bucket):
+            t = time.perf_counter()
+            out = prefill(req, slot, bucket)
+            admit_ms[req.id] = (time.perf_counter() - t) * 1e3
+            return out
+
+        def noted_resume(req, slot, entry):
+            hit_ids.add(req.id)
+            return resume(req, slot, entry)
+
+        eng._prefill, eng._prefill_from_prefix = timed_prefill, noted_resume
+
+    eng, reqs, secs = serve(model, stream, graphs=True,
+                            prefix_cache_pages=64, hook=record)
+    check(all(r.state == FINISHED for r in reqs) and eng.page_accounting_ok(),
+          "prefix serve broken")
+    warm = serve_metrics(eng, reqs, secs)
+    hits = eng.resumes
+    check(hits > 0 and warm["prefills"] < cold["prefills"],
+          "prefix cache: %d resumes, %d prefills against %d cold"
+          % (hits, warm["prefills"], cold["prefills"]))
+    ties = tie_divergences(reqs, reqs_c,
+                           lambda i: eng_c.captured_logits(reqs_c[i]),
+                           "prefix hit vs cold")
+    stats = eng.stats()["prefix_cache"]
+    summary = eng.drain(timeout_s=60.0)
+    check(eng.page_accounting_ok() and eng.pool.num_used == 0,
+          "pages left after drain with a prefix cache")
+    hit = [r for r in reqs[1:] if r.id in hit_ids]
+    miss = [r for r in reqs[1:] if r.id not in hit_ids]
+
+    def p50(xs):
+        return float(np.percentile(xs, 50)) if xs else None
+    emit("serve_prefix", nvidia_smi=SMI[0], requests=len(stream),
+         system_prompt_tokens=PREFIX_SYS, prefix_cache_pages=64,
+         resumes=hits, prefills=warm["prefills"],
+         cold_prefills=cold["prefills"], prefix_cache=stats,
+         identical=not ties,
+         diverged_at_ties=[{"request": i, "token": t} for i, t in ties],
+         ttft_p50_hit_ms=p50([r.ttft_s * 1e3 for r in hit]),
+         ttft_p50_miss_ms=p50([r.ttft_s * 1e3 for r in miss]),
+         admission_ms_p50_hit=p50([admit_ms[r.id] for r in hit]),
+         admission_ms_p50_miss=p50([admit_ms[r.id] for r in miss]),
+         hits=len(hit), misses=len(miss), warm=warm, cold=cold,
+         drain=summary)
+
+
+def serve_lifecycle_phase(model, stream):
+    """``serve_lifecycle``: drain() partway through the stream (queued
+    requests REJECTED, in-flight ones finish), a deadline that times 4
+    requests out, and a FaultPlan at serving.decode that fires transient
+    twice, then fatal once: 2 retries, the batch FAILED, the engine
+    serving on, page accounting intact."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.reliability import faults
+    from paddle_tpu_torch.serving import metrics as sm
+
+    def engine():
+        eng = serving.ServingEngine(model, serving.ServingConfig(
+            slots=16, page_size=16, max_seq=1024))
+        eng.warmup(buckets=(8, 16))
+        return eng
+
+    eng = engine()
+    reqs = [eng.submit(p, m) for p, m in stream]
+    eng.step()
+    summary = eng.drain(timeout_s=120.0)
+    states = [r.state for r in reqs]
+    check(summary == {"finished": 16, "timed_out": 0, "failed": 0,
+                      "rejected": 8}
+          and states.count("finished") == 16
+          and states.count("rejected") == 8
+          and eng.pool.num_used == 0 and eng.page_accounting_ok(),
+          "drain: summary %s, states %s" % (summary, states))
+    short = [(p[:16], 8) for p, _ in stream[:8]]
+    eng = engine()
+    reqs = [eng.submit(p, m, deadline_s=0.0 if i % 2 else None)
+            for i, (p, m) in enumerate(short)]
+    eng.run()
+    states = [r.state for r in reqs]
+    check(states.count("timeout") == 4 and states.count("finished") == 4
+          and eng.pool.num_used == 0 and eng.page_accounting_ok(),
+          "deadlines: states %s" % states)
+    eng = engine()
+    r0, f0 = sm.RETRIES.value, sm.FAULTS.value
+    plan = faults.FaultPlan.parse(
+        "serving.decode@2=transient:2;serving.decode@4=fatal")
+    with plan:
+        reqs = [eng.submit(p, m) for p, m in short]
+        eng.run()
+    health = eng.health()
+    after = [eng.submit(p, m) for p, m in short[:4]]
+    eng.run()
+    states = [r.state for r in reqs]
+    check(sm.RETRIES.value - r0 == 2 and sm.FAULTS.value - f0 == 1
+          and states.count("failed") == 8 and plan.fired == 3
+          and health["status"] == "degraded"
+          and all(r.state == "finished" for r in after)
+          and eng.health()["status"] == "ok"
+          and eng.pool.num_used == 0 and eng.page_accounting_ok(),
+          "fault ladder: retries %s, states %s, health %s"
+          % (sm.RETRIES.value - r0, states, health))
+    emit("serve_lifecycle", drain=summary, deadline_timeouts=4,
+         retries=2, failed=8, fault_plan=repr(plan.specs),
+         health_after_fault=health, health_after=eng.health())
 
 
 def xent_kernel_phase(dev):

@@ -29,7 +29,8 @@ from ..core.place import resolve_device
 from ..ops import attention_ops
 
 __all__ = ["DecoderConfig", "DecoderLM", "init_params", "params_from_jax",
-           "prefill_forward", "decode_forward", "reference_decode"]
+           "prefill_forward", "decode_forward", "verify_forward",
+           "reference_decode"]
 
 _LAYER_KEYS = ("ln1_g", "ln1_b", "wq", "wk", "wv", "wo", "ln2_g", "ln2_b",
                "w1", "b1", "w2", "b2")
@@ -201,9 +202,50 @@ def decode_forward(params, cfg: DecoderConfig, cache, cache_ops, tokens,
     return x @ params["tok_emb"].T, cache
 
 
+@torch.no_grad()
+def verify_forward(params, cfg: DecoderConfig, cache, cache_ops, tokens, pos,
+                   active, write_mask):
+    """Speculative verify window: ``decode_forward`` over W consecutive
+    positions per slot in ONE forward.
+
+    ``tokens`` [B,W] is each slot's window — position 0 its pending next
+    token, positions 1..W-1 the drafter's proposals; window position ``j``
+    sits at logical position ``pos[b] + j``. All W positions' K/V are
+    written BEFORE attention (the same write-then-attend order as decode),
+    gated per position by ``write_mask`` [B,W] — the engine masks writes
+    that would run past the slot's reservation (``gen + j >= max_new`` or
+    ``pos + j >= max_ctx``), because those positions' page-table entries
+    are unreserved and an unguarded scatter would land on another slot's
+    page. The W writes of a layer are one scatter
+    (``cache_ops.write_window``; the unmasked rows are distinct, so it is
+    the JAX package's loop of ``write_token`` calls). Attention dispatches
+    through ``cache_ops.decode_verify`` (ragged per-row lengths ``pos + 1 +
+    j`` give in-window causality): on the card, K3 over B*W pseudo-slots.
+    Returns (logits [B,W,V], cache). With W=1 and write_mask=active this is
+    ``decode_forward`` on the same math."""
+    b, w = tokens.shape
+    posw = pos[:, None] + torch.arange(w, device=tokens.device)[None, :]
+    pos_c = posw.clamp(0, cfg.max_seq - 1)
+    x = params["tok_emb"][tokens] + params["pos_emb"][pos_c]
+    ctx_len = (pos + 1).to(torch.int32)
+    for i, lp in enumerate(params["layers"]):
+        h = _ln(x, lp["ln1_g"], lp["ln1_b"])
+        q = (h @ lp["wq"]).reshape(b, w, cfg.n_head, cfg.d_head)
+        k = (h @ lp["wk"]).reshape(b, w, cfg.n_head, cfg.d_head)
+        v = (h @ lp["wv"]).reshape(b, w, cfg.n_head, cfg.d_head)
+        cache = cache_ops.write_window(cache, i, k, v, posw, write_mask)
+        o = cache_ops.decode_verify(cache, i, q, ctx_len,
+                                    sm_scale=cfg.sm_scale)
+        x = x + o.reshape(b, w, cfg.d_model) @ lp["wo"]
+        x = x + _ffn(_ln(x, lp["ln2_g"], lp["ln2_b"]), lp)
+    x = _ln(x, params["lnf_g"], params["lnf_b"])
+    return x @ params["tok_emb"].T, cache
+
+
 class DecoderLM(nn.Module):
     """The serving contract (serving.engine.ServingEngine's ``model``): a
-    config plus its parameters, and the two step functions.
+    config plus its parameters, and the three step functions (``verify``
+    is the speculative window).
 
     ``params`` (a mapping as :func:`init_params` returns, e.g. from
     :func:`params_from_jax`) defaults to :func:`init_params` at ``seed``.
@@ -243,6 +285,10 @@ class DecoderLM(nn.Module):
     def decode(self, cache, cache_ops, tokens, pos, active):
         return decode_forward(self.params, self.cfg, cache, cache_ops,
                               tokens, pos, active)
+
+    def verify(self, cache, cache_ops, tokens, pos, active, write_mask):
+        return verify_forward(self.params, self.cfg, cache, cache_ops,
+                              tokens, pos, active, write_mask)
 
 
 def reference_decode(params, cfg: DecoderConfig, prompt,

@@ -32,8 +32,8 @@ import torch
 from ..attention_ops import decode_attention, neg_inf_value
 
 __all__ = ["paged_decode_attention", "gather_reference",
-           "chunked_reference", "chunk_plan", "LAUNCHES", "MAX_D",
-           "CHUNK_ROWS"]
+           "chunked_reference", "chunk_plan", "counters_at_zero", "LAUNCHES",
+           "MAX_D", "CHUNK_ROWS"]
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 MAX_D = 256   # largest head width the kernel takes
@@ -42,8 +42,10 @@ CHUNK_ROWS = 64  # context rows a block walks (chip_smoke.py times others)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 # the arrival counters of each (device, stream): int32 zeros, which every
-# launch leaves at zero
+# launch leaves at zero. A buffer outgrown by a wider launch stays alive in
+# _outgrown: a CUDA graph captured before may still point at it.
 _counters = {}
+_outgrown = []
 
 
 def _kernel():
@@ -73,9 +75,26 @@ def chunk_plan(pages_per_slot, page_size, chunk_rows=CHUNK_ROWS):
 def _arrival_counters(device, stream, n):
     buf = _counters.get((device, stream))
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # allocated here it would come from the graph's private pool
+            # and be zeroed by no launch outside the graph
+            raise RuntimeError(
+                "paged_decode_attention: the arrival counters for %d "
+                "(slot, head) pairs on this stream were not allocated "
+                "before the CUDA graph capture; run the same launch once "
+                "eagerly on the capture stream first" % n)
+        if buf is not None:
+            _outgrown.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _counters[(device, stream)] = buf
     return buf
+
+
+def counters_at_zero() -> bool:
+    """True when every arrival counter of every (device, stream) reads 0,
+    as a launch whose blocks all ran leaves them (a host read: call it
+    outside a capture, after the launches or replays to check)."""
+    return all(not bool(buf.any()) for buf in _counters.values())
 
 
 def _check(q, k_pages, v_pages, page_table, ctx_len, page_size):

@@ -9,7 +9,12 @@ driver, on a CUDA GPU.
   for pages, not padding; decode attention reads the pages through the
   hand-written CUDA kernel (ops/kernels/paged_attention.py),
 * :class:`~.engine.ServingEngine`: per-bucket prefill + decode dispatches
-  with all serving state on the device,
+  with all serving state on the device, the decode (and speculative
+  verify) dispatch replayed from a CUDA graph on the card
+  (serving.captured); seeded sampled decoding (core.threefry), n-gram
+  speculation (serving.speculative), the prefix cache
+  (paddle_tpu_torch.fleet.prefix_cache), drain, deadlines and the
+  retry/fail ladder (paddle_tpu_torch.reliability.faults),
 * ``serving/*`` monitor counters + latency histograms.
 
 Quick start::
@@ -21,6 +26,8 @@ Quick start::
     eng = serving.ServingEngine(model, serving.ServingConfig(
         slots=8, page_size=16, max_seq=128))
     reqs = [eng.submit([1, 2, 3], max_new_tokens=16) for _ in range(32)]
+    reqs.append(eng.submit([4, 5, 6], 16, temperature=0.8, top_k=40,
+                           seed=7))
     eng.run()                 # drains queue+slots, continuous batching
     print(reqs[0].tokens_out, reqs[0].latency_s)
 

@@ -1,0 +1,102 @@
+# ported from paddle_tpu/serving/engine.py (_get_decode_exe / _get_verify_exe, lines 1273-1406)
+"""The serving dispatch as a CUDA graph: the port's counterpart of the JAX
+package's AOT-compiled decode and verify executables.
+
+A :class:`CapturedDispatch` holds one dispatch body at one shape (a decode
+of ``decode_fuse`` steps, or a verify window of width W; with or without
+the sampler). The body reads and writes only static tensors: the engine's
+slot-state vectors and KV cache, updated in place, and the dispatch's own
+input and output buffers. On the card its first run is an eager warm-up
+on a side stream (a real dispatch: it allocates what the body keeps
+between launches, such as the paged-attention kernel's arrival counters
+of that stream, outside any graph); the second captures the body on the
+same stream into a ``torch.cuda.CUDAGraph`` and replays it, and every
+later run replays. On the CPU the body runs as it is. A capture that fails
+raises :class:`CaptureError` naming the dispatch: nothing runs eagerly in
+the graph's place.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import torch
+
+__all__ = ["CaptureError", "CapturedDispatch"]
+
+
+class CaptureError(RuntimeError):
+    """A dispatch body could not be captured into a CUDA graph. Not a
+    fault of the dispatch's requests: the engine's retry ladder lets it
+    through."""
+
+
+class CapturedDispatch:
+    """``body()`` at one shape: eager, then captured, then replayed (on the
+    card), or eager every time (``device`` on the CPU, or ``capture=False``
+    — the yardstick the graphs are timed against). ``stream`` is the side
+    stream of the warm-up and the capture."""
+
+    def __init__(self, name: str, body: Callable[[], None], device,
+                 stream: Optional["torch.cuda.Stream"] = None,
+                 capture: bool = True):
+        self.name = name
+        self.body = body
+        self.device = torch.device(device)
+        self.stream = stream
+        self.capture = bool(capture) and self.device.type == "cuda"
+        self.warm_left = 1
+        self.graph = None
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        self.replays = 0
+        # the body's static buffers (outputs, inputs), kept with it by the
+        # caller that made them
+        self.out = self.logits = self.inputs = None
+
+    def run(self) -> None:
+        if not self.capture:
+            self.body()
+            return
+        if self.warm_left > 0:
+            self.warm_left -= 1
+            cur = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                self.body()
+            cur.wait_stream(self.stream)
+            return
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        self.replays += 1
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        # torch.cuda.graph empties the allocator's cache on entry; doing it
+        # first makes the growth of reserved memory the graph pool's
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream):
+                self.body()
+        except Exception as e:
+            raise CaptureError(
+                "capturing the serving %s dispatch into a CUDA graph failed; "
+                "it is not run eagerly in its place. A captured dispatch may "
+                "not read a device value on the host, allocate a buffer it "
+                "keeps, or change shapes: %s: %s"
+                % (self.name, type(e).__name__, e)) from e
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
+
+    def release(self) -> None:
+        """Drop the graph and with it its memory pool; the next run
+        captures again (after no further warm-up)."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None

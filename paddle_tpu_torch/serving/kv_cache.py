@@ -2,7 +2,8 @@
 """KV-cache layouts for the decode driver: paged block-pool vs contiguous.
 
 Two layouts behind ONE interface (``init_state`` / ``write_token`` /
-``write_prompt`` / ``context`` / ``decode_attention`` / ``decode_verify``),
+``write_window`` / ``write_prompt`` / ``context`` / ``decode_attention`` /
+``decode_verify``),
 so the model's decode loop is layout-blind and the two paths are
 comparable bit for bit:
 
@@ -26,6 +27,10 @@ position ``max_ctx``) that takes those writes and that no read ever sees.
 The index math stays the JAX package's; :meth:`PagedKVCache.pools` hands
 the kernel a layer's pool without the extra row. Unwritten rows stay zero
 in both layouts, which is what makes the gathered contexts bit-identical.
+
+The paged layout also ships pages (``export_pages`` / ``import_pages``):
+raw C-order bytes with the JAX package's ``meta`` keys, so a page exported
+by one package imports into the other.
 """
 
 from __future__ import annotations
@@ -65,6 +70,15 @@ class _KVCacheBase:
 
     def _zeros(self, *shape):
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    # -- page migration ------------------------------------------------------
+    # Only the paged layout ships pages; the dense layout refuses with a
+    # typed error (a contiguous slot's KV is not an addressable unit).
+    def export_pages(self, state: Cache, pages):
+        raise ValueError("layout %r has no pages to export" % self.layout)
+
+    def import_pages(self, state: Cache, pages, meta: dict, blobs):
+        raise ValueError("layout %r has no pages to import" % self.layout)
 
 
 class PagedKVCache(_KVCacheBase):
@@ -119,6 +133,25 @@ class PagedKVCache(_KVCacheBase):
         state["v"][layer].index_copy_(0, dest, v_new)
         return state
 
+    def write_window(self, state: Cache, layer: int, k_new, v_new, posw,
+                     mask) -> Cache:
+        """k_new/v_new [B,W,H,D] written at logical positions ``posw[b,
+        j]`` of slot b, all W in one scatter; entries with ``mask[b, j]``
+        False go to the sink row. The unmasked destinations are distinct
+        rows, so this is ``write_token`` over j = 0..W-1 in one launch."""
+        ps = self.page_size
+        pt = state["pt"]
+        b, w = posw.shape
+        pidx = (posw // ps).clamp(0, self.pages_per_slot - 1)
+        page = pt.gather(1, pidx.long()).long()
+        dest = torch.where(mask, page * ps + posw % ps, self.num_rows)
+        hd = k_new.shape[2:]
+        state["k"][layer].index_copy_(0, dest.reshape(b * w),
+                                      k_new.reshape(b * w, *hd))
+        state["v"][layer].index_copy_(0, dest.reshape(b * w),
+                                      v_new.reshape(b * w, *hd))
+        return state
+
     def _rows(self, state: Cache) -> torch.Tensor:
         """Pool row of every slot's every logical position ``[slots,
         max_ctx]``, page ids clamped to the pool."""
@@ -167,9 +200,14 @@ class PagedKVCache(_KVCacheBase):
             lens = ctx_len[:, None] + torch.arange(w, device=q.device)
             lens = lens.reshape(b * w).clamp(0, self.max_ctx)
             k, v = self.pools(state, layer)
+            pt = state["pt"]
+            # each slot's page table once a window position (an expand,
+            # not repeat_interleave: no host-side size, so it captures)
+            pt = pt[:, None].expand(b, w, pt.shape[1]).reshape(
+                b * w, -1).contiguous()
             out = _pa.paged_decode_attention(
                 q.reshape(b * w, self.n_head, self.d_head).contiguous(), k,
-                v, state["pt"].repeat_interleave(w, dim=0),
+                v, pt,
                 lens.to(torch.int32), page_size=self.page_size,
                 sm_scale=sm_scale)
             return out.reshape(b, w, self.n_head, self.d_head)
@@ -200,6 +238,68 @@ class PagedKVCache(_KVCacheBase):
         state["v"][layer].index_copy_(0, flat, v_new)
         return state
 
+    # -- page migration ------------------------------------------------------
+    def _page_rows(self, pages) -> np.ndarray:
+        p = np.asarray(pages, np.int64)
+        return (p[:, None] * self.page_size
+                + np.arange(self.page_size)[None, :]).reshape(-1)
+
+    def page_meta(self) -> dict:
+        """Geometry a page payload must match to be importable here —
+        embedded in every export, checked on every import."""
+        return {"layout": self.layout, "n_layer": self.n_layer,
+                "n_head": self.n_head, "d_head": self.d_head,
+                "page_size": self.page_size,
+                "kv_dtype": str(self.dtype).replace("torch.", "")}
+
+    def _check_meta(self, meta: dict, n_blobs: int, blobs) -> None:
+        want = self.page_meta()
+        got = {k: meta.get(k) for k in want}
+        if got != want:
+            raise ValueError("page payload geometry mismatch: %r != %r"
+                             % (got, want))
+        if len(blobs) != n_blobs:
+            raise ValueError("page payload has %d blobs, expected %d"
+                             % (len(blobs), n_blobs))
+
+    def export_pages(self, state: Cache, pages):
+        """Serialize ``pages`` (pool page ids) to ``(meta, blobs)``: raw
+        C-order bytes of the K rows then the V rows, ``[n_layer,
+        n_pages*page_size, H, D]`` each — bit-exact, no float formatting."""
+        rows = torch.as_tensor(self._page_rows(pages), device=self.device)
+
+        def raw(t):
+            return t[:, rows].contiguous().view(torch.uint8).cpu().numpy(
+                ).tobytes()
+
+        meta = self.page_meta()
+        meta["n_pages"] = len(pages)
+        return meta, [raw(state["k"]), raw(state["v"])]
+
+    def import_pages(self, state: Cache, pages, meta: dict, blobs) -> Cache:
+        """Write an exported payload into ``pages`` of THIS pool (in
+        place); raises ``ValueError`` (typed, caller frees its
+        reservation) on any geometry/dtype/size mismatch. Row bytes land
+        verbatim, so an export of the same pages round-trips
+        bit-identical."""
+        self._check_meta(meta, 2, blobs)
+        n = int(meta.get("n_pages", -1))
+        if n != len(pages):
+            raise ValueError("page payload has %d pages, caller reserved %d"
+                             % (n, len(pages)))
+        rows_np = self._page_rows(pages)
+        shp = (self.n_layer, len(rows_np), self.n_head, self.d_head)
+        want = int(np.prod(shp)) * self.dtype.itemsize
+        if len(blobs[0]) != want or len(blobs[1]) != want:
+            raise ValueError("page payload blob bytes %d/%d != %d"
+                             % (len(blobs[0]), len(blobs[1]), want))
+        rows = torch.as_tensor(rows_np, device=self.device)
+        for name, blob in (("k", blobs[0]), ("v", blobs[1])):
+            t = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+            state[name][:, rows] = t.view(self.dtype).reshape(shp).to(
+                self.device)
+        return state
+
 
 class ContiguousKVCache(_KVCacheBase):
     layout = "contiguous"
@@ -214,6 +314,17 @@ class ContiguousKVCache(_KVCacheBase):
                     active) -> Cache:
         b_idx = torch.arange(pos.shape[0], device=pos.device)
         pos_c = torch.where(active, pos, self.max_ctx).long()
+        state["k"][layer].index_put_((b_idx, pos_c), k_new)
+        state["v"][layer].index_put_((b_idx, pos_c), v_new)
+        return state
+
+    def write_window(self, state: Cache, layer: int, k_new, v_new, posw,
+                     mask) -> Cache:
+        """``write_token`` over the W window positions in one scatter
+        (masked entries to the sink position)."""
+        b, w = posw.shape
+        b_idx = torch.arange(b, device=posw.device)[:, None].expand(b, w)
+        pos_c = torch.where(mask, posw, self.max_ctx).long()
         state["k"][layer].index_put_((b_idx, pos_c), k_new)
         state["v"][layer].index_put_((b_idx, pos_c), v_new)
         return state

@@ -3,9 +3,7 @@
 
 One module owns every ``serving/*`` name so the scheduler, page pool and
 decode driver never race a get-or-create. Module-level handles, a single
-disabled-branch per call. Only the instruments of the ported serving path
-are defined; those of fault recovery, drain and speculation come with
-those features.
+disabled-branch per call. The names are the JAX package's.
 """
 
 from __future__ import annotations
@@ -19,6 +17,10 @@ __all__ = [
     "PREFILL_COUNT", "DECODE_STEPS", "DECODE_DISPATCHES",
     "TOKENS_GENERATED", "TOKENS_PER_SEC",
     "REQUEST_LATENCY_MS", "TTFT_MS", "DECODE_STEP_MS", "PREFILL_MS",
+    "FAULTS", "RETRIES", "TIMEOUTS", "REQUESTS_FAILED",
+    "DRAINS", "DRAINED_REQUESTS", "DRAIN_REJECTED",
+    "SPEC_PROPOSED", "SPEC_ACCEPTED", "SPEC_REJECTED", "SPEC_DRAFTS",
+    "SPEC_VERIFY_DISPATCHES", "SPEC_ACCEPT_RATE",
 ]
 
 REQUESTS_SUBMITTED = _mx.counter(
@@ -64,3 +66,50 @@ DECODE_STEP_MS = _mx.histogram(
     help="host wall time of one decode dispatch / fused steps")
 PREFILL_MS = _mx.histogram(
     "serving/prefill_ms", help="host wall time of one prefill call")
+FAULTS = _mx.counter(
+    "serving/faults",
+    help="decode dispatch failures absorbed by the recovery path (the "
+         "in-flight batch was failed, the engine kept serving)")
+RETRIES = _mx.counter(
+    "serving/retries",
+    help="decode dispatches retried after a transient-classified failure")
+TIMEOUTS = _mx.counter(
+    "serving/timeouts",
+    help="requests retired with TIMEOUT status at their deadline (queued "
+         "or running; slots and pages reclaimed)")
+REQUESTS_FAILED = _mx.counter(
+    "serving/requests_failed",
+    help="requests retired as FAILED when their in-flight batch was lost "
+         "to a decode failure")
+DRAINS = _mx.counter(
+    "serving/drains",
+    help="graceful drains performed (stop admitting, finish in-flight, "
+         "close) — SIGTERM/rollout shutdowns, not crashes")
+DRAINED_REQUESTS = _mx.counter(
+    "serving/drained_requests",
+    help="in-flight requests that FINISHED during a graceful drain")
+DRAIN_REJECTED = _mx.counter(
+    "serving/drain_rejected",
+    help="requests rejected because the engine was draining (typed "
+         "DrainingError at submit, plus queued requests shed at drain "
+         "start)")
+SPEC_PROPOSED = _mx.counter(
+    "serving/spec_proposed_tokens",
+    help="draft tokens proposed to speculative verify dispatches")
+SPEC_ACCEPTED = _mx.counter(
+    "serving/spec_accepted_tokens",
+    help="draft tokens accepted by the target model (each one is a decode "
+         "step the engine did not have to dispatch)")
+SPEC_REJECTED = _mx.counter(
+    "serving/spec_rejected_tokens",
+    help="draft tokens rejected (or cut by eos/budget) and rolled back — "
+         "their KV rows sit beyond ctx_len until overwritten")
+SPEC_DRAFTS = _mx.counter(
+    "serving/spec_drafts",
+    help="non-empty per-slot drafts submitted to verify dispatches")
+SPEC_VERIFY_DISPATCHES = _mx.counter(
+    "serving/spec_verify_dispatches",
+    help="decode dispatches that took the speculative verify-window path")
+SPEC_ACCEPT_RATE = _mx.histogram(
+    "serving/spec_accept_rate",
+    help="per-dispatch accepted/proposed draft-token ratio, 0..1")

@@ -22,8 +22,8 @@ from collections import deque
 from typing import Deque, List, Optional
 
 from . import metrics as _sm
-from .request import (FAILED, FINISHED, QUEUED, RUNNING, TIMEOUT,
-                      BackpressureError, Request)
+from .request import (FAILED, FINISHED, QUEUED, REJECTED, RUNNING,
+                      TIMEOUT, BackpressureError, Request)
 
 __all__ = ["Scheduler"]
 
@@ -129,3 +129,32 @@ class Scheduler:
         _sm.REQUESTS_RETIRED.inc()
         _sm.SLOT_OCCUPANCY.set(self.occupancy)
         return req
+
+    def drain_queue(self) -> List[Request]:
+        """Graceful-drain shutdown of the QUEUE side: every queued request
+        leaves with terminal state REJECTED (it never held a slot or
+        pages; the caller re-routes it to a peer engine). Running slots
+        are the engine's to finish — that is the point of draining."""
+        out = list(self._queue)
+        self._queue.clear()
+        for r in out:
+            r.state = REJECTED
+        if out:
+            _sm.DRAIN_REJECTED.inc(len(out))
+            _sm.QUEUE_DEPTH.set(0)
+        return out
+
+    def drop_expired(self, now: float) -> List[Request]:
+        """Remove queued requests whose deadline passed (they never got a
+        slot); returns them, terminal state set to TIMEOUT. Running
+        requests' deadlines are the engine's to enforce — it owns their
+        pages and device state."""
+        expired = [r for r in self._queue if r.expired(now)]
+        if expired:
+            keep = [r for r in self._queue if not r.expired(now)]
+            self._queue.clear()
+            self._queue.extend(keep)
+            for r in expired:
+                r.state = TIMEOUT
+            _sm.QUEUE_DEPTH.set(len(self._queue))
+        return expired

@@ -712,3 +712,87 @@ def test_lookup_table_gradient_is_the_same_on_every_stream(cuda):
             again = [grad() for _ in range(4)]
         torch.cuda.current_stream().wait_stream(side)
         assert all(torch.equal(x, first) for x in again)
+
+
+def serving_model(dev):
+    from paddle_tpu_torch.models import decoder_lm
+
+    cfg = decoder_lm.DecoderConfig(vocab_size=512, n_layer=2, d_model=64,
+                                   n_head=4, max_seq=128)
+    return decoder_lm.DecoderLM(cfg, seed=3, device=dev)
+
+
+def serve_streams(model, dev, graphs, fuse, speculation=0):
+    """Half greedy, half sampled requests (the sampled ones top-k 40),
+    some with a repeated motif for the drafter."""
+    from paddle_tpu_torch import serving
+
+    eng = serving.ServingEngine(model, serving.ServingConfig(
+        slots=4, page_size=16, max_seq=128, prompt_buckets=(32, 64),
+        decode_fuse=fuse, speculation=speculation, cuda_graphs=graphs),
+        device=dev)
+    rng = np.random.RandomState(0)
+    reqs = []
+    for i in range(8):
+        p = list(rng.randint(0, 512, 3)) * 5 if i % 3 == 0 \
+            else list(rng.randint(0, 512, 10 + 5 * i))
+        kw = dict(temperature=1.0, top_k=40, seed=1000 + i) if i % 2 else {}
+        reqs.append(eng.submit(p, 12, **kw))
+    eng.run()
+    assert all(r.state == "finished" for r in reqs)
+    assert eng.page_accounting_ok()
+    return [r.tokens_out for r in reqs], eng
+
+
+@pytest.mark.parametrize("fuse,speculation", [(1, 0), (4, 0), (1, 4)])
+def test_captured_serving_matches_eager(cuda, fuse, speculation):
+    """The decode (and verify) dispatch replayed from CUDA graphs, K3
+    inside, gives the eager dispatch's streams bit for bit, and leaves
+    K3's arrival counters at zero."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    model = serving_model(cuda)
+    eager, _ = serve_streams(model, cuda, False, fuse, speculation)
+    got, eng = serve_streams(model, cuda, True, fuse, speculation)
+    assert got == eager
+    info = eng.graph_info()
+    assert any(d["captured"] and d["replays"] > 0 for d in info.values())
+    torch.cuda.synchronize()
+    assert pa.counters_at_zero()
+    eng.close()
+
+
+def test_threefry_on_the_card_equals_the_cpu(cuda):
+    from paddle_tpu_torch.core import threefry as tf
+
+    seeds = torch.arange(1000, 1016, dtype=torch.int32)
+    pos = torch.arange(16, dtype=torch.int32) * 37
+    want = tf.random_bits(tf.fold_in(tf.prng_key(seeds), pos), 50257)
+    got = tf.random_bits(tf.fold_in(tf.prng_key(seeds.to(cuda)),
+                                    pos.to(cuda)), 50257)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(tf.uniform(tf.prng_key(seeds.to(cuda)), 999).cpu(),
+                       tf.uniform(tf.prng_key(seeds), 999))
+
+
+def test_serving_capture_names_the_dispatch(cuda):
+    """A decode body that reads the card on the host cannot be captured:
+    the capture raises naming the dispatch, and it is not run eagerly in
+    its place nor absorbed as a failed batch."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.serving.captured import CaptureError
+
+    model = serving_model(cuda)
+    eng = serving.ServingEngine(model, serving.ServingConfig(
+        slots=2, page_size=16, max_seq=128, prompt_buckets=(32,)),
+        device=cuda)
+    real = model.decode
+
+    def reads_host(cache, ops, tokens, pos, active):
+        int(pos.max())
+        return real(cache, ops, tokens, pos, active)
+
+    model.decode = reads_host
+    eng.submit([1, 2, 3, 4], 8)
+    with pytest.raises(CaptureError, match=r"decode\(width=1, greedy\)"):
+        eng.run()

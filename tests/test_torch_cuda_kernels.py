@@ -153,19 +153,27 @@ def test_engine_decodes_through_the_kernel(cuda):
     stream = [(rng.randint(0, 64, int(rng.randint(3, 17))).tolist(),
                int(rng.randint(2, 9))) for _ in range(8)]
     outs = []
-    for flag in ("auto", "off"):
+    # eager dispatches: every K3 launch is counted on the host; the
+    # engine's default, the decode graph, launches K3 on the host only in
+    # its warm-up and capture, and its stream is the same
+    for flag, graphs in (("auto", False), ("off", False), ("auto", True)):
         set_flag("paged_attention_kernel", flag)
         eng = serving.ServingEngine(model, serving.ServingConfig(
-            slots=4, page_size=8, max_seq=64, prompt_buckets=(16,)))
+            slots=4, page_size=8, max_seq=64, prompt_buckets=(16,),
+            cuda_graphs=graphs))
         before = pa.LAUNCHES
         reqs = [eng.submit(p, m) for p, m in stream]
         eng.run()
         launched = pa.LAUNCHES - before
-        assert launched == (cfg.n_layer * eng.decode_steps
-                            if flag == "auto" else 0)
+        if graphs:
+            assert 0 < launched < cfg.n_layer * eng.decode_steps
+        else:
+            assert launched == (cfg.n_layer * eng.decode_steps
+                                if flag == "auto" else 0)
         assert eng.page_accounting_ok()
         outs.append([r.tokens_out for r in reqs])
-    assert outs[0] == outs[1]
+    set_flag("paged_attention_kernel", "auto")
+    assert outs[0] == outs[1] == outs[2]
 
 
 @pytest.mark.parametrize("n,v", [(37, 1000), (64, 30000), (5, 7), (64, 1000),

@@ -140,14 +140,6 @@ def test_admission_backpressures_under_half_pool(models):
         eng.submit([1] * 8, 8 * (full // 2))
 
 
-def test_sampled_decoding_is_not_ported_yet(models):
-    _, tm = models
-    eng = tserving.ServingEngine(tm, config(tserving), device="cpu")
-    with pytest.raises(NotImplementedError, match="threefry"):
-        eng.submit([1, 2, 3], 4, temperature=0.5)
-    assert eng.scheduler.queue_depth == 0
-
-
 def test_entry_points_raise_without_a_gpu(models, monkeypatch):
     _, tm = models
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -183,7 +175,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.models.word2vec, "
             "paddle_tpu_torch.ops.compare_ops, "
             "paddle_tpu_torch.layers.learning_rate_scheduler, "
-            "paddle_tpu_torch.optimizer, paddle_tpu_torch.clip; "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.clip, "
+            "paddle_tpu_torch.reliability.faults, "
+            "paddle_tpu_torch.fleet.prefix_cache, "
+            "paddle_tpu_torch.core.threefry; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']; "
             "assert not bad, bad")
@@ -230,7 +225,11 @@ def test_port_sources_name_no_jax_import():
             "paddle_tpu_torch/ops/optimizer_ops.py",
             "paddle_tpu_torch/layers/learning_rate_scheduler.py",
             "paddle_tpu_torch/optimizer.py",
-            "paddle_tpu_torch/clip.py"} <= names
+            "paddle_tpu_torch/clip.py",
+            "paddle_tpu_torch/core/threefry.py",
+            "paddle_tpu_torch/reliability/faults.py",
+            "paddle_tpu_torch/fleet/prefix_cache.py",
+            "paddle_tpu_torch/serving/captured.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
