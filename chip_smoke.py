@@ -161,6 +161,31 @@ lookup's table gradient gives the same bits on every run and stream; the
 recipe legs (``scheduled_leg``) hold two eager runs from one start
 bit-equal and captured against eager tensor by tensor.
 
+The input pipeline (``input_pipeline``): ``ctr_stream`` trains DeepFM at
+full width (V = 1e6, batch 1024, Adam 1e-3) as ``bench.py``'s
+``bench_deepfm_stream`` does, from ``write_ctr_shards`` (16 x 1024
+records, 4 shards) through ``CTRMultiSlotReader``, its ``prefetch(4)`` and
+a ``DevicePrefetcher(capacity=2)`` (pinned staging, a side stream) into
+``run_steps`` (4 warm-up steps with the capture while the prefetcher
+copies, then 12 timed at ``fetch_every=4``); every batch that reaches the
+captured step must equal the shard's batch byte for byte, the losses a
+list-fed ``run_steps`` of the same batches (bit for bit when two list-fed
+runs agree, else within their spread), K4a 2 and K2a/K2b 1 each in one
+replay and 32/16/16 in a profiled stream-fed run (CUPTI); the parse, the
+H2D copies (CUDA events, ``h2d_ms``) and the captured step on a fixed
+batch are timed apart, with the busy share of a stream-fed run. ``ctr_stream_resume`` stops the
+reader after 5 batches, resumes a new one from its ``state_dict`` (byte
+for byte the uninterrupted pass) and quarantines a planted corrupt line.
+``py_reader_train`` trains the MNIST MLP from
+``fluid.reader.batch(fluid.dataset.mnist.train(), 64)`` through
+``fluid.layers.py_reader`` (128 steps; ``exe.run`` to ``EOFException``,
+then ``run_steps(feed_iter=None)`` for two epochs), equal to feed-dict
+runs bit for bit. ``async_executor`` trains DeepFM at full width through
+``fluid.AsyncExecutor(thread_num=1)`` from a ``DataFeedDesc`` (equal to
+``Executor.run`` on the same batches; card = CPU 1e-5 over 2 batches).
+``selected_rows_ops`` holds ``merge_selected_rows`` and
+``get_tensor_from_selected_rows`` on a 26,624-id gradient to the CPU.
+
 Diagnostics, not run by default: ``python3 chip_smoke.py
 --recipe-bisect [--deterministic] lamb adamw adam`` checksums every op's
 outputs and gradients over two eager runs of BERT-base's recipe step from
@@ -178,6 +203,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -189,6 +215,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12   # float32 outside the tensor cores
+PCIE5_BYTES_PER_S = 64e9      # the H100 SXM's host link, PCIe 5.0 x16, one way
 SPIN_CYCLES = 1_000_000       # ~0.5 ms at the H100's 1.98 GHz boost clock
 
 # Transformer-base as bench.py's bench_transformer trains it
@@ -6796,6 +6823,701 @@ def optimizer_parity_phase():
          seconds=time.perf_counter() - t_phase, results=results)
 
 
+# -- slice 18: the input pipeline -----------------------------------------------
+
+STREAM_SHARDS = 4                 # bench_deepfm_stream's shard set
+STREAM_BATCHES = 16               # 16 x 1024 records: every batch full
+STREAM_WARM, STREAM_TIMED = 4, 12
+STREAM_FETCH_EVERY = 4
+RESUME_AFTER = 5                  # batches read before the reader is stopped
+PY_READER_STEPS = 128             # the synthetic MNIST train set at batch 64
+ASYNC_FILES, ASYNC_LINES = 4, 1024
+
+
+def stream_shards(tmp, seed=0):
+    """``bench_deepfm_stream``'s shards: 16 x 1024 MultiSlot CTR records at
+    full width in 4 files; returns (paths, seconds)."""
+    from paddle_tpu_torch.data import write_ctr_shards
+
+    t0 = time.perf_counter()
+    paths = write_ctr_shards(tmp, STREAM_BATCHES * CTR_BATCH,
+                             n_shards=STREAM_SHARDS,
+                             num_fields=CTR["num_fields"],
+                             dense_dim=CTR_DENSE,
+                             vocab=CTR["sparse_feature_dim"], seed=seed)
+    return paths, time.perf_counter() - t0
+
+
+def ctr_reader(paths, **kw):
+    from paddle_tpu_torch.data import CTRMultiSlotReader
+
+    return CTRMultiSlotReader(paths, batch_size=CTR_BATCH, epochs=1,
+                              num_fields=CTR["num_fields"],
+                              dense_dim=CTR_DENSE,
+                              vocab=CTR["sparse_feature_dim"], **kw)
+
+
+def same_bytes(got, want):
+    """Whether tensor ``got`` holds ``want``'s bytes (numpy), dtype and
+    shape included."""
+    g = got.detach().cpu().numpy()
+    return g.dtype == want.dtype and g.shape == want.shape \
+        and g.tobytes() == want.tobytes()
+
+
+@contextlib.contextmanager
+def static_feed_copies(seen):
+    """While active, every ``_CapturedStep.step`` appends a device copy of
+    the batch it ran: its static feeds after a fill (a replay), the feed
+    tensors it was handed in an eager warm-up. Nothing is read back until
+    the caller compares."""
+    from paddle_tpu_torch import executor as ex
+
+    orig = ex._CapturedStep.step
+
+    def step(self, feed, i):
+        outs = orig(self, feed, i)
+        if self.state is not None:
+            seen.append({n: t.clone() for n, t in self.feeds.items()})
+        else:
+            seen.append({n: torch.as_tensor(v, device=self.exe.place).clone()
+                         for n, v in feed.items()})
+        return outs
+
+    ex._CapturedStep.step = step
+    try:
+        yield seen
+    finally:
+        ex._CapturedStep.step = orig
+
+
+def losses_of(rows):
+    return [float(np.asarray(r[0])) for r in rows]
+
+
+def spread_check(leg, got, runs):
+    """``got`` against the reference runs: bit for bit when the runs are
+    bit-equal, else within their spread (the largest relative difference
+    between two of them) of one of them. Returns (bit_equal_runs, spread,
+    err)."""
+    def err(a, b):
+        return float(max(abs(x - y) / max(abs(y), 1e-30)
+                         for x, y in zip(a, b)))
+
+    bit_runs = all(r == runs[0] for r in runs[1:])
+    spread = max((err(a, b) for a in runs for b in runs if a is not b),
+                 default=0.0)
+    e = min(err(got, r) for r in runs)
+    if bit_runs:
+        check(got == runs[0], "%s: losses %r differ from the reference "
+              "runs' %r, which agree bit for bit" % (leg, got, runs[0]))
+    else:
+        check(e <= spread, "%s: losses %.3g from the nearest reference run, "
+              "beyond the %.3g the reference runs part by" % (leg, e, spread))
+    return bit_runs, spread, e
+
+
+def h2d_ms(batch, dev):
+    """Device ms of one batch's host-to-device copies from pinned memory
+    on a side stream, by ``cuda_ms`` (the copies queued behind a spin, so
+    the events hold the copies and not the host's enqueues)."""
+    host = {k: torch.from_numpy(v).pin_memory() for k, v in batch.items()}
+    dst = {k: torch.empty(h.shape, dtype=h.dtype, device=dev)
+           for k, h in host.items()}
+
+    def copies():
+        for k, h in host.items():
+            dst[k].copy_(h, non_blocking=True)
+
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        return cuda_ms(copies)
+
+
+def ctr_stream_phase(k4_rows, xent_rows):
+    """``bench.py``'s ``bench_deepfm_stream`` on the port: DeepFM at full
+    width (V = 1e6, 26 fields, batch 1024, Adam 1e-3, ``is_sparse``)
+    trained by ``run_steps`` from ``write_ctr_shards`` (16 x 1024 records,
+    4 shards) through ``CTRMultiSlotReader``, its ``prefetch(4)`` and a
+    ``DevicePrefetcher(capacity=2)``: 4 warm-up steps (2 eager, the capture,
+    a replay), then 12 timed at ``fetch_every=4``. The parse (the reader
+    alone), the H2D copy (a prefetcher alone, device time on its stream)
+    and the captured step (one fixed batch) are timed apart. Checks: every
+    batch reaching the step equals the shard's batch byte for byte; the
+    losses equal ``run_steps`` over the same 16 numpy batches from the same
+    start (two list-fed runs set the tolerance: bits, or their spread);
+    K4a 2 and K2a/K2b 1 each in one replay (CUPTI); 16 x 1024 records read,
+    none corrupt; the losses finite and the AUC in (0, 1)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.monitor import metrics
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+    from paddle_tpu_torch.ops.kernels import sparse_adam as sa
+    from paddle_tpu_torch.reader import DevicePrefetcher
+
+    metrics.enable()
+    dev = fluid.CUDAPlace(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, gen_s = stream_shards(tmp)
+        shard_bytes = sum(os.path.getsize(p) for p in paths)
+        # the parse alone: the reference batches
+        reader = ctr_reader(paths)
+        t0 = time.perf_counter()
+        ref = list(reader)
+        parse_s = time.perf_counter() - t0
+        check(len(ref) == STREAM_BATCHES and reader.records_read
+              == STREAM_BATCHES * CTR_BATCH and reader.records_corrupt == 0,
+              "ctr_stream: the reader gave %d batches, %d records, %d "
+              "corrupt" % (len(ref), reader.records_read,
+                           reader.records_corrupt))
+        batch_bytes = sum(v.nbytes for v in ref[0].values())
+        # the H2D copy alone: a prefetcher over the parsed batches
+        copy_hist = metrics.histogram("prefetcher/copy_ms")
+        dispatch_hist = metrics.histogram("prefetcher/h2d_ms")
+        copy_hist.reset()
+        dispatch_hist.reset()
+        with DevicePrefetcher(iter(ref), capacity=2) as pf:
+            got = list(pf)
+        torch.cuda.synchronize()
+        check(len(got) == STREAM_BATCHES
+              and copy_hist.count == STREAM_BATCHES,
+              "ctr_stream: the prefetcher gave %d batches, timed %d copies"
+              % (len(got), copy_hist.count))
+        check(all(same_bytes(g[n], r[n]) for g, r in zip(got, ref)
+                  for n in r), "ctr_stream: a prefetched batch differs from "
+              "the parsed one")
+        h2d = {"device_ms_a_batch": h2d_ms(ref[0], dev),
+               "event_ms_a_batch_in_prefetcher":
+                   copy_hist.sum / max(1, copy_hist.count),
+               "dispatch_ms_mean":
+                   dispatch_hist.sum / max(1, dispatch_hist.count),
+               "batch_bytes": batch_bytes,
+               "bound_ms": batch_bytes / PCIE5_BYTES_PER_S * 1e3}
+        del got
+
+        main, startup, loss, auc = build_deepfm(
+            fluid, CTR["sparse_feature_dim"])
+        start = fluid.Scope()
+        fluid.Executor(dev).run(startup, scope=start)
+        step0 = getattr(main, "_tpu_step_counter", 0)
+
+        def from_start():
+            main._tpu_step_counter = step0
+            return fluid.Executor(dev), clone_scope(fluid, start)
+
+        fetch = [loss, auc]
+        listed = []
+        for _ in range(2):
+            exe, scope = from_start()
+            listed.append(losses_of(exe.run_steps(
+                main, ref, fetch_list=fetch, fetch_every=STREAM_FETCH_EVERY,
+                scope=scope)))
+            exe.close()
+
+        def stream_run(hook=None):
+            """The chain, 4 warm-up then 12 timed steps; returns (losses,
+            aucs, seconds of the timed steps, records read, corrupt,
+            executor, scope)."""
+            exe, scope = from_start()
+            rd = ctr_reader(paths)
+            pf = DevicePrefetcher(rd.prefetch(4), capacity=2).start()
+            try:
+                rows = exe.run_steps(main, pf, steps=STREAM_WARM,
+                                     fetch_list=fetch,
+                                     fetch_every=STREAM_FETCH_EVERY,
+                                     scope=scope)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows += exe.run_steps(main, pf, steps=STREAM_TIMED,
+                                      fetch_list=fetch,
+                                      fetch_every=STREAM_FETCH_EVERY,
+                                      scope=scope)
+                secs = time.perf_counter() - t0
+                left = list(pf)
+            finally:
+                pf.stop()
+            check(not left, "ctr_stream: %d batches left after 16 steps"
+                  % len(left))
+            return (losses_of(rows), [float(np.asarray(r[1])) for r in rows],
+                    secs, rd.records_read, rd.records_corrupt, exe, scope)
+
+        seen = []
+        caps0, reps0 = metrics.CAPTURES.value, metrics.REPLAYS.value
+        sa.LAUNCHES_ADAM = sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+        with static_feed_copies(seen):
+            checked = stream_run()
+        host_launches = {"k4a": sa.LAUNCHES_ADAM, "k2a": sx.LAUNCHES_FWD,
+                         "k2b": sx.LAUNCHES_BWD}
+        captures = metrics.CAPTURES.value - caps0
+        replays = metrics.REPLAYS.value - reps0
+        checked[5].close()
+        check(len(seen) == STREAM_BATCHES, "ctr_stream: %d steps ran, want "
+              "%d" % (len(seen), STREAM_BATCHES))
+        differ = [i for i, (s, r) in enumerate(zip(seen, ref))
+                  if set(s) != set(r)
+                  or not all(same_bytes(s[n], r[n]) for n in r)]
+        check(not differ, "ctr_stream: the batches of steps %s reached the "
+              "step unlike the shard's batches" % differ)
+        del seen
+        check((captures, replays) == (1, STREAM_BATCHES - 2),
+              "ctr_stream: %d captures and %d replays in 16 steps"
+              % (captures, replays))
+        bit_runs, spread, err = spread_check("ctr_stream", checked[0], listed)
+        check(checked[3] == STREAM_BATCHES * CTR_BATCH and checked[4] == 0,
+              "ctr_stream: %d records read, %d corrupt" % checked[3:5])
+        check(bool(np.isfinite(checked[0]).all()) and 0 < checked[1][-1] < 1,
+              "ctr_stream: losses %r, AUC %r" % (checked[0], checked[1][-1]))
+
+        timed_run = stream_run()
+        losses, aucs, secs, _, _, exe, scope = timed_run
+        bit_timed, _, err_timed = spread_check("ctr_stream (timed run)",
+                                               losses, listed)
+        per_step = {"K4a": (K4A_KERNEL, 2)}
+        per_step.update({k: (pat, 1) for k, pat in K2_NAMES.items()})
+        dfeed = {k: torch.as_tensor(v, device=dev) for k, v in ref[0].items()}
+
+        def captured_steps(k, fetch_every=STREAM_FETCH_EVERY):
+            return exe.run_steps(main, (dfeed for _ in range(k)), steps=k,
+                                 fetch_list=[loss], fetch_every=fetch_every,
+                                 scope=scope, return_numpy=False)
+
+        # the fixed batch's captured step: warm-ups and its capture first
+        captured_steps(STREAM_TIMED)
+        (_, _, kern, graph_launches, _, _), counts, tries = replay_profile(
+            lambda: captured_steps(1), per_step)
+        check(graph_launches == 1 and counts == {"K4a": 2, "K2a": 1,
+                                                 "K2b": 1},
+              "ctr_stream: one replay ran %r (%d graph launches); profiles "
+              "%r" % (counts, graph_launches, tries))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = captured_steps(STREAM_TIMED)
+        np.asarray(hs[-1][0])
+        step_ms = (time.perf_counter() - t0) / STREAM_TIMED * 1e3
+
+        def cold_stream():
+            """A fresh reader's 16 batches through the captured step."""
+            rd = ctr_reader(paths)
+            exe.run_steps(main, DevicePrefetcher(rd.prefetch(4), capacity=2),
+                          fetch_list=[loss], fetch_every=STREAM_FETCH_EVERY,
+                          scope=scope)
+
+        t0 = time.perf_counter()
+        cold_stream()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        # CUPTI can drop a run's kernel records (replay_profile): retaken
+        want_stream = {k: c * STREAM_BATCHES for k, (_, c) in per_step.items()}
+        stream_tries = []
+        for _ in range(REPLAY_PROFILE_TRIES):
+            wall, busy, kern_s, graphs, _, host = step_profile(cold_stream)
+            stream_counts = {name: sum(c for k, c in kern_s.items()
+                                       if re.search(pat, k, re.I))
+                             for name, (pat, _) in per_step.items()}
+            stream_tries.append({"counts": stream_counts, "graphs": graphs})
+            if graphs == STREAM_BATCHES and stream_counts == want_stream:
+                break
+        check(graphs == STREAM_BATCHES and stream_counts == want_stream,
+              "ctr_stream: the profiled stream-fed run launched %d graphs "
+              "and ran %r; each profile %r" % (graphs, stream_counts,
+                                               stream_tries))
+        exe.close()
+        del exe, scope, start
+        torch.cuda.empty_cache()
+    eps = STREAM_TIMED * CTR_BATCH / secs
+    k4_rows[0]["launches_ctr_stream_replay"] = counts["K4a"]
+    for row, k in zip(xent_rows, ("K2a", "K2b")):
+        row["launches_ctr_stream_replay"] = counts[k]
+    emit("ctr_stream", nvidia_smi=SMI[0], config=CTR, batch=CTR_BATCH,
+         shards=STREAM_SHARDS, records=STREAM_BATCHES * CTR_BATCH,
+         shard_bytes=shard_bytes, shard_generation_s=gen_s,
+         records_read=checked[3], records_corrupt=checked[4],
+         parse_ms_a_batch=parse_s / STREAM_BATCHES * 1e3,
+         parse_records_per_s=STREAM_BATCHES * CTR_BATCH / parse_s,
+         h2d=h2d, captured_step_ms_fixed_batch=step_ms,
+         examples_per_s=eps, stream_step_ms=secs / STREAM_TIMED * 1e3,
+         examples_per_s_cold_reader=STREAM_BATCHES * CTR_BATCH / cold_s,
+         cold_reader_s=cold_s,
+         timed_steps=STREAM_TIMED, warmup_steps=STREAM_WARM,
+         fetch_every=STREAM_FETCH_EVERY,
+         busy_share_stream_run=busy / wall, device_busy_ms_stream_run=busy,
+         wall_ms_stream_run=wall, graph_launches_stream_run=graphs,
+         kernels_stream_run=stream_counts, stream_profiles=stream_tries,
+         host_top_stream_run=host,
+         captures=captures, replays=replays, host_launches=host_launches,
+         kernels_a_replay=counts, replay_profiles=tries,
+         losses_stream=checked[0], losses_stream_timed=losses,
+         losses_listed=listed, listed_bit_equal=bit_runs,
+         listed_spread=spread, stream_err=err, timed_err=err_timed,
+         stream_bit_equal=checked[0] == listed[0],
+         timed_bit_equal=bit_timed and losses == listed[0],
+         auc=checked[1][-1], batches_byte_equal=True)
+
+
+def planted_corrupt(paths, tmp, shard=1, line=7):
+    """Copies of ``paths`` in ``tmp`` with one line of one shard made
+    corrupt (its first field's id set to V, out of range); returns (paths,
+    the record id)."""
+    import shutil
+
+    out = []
+    for i, p in enumerate(paths):
+        q = os.path.join(tmp, os.path.basename(p))
+        shutil.copyfile(p, q)
+        if i == shard:
+            lines = open(q).read().split("\n")
+            toks = lines[line].split()
+            toks[2 + CTR_DENSE + 2] = str(CTR["sparse_feature_dim"])
+            lines[line] = " ".join(toks)
+            open(q, "w").write("\n".join(lines))
+        out.append(q)
+    return out, "%s#%d" % (os.path.basename(paths[shard]), line)
+
+
+def rows_of(batches):
+    return {n: np.concatenate([b[n] for b in batches]) for n in batches[0]}
+
+
+def ctr_stream_resume_phase():
+    """The checkpointable reader on ``ctr_stream``'s shards (host-side):
+    stopped after 5 batches of a ``prefetch(4)``, its ``state_dict`` through
+    JSON into a new reader, which finishes the epoch; the batches
+    concatenated equal an uninterrupted pass byte for byte. With one line
+    planted corrupt, that record lands in the quarantine JSONL with its id,
+    and the batches hold every other record in order and never it (a
+    resumed pass too)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, _ = stream_shards(os.path.join(tmp, "clean"))
+        whole = list(ctr_reader(paths))
+        t0 = time.perf_counter()
+        first = ctr_reader(paths).prefetch(4)
+        part = [next(first) for _ in range(RESUME_AFTER)]
+        state = json.dumps(first.state_dict())
+        first.stop()
+        second = ctr_reader(paths)
+        second.load_state_dict(json.loads(state))
+        part += list(second)
+        resume_s = time.perf_counter() - t0
+        check(len(part) == len(whole) and all(
+            a[n].tobytes() == b[n].tobytes() for a, b in zip(part, whole)
+            for n in b), "ctr_stream_resume: the resumed pass differs from "
+              "the uninterrupted one")
+
+        bad_paths, bad_id = planted_corrupt(paths, tmp)
+        qpath = os.path.join(tmp, "quarantine.jsonl")
+        rd = ctr_reader(bad_paths, quarantine_path=qpath).prefetch(4)
+        corrupt_part = [next(rd) for _ in range(RESUME_AFTER)]
+        state = json.dumps(rd.state_dict())
+        rd.stop()
+        rd2 = ctr_reader(bad_paths, quarantine_path=qpath)
+        rd2.load_state_dict(json.loads(state))
+        corrupt_part += list(rd2)
+        quarantined = [json.loads(x) for x in open(qpath)]
+        check([q["id"] for q in quarantined] == [bad_id],
+              "ctr_stream_resume: quarantine holds %r, want [%r]"
+              % (quarantined, bad_id))
+        shard = [os.path.basename(p) for p in paths].index(
+            bad_id.split("#")[0])
+        drop = shard * (STREAM_BATCHES * CTR_BATCH // STREAM_SHARDS) \
+            + int(bad_id.split("#")[1])
+        want = {n: np.delete(v, drop, axis=0)
+                for n, v in rows_of(whole).items()}
+        got = rows_of(corrupt_part)
+        n_got = len(got["ids"])
+        check(n_got == (STREAM_BATCHES * CTR_BATCH - 1) // CTR_BATCH
+              * CTR_BATCH and all(got[n].tobytes() == want[n][:n_got]
+                                  .tobytes() for n in want),
+              "ctr_stream_resume: with the corrupt record the batches are "
+              "not the other records in order")
+        check(rd2.records_corrupt == 1, "ctr_stream_resume: %d corrupt"
+              % rd2.records_corrupt)
+    emit("ctr_stream_resume", batches=len(part), resumed_after=RESUME_AFTER,
+         state=json.loads(state), byte_equal=True, resume_s=resume_s,
+         quarantined=quarantined, corrupt_pass_records=n_got)
+
+
+def py_reader_program(fluid, capacity=8):
+    """The book's MNIST MLP (784-200-200-10, SGD 0.1) fed by a
+    ``py_reader``; returns (main, startup, reader, loss, acc)."""
+    from paddle_tpu_torch.models import mnist
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        reader = fluid.layers.py_reader(
+            capacity=capacity, shapes=[[-1, MNIST_DIM], [-1, 1]],
+            dtypes=["float32", "int64"], use_double_buffer=True)
+        img, label = fluid.layers.read_file(reader)
+        _, loss, acc = mnist.mlp(img, label)
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    reader.decorate_paddle_reader(
+        fluid.reader.batch(fluid.dataset.mnist.train(), MNIST_BATCH))
+    return main, startup, reader, loss, acc
+
+
+def py_reader_train_phase(xent_rows):
+    """The book's MNIST MLP trained from ``fluid.reader.batch(
+    fluid.dataset.mnist.train(), 64)`` through ``fluid.layers.py_reader(
+    capacity=8, use_double_buffer=True)`` (the card's prefetcher): one
+    epoch of 128 steps drained by ``exe.run`` until ``EOFException``, one
+    by ``run_steps(feed_iter=None)``, then ``reset()`` and a second
+    captured epoch. Each against feed-dict runs of the same batches from
+    the same start: eager = eager and captured = captured, bit for bit.
+    K2a/K2b once a step (host counters in the eager epoch, CUPTI in a
+    replay); ``fluid.metrics.Accuracy`` over the fetched accuracies equal
+    to their weighted mean by hand; both epochs' examples/s."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    dev = fluid.CUDAPlace(0)
+    main, startup, reader, loss, acc = py_reader_program(fluid)
+    names = reader.var_names
+    batches = []
+    for b in fluid.reader.batch(fluid.dataset.mnist.train(), MNIST_BATCH)():
+        xs, ys = zip(*b)
+        batches.append({names[0]: np.stack(xs), names[1]: np.stack(ys)})
+    check(len(batches) == PY_READER_STEPS, "py_reader_train: %d batches"
+          % len(batches))
+    # the source alone: the synthetic examples, batched and stacked
+    t0 = time.perf_counter()
+    for b in fluid.reader.batch(fluid.dataset.mnist.train(), MNIST_BATCH)():
+        [np.stack(s) for s in zip(*b)]
+    source_s = time.perf_counter() - t0
+    start = fluid.Scope()
+    fluid.Executor(dev).run(startup, scope=start)
+    step0 = getattr(main, "_tpu_step_counter", 0)
+
+    def from_start():
+        main._tpu_step_counter = step0
+        return fluid.Executor(dev), clone_scope(fluid, start)
+
+    # eager: the reader drained by exe.run
+    exe, scope = from_start()
+    sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+    reader.start()
+    eager, accs = [], []
+    t0 = time.perf_counter()
+    try:
+        while True:
+            lv, av = exe.run(main, fetch_list=[loss, acc], scope=scope)
+            eager.append(float(lv))
+            accs.append(float(av))
+    except fluid.EOFException:
+        reader.reset()
+    reader_s = time.perf_counter() - t0
+    launches = (sx.LAUNCHES_FWD, sx.LAUNCHES_BWD)
+    check(launches == (PY_READER_STEPS, PY_READER_STEPS),
+          "py_reader_train: K2a/K2b launched %r times in %d steps"
+          % (launches, PY_READER_STEPS))
+    exe, scope = from_start()
+    t0 = time.perf_counter()
+    fed = [float(exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0])
+           for f in batches]
+    feed_s = time.perf_counter() - t0
+    check(eager == fed, "py_reader_train: reader-fed eager losses differ "
+          "from the feed-dict ones")
+    metric = fluid.metrics.Accuracy()
+    for a in accs:
+        metric.update(a, MNIST_BATCH)
+    by_hand = sum(a * MNIST_BATCH for a in accs) / (MNIST_BATCH * len(accs))
+    check(abs(metric.eval() - by_hand) <= 1e-12,
+          "py_reader_train: Accuracy %r, by hand %r" % (metric.eval(),
+                                                        by_hand))
+
+    # captured: run_steps drains the reader, two epochs
+    exe_c, scope_c = from_start()
+    captured = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        reader.start()
+        captured.append(losses_of(exe_c.run_steps(
+            main, None, fetch_list=[loss], fetch_every=8, scope=scope_c)))
+        reader.reset()
+    captured_s = time.perf_counter() - t0
+    exe_l, scope_l = from_start()
+    listed = [losses_of(exe_l.run_steps(main, batches, fetch_list=[loss],
+                                        fetch_every=8, scope=scope_l))
+              for _ in range(2)]
+    check(captured == listed, "py_reader_train: reader-fed captured losses "
+          "differ from the feed-dict captured ones")
+    dfeed = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
+    per_step = {k: (pat, 1) for k, pat in K2_NAMES.items()}
+    (_, _, _, graph_launches, _, _), counts, tries = replay_profile(
+        lambda: exe_c.run_steps(main, iter([dfeed]), steps=1,
+                                fetch_list=[loss], scope=scope_c,
+                                return_numpy=False), per_step)
+    check(counts == {"K2a": 1, "K2b": 1}, "py_reader_train: one replay ran "
+          "%r; profiles %r" % (counts, tries))
+    for ex in (exe, exe_c, exe_l):
+        ex.close()
+    for row, k in zip(xent_rows, ("K2a", "K2b")):
+        row["launches_py_reader_eager"] = launches[0 if k == "K2a" else 1]
+        row["launches_py_reader_replay"] = counts[k]
+    n = PY_READER_STEPS * MNIST_BATCH
+    emit("py_reader_train", nvidia_smi=SMI[0], steps=PY_READER_STEPS,
+         batch=MNIST_BATCH, losses_eager=eager[::16],
+         losses_captured_epochs=[c[::16] for c in captured],
+         eager_equal_feed_dict=True, captured_equal_feed_dict=True,
+         accuracy=metric.eval(), k2_launches_eager=launches,
+         kernels_a_replay=counts, replay_profiles=tries,
+         examples_per_s_source_alone=n / source_s,
+         examples_per_s_reader_eager=n / reader_s,
+         examples_per_s_feed_dict_eager=n / feed_s,
+         examples_per_s_reader_captured=2 * n / captured_s)
+
+
+def async_files(tmp):
+    """``ASYNC_FILES`` MultiSlot files of ``ASYNC_LINES`` lines in the
+    three-slot DeepFM layout (26 sparse ids, 13 dense floats, a dense
+    label), written from one RandomState(0), and the ``DataFeedDesc``
+    proto text beside them; returns (files, proto path)."""
+    rng = np.random.RandomState(0)
+    files = []
+    for i in range(ASYNC_FILES):
+        path = os.path.join(tmp, "part-%03d" % i)
+        with open(path, "w") as f:
+            for _ in range(ASYNC_LINES):
+                ids = rng.randint(0, CTR["sparse_feature_dim"],
+                                  CTR["num_fields"])
+                dense = rng.rand(CTR_DENSE)
+                f.write("%d %s %d %s 1 %d\n" % (
+                    len(ids), " ".join(map(str, ids)), CTR_DENSE,
+                    " ".join("%.6f" % v for v in dense), rng.randint(0, 2)))
+        files.append(path)
+    proto = os.path.join(tmp, "data_feed.proto")
+    with open(proto, "w") as f:
+        f.write('name: "MultiSlotDataFeed"\nbatch_size: %d\n'
+                'multi_slot_desc {\n'
+                '  slots { name: "ids" type: "uint64" is_dense: false '
+                'is_used: true }\n'
+                '  slots { name: "dense" type: "float" is_dense: true '
+                'is_used: true dense_dim: %d }\n'
+                '  slots { name: "label" type: "uint64" is_dense: true '
+                'is_used: true }\n}\n' % (CTR_BATCH, CTR_DENSE))
+    return files, proto
+
+
+def async_executor_phase():
+    """DeepFM at full width trained through ``fluid.AsyncExecutor(
+    thread_num=1)`` from a ``DataFeedDesc`` (batch 1024; slots ``ids``
+    uint64 sparse, 26 a line, padded to [1024, 26] beside an unread
+    ``ids_length``; ``dense`` float, 13; ``label`` uint64, 1) over 4 files
+    of 1024 lines. Its losses against the same batches through
+    ``Executor.run`` on the card from the same start (bit for bit where
+    two such passes agree, else within their spread); K4a twice a step
+    (host counter); the card against the CPU over the first 2 batches
+    (1e-5 relative)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.async_executor import (_batch_to_feed,
+                                                 _parse_multislot_line)
+    from paddle_tpu_torch.ops.kernels import sparse_adam as sa
+
+    dev = fluid.CUDAPlace(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        files, proto = async_files(tmp)
+        desc = fluid.DataFeedDesc(proto)
+        feeds = []
+        for fn in files:
+            lines = [_parse_multislot_line(line.strip(), desc.slots)
+                     for line in open(fn) if line.strip()]
+            feeds.append(_batch_to_feed(lines, desc.slots))
+        check([tuple(f["ids"].shape) for f in feeds]
+              == [(CTR_BATCH, CTR["num_fields"])] * ASYNC_FILES,
+              "async_executor: ids batches %r" % [f["ids"].shape
+                                                  for f in feeds])
+        main, startup, loss, _ = build_deepfm(fluid,
+                                              CTR["sparse_feature_dim"])
+        start = fluid.Scope()
+        fluid.Executor(dev).run(startup, scope=start)
+        step0 = getattr(main, "_tpu_step_counter", 0)
+        runs = []
+        for _ in range(2):
+            main._tpu_step_counter = step0
+            scope = clone_scope(fluid, start)
+            exe = fluid.Executor(dev)
+            runs.append([float(exe.run(main, feed=f, fetch_list=[loss],
+                                       scope=scope)[0]) for f in feeds])
+        main._tpu_step_counter = step0
+        scope = clone_scope(fluid, start)
+        sa.LAUNCHES_ADAM = 0
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            out = fluid.AsyncExecutor(dev).run(
+                main, desc, files, thread_num=1, fetch=[loss.name])
+        async_s = time.perf_counter() - t0
+        k4a = sa.LAUNCHES_ADAM
+        got = [float(np.asarray(r[0])) for r in out]
+        check(len(got) == ASYNC_FILES, "async_executor: %d batches" % len(got))
+        bit_runs, spread, err = spread_check("async_executor", got, runs)
+        check(k4a == 2 * ASYNC_FILES, "async_executor: K4a launched %d "
+              "times in %d steps" % (k4a, ASYNC_FILES))
+        main._tpu_step_counter = step0
+        cpu_scope = fluid.Scope()
+        for k, v in start.vars.items():
+            cpu_scope.set_var(k, v.cpu() if isinstance(v, torch.Tensor)
+                              else v)
+        cpu = [float(fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=f, fetch_list=[loss], scope=cpu_scope)[0])
+            for f in feeds[:2]]
+        cpu_err = max(abs(a - b) / abs(b) for a, b in zip(got, cpu))
+        check(cpu_err <= 1e-5, "async_executor: card losses %r against the "
+              "CPU's %r" % (got[:2], cpu))
+    emit("async_executor", nvidia_smi=SMI[0], batches=ASYNC_FILES,
+         batch=CTR_BATCH, losses=got, losses_executor=runs,
+         executor_bit_equal=bit_runs, executor_spread=spread, err=err,
+         bit_equal=got == runs[0], k4a_launches=k4a, card_cpu_err=cpu_err,
+         seconds=async_s, examples_per_s=ASYNC_FILES * CTR_BATCH / async_s)
+
+
+def selected_rows_ops_phase():
+    """``merge_selected_rows`` and ``get_tensor_from_selected_rows`` on the
+    card against the CPU for a DeepFM-sized embedding gradient: the ids of
+    ``ctr_feed``'s batch (26,624 ids of V = 1e6, with duplicates) and
+    seeded [26624, 10] rows. ``index_add_`` sums duplicates in atomic order
+    on the card, so the merged rows are held to 1e-6, the ids exactly."""
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+    from paddle_tpu_torch.core.sparse import SparseGrad
+
+    ids = torch.as_tensor(ctr_feed()["ids"].reshape(-1))
+    rows = torch.randn(ids.numel(), CTR["embedding_size"],
+                       generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        env = {"X": SparseGrad(ids.to(dev), rows.to(dev))}
+        trace = SimpleNamespace(is_test=False, device=torch.device(dev),
+                                program=None)
+        for op_type, src, dst in (("merge_selected_rows", "X", "M"),
+                                  ("get_tensor_from_selected_rows", "M",
+                                   "T")):
+            op = SimpleNamespace(type=op_type, attrs={}, block=None,
+                                 inputs={"X": [src]}, outputs={"Out": [dst]})
+            get_op_impl(op_type)(OpContext(op, env, trace))
+        out[dev] = (env["M"].ids.cpu(), env["T"].cpu())
+    uniq = int((out["cpu"][0] != 2**31 - 1).sum())
+    check(torch.equal(out["cuda"][0], out["cpu"][0]),
+          "selected_rows_ops: merged ids differ card vs CPU")
+    err = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    check(err <= 1e-6, "selected_rows_ops: merged rows %.3g from the CPU's"
+          % err)
+    emit("selected_rows_ops", ids=ids.numel(), distinct=uniq,
+         duplicates=ids.numel() - uniq, max_abs_err=err, ids_equal=True)
+
+
+def input_pipeline_phase(k4_rows, xent_rows):
+    """Slice 18's legs, each timed: ``ctr_stream``, ``ctr_stream_resume``,
+    ``py_reader_train``, ``async_executor``, ``selected_rows_ops``."""
+    secs = {}
+    for name, fn, args in (
+            ("ctr_stream", ctr_stream_phase, (k4_rows, xent_rows)),
+            ("ctr_stream_resume", ctr_stream_resume_phase, ()),
+            ("py_reader_train", py_reader_train_phase, (xent_rows,)),
+            ("async_executor", async_executor_phase, ()),
+            ("selected_rows_ops", selected_rows_ops_phase, ())):
+        t0 = time.perf_counter()
+        fn(*args)
+        secs[name] = time.perf_counter() - t0
+    emit("input_pipeline_seconds", **secs)
+
+
 def diagnose(args):
     """``--recipe-bisect [--deterministic] NAME...``: ``recipe_bisect`` of
     each recipe ("lamb", "adamw", "adam"; run ``--deterministic`` with
@@ -6894,6 +7616,7 @@ def main():
     timed(bert_recipe_train_phase, xent_rows)
     timed(optimizer_parity_phase)
     timed(dense_ops_phase)
+    timed(input_pipeline_phase, k4_rows, xent_rows)
     # the card again, so the end of a long log still names it
     emit("phase_seconds", nvidia_smi=smi, total=time.perf_counter() - t0,
          **phase_s)

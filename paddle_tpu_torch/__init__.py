@@ -36,6 +36,11 @@ Ported so far:
   every program, which rewrites primitive-built attention
   (``FLAGS_unfused_attention``) and ``softmax`` + ``cross_entropy`` back
   onto the fused ops and their kernels.
+* the input pipeline: the reader decorators, ``py_reader`` and the
+  side-stream ``DevicePrefetcher`` (:mod:`.reader`), the synthetic
+  :mod:`.dataset` readers, :class:`DataFeeder`, the checkpointable and
+  MultiSlot CTR readers (:mod:`.data`), :class:`AsyncExecutor` with
+  :class:`DataFeedDesc`, and the :mod:`.metrics` accumulators.
 
 A Fluid script runs unchanged with::
 
@@ -44,16 +49,24 @@ A Fluid script runs unchanged with::
 
 from . import (  # noqa: F401
     amp,
+    data,
+    dataset,
+    evaluator,
     initializer,
     io,
     layers,
+    metrics,
     models,
     nets,
     optimizer,
     passes,
+    reader,
     serving,
     transpiler,
 )
+from .async_executor import AsyncExecutor  # noqa: F401
+from .data_feed_desc import DataFeedDesc  # noqa: F401
+from .data_feeder import DataFeeder  # noqa: F401
 from .backward import append_backward, calc_gradient, gradients  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
@@ -77,6 +90,7 @@ from .core.framework import (  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace, TPUPlace  # noqa: F401
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .executor import Executor  # noqa: F401
+from .reader.py_reader import EOFException  # noqa: F401
 from .flags import flags, get_flag, set_flag  # noqa: F401
 from .layers.layer_helper import ParamAttr, WeightNormParamAttr  # noqa: F401
 
@@ -89,4 +103,6 @@ __all__ = ["serving", "models", "CUDAPlace", "CPUPlace", "TPUPlace",
            "append_backward", "gradients", "calc_gradient",
            "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
            "passes", "transpiler", "Pass", "PassBuilder", "get_pass",
-           "register_pass", "registered_passes"]
+           "register_pass", "registered_passes", "reader", "dataset",
+           "metrics", "evaluator", "data", "DataFeeder", "AsyncExecutor",
+           "DataFeedDesc", "EOFException"]

@@ -96,8 +96,9 @@ def _as_var_list(x) -> List[Variable]:
 def gradients(targets, inputs, target_gradients=None, no_grad_set=None) -> List[Variable]:
     """Compute d(targets)/d(inputs) (reference: backward.py:613 calc_gradient).
 
-    Appends a ``calc_gradient`` op (not ported yet: running it raises the
-    registry's ``NotImplementedError``). Returns one grad Variable per
+    Appends a ``calc_gradient`` op (``ops/gradient_ops.py``: it replays the
+    op slice that makes the targets and takes ``torch.autograd.grad``).
+    Returns one grad Variable per
     input; fetch them (or feed them onward) like any other var. May be called
     multiple times per program — each call differentiates the ops appended so
     far, so GAN-style per-loss gradients and double-grad (a later call whose

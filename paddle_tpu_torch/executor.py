@@ -59,9 +59,18 @@ replay it. The scope's tensors are the graph's static state, which the
 body updates with ``copy_``. On the CPU the same calls run the body step
 by step, without a graph.
 
+Programs with started py_readers (``layers.py_reader``) are fed from
+them, as in the JAX package: ``run`` takes one batch from each started
+reader whose vars the feed does not cover, and ``run_steps`` without a
+``feed_iter`` drains them until one raises ``EOFException``. A
+``DevicePrefetcher`` (``reader/prefetcher.py``) that ``run_steps`` starts
+is its own, and stopped when it returns; its feeds arrive on the device,
+and the captured step copies them into its static feeds on the device.
+While a step is captured no prefetcher issues CUDA work
+(``reader.prefetcher.CAPTURE_LOCK``).
+
 Left out against the JAX package: meshes, the numerics watchdog, the
-flight recorder, fault injection, the metrics histograms, ``prepare`` and
-py_readers.
+flight recorder, fault injection, the metrics histograms and ``prepare``.
 """
 
 from __future__ import annotations
@@ -82,6 +91,8 @@ from .core.place import resolve_device
 from .core.sparse import SparseGrad
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .monitor import metrics
+from .reader.prefetcher import CAPTURE_LOCK, DevicePrefetcher
+from .reader.py_reader import EOFException
 
 __all__ = ["Executor", "FeedError", "FetchHandle", "global_scope",
            "scope_guard"]
@@ -354,11 +365,14 @@ class Executor:
             raise ValueError(
                 "feed_var_name/fetch_var_name other than 'feed'/'fetch' are "
                 "not supported (got %r/%r)" % (feed_var_name, fetch_var_name))
-        if isinstance(program, CompiledProgram):
-            return program._run(self, feed=feed, fetch_list=fetch_list,
-                                scope=scope, return_numpy=return_numpy)
         if program is None:
             program = default_main_program()
+        compiled = isinstance(program, CompiledProgram)
+        feed = _drain_one_batch(program._program if compiled else program,
+                                feed)
+        if compiled:
+            return program._run(self, feed=feed, fetch_list=fetch_list,
+                                scope=scope, return_numpy=return_numpy)
         if scope is None:
             scope = global_scope()
         fetch_names = self._fetch_names(fetch_list)
@@ -396,23 +410,40 @@ class Executor:
         resolves another captured step for the new shapes. A feed source
         that raises surfaces as :class:`FeedError`.
 
+        ``feed_iter=None`` drains the program's started py_readers until
+        one raises ``EOFException`` (``ValueError`` when none is started).
+        A :class:`~.reader.DevicePrefetcher` that is not started yet is
+        started here and stopped on return, also on an early return at
+        ``steps``; one the caller started stays the caller's to stop.
+
         Returns per-step fetch rows (``return_numpy=True``: a list of
         ``[np.ndarray, ...]``, equal to ``steps`` individual ``run()``
         calls from the same start) or one :class:`FetchHandle` per chunk
         (``return_numpy=False``; a chunk of n > 1 steps resolves to arrays
         with a leading axis of n, a single-step chunk's to per-fetch
         arrays like ``run()``'s)."""
-        if feed_iter is None:
-            raise ValueError(
-                "run_steps() needs a feed_iter; the port has no py_reader "
-                "to drain instead")
         if scope is None:
             scope = global_scope()
         src, accum = self._unwrap_program(program, scope)
+        owned = None
+        if feed_iter is None:
+            feed_iter = _drain_readers(src)
+        elif isinstance(feed_iter, DevicePrefetcher) \
+                and feed_iter._thread is None:
+            owned = feed_iter
+        try:
+            return self._run_steps(src, accum, iter(feed_iter), steps,
+                                   fetch_list, fetch_every, scope,
+                                   return_numpy)
+        finally:
+            if owned is not None:
+                owned.stop()
+
+    def _run_steps(self, src, accum, feed_iter, steps, fetch_list,
+                   fetch_every, scope, return_numpy):
         fetch_names = self._fetch_names(fetch_list)
         program = self._maybe_optimize(src, fetch_names, scope)
         k = max(1, int(fetch_every))
-        feed_iter = iter(feed_iter)
         rows: List[Any] = []
         handles: List[FetchHandle] = []
         consumed = 0
@@ -773,7 +804,8 @@ class _CapturedStep:
         trace = TraceContext(program, plan.is_test, exe.place, step,
                              plan.generators)
         try:
-            with torch.cuda.graph(graph, stream=exe._stream()):
+            # no prefetcher worker issues CUDA work during the capture
+            with CAPTURE_LOCK, torch.cuda.graph(graph, stream=exe._stream()):
                 self.outputs = self._static_body(program, step, trace)
         except Exception as e:
             # the next step captures again (and fails again): nothing runs
@@ -810,6 +842,54 @@ class _CapturedStep:
                 with torch.no_grad():
                     held.copy_(cur)
             scope.set_var(n, held)
+
+
+def _started_readers(program):
+    return [r for r in getattr(program, "_py_readers", ()) if r._started]
+
+
+def _drain_one_batch(program, feed):
+    """``feed`` with one batch of each started py_reader of ``program``
+    whose vars it does not name (reference: the in-graph ``read`` op
+    popping the blocking queue; ``EOFException`` at the end). A feed that
+    names some of a started reader's vars but not all raises."""
+    readers = _started_readers(program)
+    if not readers:
+        return feed
+    feed = dict(feed or {})
+    for reader in readers:
+        fed = [n for n in reader.var_names if n in feed]
+        if not fed:
+            feed.update(reader.next_feed())
+        elif len(fed) != len(reader.var_names):
+            # mixing an explicit partial feed with queue data would consume
+            # a queued batch and pair unrelated rows
+            raise ValueError(
+                "run(): feed covers only %s of started py_reader vars %s; "
+                "feed all of them or none" % (fed, list(reader.var_names)))
+    return feed
+
+
+def _drain_readers(program):
+    """Feed dicts from the started py_readers of ``program``, one batch of
+    each a step, until one raises ``EOFException``."""
+    readers = _started_readers(program)
+    if not readers:
+        raise ValueError(
+            "run_steps() needs a feed_iter or a started py_reader bound to "
+            "the program")
+
+    def drain():
+        while True:
+            f = {}
+            try:
+                for r in readers:
+                    f.update(r.next_feed())
+            except EOFException:
+                return
+            yield f
+
+    return drain()
 
 
 def _feed_dtype(block, name):

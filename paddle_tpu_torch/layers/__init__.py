@@ -30,7 +30,8 @@ from .learning_rate_scheduler import (  # noqa: F401
     piecewise_decay,
     polynomial_decay,
 )
-from .io import data, load  # noqa: F401
+from .io import (batch, create_py_reader_by_data, data, double_buffer,  # noqa: F401
+                 load, py_reader, read_file, shuffle)
 from .layer_helper import LayerHelper, ParamAttr  # noqa: F401
 from .nn import *  # noqa: F401,F403
 from .layer_function_generator import *  # noqa: F401,F403

@@ -8,6 +8,7 @@ from . import (  # noqa: F401
     compare_ops,
     gradient_ops,
     math_ops,
+    misc_ops,
     nn_ops,
     optimizer_ops,
     reduce_ops,

@@ -517,9 +517,8 @@ def layer_op_types():
 # Queue 3 item 2); a slice that registers one takes it off this list
 LAYER_OPS_LEFT = {
     "chunk_eval", "crf_decoding", "ctc_align", "edit_distance",
-    "get_tensor_from_selected_rows", "grid_sampler", "hash",
-    "hierarchical_sigmoid", "linear_chain_crf", "max_pool2d_with_index",
-    "merge_selected_rows", "nce", "print", "psroi_pool", "py_func",
+    "grid_sampler", "hash", "hierarchical_sigmoid", "linear_chain_crf",
+    "max_pool2d_with_index", "nce", "print", "psroi_pool", "py_func",
     "sample_logits", "spectral_norm", "spp", "tree_conv", "unpool",
     "warpctc",
 }
@@ -529,7 +528,7 @@ def test_layer_op_types_left_unregistered():
     from paddle_tpu_torch.core.registry import registered_ops
 
     named = layer_op_types()
-    assert len(LAYER_OPS_LEFT) == 21
+    assert len(LAYER_OPS_LEFT) == 19
     assert named - set(registered_ops()) == LAYER_OPS_LEFT
     assert {"clip", "clip_by_norm", "increment", "where", "elementwise_max",
             "elementwise_min", "elementwise_pow"} <= named
@@ -602,7 +601,7 @@ def test_front_end_op_types_left_unregistered():
     from paddle_tpu_torch.core.registry import registered_ops
 
     named = appended_op_types()
-    assert len(FRONT_END_OPS_LEFT) == 29
+    assert len(FRONT_END_OPS_LEFT) == 27
     assert named - set(registered_ops()) == FRONT_END_OPS_LEFT
     # what the dense slice made run: layers/tensor.py, layers.load, crop,
     # WeightNormParamAttr's assign, fluid.gradients, the optimizers

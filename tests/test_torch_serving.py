@@ -178,7 +178,15 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.clip, "
             "paddle_tpu_torch.reliability.faults, "
             "paddle_tpu_torch.fleet.prefix_cache, "
-            "paddle_tpu_torch.core.threefry; "
+            "paddle_tpu_torch.core.threefry, paddle_tpu_torch.reader, "
+            "paddle_tpu_torch.reader.prefetcher, "
+            "paddle_tpu_torch.reader.py_reader, "
+            "paddle_tpu_torch.reader.decorator, paddle_tpu_torch.dataset, "
+            "paddle_tpu_torch.data, paddle_tpu_torch.data.reader, "
+            "paddle_tpu_torch.data.multislot, paddle_tpu_torch.data.metrics, "
+            "paddle_tpu_torch.data_feeder, paddle_tpu_torch.data_feed_desc, "
+            "paddle_tpu_torch.async_executor, paddle_tpu_torch.metrics, "
+            "paddle_tpu_torch.evaluator, paddle_tpu_torch.ops.misc_ops; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']; "
             "assert not bad, bad")
@@ -229,7 +237,14 @@ def test_port_sources_name_no_jax_import():
             "paddle_tpu_torch/core/threefry.py",
             "paddle_tpu_torch/reliability/faults.py",
             "paddle_tpu_torch/fleet/prefix_cache.py",
-            "paddle_tpu_torch/serving/captured.py"} <= names
+            "paddle_tpu_torch/serving/captured.py",
+            "paddle_tpu_torch/reader/prefetcher.py",
+            "paddle_tpu_torch/reader/py_reader.py",
+            "paddle_tpu_torch/data/multislot.py",
+            "paddle_tpu_torch/data/reader.py",
+            "paddle_tpu_torch/async_executor.py",
+            "paddle_tpu_torch/metrics.py",
+            "paddle_tpu_torch/ops/misc_ops.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
