@@ -186,6 +186,30 @@ runs bit for bit. ``async_executor`` trains DeepFM at full width through
 ``selected_rows_ops`` holds ``merge_selected_rows`` and
 ``get_tensor_from_selected_rows`` on a 26,624-id gradient to the CPU.
 
+The sequence and RNN families (``sequence_models``): the book's four
+sequence models at full width, each built with
+``import paddle_tpu_torch as fluid`` and run in float32 from seeded ids
+and drawn lengths (no IMDB, conll05, MovieLens or WMT data):
+``stacked_lstm_train`` (``test_understand_sentiment.py``'s
+``stacked_lstm_net``, batch 128 x 256, Adagrad(0.002); K2a/K2b once a
+step at [128, 2]), ``srl_train`` (``db_lstm`` at depth 8 with the CRF,
+batch 10 x 64, SGD under ``exponential_decay``; then ``srl_decode`` on
+the ``for_test`` clone), ``recommender_train`` (the two towers at
+MovieLens-1M's dictionaries, ``is_sparse`` tables under SGD(0.2), batch
+256: K4b once a table a step, at D = 32 and 16, and held to its plain
+version at each table) and ``nmt_train``
+(``seq_to_seq_net`` at 512 wide, dict 30,000, batch 32 x 50, Adam(1e-3):
+K2a/K2b once a step at [1600, 30000]). Each runs eager steps and
+captured steps (``run_steps``) from one start in turns, 2 warm-ups, the
+capture step and 4 timed steps each, losses within 1e-6 at every step
+and the state 1e-6 norm-wise, losses finite and falling, no host sync in
+an eager step, with kernels a step, the host's launch calls, busy share,
+capture seconds and peak memory, and its hand-written kernels counted in
+one replay. ``sequence_ops``
+holds every op of the slice on the card against the CPU at its models'
+shapes, forward and backward (1e-5; the recurrent ops 1e-4), and
+``dynamic_rnn`` through the NMT program.
+
 Diagnostics, not run by default: ``python3 chip_smoke.py
 --recipe-bisect [--deterministic] lamb adamw adam`` checksums every op's
 outputs and gradients over two eager runs of BERT-base's recipe step from
@@ -3651,22 +3675,31 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cudaMemsetAsync")
 
 
-def step_profile(step):
+def step_profile(step, cpu_ops=True):
     """``step()`` once under torch.profiler: (wall ms, device busy ms,
     kernels run {name: count}, cudaGraphLaunch calls, the host's launch
     calls (``LAUNCH_CALLS``), the host's eight largest items by self CPU
     ms). Copies and memsets are not kernels and are left out of the
-    kernels."""
+    kernels. ``cpu_ops=False`` records CUPTI's kernels and runtime calls
+    only, not the torch ops (the host's items are then runtime calls),
+    and sums the profiler's raw events (``kineto_results``) instead of
+    its ``key_averages()``: a step of tens of thousands of torch calls
+    takes tens of seconds to profile and average the other way."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if not cpu_ops:
+        return (wall * 1e3,) + raw_event_sums(
+            prof.profiler.kineto_results.events())
     avgs = prof.key_averages()
     kern = [e for e in avgs if e.device_type == DeviceType.CUDA
             and not e.key.startswith(("Memcpy", "Memset"))]
@@ -3680,10 +3713,33 @@ def step_profile(step):
              for e in host})
 
 
+def raw_event_sums(events):
+    """``step_profile``'s sums from the profiler's raw events: (device
+    busy ms, kernels {name: count}, cudaGraphLaunch calls, the host's
+    launch calls, the host's eight largest runtime calls by their ms)."""
+    from torch.autograd import DeviceType
+
+    kern, host = {}, {}
+    busy_ns = 0
+    for e in events:
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if not name.startswith(("Memcpy", "Memset")):
+                kern[name] = kern.get(name, 0) + 1
+                busy_ns += e.duration_ns()
+        else:
+            item = host.setdefault(name[:60], [0, 0.0])
+            item[0] += 1
+            item[1] += e.duration_ns() / 1e6
+    top = dict(sorted(host.items(), key=lambda kv: -kv[1][1])[:8])
+    return (busy_ns / 1e6, kern, host.get("cudaGraphLaunch", [0])[0],
+            sum(host[k][0] for k in LAUNCH_CALLS if k in host), top)
+
+
 REPLAY_PROFILE_TRIES = 3
 
 
-def replay_profile(replay, per_step):
+def replay_profile(replay, per_step, cpu_ops=True):
     """``step_profile`` of ``replay()`` (one CUDA graph replay) with each
     kernel of ``per_step`` ({name: (profiler name pattern, launches a
     step)}) counted in it by name. A replay runs every kernel its graph
@@ -3698,7 +3754,7 @@ def replay_profile(replay, per_step):
     want = {name: c for name, (_, c) in per_step.items()}
     tries = []
     for _ in range(REPLAY_PROFILE_TRIES):
-        prof = step_profile(replay)
+        prof = step_profile(replay, cpu_ops)
         kern = prof[2]
         counts = {name: sum(c for k, c in kern.items()
                             if re.search(pat, k, re.I))
@@ -7518,6 +7574,805 @@ def input_pipeline_phase(k4_rows, xent_rows):
     emit("input_pipeline_seconds", **secs)
 
 
+# -- the sequence and RNN families: the book's sequence models ---------------
+
+# test_understand_sentiment.py's stacked_lstm_net: emb 128, hid_dim 512
+# (Fluid's 4H: LSTM hidden 128), 3 stacked layers, 2 classes; dict_dim at
+# imdb.word_dict()'s scale (it sizes only the table); Adagrad(0.002)
+SENTIMENT = dict(dict_dim=5150, emb_dim=128, hid_dim=512, stacked_num=3,
+                 class_num=2)
+SENT_BATCH, SENT_T, SENT_MIN = 128, 256, 16
+# test_label_semantic_roles.py at conll05's dictionaries (word 44,068,
+# predicate 3,162, 59 labels): word_dim 32, mark_dim 5, depth 8, hidden
+# 512 in the book's sense (db_lstm sizes its fcs hidden_dim * 4)
+SRL = dict(word_dict_len=44068, pred_dict_len=3162, mark_dict_len=2,
+           label_dict_len=59, word_dim=32, mark_dim=5, hidden_dim=128,
+           depth=8)
+SRL_BATCH, SRL_T, SRL_MIN = 10, 64, 8
+SRL_NAMES = ("word", "predicate", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1",
+             "ctx_p2", "mark")
+# test_recommender_system.py at MovieLens-1M's dictionaries
+MOVIELENS = dict(usr_dict_size=6041, gender_dict_size=2, age_dict_size=7,
+                 job_dict_size=21, mov_dict_size=3953, category_dict_size=18,
+                 title_dict_size=5175)
+REC_BATCH, REC_CATEGORIES, REC_TITLE = 256, 6, 15
+REC_NAMES = ("user_id", "gender_id", "age_id", "job_id", "movie_id",
+             "category_id", "movie_title")
+# benchmark/fluid/models/machine_translation.py's widths, batch 32
+# (fluid_benchmark.py's default), Adam(1e-3)
+NMT = dict(dict_size=30000, embedding_dim=512, encoder_size=512,
+           decoder_size=512)
+NMT_BATCH, NMT_T, NMT_MIN = 32, 50, 10
+SEQ_WARMUP, SEQ_TIMED = 2, 4   # a leg's eager and captured steps
+# the steps of a leg that add to a kernel's host count: its eager steps
+# (warm-ups, the capture step's twin, the timed ones), then the captured
+# run's eager warm-ups and its capture (a replay launches on the card
+# alone)
+SEQ_HOST_STEPS = 2 * SEQ_WARMUP + 2 + SEQ_TIMED
+
+
+def seq_lengths(rng, batch, t, low):
+    return rng.randint(low, t + 1, batch).astype("int64")
+
+
+def build_sentiment(fluid):
+    from paddle_tpu_torch.models import stacked_lstm
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        words = fluid.layers.data("words", shape=[SENT_T], dtype="int64")
+        length = fluid.layers.data("length", shape=[], dtype="int64")
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        loss, _ = stacked_lstm.stacked_lstm_net(words, length, label,
+                                                **SENTIMENT)
+        fluid.optimizer.Adagrad(0.002).minimize(loss)
+    return main, startup, loss, None
+
+
+def sentiment_feed(seed=0):
+    rng = np.random.RandomState(seed)
+    return {"words": rng.randint(0, SENTIMENT["dict_dim"],
+                                 (SENT_BATCH, SENT_T)).astype("int64"),
+            "length": seq_lengths(rng, SENT_BATCH, SENT_T, SENT_MIN),
+            "label": rng.randint(0, 2, (SENT_BATCH, 1)).astype("int64")}
+
+
+def build_srl(fluid):
+    from paddle_tpu_torch.models import semantic_roles as srl
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feats = [fluid.layers.data(n, shape=[SRL_T], dtype="int64")
+                 for n in SRL_NAMES]
+        target = fluid.layers.data("target", shape=[SRL_T], dtype="int64")
+        length = fluid.layers.data("length", shape=[], dtype="int64")
+        feature_out = srl.db_lstm(*feats, length=length, **SRL)
+        cost = srl.srl_train_net(feature_out, target, length=length)
+        test = main.clone(for_test=True)
+        with fluid.program_guard(test):
+            path = srl.srl_decode(feature_out, length=length)
+        lr = fluid.layers.exponential_decay(0.01, 100000, 0.5,
+                                            staircase=True)
+        fluid.optimizer.SGD(lr).minimize(cost)
+    return main, startup, cost, (test, path)
+
+
+def srl_feed(seed=0):
+    rng = np.random.RandomState(seed)
+    words = rng.randint(0, SRL["word_dict_len"], (SRL_BATCH, SRL_T))
+    feed = {"word": words}
+    for k, n in enumerate(("ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2")):
+        # each context stream repeats the row's word at the predicate's
+        # offset, as conll05's reader builds them
+        feed[n] = np.repeat(words[:, k:k + 1], SRL_T, axis=1)
+    feed["predicate"] = np.repeat(
+        rng.randint(0, SRL["pred_dict_len"], (SRL_BATCH, 1)), SRL_T, axis=1)
+    feed["mark"] = rng.randint(0, 2, (SRL_BATCH, SRL_T))
+    feed["target"] = rng.randint(0, SRL["label_dict_len"],
+                                 (SRL_BATCH, SRL_T))
+    feed = {k: v.astype("int64") for k, v in feed.items()}
+    feed["length"] = seq_lengths(rng, SRL_BATCH, SRL_T, SRL_MIN)
+    return feed
+
+
+def build_recommender(fluid):
+    from paddle_tpu_torch.models import recommender as rec
+
+    main, startup = fluid.Program(), fluid.Program()
+    widths = {"category_id": REC_CATEGORIES, "movie_title": REC_TITLE}
+    d = MOVIELENS
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = {n: fluid.layers.data(n, shape=[widths.get(n, 1)],
+                                    dtype="int64") for n in REC_NAMES}
+        score = fluid.layers.data("score", shape=[1], dtype="float32")
+        usr = rec.usr_combined_features(
+            ids["user_id"], ids["gender_id"], ids["age_id"], ids["job_id"],
+            usr_dict_size=d["usr_dict_size"],
+            gender_dict_size=d["gender_dict_size"],
+            age_dict_size=d["age_dict_size"],
+            job_dict_size=d["job_dict_size"], is_sparse=True)
+        mov = rec.mov_combined_features(
+            ids["movie_id"], ids["category_id"], ids["movie_title"],
+            mov_dict_size=d["mov_dict_size"],
+            category_dict_size=d["category_dict_size"],
+            title_dict_size=d["title_dict_size"], is_sparse=True)
+        _, cost = rec.inference_program(usr, mov, score)
+        fluid.optimizer.SGD(0.2).minimize(cost)
+    return main, startup, cost, None
+
+
+def recommender_feed(seed=0):
+    rng = np.random.RandomState(seed)
+    d = MOVIELENS
+    highs = {"user_id": d["usr_dict_size"], "gender_id": 2, "age_id": 7,
+             "job_id": 21, "movie_id": d["mov_dict_size"]}
+    feed = {n: rng.randint(0, h, (REC_BATCH, 1)).astype("int64")
+            for n, h in highs.items()}
+    # 1-3 genres and 1-15 title words a movie, padded with id 0
+    for n, t, hi, most in (("category_id", REC_CATEGORIES, 18, 3),
+                           ("movie_title", REC_TITLE, d["title_dict_size"],
+                            REC_TITLE)):
+        ids = rng.randint(1, hi, (REC_BATCH, t))
+        ids[np.arange(t)[None] >= rng.randint(1, most + 1, REC_BATCH)[:, None]] = 0
+        feed[n] = ids.astype("int64")
+    feed["score"] = rng.randint(1, 6, (REC_BATCH, 1)).astype("float32")
+    return feed
+
+
+def build_nmt(fluid, dict_size=None):
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    cfg = dict(NMT, dict_size=dict_size or NMT["dict_size"])
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        src = fluid.layers.data("src", shape=[NMT_T], dtype="int64")
+        src_len = fluid.layers.data("src_len", shape=[], dtype="int64")
+        trg = fluid.layers.data("trg", shape=[NMT_T], dtype="int64")
+        trg_len = fluid.layers.data("trg_len", shape=[], dtype="int64")
+        labels = fluid.layers.data("labels", shape=[NMT_T, 1], dtype="int64")
+        loss, _ = mt.seq_to_seq_net(src, src_len, trg, trg_len, labels,
+                                    **cfg)
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    return main, startup, loss, None
+
+
+def nmt_feed(seed=0, dict_size=None):
+    rng = np.random.RandomState(seed)
+    v = dict_size or NMT["dict_size"]
+    feed = {"src": rng.randint(2, v, (NMT_BATCH, NMT_T)).astype("int64"),
+            "src_len": seq_lengths(rng, NMT_BATCH, NMT_T, NMT_MIN),
+            "trg": rng.randint(2, v, (NMT_BATCH, NMT_T)).astype("int64"),
+            "trg_len": seq_lengths(rng, NMT_BATCH, NMT_T, NMT_MIN)}
+    feed["labels"] = np.roll(feed["trg"], -1, axis=1)[..., None]
+    return feed
+
+
+def seq_leg(leg, build, feed, per_step, tokens, batch):
+    """One training leg of ``sequence_models``: the program built as the
+    book's script builds it, its startup run on the card, then eager steps
+    (``Executor.run``) and captured steps (``run_steps``, one step a call:
+    2 eager warm-ups, the capture, replays) from the same start in turns,
+    each step synced and timed: 2 warm-ups, the capture step, 4 timed
+    steps each. Losses within 1e-6 relative at every step and the state
+    1e-6 norm-wise afterwards; the losses finite and falling; no host
+    sync in an eager step; one profiled step each way (kernels, the
+    host's launch calls, busy share) and one replay counted by kernel
+    name (``per_step``: {name: (pattern, launches a step)}). The
+    hand-written kernels' host counts (``kernel_counters``) are set to 0
+    before the first step and read after the eager and captured steps.
+    Returns (line, those counts, counts in a replay)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.monitor import metrics
+
+    t_leg = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    main, startup, loss, extra = build(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor(dev)
+    exe.run(startup, scope=scope)
+    scope_c = clone_scope(fluid, scope)
+    exe_c = fluid.Executor(dev)
+    dfeed = {k: torch.as_tensor(v, device=dev) for k, v in feed.items()}
+    step0 = getattr(main, "_tpu_step_counter", 0)
+
+    def eager_step():
+        return exe.run(main, feed=dfeed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0]
+
+    def captured_steps(k):
+        return exe_c.run_steps(main, (dfeed for _ in range(k)), steps=k,
+                               fetch_list=[loss], fetch_every=k,
+                               scope=scope_c, return_numpy=False)
+
+    runs = {"eager": eager_step, "captured": lambda: captured_steps(1)[0][0]}
+    losses = {"eager": [], "captured": []}
+    times = {"eager": [], "captured": []}
+    n = SEQ_WARMUP + 1 + SEQ_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_counters(reset=True)
+    caps0, reps0 = metrics.CAPTURES.value, metrics.REPLAYS.value
+    t_turns = time.perf_counter()
+    for i in range(n):
+        for mode, run in runs.items():
+            # both runs see the same step index (it seeds random ops)
+            main._tpu_step_counter = step0 + i
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            if i > SEQ_WARMUP:
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+            losses[mode].append(float(torch.as_tensor(out).reshape(-1)[0]))
+    launches = kernel_counters()
+    peak = torch.cuda.max_memory_allocated()
+    capture_s = metrics.CAPTURE_MS.value / 1e3
+    captures = metrics.CAPTURES.value - caps0
+    replays = metrics.REPLAYS.value - reps0
+    eager, got = losses["eager"], losses["captured"]
+    loss_err = loss_rel_err(got, eager)
+    _, state_err, state_equal = state_norm_err(scope_c, scope)
+    check(bool(np.isfinite(eager).all()) and eager[-1] < eager[SEQ_WARMUP]
+          and eager[-1] < eager[0],
+          "%s: eager losses %r not finite and falling" % (leg, eager))
+    check(loss_err <= 1e-6 and state_err <= 1e-6,
+          "%s: captured losses %r against eager %r (%.3g), state %.3g "
+          "norm-wise (tolerance 1e-6)" % (leg, got, eager, loss_err,
+                                          state_err))
+    check((captures, replays) == (1, n - SEQ_WARMUP),
+          "%s: %d captures and %d replays" % (leg, captures, replays))
+    stages = {"setup_s": t_turns - t_leg,
+              "turns_s": time.perf_counter() - t_turns}
+    t0 = time.perf_counter()
+    syncs = host_syncs(eager_step)
+    check(not syncs, "%s: an eager step syncs the host: %s" % (leg, syncs))
+    stages["host_syncs_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wall_e, busy_e, kern_e, _, calls_e, host_e = step_profile(
+        eager_step, cpu_ops=False)
+    stages["profile_eager_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (wall_c, busy_c, kern_c, graph_launches, calls_c, _), counts, tries = \
+        replay_profile(lambda: captured_steps(1), per_step, cpu_ops=False)
+    stages["profile_replay_s"] = time.perf_counter() - t0
+    want = {k: c for k, (_, c) in per_step.items()}
+    check(graph_launches == 1 and counts == want,
+          "%s: %d graph launches, kernels in one replay %r, want %r; "
+          "tries %r" % (leg, graph_launches, counts, want, tries))
+    ms_e = float(np.median(times["eager"]))
+    ms_c = float(np.median(times["captured"]))
+    line = dict(
+        batch=batch, tokens=tokens, steps=n, warmup_steps=SEQ_WARMUP,
+        losses_eager=eager, losses_captured=got, loss_max_rel_diff=loss_err,
+        state_max_norm_diff=state_err,
+        bit_equal=bool(got == eager and state_equal),
+        step_ms_eager=ms_e, step_ms_captured=ms_c, step_ms_turns=times,
+        sequences_per_s_eager=batch / ms_e * 1e3,
+        sequences_per_s_captured=batch / ms_c * 1e3,
+        tokens_per_s_eager=tokens / ms_e * 1e3,
+        tokens_per_s_captured=tokens / ms_c * 1e3,
+        kernels_a_step_eager=sum(kern_e.values()),
+        kernels_a_replay=sum(kern_c.values()),
+        host_launch_calls_eager=calls_e, host_launch_calls_captured=calls_c,
+        busy_share_eager=busy_e / wall_e, busy_share_captured=busy_c / wall_c,
+        device_busy_ms_eager=busy_e, device_busy_ms_captured=busy_c,
+        device_share_of_step_eager=busy_e / ms_e,
+        device_share_of_step_captured=busy_c / ms_c,
+        kernels_by_name_a_replay=counts, replay_profiles=tries,
+        host_launches=launches, capture_s=capture_s,
+        captures=captures, replays=replays, peak_memory=peak,
+        eager_host_syncs=len(syncs), runtime_top_eager=host_e,
+        params=len(main.all_parameters()),
+        weights=sum(int(np.prod(p.shape)) for p in main.all_parameters()),
+        nvidia_smi=SMI[0])
+    if extra is not None:
+        t0 = time.perf_counter()
+        line["decode"] = srl_decode_leg(exe, extra, dfeed, feed, scope)
+        stages["decode_s"] = time.perf_counter() - t0
+    exe_c.close()
+    line["stages"] = stages
+    line["leg_s"] = time.perf_counter() - t_leg
+    del scope, scope_c, exe, exe_c
+    torch.cuda.empty_cache()
+    return line, launches, counts
+
+
+def srl_decode_leg(exe, extra, dfeed, feed, scope):
+    """``srl_decode`` on the ``for_test`` clone with the trained 'crfw':
+    ms a batch (median of 4 after one warm-up), every path in [0, L) and 0
+    at the padding."""
+    test, path = extra
+    secs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(test, feed=dfeed, fetch_list=[path], scope=scope,
+                      return_numpy=False)[0]
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) * 1e3)
+    got = out.cpu().numpy()
+    pad = np.arange(SRL_T)[None] >= feed["length"][:, None]
+    check(got.shape == (SRL_BATCH, SRL_T) and got.min() >= 0
+          and got.max() < SRL["label_dict_len"] and not got[pad].any(),
+          "srl_decode: paths out of [0, %d) or not 0 at the padding"
+          % SRL["label_dict_len"])
+    return {"ms_a_batch": float(np.median(secs[1:])), "ms": secs,
+            "dtype": str(out.dtype), "labels_used": int(len(np.unique(
+                got[~pad])))}
+
+
+def kernel_counters(reset=False):
+    """The host launch counts of K2a/K2b (by shape) and K4b; with
+    ``reset`` set to 0."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+    from paddle_tpu_torch.ops.kernels import sparse_adam as sa
+
+    if reset:
+        sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = sa.LAUNCHES_SGD = 0
+        sa.LAUNCHES_ADAM = 0
+        sx.LAUNCHES_BY_SHAPE.clear()
+        return None
+    return {"K2a": sx.LAUNCHES_FWD, "K2b": sx.LAUNCHES_BWD,
+            "K4a": sa.LAUNCHES_ADAM, "K4b": sa.LAUNCHES_SGD,
+            "K2_by_shape": {"%s_%s" % (k, vision_key(n, v, d)): c
+                            for (k, n, v, d), c
+                            in sorted(sx.LAUNCHES_BY_SHAPE.items(), key=str)}}
+
+
+@contextlib.contextmanager
+def k4b_widths(seen):
+    """Record the [V, D] of each table K4b's wrapper updates."""
+    from paddle_tpu_torch.ops.kernels import sparse_adam as sa
+
+    orig = sa.sparse_sgd_rows
+
+    def spy(param, ids, rows, lr):
+        seen.append(list(param.shape))
+        return orig(param, ids, rows, lr)
+
+    sa.sparse_sgd_rows = spy
+    try:
+        yield
+    finally:
+        sa.sparse_sgd_rows = orig
+
+
+def k4b_recommender_check(dev, feed):
+    """K4b against its plain version at each of the recommender's seven
+    ``is_sparse`` tables ([V, 32] and [V, 16] at MovieLens-1M's V) with
+    the rows its batch merges (``merge_rows`` of the feed's ids and
+    random gradient rows), SGD(0.2): the tables to 1e-6 absolute; times
+    by CUDA events after an L2 flush beside the plain version,
+    ``index_add_(alpha=-lr)`` and the byte bound (ids, merged rows and
+    the touched table rows read once, those rows written once)."""
+    from paddle_tpu_torch.core.sparse import merge_rows
+    from paddle_tpu_torch.ops.kernels import sparse_adam as sa
+
+    d = MOVIELENS
+    tables = {"user_id": (d["usr_dict_size"], 32),
+              "gender_id": (d["gender_dict_size"], 16),
+              "age_id": (d["age_dict_size"], 16),
+              "job_id": (d["job_dict_size"], 16),
+              "movie_id": (d["mov_dict_size"], 32),
+              "category_id": (d["category_dict_size"], 32),
+              "movie_title": (d["title_dict_size"], 32)}
+    flush = l2_flusher(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, (v, width) in tables.items():
+        ids = torch.as_tensor(feed[name].reshape(-1), device=dev)
+        rows = torch.randn((ids.numel(), width), generator=g, device=dev)
+        table = torch.randn((v, width), generator=g, device=dev)
+        uniq, merged = merge_rows(ids, rows, v)
+        lr = torch.full((1,), 0.2, device=dev)
+        got = sa.sparse_sgd_rows(table.clone(), uniq, merged, lr)
+        want = sa.sparse_sgd_rows_reference(table.clone(), uniq, merged, lr)
+        err = float((got - want).abs().max())
+        check(err <= 1e-6, "K4b at the recommender's %s table [%d, %d]: "
+              "max abs err %g" % (name, v, width, err))
+        n = int((uniq < v).sum())
+        nbytes = n * (8 + 3 * 4 * width)
+        idx = uniq.clamp(max=v - 1)
+        out["%dx%d" % (v, width)] = {
+            "table": name, "ids": ids.numel(), "rows": n,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: sa.sparse_sgd_rows(table, uniq, merged,
+                                                     lr), flush=flush),
+            "plain_ms": cuda_ms(lambda: sa.sparse_sgd_rows_reference(
+                table, uniq, merged, lr), flush=flush),
+            "library_ms": cuda_ms(lambda: table.index_add_(
+                0, idx, merged, alpha=-0.2), flush=flush),
+            "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
+    del flush
+    emit("kernel_vs_plain", kernel="sparse_sgd_rows_recommender",
+         tables=out, tol={"abs": 1e-6})
+    return out
+
+
+SEQ_USERS = {
+    "stacked_lstm_train": "sentiment and text-classification teams on "
+                          "Fluid 1.x",
+    "srl_train": "NLP taggers (SRL, NER) built on linear_chain_crf",
+    "recommender_train": "the book's MovieLens recommender and two-tower "
+                         "retrieval",
+    "nmt_train": "Fluid's seq2seq NMT benchmark",
+}
+
+
+def sequence_train_legs(xent_rows, k4_rows):
+    """The four training legs of ``sequence_models``."""
+    steps = SEQ_HOST_STEPS
+    secs = {}
+    k2 = {k: (pat, 1) for k, pat in K2_NAMES.items()}
+
+    t0 = time.perf_counter()
+    feed = sentiment_feed()
+    line, launches, _ = seq_leg(
+        "stacked_lstm_train", build_sentiment, feed, k2,
+        int(feed["length"].sum()), SENT_BATCH)
+    want = {"K2a_%s" % vision_key(SENT_BATCH, 2, torch.float32): steps,
+            "K2b_%s" % vision_key(SENT_BATCH, 2, torch.float32): steps}
+    check(launches["K2_by_shape"] == want and launches["K4b"] == 0,
+          "stacked_lstm_train: launches %r, want K2 %r" % (launches, want))
+    for row, kern in zip(xent_rows, ("K2a", "K2b")):
+        row["sequence_shapes"][vision_key(SENT_BATCH, 2, torch.float32)][
+            "launches"] = launches[kern]
+    emit("stacked_lstm_train", config=SENTIMENT, padded_t=SENT_T,
+         lengths=[SENT_MIN, SENT_T], optimizer="Adagrad(0.002)",
+         reduced=["reviews cut at 256 tokens", "seeded ids and lengths "
+                  "(no IMDB data)"], users=SEQ_USERS["stacked_lstm_train"],
+         **line)
+    secs["stacked_lstm_train"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    feed = srl_feed()
+    line, launches, _ = seq_leg(
+        "srl_train", build_srl, feed, {}, int(feed["length"].sum()),
+        SRL_BATCH)
+    check(launches["K2a"] == launches["K4b"] == 0,
+          "srl_train: launches %r" % launches)
+    emit("srl_train", config=SRL, padded_t=SRL_T, lengths=[SRL_MIN, SRL_T],
+         optimizer="SGD(exponential_decay(0.01, 100000, 0.5, "
+                   "staircase=True))",
+         reduced=["sentences cut at 64 tokens", "seeded ids, labels and "
+                  "lengths (no conll05 data)", "the word table trainable, "
+                  "as in the JAX model"], users=SEQ_USERS["srl_train"],
+         **line)
+    secs["srl_train"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    feed = recommender_feed()
+    widths = []
+    with k4b_widths(widths):
+        line, launches, counts = seq_leg(
+            "recommender_train", build_recommender, feed,
+            {"K4b": (K4B_KERNEL, 7)}, REC_BATCH, REC_BATCH)
+    tables = sorted({tuple(w) for w in widths})
+    check(launches["K4b"] == 7 * steps and launches["K2a"] == 0
+          and sorted({w[1] for w in tables}) == [16, 32],
+          "recommender_train: launches %r, K4b tables %r" % (launches,
+                                                              tables))
+    k4_rows[1]["recommender"] = {
+        "launches": launches["K4b"], "host_steps": steps,
+        "captured_launches_a_step": counts["K4b"],
+        "tables": k4b_recommender_check(
+            torch.device("cuda", torch.cuda.current_device()), feed)}
+    emit("recommender_train", config=MOVIELENS, padded={
+        "category_id": REC_CATEGORIES, "movie_title": REC_TITLE},
+         optimizer="SGD(0.2)", is_sparse=True, k4b_tables=tables,
+         reduced=["seeded ids and ratings (no MovieLens data)"],
+         users=SEQ_USERS["recommender_train"], **line)
+    secs["recommender_train"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    feed = nmt_feed()
+    line, launches, counts = seq_leg(
+        "nmt_train", build_nmt, feed, k2, int(feed["trg_len"].sum()),
+        NMT_BATCH)
+    shape = vision_key(NMT_BATCH * NMT_T, NMT["dict_size"], torch.float32)
+    want = {"K2a_" + shape: steps, "K2b_" + shape: steps}
+    check(launches["K2_by_shape"] == want,
+          "nmt_train: K2 launches %r, want %r" % (launches, want))
+    for row, kern in zip(xent_rows, ("K2a", "K2b")):
+        row["sequence_shapes"][shape].update(
+            launches=launches[kern], captured_launches_a_step=counts[kern])
+    emit("nmt_train", config=NMT, padded_t=NMT_T, lengths=[NMT_MIN, NMT_T],
+         optimizer="Adam(1e-3)",
+         source_tokens=int(feed["src_len"].sum()),
+         reduced=["sentences cut at 50 tokens", "seeded ids and lengths "
+                  "(no WMT data)"], users=SEQ_USERS["nmt_train"], **line)
+    secs["nmt_train"] = time.perf_counter() - t0
+    return secs
+
+
+def sequence_op_cases():
+    """(name, op type, attrs, inputs (a thunk of CPU tensors), outputs,
+    tolerance) of every op of the slice but ``dynamic_rnn`` at the shapes
+    of the models that use it: the stacked LSTM's [128, 256] batch
+    (H 128, fc 512), the SRL tagger's [10, 64] (59 labels), the
+    recommender's pools, the NMT's [32, 50] (H 512); a recurrent op no
+    model runs at the SRL tagger's shapes, any other at the stacked
+    LSTM's."""
+    g = torch.Generator().manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    def ri(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g)
+
+    def lens(b, t, low):
+        return torch.randint(low, t + 1, (b,), generator=g)
+
+    b, t, h = SENT_BATCH, SENT_T, SENTIMENT["hid_dim"] // 4
+    sl = lens(b, t, SENT_MIN)
+    sb, st, sh, nl = SRL_BATCH, SRL_T, SRL["hidden_dim"], \
+        SRL["label_dict_len"]
+    srl_l = lens(sb, st, SRL_MIN)
+    nb, nt, nh = NMT_BATCH, NMT_T, NMT["decoder_size"]
+    nmt_l = lens(nb, nt, NMT_MIN)
+    rec = 1e-4
+    seq = 1e-5
+    return [
+        ("dynamic_lstm_sentiment", "dynamic_lstm",
+         {"use_peepholes": True, "is_reverse": False},
+         lambda: {"Input": rn(b, t, 4 * h), "Weight": rn(h, 4 * h, scale=0.1),
+                  "Bias": rn(1, 7 * h), "Length": sl},
+         {"Hidden": 1, "Cell": 1}, rec),
+        ("dynamic_lstm_sentiment_reverse", "dynamic_lstm",
+         {"use_peepholes": True, "is_reverse": True},
+         lambda: {"Input": rn(b, t, 4 * h), "Weight": rn(h, 4 * h, scale=0.1),
+                  "Bias": rn(1, 7 * h), "Length": sl},
+         {"Hidden": 1, "Cell": 1}, rec),
+        ("dynamic_lstm_srl", "dynamic_lstm",
+         {"use_peepholes": True, "is_reverse": True,
+          "candidate_activation": "relu", "cell_activation": "sigmoid"},
+         lambda: {"Input": rn(sb, st, 4 * sh),
+                  "Weight": rn(sh, 4 * sh, scale=0.1),
+                  "Bias": rn(1, 7 * sh), "Length": srl_l},
+         {"Hidden": 1, "Cell": 1}, rec),
+        ("dynamic_lstmp", "dynamic_lstmp", {"is_reverse": False},
+         lambda: {"Input": rn(sb, st, 4 * sh),
+                  "Weight": rn(64, 4 * sh, scale=0.1),
+                  "ProjWeight": rn(sh, 64, scale=0.1), "Bias": rn(1, 4 * sh),
+                  "Length": srl_l}, {"Projection": 1, "Cell": 1}, rec),
+        ("lstmp", "lstmp", {"is_reverse": True},
+         lambda: {"Input": rn(sb, st, 4 * sh),
+                  "Weight": rn(64, 4 * sh, scale=0.1),
+                  "ProjWeight": rn(sh, 64, scale=0.1), "Bias": rn(1, 4 * sh),
+                  "Length": srl_l}, {"Projection": 1, "Cell": 1}, rec),
+        ("dynamic_gru_nmt", "dynamic_gru", {"is_reverse": False},
+         lambda: {"Input": rn(nb, nt, 3 * nh),
+                  "Weight": rn(nh, 3 * nh, scale=0.05),
+                  "Bias": rn(1, 3 * nh), "Length": nmt_l},
+         {"Hidden": 1}, rec),
+        ("gru", "gru", {"is_reverse": True, "origin_mode": True},
+         lambda: {"Input": rn(nb, nt, 3 * nh),
+                  "Weight": rn(nh, 3 * nh, scale=0.05),
+                  "Bias": rn(1, 3 * nh), "H0": rn(nb, nh), "Length": nmt_l},
+         {"Hidden": 1}, rec),
+        ("gru_unit_nmt", "gru_unit", {},
+         lambda: {"Input": rn(nb, 3 * nh), "HiddenPrev": rn(nb, nh),
+                  "Weight": rn(nh, 3 * nh, scale=0.05),
+                  "Bias": rn(1, 3 * nh)}, {"Hidden": 1}, seq),
+        ("lstm", "lstm", {"num_layers": 2, "is_bidirec": True,
+                          "dropout_prob": 0.0},
+         lambda: {"Input": rn(sb, st, sh),
+                  "WeightX": [rn(sh, 4 * sh, scale=0.1) for _ in range(2)]
+                  + [rn(2 * sh, 4 * sh, scale=0.1) for _ in range(2)],
+                  "WeightH": [rn(sh, 4 * sh, scale=0.1) for _ in range(4)],
+                  "Bias": [rn(4 * sh) for _ in range(4)], "Length": srl_l},
+         {"Out": 1, "LastH": 1, "LastC": 1}, rec),
+        ("lstm_unit", "lstm_unit", {"forget_bias": 1.0},
+         lambda: {"X": rn(b, 4 * h), "C_prev": rn(b, h)},
+         {"H": 1, "C": 1}, seq),
+        ("linear_chain_crf_srl", "linear_chain_crf", {},
+         lambda: {"Emission": rn(sb, st, nl), "Transition": rn(nl + 2, nl),
+                  "Label": ri(nl, sb, st), "Length": srl_l},
+         {"LogLikelihood": 1}, seq),
+        ("crf_decoding_srl", "crf_decoding", {},
+         lambda: {"Emission": rn(sb, st, nl), "Transition": rn(nl + 2, nl),
+                  "Length": srl_l}, {"ViterbiPath": 1}, seq),
+        ("crf_decoding_mismatch", "crf_decoding", {},
+         lambda: {"Emission": rn(sb, st, nl), "Transition": rn(nl + 2, nl),
+                  "Label": ri(nl, sb, st), "Length": srl_l},
+         {"ViterbiPath": 1}, seq),
+        ("sequence_pool_max_fc", "sequence_pool", {"pooltype": "max"},
+         lambda: {"X": rn(b, t, 4 * h), "Length": sl}, {"Out": 1}, seq),
+        ("sequence_pool_max_lstm", "sequence_pool", {"pooltype": "max"},
+         lambda: {"X": rn(b, t, h), "Length": sl}, {"Out": 1}, seq),
+        ("sequence_pool_sum_categories", "sequence_pool", {"pooltype": "sum"},
+         lambda: {"X": rn(REC_BATCH, REC_CATEGORIES, 32)}, {"Out": 1}, seq),
+        ("sequence_pool_sum_titles", "sequence_pool", {"pooltype": "sum"},
+         lambda: {"X": rn(REC_BATCH, REC_TITLE, 32)}, {"Out": 1}, seq),
+        ("sequence_pool_average", "sequence_pool", {"pooltype": "average"},
+         lambda: {"X": rn(b, t, h), "Length": sl}, {"Out": 1}, seq),
+        ("sequence_pool_last", "sequence_pool", {"pooltype": "last"},
+         lambda: {"X": rn(b, t, h), "Length": sl}, {"Out": 1}, seq),
+        ("sequence_mask_nmt", "sequence_mask",
+         {"maxlen": nt, "out_dtype": "float32"}, lambda: {"X": nmt_l},
+         {"Y": 1}, seq),
+        ("sequence_softmax", "sequence_softmax", {},
+         lambda: {"X": rn(b, t), "Length": sl}, {"Out": 1}, seq),
+        ("sequence_reverse", "sequence_reverse", {},
+         lambda: {"X": rn(b, t, h), "Length": sl}, {"Y": 1}, seq),
+        ("sequence_expand", "sequence_expand", {},
+         lambda: {"X": rn(b, h), "Y": rn(b, t, h)}, {"Out": 1}, seq),
+        ("sequence_expand_as", "sequence_expand_as", {},
+         lambda: {"X": rn(b, h), "Y": rn(b, t, h)}, {"Out": 1}, seq),
+        ("sequence_concat", "sequence_concat", {},
+         lambda: {"X": [rn(b, t, h), rn(b, 64, h)],
+                  "Length": [sl, lens(b, 64, 0)]},
+         {"Out": 1, "LengthOut": 1}, seq),
+        ("sequence_pad", "sequence_pad", {"padded_length": t + 16},
+         lambda: {"X": rn(b, t, h), "PadValue": rn(1), "Length": sl},
+         {"Out": 1, "Length": 1}, seq),
+        ("sequence_unpad", "sequence_unpad", {},
+         lambda: {"X": rn(b, t, h), "Length": sl}, {"Out": 1}, seq),
+        ("sequence_erase", "sequence_erase", {"tokens": [0, 1, 2]},
+         lambda: {"X": ri(8, b, t)}, {"Out": 1, "Length": 1}, seq),
+        ("sequence_enumerate", "sequence_enumerate",
+         {"win_size": 3, "pad_value": 0},
+         lambda: {"X": ri(SENTIMENT["dict_dim"], b, t)}, {"Out": 1}, seq),
+        ("sequence_slice", "sequence_slice", {"out_maxlen": 64},
+         lambda: {"X": rn(b, t, h), "Offset": ri(128, b),
+                  "Length": ri(65, b)}, {"Out": 1}, seq),
+        ("sequence_scatter", "sequence_scatter", {},
+         lambda: {"X": rn(b, t), "Ids": ri(t, b, 16),
+                  "Updates": rn(b, 16)}, {"Out": 1}, seq),
+        ("im2sequence", "im2sequence", {"kernels": [3, 3], "strides": [1, 1]},
+         lambda: {"X": rn(16, 3, 32, 32)}, {"Out": 1}, seq),
+        ("row_conv", "row_conv", {},
+         lambda: {"X": rn(b, t, h), "Filter": rn(3, h)}, {"Out": 1}, seq),
+        ("sequence_conv", "sequence_conv",
+         {"contextLength": 3, "contextStart": -1},
+         lambda: {"X": rn(b, t, h), "Filter": rn(3 * h, h, scale=0.1),
+                  "Length": sl}, {"Out": 1}, seq),
+        ("sequence_reshape", "sequence_reshape", {"new_dim": 2 * h},
+         lambda: {"X": rn(b, t, h), "Length": sl},
+         {"Out": 1, "OutLength": 1}, seq),
+        ("lod_reset", "lod_reset", {},
+         lambda: {"X": rn(b, t, h), "Y": sl}, {"Out": 1, "OutLength": 1},
+         seq),
+    ]
+
+
+def dynamic_rnn_card_vs_cpu():
+    """``dynamic_rnn`` at the NMT decoder's full shapes (batch 32, T 50,
+    512 wide; the vocabulary cut to 1,000, which sizes only the tables
+    and the logits outside the op): one step's loss and every parameter
+    gradient on the card against the CPU, from one start."""
+    import paddle_tpu_torch as fluid
+
+    v = 1000
+    main, startup, loss, _ = build_nmt(fluid, dict_size=v)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    arrays = {n: init.as_numpy(n) for n in init.vars}
+    feed = nmt_feed(dict_size=v)
+    names = sorted(p.name for p in main.all_parameters())
+    grads = [main._backward_info["param_to_grad"][n] for n in names]
+    out = []
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        scope = fluid.io.state_from_numpy(main, arrays, fluid.Scope(), place)
+        main._tpu_step_counter = 0
+        got = fluid.Executor(place).run(main, feed=feed,
+                                        fetch_list=[loss] + grads,
+                                        scope=scope, return_numpy=False)
+        out.append([torch.as_tensor(g).cpu() for g in got])
+    cpu, card = out
+    loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    grad_err = norm_diff(card[1:], cpu[1:])
+    return {"loss_rel": loss_err, "grads_norm_wise": grad_err,
+            "params": len(names),
+            "ops_in_block": len(main.blocks[1].ops)}
+
+
+# gradients that sum millions of zero-mean cotangents into a few values,
+# held to a tolerance for that sum: the pad value's of ``sequence_pad``
+# sums 2.26 M; the card's float32 sum lands 3.1e-5 from the float64 one,
+# and it parts from the CPU's float32 sum by 5.4e-5
+SUMMED_GRADS = {("sequence_pad", "PadValue"): 1e-4}
+
+
+def float64(inputs):
+    """``inputs`` ({slot: tensor or [tensors]}) with the float ones in
+    float64."""
+    def cast(t):
+        return t.double() if t.is_floating_point() else t
+
+    return {k: [cast(t) for t in v] if isinstance(v, list) else cast(v)
+            for k, v in inputs.items()}
+
+
+def sequence_ops_leg():
+    """Every op of the slice on the card in float32 against the same call
+    on the CPU in float64, forward and backward (``sequence_op_cases``;
+    ``dynamic_rnn`` through the NMT program, float32 on both): float
+    outputs and gradients within 1e-5 norm-wise, the recurrent ops within
+    1e-4 (the worst printed), the gradients of ``SUMMED_GRADS`` within
+    theirs, integer outputs equal."""
+    t_leg = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows, ops = {}, set()
+    for name, op_type, attrs, inputs, outs, tol in sequence_op_cases():
+        t0 = time.perf_counter()
+        inp = inputs()
+        cpu_out, cpu_g = (
+            {n: t.float() if t.is_floating_point() else t
+             for n, t in d.items()}
+            for d in registered_op(op_type, attrs, float64(inp), outs,
+                                   torch.device("cpu")))
+        card_out, card_g = registered_op(op_type, attrs, inp, outs, dev)
+        torch.cuda.synchronize()
+        e_out, exact = card_cpu_err(card_out, cpu_out)
+        summed = {n: SUMMED_GRADS[name, n] for n in cpu_g
+                  if (name, n) in SUMMED_GRADS}
+        e_grad, _ = card_cpu_err({n: g for n, g in card_g.items()
+                                  if n not in summed},
+                                 {n: g for n, g in cpu_g.items()
+                                  if n not in summed})
+        e_summed = {n: card_cpu_err({n: card_g[n]}, {n: cpu_g[n]})[0]
+                    for n in summed}
+        rows[name] = {"op": op_type, "out_err": e_out, "grad_err": e_grad,
+                      "exact": exact, "grads": len(cpu_g), "tol": tol,
+                      "summed_grads": {n: [e_summed[n], summed[n]]
+                                       for n in summed},
+                      "s": time.perf_counter() - t0}
+        check(e_out <= tol and e_grad <= tol and exact
+              and all(e_summed[n] <= summed[n] for n in summed)
+              and set(card_g) == set(cpu_g),
+              "sequence_ops %s: card against CPU %r" % (name, rows[name]))
+        ops.add(op_type)
+        del cpu_out, cpu_g, card_out, card_g, inp
+    drnn = dynamic_rnn_card_vs_cpu()
+    check(drnn["loss_rel"] <= 1e-5 and drnn["grads_norm_wise"] <= 1e-4,
+          "sequence_ops dynamic_rnn: card against CPU %r" % drnn)
+    ops.add("dynamic_rnn")
+    recurrent = {n: max(r["out_err"], r["grad_err"]) for n, r in rows.items()
+                 if r["tol"] == 1e-4}
+    worst = max(recurrent, key=recurrent.get)
+    emit("sequence_ops", cases=rows, dynamic_rnn=drnn, ops_held=len(ops),
+         worst_recurrent={"case": worst, "err": recurrent[worst]},
+         seconds=time.perf_counter() - t_leg)
+    check(len(ops) == SEQUENCE_OPS, "sequence_ops: %d of the slice's %d "
+          "ops held: %s" % (len(ops), SEQUENCE_OPS, sorted(ops)))
+    torch.cuda.empty_cache()
+
+
+# the op names the sequence slice registers
+SEQUENCE_OPS = 29
+
+
+def sequence_models_phase(xent_rows, k4_rows):
+    """The sequence slice's legs: the four book models at full width
+    (``sequence_train_legs``) and ``sequence_ops``; K2 also held to its
+    plain version at the NMT's [1600, 30000] and the sentiment net's
+    [128, 2]."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    flush = l2_flusher(dev)
+    shapes = {}
+    for i, (n, v) in enumerate(((NMT_BATCH * NMT_T, NMT["dict_size"]),
+                                (SENT_BATCH, 2))):
+        shapes[vision_key(n, v, torch.float32)] = xent_shape_check(
+            dev, flush, n, v, torch.float32, seed=20 + i,
+            kernel="softmax_xent_sequence")
+    del flush
+    for row, key in zip(xent_rows, ("fwd", "bwd")):
+        row["sequence_shapes"] = {
+            name: {"launches": None, "max_err": c["max_err"],
+                   **{k[len(key) + 1:]: val for k, val in c.items()
+                      if k.startswith(key + "_")}}
+            for name, c in shapes.items()}
+    secs = {"k2_shapes": time.perf_counter() - t0}
+    secs.update(sequence_train_legs(xent_rows, k4_rows))
+    t0 = time.perf_counter()
+    sequence_ops_leg()
+    secs["sequence_ops"] = time.perf_counter() - t0
+    emit("sequence_models_seconds", **secs)
+
+
 def diagnose(args):
     """``--recipe-bisect [--deterministic] NAME...``: ``recipe_bisect`` of
     each recipe ("lamb", "adamw", "adam"; run ``--deterministic`` with
@@ -7617,6 +8472,7 @@ def main():
     timed(optimizer_parity_phase)
     timed(dense_ops_phase)
     timed(input_pipeline_phase, k4_rows, xent_rows)
+    timed(sequence_models_phase, xent_rows, k4_rows)
     # the card again, so the end of a long log still names it
     emit("phase_seconds", nvidia_smi=smi, total=time.perf_counter() - t0,
          **phase_s)

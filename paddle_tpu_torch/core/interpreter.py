@@ -7,6 +7,17 @@ runs it eagerly on every step, each op launching its torch kernels on the
 env's device as it comes. Under ``torch.autograd`` the forward ops record
 the graph the Executor differentiates.
 
+Sub-blocks (``dynamic_rnn``) run through the same loop once a timestep,
+at offset ``10_000 * block.idx``, with the step's trace; an error inside
+one is enriched once, with the inner op. The JAX package runs them under
+a ``PerStepTrace`` that folds the timestep into each op's threefry key,
+so a stochastic op draws a fresh mask every timestep. Here the op's one
+generator (keyed by its position in the sub-block, made on its first
+draw and reseeded by the plan before each step) advances with every
+draw, so each timestep takes the next masks of its stream, the same
+eagerly and in a captured step, where the graph registers the
+generator; no per-step trace is needed.
+
 Left out against the JAX package: op-identity named scopes and the
 numerics watchdog.
 """

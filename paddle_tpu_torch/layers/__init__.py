@@ -1,14 +1,18 @@
 # ported from paddle_tpu/layers/__init__.py
 """``fluid.layers``: the layer functions ported so far (io, tensor, nn,
-attention, the comparisons and logical layers of control flow, the
-learning-rate schedulers and the generated wrappers). The rest of control
-flow, sequence, rnn, detection and beam search are not ported yet. Layer
-functions whose ops are not registered in the port still build; running
-them raises the registry's ``NotImplementedError`` naming the op."""
+attention, sequence, rnn, the comparisons, logical layers and
+``DynamicRNN`` of control flow, the learning-rate schedulers and the
+generated wrappers). The rest of control flow, detection and beam search
+are not ported yet. Layer functions whose ops are not registered in the
+port still build; running them raises the registry's
+``NotImplementedError`` naming the op."""
 
-from . import attention, control_flow, io, learning_rate_scheduler, nn, tensor  # noqa: F401
+from . import (attention, control_flow, io, learning_rate_scheduler, nn,  # noqa: F401
+               rnn, sequence, tensor)
 from .attention import multi_head_attention, scaled_dot_product_attention  # noqa: F401
+from .rnn import dynamic_gru, dynamic_lstm, dynamic_lstmp, gru_unit, lstm, lstm_unit  # noqa: F401
 from .control_flow import (  # noqa: F401
+    DynamicRNN,
     equal,
     greater_equal,
     greater_than,
@@ -30,6 +34,7 @@ from .learning_rate_scheduler import (  # noqa: F401
     piecewise_decay,
     polynomial_decay,
 )
+from .sequence import *  # noqa: F401,F403
 from .io import (batch, create_py_reader_by_data, data, double_buffer,  # noqa: F401
                  load, py_reader, read_file, shuffle)
 from .layer_helper import LayerHelper, ParamAttr  # noqa: F401

@@ -1,12 +1,8 @@
 # ported from paddle_tpu/nets.py
 """Composite network helpers (reference: python/paddle/fluid/nets.py —
-simple_img_conv_pool:28, img_conv_group:135, glu:305,
-scaled_dot_product_attention:340). Pure compositions of layers; the
-attention helper rides the port's fused attention op.
-
-Left out against the JAX package: ``sequence_conv_pool``, which needs the
-sequence layers and the ``sequence_conv``/``sequence_pool`` ops, not
-ported yet."""
+simple_img_conv_pool:28, img_conv_group:135, sequence_conv_pool:248,
+glu:305, scaled_dot_product_attention:340). Pure compositions of layers;
+the attention helper rides the port's fused attention op."""
 
 from __future__ import annotations
 
@@ -15,6 +11,7 @@ from . import layers
 __all__ = [
     "simple_img_conv_pool",
     "img_conv_group",
+    "sequence_conv_pool",
     "glu",
     "scaled_dot_product_attention",
 ]
@@ -63,6 +60,29 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 tmp = layers.dropout(tmp, dropout_prob=drop[i])
     return layers.pool2d(tmp, pool_size=pool_size, pool_type=pool_type,
                          pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max", length=None):
+    """Context-window conv over time + sequence pool (reference: nets.py:248);
+    takes the padded+Length convention's length vector."""
+    from .layers import sequence as seq_layers
+    from .layers.layer_helper import LayerHelper
+
+    helper = LayerHelper("sequence_conv")
+    d = int(input.shape[-1])
+    filt = helper.create_parameter(param_attr, shape=[filter_size * d, num_filters],
+                                   dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"X": input, "Filter": filt}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op("sequence_conv", inputs=inputs, outputs={"Out": out},
+                     attrs={"contextLength": filter_size,
+                            "contextStart": -(filter_size // 2)})
+    if act:
+        out = getattr(layers, act)(out)
+    return seq_layers.sequence_pool(out, pool_type, length=length)
 
 
 def glu(input, dim=-1):

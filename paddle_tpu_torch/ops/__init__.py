@@ -1,16 +1,20 @@
 """Op implementation library of the port — importing this package
-registers every ported op: attention math, the training slice's ops, and
-the hand-written kernels under :mod:`.kernels`."""
+registers every ported op: attention math, the training slice's ops, the
+sequence and recurrent families, the linear-chain CRF, and the
+hand-written kernels under :mod:`.kernels`."""
 
 from . import (  # noqa: F401
     activation_ops,
     attention_ops,
     compare_ops,
     gradient_ops,
+    loss_ops,
     math_ops,
     misc_ops,
     nn_ops,
     optimizer_ops,
     reduce_ops,
+    rnn_ops,
+    sequence_ops,
     tensor_ops,
 )

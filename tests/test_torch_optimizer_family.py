@@ -516,8 +516,8 @@ def layer_op_types():
 # the op types of layers/nn.py the port does not register yet (ROADMAP
 # Queue 3 item 2); a slice that registers one takes it off this list
 LAYER_OPS_LEFT = {
-    "chunk_eval", "crf_decoding", "ctc_align", "edit_distance",
-    "grid_sampler", "hash", "hierarchical_sigmoid", "linear_chain_crf",
+    "chunk_eval", "ctc_align", "edit_distance",
+    "grid_sampler", "hash", "hierarchical_sigmoid",
     "max_pool2d_with_index", "nce", "print", "psroi_pool", "py_func",
     "sample_logits", "spectral_norm", "spp", "tree_conv", "unpool",
     "warpctc",
@@ -528,7 +528,7 @@ def test_layer_op_types_left_unregistered():
     from paddle_tpu_torch.core.registry import registered_ops
 
     named = layer_op_types()
-    assert len(LAYER_OPS_LEFT) == 19
+    assert len(LAYER_OPS_LEFT) == 17
     assert named - set(registered_ops()) == LAYER_OPS_LEFT
     assert {"clip", "clip_by_norm", "increment", "where", "elementwise_max",
             "elementwise_min", "elementwise_pow"} <= named
@@ -591,7 +591,7 @@ def appended_op_types():
 # the op types some front end of the port appends that it does not
 # register yet; a slice that registers one takes it off this list
 FRONT_END_OPS_LEFT = LAYER_OPS_LEFT | {
-    "add_position_encoding", "affine_grid", "lod_reset", "random_crop",
+    "add_position_encoding", "affine_grid", "random_crop",
     "sampling_id", "similarity_focus", "teacher_student_sigmoid_loss",
     "tensor_array_to_tensor",
 }
@@ -601,7 +601,7 @@ def test_front_end_op_types_left_unregistered():
     from paddle_tpu_torch.core.registry import registered_ops
 
     named = appended_op_types()
-    assert len(FRONT_END_OPS_LEFT) == 27
+    assert len(FRONT_END_OPS_LEFT) == 24
     assert named - set(registered_ops()) == FRONT_END_OPS_LEFT
     # what the dense slice made run: layers/tensor.py, layers.load, crop,
     # WeightNormParamAttr's assign, fluid.gradients, the optimizers
