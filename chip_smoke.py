@@ -210,6 +210,19 @@ holds every op of the slice on the card against the CPU at its models'
 shapes, forward and backward (1e-5; the recurrent ops 1e-4), and
 ``dynamic_rnn`` through the NMT program.
 
+Control flow, tensor arrays and beam search (``control_flow``):
+``ptb_lm_train`` trains PaddleNLP's StaticRNN language model
+(``lm_model(rnn_model="static")`` at its medium configuration: hidden
+650, 2 layers, 35 steps, vocabulary 10,000, batch 20, dropout 0.5;
+GradientClipByGlobalNorm(5.0), SGD(1.0); seeded ids) eagerly and
+captured from one start in turns, the last states fed to the next step,
+K2a/K2b once a step at [700, 10000]; ``nmt_beam_decode`` decodes the NMT
+model by beam search under ``While`` (batch 32 x 50 source tokens, beam
+3, ``max_len`` 250, dict 30,000, widths 512; random weights) eagerly
+through ``Executor.run``, each score held to its path's log-probs
+rescored by a teacher-forced StaticRNN; ``control_flow_ops`` holds the
+slice's 11 ops on the card against the CPU.
+
 Diagnostics, not run by default: ``python3 chip_smoke.py
 --recipe-bisect [--deterministic] lamb adamw adam`` checksums every op's
 outputs and gradients over two eager runs of BERT-base's recipe step from
@@ -241,6 +254,7 @@ H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12   # float32 outside the tensor cores
 PCIE5_BYTES_PER_S = 64e9      # the H100 SXM's host link, PCIe 5.0 x16, one way
 SPIN_CYCLES = 1_000_000       # ~0.5 ms at the H100's 1.98 GHz boost clock
+PROFILE_WARMUP_S = 0.02       # step_profile's warm-up: CUPTI's buffer request took up to 9 ms
 
 # Transformer-base as bench.py's bench_transformer trains it
 TRAIN = dict(n_layer=6, d_model=512, n_head=8, d_inner=2048, seq=256,
@@ -1202,8 +1216,9 @@ def serve_lifecycle_phase(model, stream):
 def xent_kernel_phase(dev):
     """K2a/K2b against their plain versions at the Transformer-base loss
     shape: N = 64 x 256 rows, V = 30000, label smoothing 0.1, a few rows
-    labelled -100 (then, by ``xent_shape_check``, at the vision shapes and
-    BERT's MLM [640, 30522] and NSP [32, 2] shapes, float32 and bf16). The loss to 1e-5 relative in both dtypes (bf16 logits
+    labelled -100 (then, by ``xent_shape_check``, at the vision shapes,
+    BERT's MLM [640, 30522] and NSP [32, 2] shapes, float32 and bf16,
+    word2vec's [100, 2073] and the PTB LM's [700, 10000]). The loss to 1e-5 relative in both dtypes (bf16 logits
     upcast exactly, so the plain version in float32 sees the same inputs);
     dlogits to 1e-6 absolute in float32, and in bf16 each element to
     2e-2·|want| + 1e-6·(max |want| of its row), a bound that a missing
@@ -1293,6 +1308,11 @@ def xent_kernel_phase(dev):
                 xent_shape_check(dev, flush, W2V_BATCH, W2V["dict_size"],
                                  torch.float32, seed=12,
                                  kernel="softmax_xent_word2vec")}
+    ptb_n = PTB["batch_size"] * PTB["num_steps"]
+    ptb = {vision_key(ptb_n, PTB["vocab_size"], torch.float32):
+           xent_shape_check(dev, flush, ptb_n, PTB["vocab_size"],
+                            torch.float32, seed=13,
+                            kernel="softmax_xent_ptb")}
     del xr, lib_loss, flush
 
     def row(name, fn_line, ms, dev, plain, lib, nbytes, flops, err):
@@ -1332,7 +1352,8 @@ def xent_kernel_phase(dev):
     for row, key in zip(rows, ("fwd", "bwd")):
         for field, shapes in (("vision_shapes", vision),
                               ("bert_shapes", bert),
-                              ("word2vec_shapes", word2vec)):
+                              ("word2vec_shapes", word2vec),
+                              ("ptb_shapes", ptb)):
             row[field] = {
                 name: {"launches": None, "max_err": c["max_err"],
                        **{k[len(key) + 1:]: val for k, val in c.items()
@@ -3675,7 +3696,7 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cudaMemsetAsync")
 
 
-def step_profile(step, cpu_ops=True):
+def step_profile(step, cpu_ops=True, warmup=None):
     """``step()`` once under torch.profiler: (wall ms, device busy ms,
     kernels run {name: count}, cudaGraphLaunch calls, the host's launch
     calls (``LAUNCH_CALLS``), the host's eight largest items by self CPU
@@ -3684,19 +3705,34 @@ def step_profile(step, cpu_ops=True):
     only, not the torch ops (the host's items are then runtime calls),
     and sums the profiler's raw events (``kineto_results``) instead of
     its ``key_averages()``: a step of tens of thousands of torch calls
-    takes tens of seconds to profile and average the other way."""
+    takes tens of seconds to profile and average the other way.
+    ``warmup()`` runs in the session's warm-up cycle, whose records are
+    discarded (by default a spin kernel)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA]
     if cpu_ops:
         activities.insert(0, ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
+    # a warm-up cycle, its records discarded: a session's first records
+    # can be lost (the first ~55 kernels of a graph's first replay in the
+    # session, or all of a short graph's), so the cycle asks CUPTI for its
+    # buffer and replays a graph once before the step runs
+    with profile(activities=activities, schedule=schedule(
+            wait=0, warmup=1, active=1, repeat=1)) as prof:
+        if warmup is None:
+            torch.cuda._sleep(1000)
+        else:
+            warmup()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_WARMUP_S)
+        prof.step()
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        prof.step()
     if not cpu_ops:
         return (wall * 1e3,) + raw_event_sums(
             prof.profiler.kineto_results.events())
@@ -3736,7 +3772,10 @@ def raw_event_sums(events):
             sum(host[k][0] for k in LAUNCH_CALLS if k in host), top)
 
 
-REPLAY_PROFILE_TRIES = 3
+# in a whole smoke run the first profile of ``ctr_stream``'s replay has
+# come back with 251-257 of its 309 kernel records in every run, and once
+# all of 3 tries did
+REPLAY_PROFILE_TRIES = 6
 
 
 def replay_profile(replay, per_step, cpu_ops=True):
@@ -3748,13 +3787,15 @@ def replay_profile(replay, per_step, cpu_ops=True):
     ``REPLAY_PROFILE_TRIES`` times, because CUPTI has been seen to drop
     the kernel records of a whole replay (an H100 run whose profiled
     replay held no kernel of the graph, while its losses matched the
-    eager ones). Returns ``step_profile``'s tuple of the first matching
+    eager ones; and runs whose profile kept only part of a replay's
+    kernels). Each session's warm-up cycle replays the graph once.
+    Returns ``step_profile``'s tuple of the first matching
     profile (else the last), its counts, and each try's counts and
     kernels recorded."""
     want = {name: c for name, (_, c) in per_step.items()}
     tries = []
     for _ in range(REPLAY_PROFILE_TRIES):
-        prof = step_profile(replay, cpu_ops)
+        prof = step_profile(replay, cpu_ops, warmup=replay)
         kern = prof[2]
         counts = {name: sum(c for k, c in kern.items()
                             if re.search(pat, k, re.I))
@@ -7164,7 +7205,8 @@ def ctr_stream_phase(k4_rows, xent_rows):
         want_stream = {k: c * STREAM_BATCHES for k, (_, c) in per_step.items()}
         stream_tries = []
         for _ in range(REPLAY_PROFILE_TRIES):
-            wall, busy, kern_s, graphs, _, host = step_profile(cold_stream)
+            wall, busy, kern_s, graphs, _, host = step_profile(
+                cold_stream, warmup=lambda: captured_steps(1))
             stream_counts = {name: sum(c for k, c in kern_s.items()
                                        if re.search(pat, k, re.I))
                              for name, (pat, _) in per_step.items()}
@@ -8373,6 +8415,933 @@ def sequence_models_phase(xent_rows, k4_rows):
     emit("sequence_models_seconds", **secs)
 
 
+# PaddleNLP's language_model (lm_model, rnn_model="static") at its medium
+# configuration (Zaremba et al. 2014): hidden 650, 2 layers, 35 steps,
+# vocabulary 10,000, batch 20, init_scale 0.05, dropout 0.5; its
+# recipe GradientClipByGlobalNorm(5.0) and SGD(1.0)
+PTB = dict(hidden_size=650, vocab_size=10000, num_layers=2, num_steps=35,
+           init_scale=0.05, dropout=0.5, batch_size=20)
+# the generation settings of Fluid's benchmark/fluid/models/
+# machine_translation.py: its widths, beam 3, max_length 250, <s> = 0,
+# <e> = 1; batch 32 x 50 source tokens as nmt_train
+NMT_DECODE = dict(dict_size=NMT["dict_size"], embedding_dim=512,
+                  encoder_size=512, decoder_size=512, batch=NMT_BATCH,
+                  src_t=NMT_T, beam=3, max_len=250, bos=0, eos=1)
+
+
+def _lstm_rnn(fluid, x_tm, hiddens, cells, weights, biases, dropout):
+    """``lm_model``'s ``padding_rnn``: a StaticRNN over time-major
+    ``x_tm`` of one LSTM cell a layer, ``matmul(concat([x, h]), W) + b``
+    split into i, j, f, o, with ``dropout`` (upscale_in_train) after each
+    layer. Returns its outputs: each layer's h and c, then the last
+    layer's dropped-out h, each [T, B, H]."""
+    L = fluid.layers
+    rnn = L.StaticRNN()
+    with rnn.step():
+        inp = rnn.step_input(x_tm)
+        for k in range(len(weights)):
+            pre_hidden = rnn.memory(init=hiddens[k])
+            pre_cell = rnn.memory(init=cells[k])
+            gate = L.elementwise_add(
+                L.matmul(L.concat([inp, pre_hidden], 1), weights[k]),
+                biases[k])
+            i_g, j_g, f_g, o_g = L.split(gate, num_or_sections=4, dim=-1)
+            c = pre_cell * L.sigmoid(f_g) + L.sigmoid(i_g) * L.tanh(j_g)
+            m = L.tanh(c) * L.sigmoid(o_g)
+            rnn.update_memory(pre_hidden, m)
+            rnn.update_memory(pre_cell, c)
+            rnn.step_output(m)
+            rnn.step_output(c)
+            inp = m
+            if dropout:
+                inp = L.dropout(inp, dropout_prob=dropout,
+                                dropout_implementation="upscale_in_train")
+        rnn.step_output(inp)
+    return rnn()
+
+
+def build_ptb_rnn(fluid, cfg, dtype):
+    """The StaticRNN of ``build_ptb_lm`` alone, in ``dtype``, at
+    ``cfg``'s widths, dropout 0: data ``x_tm`` [T, B, H] and each layer's
+    ``h_k``/``c_k`` [B, H], weights ``w_k``/``b_k`` as parameters. Returns
+    (main, its ``recurrent`` op)."""
+    L = fluid.layers
+    t, b, h = cfg["num_steps"], cfg["batch_size"], cfg["hidden_size"]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x_tm = L.data("x_tm", shape=[t, b, h], dtype=dtype,
+                      append_batch_size=False)
+        hiddens, cells, weights, biases = [], [], [], []
+        for k in range(cfg["num_layers"]):
+            hiddens.append(L.data("h_%d" % k, shape=[b, h], dtype=dtype,
+                                  append_batch_size=False))
+            cells.append(L.data("c_%d" % k, shape=[b, h], dtype=dtype,
+                                append_batch_size=False))
+            weights.append(L.create_parameter([2 * h, 4 * h], dtype=dtype,
+                                              name="w_%d" % k))
+            biases.append(L.create_parameter([4 * h], dtype=dtype,
+                                             name="b_%d" % k))
+        _lstm_rnn(fluid, x_tm, hiddens, cells, weights, biases, 0.0)
+    op = [o for o in main.global_block.ops if o.type == "recurrent"][0]
+    return main, op
+
+
+def build_ptb_lm(fluid, hidden_size, vocab_size, num_layers, num_steps,
+                 init_scale, dropout, batch_size):
+    """PaddleNLP's ``lm_model(rnn_model="static")`` program: an embedding,
+    time-major, a StaticRNN of ``num_layers`` LSTM cells written from
+    ``matmul``/``split``/``sigmoid``/``tanh`` with ``dropout``
+    (upscale_in_train) between the layers, the softmax projection and
+    ``softmax_with_cross_entropy``, the loss summed over the steps and
+    averaged over the batch; GradientClipByGlobalNorm(5.0), SGD(1.0).
+    Returns (main, startup, loss, last_hidden, last_cell)."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+
+    def uniform():
+        return fluid.initializer.UniformInitializer(low=-init_scale,
+                                                    high=init_scale)
+
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = L.data("x", shape=[batch_size, num_steps, 1], dtype="int64",
+                   append_batch_size=False)
+        y = L.data("y", shape=[batch_size * num_steps, 1], dtype="int64",
+                   append_batch_size=False)
+        init_hidden = L.data("init_hidden", append_batch_size=False,
+                             shape=[num_layers, batch_size, hidden_size])
+        init_cell = L.data("init_cell", append_batch_size=False,
+                           shape=[num_layers, batch_size, hidden_size])
+        x_emb = L.embedding(x, size=[vocab_size, hidden_size],
+                            param_attr=fluid.ParamAttr(
+                                name="embedding_para",
+                                initializer=uniform()))
+        x_emb = L.reshape(x_emb, shape=[-1, num_steps, hidden_size])
+        if dropout:
+            x_emb = L.dropout(x_emb, dropout_prob=dropout,
+                              dropout_implementation="upscale_in_train")
+        weights, biases, hiddens, cells = [], [], [], []
+        for i in range(num_layers):
+            weights.append(L.create_parameter(
+                [hidden_size * 2, hidden_size * 4], dtype="float32",
+                name="fc_weight1_%d" % i, default_initializer=uniform()))
+            biases.append(L.create_parameter(
+                [hidden_size * 4], dtype="float32", name="fc_bias1_%d" % i,
+                default_initializer=fluid.initializer.Constant(0.0)))
+            for src, out in ((init_hidden, hiddens), (init_cell, cells)):
+                pre = L.slice(src, axes=[0], starts=[i], ends=[i + 1])
+                out.append(L.reshape(pre, shape=[-1, hidden_size]))
+        outs = _lstm_rnn(fluid, L.transpose(x_emb, perm=[1, 0, 2]), hiddens,
+                         cells, weights, biases, dropout)
+        lasts = {"h": [], "c": []}
+        for i in range(num_layers):
+            for key, o in (("h", outs[2 * i]), ("c", outs[2 * i + 1])):
+                lasts[key].append(L.slice(o, axes=[0], starts=[num_steps - 1],
+                                          ends=[num_steps]))
+        last_hidden = L.concat(lasts["h"], 0)
+        last_cell = L.concat(lasts["c"], 0)
+        rnn_out = L.transpose(outs[-1], perm=[1, 0, 2])
+        softmax_w = L.create_parameter(
+            [hidden_size, vocab_size], dtype="float32",
+            name="softmax_weight", default_initializer=uniform())
+        softmax_b = L.create_parameter(
+            [vocab_size], dtype="float32", name="softmax_bias",
+            default_initializer=uniform())
+        proj = L.elementwise_add(L.matmul(rnn_out, softmax_w), softmax_b)
+        proj = L.reshape(proj, shape=[-1, vocab_size])
+        loss = L.softmax_with_cross_entropy(logits=proj, label=y)
+        loss = L.reduce_sum(L.reduce_mean(
+            L.reshape(loss, shape=[-1, num_steps]), dim=[0]))
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(clip_norm=5.0))
+        fluid.optimizer.SGD(learning_rate=1.0).minimize(loss)
+    return main, startup, loss, last_hidden, last_cell
+
+
+def ptb_feed(cfg, seed=0):
+    """One batch of a seeded token stream, as PaddleNLP's reader cuts PTB:
+    x the ids, y the next ids; the states zeros (the first batch)."""
+    rng = np.random.RandomState(seed)
+    b, t, v = cfg["batch_size"], cfg["num_steps"], cfg["vocab_size"]
+    data = rng.randint(0, v, (b, t + 1)).astype("int64")
+    zeros = np.zeros((cfg["num_layers"], b, cfg["hidden_size"]), "float32")
+    return {"x": data[:, :t, None], "y": data[:, 1:].reshape(-1, 1),
+            "init_hidden": zeros, "init_cell": zeros.copy()}
+
+
+def _nmt_encoder(fluid, src, src_len, cfg):
+    """``seq_to_seq_net``'s encoder with named parameters: the source
+    embedding, its 3H projection and the GRU with ``length``; the -1e9
+    bias over the source padding. Both expanded to B·K rows."""
+    L, P = fluid.layers, fluid.ParamAttr
+    b, t, k = cfg["batch"], cfg["src_t"], cfg["beam"]
+    h = cfg["encoder_size"]
+    emb = L.embedding(src, size=[cfg["dict_size"], cfg["embedding_dim"]],
+                      param_attr=P(name="src_emb_w"))
+    proj = L.fc(emb, size=3 * h, num_flatten_dims=2,
+                param_attr=P(name="enc_proj_w"), bias_attr=P(name="enc_proj_b"))
+    enc = L.dynamic_gru(proj, size=h, length=src_len,
+                        param_attr=P(name="enc_gru_w"),
+                        bias_attr=P(name="enc_gru_b"))
+    mask = L.sequence.sequence_mask(src_len, maxlen=t, dtype="float32")
+    bias = L.scale(mask, scale=1e9, bias=-1e9)  # 0 valid, -1e9 pad
+    enc = L.reshape(L.expand(L.unsqueeze(enc, axes=[1]), [1, k, 1, 1]),
+                    [b * k, t, h])
+    bias = L.reshape(L.expand(L.unsqueeze(bias, axes=[1]), [1, k, 1]),
+                     [b * k, t])
+    return enc, bias
+
+
+def _nmt_cell(fluid, y_emb, prev, enc, att_bias, cfg):
+    """The decoder step of ``seq_to_seq_net``'s DynamicRNN block with
+    named parameters: the query fc, dot attention over the encoder rows,
+    ``fc([y_t, ctx])`` to 3H and ``gru_unit``; then the vocabulary fc and
+    ``log_softmax``. Returns (h, log-probs [B·K, V])."""
+    L, P = fluid.layers, fluid.ParamAttr
+    hd = cfg["decoder_size"]
+    query = L.fc(prev, size=cfg["encoder_size"], bias_attr=False,
+                 param_attr=P(name="dec_query_w"))
+    scores = L.matmul(enc, L.unsqueeze(query, axes=[2]))
+    att = L.softmax(L.elementwise_add(L.squeeze(scores, axes=[2]), att_bias))
+    ctx = L.squeeze(L.matmul(L.unsqueeze(att, axes=[1]), enc), axes=[1])
+    gates = L.fc([y_emb, ctx], size=3 * hd,
+                 param_attr=[P(name="dec_gates_wy"), P(name="dec_gates_wc")],
+                 bias_attr=P(name="dec_gates_b"))
+    h, _, _ = L.gru_unit(gates, prev, size=3 * hd,
+                         param_attr=P(name="dec_gru_w"),
+                         bias_attr=P(name="dec_gru_b"))
+    logits = L.fc(h, size=cfg["dict_size"], param_attr=P(name="dec_out_w"),
+                  bias_attr=P(name="dec_out_b"))
+    return h, L.log_softmax(logits)
+
+
+def _nmt_sources(fluid, cfg):
+    L = fluid.layers
+    src = L.data("src", shape=[cfg["batch"], cfg["src_t"]], dtype="int64",
+                 append_batch_size=False)
+    src_len = L.data("src_len", shape=[cfg["batch"]], dtype="int64",
+                     append_batch_size=False)
+    return src, src_len
+
+
+def build_nmt_decode(fluid, cfg):
+    """The NMT model's beam-search decoder under ``While``: the encoder
+    (``_nmt_encoder``), then a loop while ``i < max_len`` and not every
+    beam has ended (``reduce_all(equal(ids, eos))``, negated) of the
+    decoder step (``_nmt_cell``), ``beam_search`` over [B, K, V], the
+    state gathered by parent, and ids and parents written to tensor
+    arrays of capacity ``max_len``; then ``beam_search_decode``. Returns
+    (main, startup, sentence ids [B, K, max_len], sentence scores [B, K],
+    steps run)."""
+    L = fluid.layers
+    b, k, hd = cfg["batch"], cfg["beam"], cfg["decoder_size"]
+    v = cfg["dict_size"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 2
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        src, src_len = _nmt_sources(fluid, cfg)
+        enc, att_bias = _nmt_encoder(fluid, src, src_len, cfg)
+        pre_ids = L.fill_constant([b, k], "int64", cfg["bos"])
+        pre_scores = L.assign(np.tile(np.array(
+            [0.0] + [-1e9] * (k - 1), "float32"), (b, 1)))
+        state = L.fill_constant([b * k, hd], "float32", 0.0)
+        offset = L.assign((np.arange(b)[:, None] * k).astype("int64"))
+        eos = L.fill_constant([1], "int64", cfg["eos"])
+        i = L.fill_constant([1], "int64", 0)
+        n = L.fill_constant([1], "int64", cfg["max_len"])
+        ids_arr = L.array_write(L.fill_constant([b, k], "int64", 0), i,
+                                capacity=cfg["max_len"])
+        par_arr = L.array_write(L.fill_constant([b, k], "int64", 0), i,
+                                capacity=cfg["max_len"])
+        cond = L.less_than(i, n)
+        loop = L.While(cond)
+        with loop.block():
+            y_emb = L.reshape(L.embedding(
+                pre_ids, size=[v, cfg["embedding_dim"]],
+                param_attr=fluid.ParamAttr(name="trg_emb_w")),
+                [b * k, cfg["embedding_dim"]])
+            h, logp = _nmt_cell(fluid, y_emb, state, enc, att_bias, cfg)
+            sel_ids, sel_scores, parent = L.beam_search(
+                pre_ids, pre_scores, None, L.reshape(logp, [b, k, v]),
+                beam_size=k, end_id=cfg["eos"])
+            rows = L.reshape(L.elementwise_add(parent, offset), [b * k, 1])
+            L.array_write(sel_ids, i, array=ids_arr)
+            L.array_write(parent, i, array=par_arr)
+            L.assign(sel_ids, pre_ids)
+            L.assign(sel_scores, pre_scores)
+            L.assign(L.gather(h, rows), state)
+            L.increment(i, in_place=True)
+            helper = L.LayerHelper("reduce_all")
+            ended = helper.create_variable_for_type_inference("bool")
+            helper.append_op("reduce_all", inputs={"X": L.equal(sel_ids, eos)},
+                             outputs={"Out": ended},
+                             attrs={"dim": [0], "keep_dim": False,
+                                    "reduce_all": True})
+            L.logical_and(L.less_than(i, n), L.logical_not(ended), out=cond)
+        sent_ids, sent_scores = L.beam_search_decode(
+            ids_arr, pre_scores, beam_size=k, end_id=cfg["eos"],
+            parents=par_arr)
+    return main, startup, sent_ids, sent_scores, i
+
+
+def build_nmt_rescore(fluid, cfg, steps):
+    """The teacher-forced rerun of ``build_nmt_decode``'s step over given
+    paths, sharing its parameters by name: a StaticRNN over ``steps``
+    time-major tokens ``tf_in`` [steps, B·K] (``bos``, then each path's
+    tokens but its last) and ``tf_tok`` [steps, B·K, 1] (the path's
+    tokens), the log-prob of each token. Returns (main, log-probs
+    [steps, B·K])."""
+    L = fluid.layers
+    b, k, hd = cfg["batch"], cfg["beam"], cfg["decoder_size"]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        src, src_len = _nmt_sources(fluid, cfg)
+        enc, att_bias = _nmt_encoder(fluid, src, src_len, cfg)
+        tf_in = L.data("tf_in", shape=[steps, b * k], dtype="int64",
+                       append_batch_size=False)
+        tf_tok = L.data("tf_tok", shape=[steps, b * k, 1], dtype="int64",
+                        append_batch_size=False)
+        emb = L.embedding(tf_in, size=[cfg["dict_size"],
+                                       cfg["embedding_dim"]],
+                          param_attr=fluid.ParamAttr(name="trg_emb_w"))
+        h0 = L.fill_constant([b * k, hd], "float32", 0.0)
+        rnn = L.StaticRNN()
+        with rnn.step():
+            y_emb = rnn.step_input(emb)
+            tok = rnn.step_input(tf_tok)
+            prev = rnn.memory(init=h0)
+            h, logp = _nmt_cell(fluid, y_emb, prev, enc, att_bias, cfg)
+            rnn.update_memory(prev, h)
+            rnn.step_output(L.reduce_sum(L.elementwise_mul(
+                logp, L.one_hot(tok, cfg["dict_size"])), dim=[1]))
+        picked = rnn()
+    return main, picked
+
+
+def nmt_decode_feed(cfg, seed=0):
+    rng = np.random.RandomState(seed)
+    return {"src": rng.randint(2, cfg["dict_size"], (cfg["batch"],
+                                                     cfg["src_t"])
+                               ).astype("int64"),
+            "src_len": seq_lengths(rng, cfg["batch"], cfg["src_t"],
+                                   min(NMT_MIN, cfg["src_t"]))}
+
+
+def nmt_rescore_feed(cfg, sent_ids, steps):
+    """``build_nmt_rescore``'s feeds for the decoded ``sent_ids`` [B, K,
+    T]: each path's first ``steps`` tokens, time-major over B·K rows."""
+    paths = np.asarray(sent_ids)[:, :, :steps].reshape(-1, steps).T
+    tf_in = np.concatenate([np.full((1, paths.shape[1]), cfg["bos"]),
+                            paths[:-1]], axis=0)
+    return {"tf_in": tf_in.astype("int64"),
+            "tf_tok": paths[..., None].astype("int64")}
+
+
+def path_scores(cfg, sent_ids, picked):
+    """Each path's score from the rescored log-probs [steps, B·K]: the sum
+    up to and including its first ``eos`` (a finished beam adds nothing
+    after it), as [B, K]."""
+    b, k = cfg["batch"], cfg["beam"]
+    paths = np.asarray(sent_ids)[:, :, :picked.shape[0]].reshape(b * k, -1)
+    ended = np.cumsum(paths == cfg["eos"], axis=1)
+    live = (ended == 0) | ((ended == 1) & (paths == cfg["eos"]))
+    return (np.asarray(picked, np.float64).T * live).sum(1).reshape(b, k)
+
+
+CF_USERS = {
+    "ptb_lm_train": "the word-level LSTM language models of the PaddleNLP "
+                    "model zoo and their StaticRNN users",
+    "nmt_beam_decode": "Fluid's seq2seq NMT benchmark in generation mode "
+                       "and the book's beam-search decoders",
+}
+PTB_WARMUP, PTB_TIMED = 2, 4   # ptb_lm_train's eager and captured steps
+# the steps that add to K2's host count: the eager steps (warm-ups, the
+# capture step's twin, the timed ones), the captured run's eager warm-ups
+# and its capture
+PTB_HOST_STEPS = 2 * PTB_WARMUP + 2 + PTB_TIMED
+NMT_DECODE_BATCHES = 4         # one warm-up and 3 timed
+NMT_DECODE_CHECK_LEN = 16      # the card-against-CPU decode's max_len
+
+
+def ptb_lm_train_leg(xent_rows):
+    """StaticRNN training at full width: ``build_ptb_lm`` at ``PTB``,
+    eager steps (``Executor.run``) and captured steps (``run_steps``, one
+    step a call) from one start in turns, each synced and timed: 2
+    warm-ups, the capture step, 4 timed each; each step fed the last
+    hidden and cell states its mode fetched the step before. Losses
+    within 1e-6 relative at every step and the state 1e-6 norm-wise with
+    the dropout on, the losses finite and falling, no host sync in an
+    eager step, K2a/K2b at [700, 10000] by host count and once each in
+    one replay (CUPTI); kernels a step eager and a replay, the host's
+    launch calls, busy share, capture s, peak memory."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.monitor import metrics
+
+    t_leg = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    main, startup, loss, last_h, last_c = build_ptb_lm(fluid, **PTB)
+    scope = fluid.Scope()
+    exe = fluid.Executor(dev)
+    exe.run(startup, scope=scope)
+    scope_c = clone_scope(fluid, scope)
+    exe_c = fluid.Executor(dev)
+    feed = {k: torch.as_tensor(v, device=dev)
+            for k, v in ptb_feed(PTB).items()}
+    fetch = [loss, last_h, last_c]
+    feeds = {"eager": dict(feed), "captured": dict(feed)}
+    step0 = getattr(main, "_tpu_step_counter", 0)
+
+    def eager_step():
+        out = exe.run(main, feed=feeds["eager"], fetch_list=fetch,
+                      scope=scope, return_numpy=False)
+        feeds["eager"].update(init_hidden=out[1], init_cell=out[2])
+        return out[0]
+
+    def captured_step():
+        out = exe_c.run_steps(main, [feeds["captured"]], steps=1,
+                              fetch_list=fetch, scope=scope_c,
+                              return_numpy=False)[0]
+        feeds["captured"].update(init_hidden=out[1], init_cell=out[2])
+        return out[0]
+
+    runs = {"eager": eager_step, "captured": captured_step}
+    losses = {"eager": [], "captured": []}
+    times = {"eager": [], "captured": []}
+    n = PTB_WARMUP + 1 + PTB_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_counters(reset=True)
+    caps0, reps0 = metrics.CAPTURES.value, metrics.REPLAYS.value
+    t_turns = time.perf_counter()
+    for i in range(n):
+        for mode, run in runs.items():
+            main._tpu_step_counter = step0 + i  # the same dropout masks
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            if i > PTB_WARMUP:
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+            losses[mode].append(float(torch.as_tensor(out).reshape(-1)[0]))
+    launches = kernel_counters()
+    peak = torch.cuda.max_memory_allocated()
+    capture_s = metrics.CAPTURE_MS.value / 1e3
+    captures = metrics.CAPTURES.value - caps0
+    replays = metrics.REPLAYS.value - reps0
+    eager, got = losses["eager"], losses["captured"]
+    loss_err = loss_rel_err(got, eager)
+    _, state_err, state_equal = state_norm_err(scope_c, scope)
+    states_err = max(norm_diff([feeds["captured"][k]], [feeds["eager"][k]])
+                     for k in ("init_hidden", "init_cell"))
+    check(bool(np.isfinite(eager).all()) and eager[-1] < eager[PTB_WARMUP]
+          and eager[-1] < eager[0],
+          "ptb_lm_train: eager losses %r not finite and falling" % eager)
+    check(loss_err <= 1e-6 and state_err <= 1e-6 and states_err <= 1e-6,
+          "ptb_lm_train: captured losses %r against eager %r (%.3g), state "
+          "%.3g, last states %.3g norm-wise (tolerance 1e-6)"
+          % (got, eager, loss_err, state_err, states_err))
+    check((captures, replays) == (1, n - PTB_WARMUP),
+          "ptb_lm_train: %d captures and %d replays" % (captures, replays))
+    shape = vision_key(PTB["batch_size"] * PTB["num_steps"],
+                       PTB["vocab_size"], torch.float32)
+    want = {"K2a_" + shape: PTB_HOST_STEPS, "K2b_" + shape: PTB_HOST_STEPS}
+    check(launches["K2_by_shape"] == want,
+          "ptb_lm_train: K2 launches %r, want %r" % (launches, want))
+    stages = {"setup_s": t_turns - t_leg,
+              "turns_s": time.perf_counter() - t_turns}
+    syncs = host_syncs(eager_step)
+    check(not syncs, "ptb_lm_train: an eager step syncs the host: %s"
+          % syncs)
+    t0 = time.perf_counter()
+    wall_e, busy_e, kern_e, _, calls_e, host_e = step_profile(
+        eager_step, cpu_ops=False)
+    per_step = {k: (pat, 1) for k, pat in K2_NAMES.items()}
+    (wall_c, busy_c, kern_c, graph_launches, calls_c, _), counts, tries = \
+        replay_profile(captured_step, per_step, cpu_ops=False)
+    stages["profiles_s"] = time.perf_counter() - t0
+    check(graph_launches == 1 and counts == {"K2a": 1, "K2b": 1},
+          "ptb_lm_train: %d graph launches, K2 in one replay %r; tries %r"
+          % (graph_launches, counts, tries))
+    for row, kern in zip(xent_rows, ("K2a", "K2b")):
+        row["ptb_shapes"][shape].update(
+            launches=launches[kern], captured_launches_a_step=counts[kern])
+    ms_e = float(np.median(times["eager"]))
+    ms_c = float(np.median(times["captured"]))
+    tokens = PTB["batch_size"] * PTB["num_steps"]
+    exe_c.close()
+    emit("ptb_lm_train", config=PTB, optimizer="SGD(1.0)",
+         clip="GradientClipByGlobalNorm(5.0)", tokens=tokens, steps=n,
+         warmup_steps=PTB_WARMUP, losses_eager=eager, losses_captured=got,
+         loss_max_rel_diff=loss_err, state_max_norm_diff=state_err,
+         last_states_norm_diff=states_err,
+         bit_equal=bool(got == eager and state_equal),
+         step_ms_eager=ms_e, step_ms_captured=ms_c, step_ms_turns=times,
+         tokens_per_s_eager=tokens / ms_e * 1e3,
+         tokens_per_s_captured=tokens / ms_c * 1e3,
+         kernels_a_step_eager=sum(kern_e.values()),
+         kernels_a_replay=sum(kern_c.values()),
+         host_launch_calls_eager=calls_e, host_launch_calls_captured=calls_c,
+         busy_share_eager=busy_e / wall_e, busy_share_captured=busy_c / wall_c,
+         device_busy_ms_eager=busy_e, device_busy_ms_captured=busy_c,
+         kernels_by_name_a_replay=counts, replay_profiles=tries,
+         host_launches=launches, capture_s=capture_s, captures=captures,
+         replays=replays, peak_memory=peak, eager_host_syncs=len(syncs),
+         runtime_top_eager=host_e,
+         weights=sum(int(np.prod(p.shape)) for p in main.all_parameters()),
+         reduced=["seeded ids (no PTB data): one batch, its states carried"],
+         users=CF_USERS["ptb_lm_train"], stages=stages,
+         leg_s=time.perf_counter() - t_leg, nvidia_smi=SMI[0])
+    del scope, scope_c, exe, exe_c, feeds
+    torch.cuda.empty_cache()
+
+
+def nmt_beam_decode_leg():
+    """The NMT model's beam-search decoder under ``While`` at full width
+    (``build_nmt_decode`` at ``NMT_DECODE``), eagerly through
+    ``Executor.run`` (the loop reads its condition on the host, so it
+    cannot capture): 1 warm-up batch and 3 timed; ms a batch, decode
+    steps, ms a step, generated tokens/s (B·K·steps), and from one
+    profiled batch (CUPTI) kernels and the host's launch calls a decode
+    step and the busy share (the host syncs are counted by
+    ``nmt_decode_card_vs_cpu``). Checks: every id in
+    [0, V), each row's K scores descending, and each score the sum of its
+    path's log-probs rescored on the card by a teacher-forced StaticRNN
+    of the same cell (``build_nmt_rescore``), to 1e-4 relative."""
+    import paddle_tpu_torch as fluid
+
+    t_leg = time.perf_counter()
+    cfg = NMT_DECODE
+    dev = fluid.CUDAPlace(0)
+    main, startup, sent_ids, sent_scores, steps = build_nmt_decode(fluid,
+                                                                   cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor(dev)
+    exe.run(startup, scope=scope)
+    feed = {k: torch.as_tensor(v, device=dev)
+            for k, v in nmt_decode_feed(cfg).items()}
+
+    def batch():
+        return exe.run(main, feed=feed,
+                       fetch_list=[sent_ids, sent_scores, steps],
+                       scope=scope, return_numpy=False)
+
+    secs = []
+    for _ in range(NMT_DECODE_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = batch()
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) * 1e3)
+    ids, scores = out[0].cpu().numpy(), out[1].cpu().numpy()
+    n_steps = int(out[2].reshape(-1)[0])
+    stages = {"batches_s": sum(secs) / 1e3}
+    t0 = time.perf_counter()
+    wall, busy, kern, _, calls, host_top = step_profile(batch,
+                                                        cpu_ops=False)
+    stages["profile_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rmain, picked = build_nmt_rescore(fluid, cfg, n_steps)
+    got = exe.run(rmain, feed=dict(feed, **{
+        k: torch.as_tensor(v, device=dev)
+        for k, v in nmt_rescore_feed(cfg, ids, n_steps).items()}),
+        fetch_list=[picked], scope=scope)[0]
+    path = path_scores(cfg, ids, got)
+    score_err = float(np.max(np.abs(path - scores)
+                             / np.maximum(np.abs(scores), 1.0)))
+    stages["rescore_s"] = time.perf_counter() - t0
+    b, k, v = cfg["batch"], cfg["beam"], cfg["dict_size"]
+    check(ids.shape == (b, k, cfg["max_len"]) and ids.min() >= 0
+          and ids.max() < v, "nmt_beam_decode: ids %s in [%d, %d]"
+          % (ids.shape, ids.min(), ids.max()))
+    check(bool((np.diff(scores, axis=1) <= 0).all()),
+          "nmt_beam_decode: a row's scores not descending: %r" % scores[:2])
+    check(score_err <= 1e-4, "nmt_beam_decode: scores against their paths' "
+          "rescored log-probs %.3g (tolerance 1e-4)" % score_err)
+    ms = float(np.median(secs[1:]))
+    emit("nmt_beam_decode", config=cfg, steps_run=n_steps, ms_a_batch=ms,
+         ms=secs, ms_a_decode_step=ms / n_steps,
+         generated_tokens_per_s=b * k * n_steps / ms * 1e3,
+         kernels_a_decode_step=sum(kern.values()) / n_steps,
+         host_launch_calls_a_decode_step=calls / n_steps,
+         busy_share=busy / wall, device_busy_ms=busy, profiled_wall_ms=wall,
+         stream_syncs_a_batch=host_top.get("cudaStreamSynchronize",
+                                           [0])[0], runtime_top=host_top,
+         rescored_max_rel_diff=score_err, scores_best_beam=scores[:4, 0]
+         .tolist(), finished_beams=int((ids == cfg["eos"]).any(2).sum()),
+         reduced=["random weights from the startup program (no beam ends "
+                  "early, so every batch runs all 250 steps)",
+                  "seeded source ids and lengths (no WMT data)"],
+         users=CF_USERS["nmt_beam_decode"], stages=stages,
+         leg_s=time.perf_counter() - t_leg, nvidia_smi=SMI[0])
+    del scope, exe
+    torch.cuda.empty_cache()
+
+
+def cf_step(fluid, build, place, dtype, arrays, feed):
+    """One run of ``build(fluid, dtype)``'s program on ``place`` from
+    ``arrays`` (cast to ``dtype``): its fetches and the gradient of every
+    parameter, as CPU tensors."""
+    main, _, fetch = build(fluid, dtype)
+    grads = sorted(main._backward_info["param_to_grad"].values())
+    cast = {n: a.astype(dtype) if a.dtype.kind == "f" else a
+            for n, a in arrays.items()}
+    scope = fluid.io.state_from_numpy(main, cast, fluid.Scope(), place)
+    feed = {n: a.astype(dtype) if a.dtype.kind == "f" else a
+            for n, a in feed.items()}
+    out = fluid.Executor(place).run(main, feed=feed, fetch_list=fetch + grads,
+                                    scope=scope, return_numpy=False)
+    return {n: torch.as_tensor(o).cpu() for n, o in
+            zip([getattr(f, "name", f) for f in fetch] + grads, out)}
+
+
+def build_ifelse_train(fluid, dtype):
+    """An ``IfElse`` that routes rows by label: an fc, then x2 or tanh."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = L.data("x", shape=[64], dtype=dtype)
+        label = L.data("label", shape=[1], dtype="int64")
+        h = L.fc(x, size=256)
+        ie = L.IfElse(L.less_than(label, L.fill_constant([1], "int64", 5)))
+        with ie.true_block():
+            ie.output(L.scale(ie.input(h), scale=2.0))
+        with ie.false_block():
+            ie.output(L.tanh(ie.input(h)))
+        out, = ie()
+        loss = L.mean(out * out)
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    return main, startup, [loss, out]
+
+
+def build_array_train(fluid, dtype):
+    """Rows of an fc written to a tensor array (one past its capacity),
+    read, stacked and concatenated back into the loss."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+
+    def idx(i):
+        return L.fill_constant([1], "int64", i)
+
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = L.data("x", shape=[64], dtype=dtype)
+        h = L.fc(x, size=256)
+        arr = L.array_write(h, idx(0), capacity=3)
+        arr = L.array_write(L.tanh(h), idx(1), array=arr)
+        arr = L.array_write(h * 3.0, idx(7), array=arr)  # dropped
+        stacked, count = L.array_to_tensor(arr)
+        cat, cat_index = L.tensor_array_to_tensor(arr, axis=1)
+        r = L.array_read(arr, idx(1))
+        n = L.array_length(arr)
+        loss = L.elementwise_add(L.mean(r * L.array_read(arr, idx(0))),
+                                 L.mean(cat * cat))
+        loss = L.elementwise_add(loss, L.mean(stacked))
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    return main, startup, [loss, stacked, count, cat, cat_index, r, n]
+
+
+def build_cond_train(fluid, dtype):
+    """``cond`` on a fed flag: x2 or -x of an fc."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = L.data("x", shape=[64], dtype=dtype)
+        flag = L.data("flag", shape=[], dtype="bool",
+                      append_batch_size=False)
+        h = L.fc(x, size=256)
+        out = L.cond(flag, lambda: L.scale(h, scale=2.0),
+                     lambda: L.scale(h, scale=-1.0))
+        loss = L.mean(out * out)
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    return main, startup, [loss, out]
+
+
+def cf_program_case(fluid, build, feed, seed):
+    """``build``'s program one step on the card (float32) and the CPU
+    (float64) from one start: (card, CPU) fetches and gradients."""
+    startup = build(fluid, "float32")[1]
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    arrays = {n: scope.as_numpy(n) for n in scope.vars}
+    card = cf_step(fluid, build, fluid.CUDAPlace(0), "float32", arrays, feed)
+    cpu = cf_step(fluid, build, fluid.CPUPlace(), "float64", arrays, feed)
+    return card, {n: t.float() if t.dtype == torch.float64 else t
+                  for n, t in cpu.items()}
+
+
+def recurrent_card_vs_cpu(dev):
+    """``recurrent`` at the LM's full shapes (``build_ptb_rnn`` at
+    ``PTB``: T 35, B 20, H 650, 2 layers): its outputs and final states,
+    and the gradients of every input and weight against seeded
+    cotangents, on the card in float32 against the CPU in float64."""
+    from types import SimpleNamespace
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+
+    rng = np.random.RandomState(30)
+    t, b, h = PTB["num_steps"], PTB["batch_size"], PTB["hidden_size"]
+    shapes = {"x_tm": (t, b, h)}
+    for k in range(PTB["num_layers"]):
+        shapes.update({"h_%d" % k: (b, h), "c_%d" % k: (b, h),
+                       "w_%d" % k: (2 * h, 4 * h), "b_%d" % k: (4 * h,)})
+    values = {n: rng.uniform(-0.5, 0.5, s) * (0.1 if n[0] == "w" else 1.0)
+              for n, s in shapes.items()}
+    outs = {}
+    for device, dtype in ((torch.device("cpu"), "float64"), (dev, "float32")):
+        main, op = build_ptb_rnn(fluid, PTB, dtype)
+        env = {n: torch.as_tensor(a.astype(dtype)).to(device)
+               .requires_grad_(True) for n, a in values.items()}
+        leaves = dict(env)
+        trace = SimpleNamespace(program=main, is_test=False, device=device,
+                                current_op_idx=0)
+        get_op_impl("recurrent")(OpContext(op, env, trace))
+        names = op.output_arg_names
+        got = [env[n] for n in names]
+        g = torch.Generator().manual_seed(31)
+        cots = [torch.randn(tuple(x.shape), generator=g, dtype=torch.float64)
+                .to(device=device, dtype=x.dtype) for x in got]
+        grads = torch.autograd.grad(got, list(leaves.values()), cots)
+        res = {n: x.detach().cpu() for n, x in zip(names, got)}
+        res.update({n + "@GRAD": x.cpu() for n, x in zip(leaves, grads)})
+        outs[dtype] = res
+    errs = {}
+    for n, want in outs["float64"].items():
+        got = outs["float32"][n].double()
+        errs[n] = float((got - want).norm() / max(float(want.norm()), 1e-30))
+    return errs
+
+
+def cf_ops_card_vs_cpu(dev):
+    """The op-level cases: the tensor-array edges (writes at and past the
+    capacity, reads past the count and the capacity) and ``beam_search``
+    at [32, 3, 30000] for 4 steps into arrays, then ``beam_search_decode``
+    over a capacity of 250: card against CPU, integer outputs identical
+    (``beam_search`` in float32 on both: its adds are exact IEEE float32
+    on either device, so the ranking is the same; float64 would move near
+    ties), and no device assert."""
+    import types
+
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+    from paddle_tpu_torch.ops.beam_search_ops import EMPTY_ARRAY
+
+    def call(op_type, attrs, env, inputs, outputs, device):
+        op = types.SimpleNamespace(
+            type=op_type, attrs=dict(attrs), block=None,
+            inputs={s: [n] for s, n in inputs.items()},
+            outputs={s: [n] for s, n in outputs.items()})
+        trace = types.SimpleNamespace(is_test=False, device=device,
+                                      program=None)
+        get_op_impl(op_type)(OpContext(op, env, trace))
+
+    def run(device):
+        x = torch.as_tensor(np.random.RandomState(32).randn(20, 650)
+                            .astype(np.float32)).to(device)
+        env, out = {"arr": EMPTY_ARRAY}, {}
+        for k, i in enumerate((0, 2, 4, 9, -1)):
+            env.update(i=torch.full((1,), i, dtype=torch.int64,
+                                    device=device), x=x * (k + 1))
+            call("write_to_array", {"capacity": 4}, env,
+                 {"X": "x", "I": "i", "Array": "arr"}, {"Out": "arr"},
+                 device)
+            call("lod_array_length", {}, env, {"Array": "arr"},
+                 {"Out": "n%d" % k}, device)
+            out["n%d" % k] = env["n%d" % k]
+        for i in (1, 3, 7, -2):
+            env["i"] = torch.full((1,), i, dtype=torch.int64, device=device)
+            call("read_from_array", {}, env, {"Array": "arr", "I": "i"},
+                 {"Out": "r"}, device)
+            out["r%d" % i] = env["r"]
+        call("array_to_tensor", {}, env, {"Array": "arr"},
+             {"Out": "t", "OutIndex": "ti"}, device)
+        call("tensor_array_to_tensor", {"axis": 0}, env, {"X": "arr"},
+             {"Out": "c", "OutIndex": "ci"}, device)
+        out.update({n: env[n] for n in ("t", "ti", "c", "ci")})
+        rng = np.random.RandomState(33)
+        b, k, v = NMT_DECODE["batch"], NMT_DECODE["beam"], NMT["dict_size"]
+        env = {"pre_ids": torch.full((b, k), 3, dtype=torch.int64,
+                                     device=device),
+               "pre_scores": torch.as_tensor(np.tile(
+                   [0.0, -1e9, -1e9], (b, 1)).astype(np.float32)).to(device),
+               "ids": EMPTY_ARRAY, "par": EMPTY_ARRAY}
+        for t in range(4):
+            # the same float32 log-probs on both devices
+            logp = torch.log_softmax(torch.as_tensor(
+                rng.randn(b, k, v).astype(np.float32)), -1)
+            logp[:, :, 1] += 5.0 * (t == 2)  # end_id wins at step 2
+            env.update(logp=logp.to(device), i=torch.full(
+                (1,), t, dtype=torch.int64, device=device))
+            call("beam_search", {"end_id": 1}, env,
+                 {"PreIds": "pre_ids", "PreScores": "pre_scores",
+                  "Scores": "logp"},
+                 {"SelectedIds": "pre_ids", "SelectedScores": "pre_scores",
+                  "ParentIdx": "p"}, device)
+            out.update({"ids%d" % t: env["pre_ids"],
+                        "scores%d" % t: env["pre_scores"],
+                        "parents%d" % t: env["p"]})
+            for arr, src in (("ids", "pre_ids"), ("par", "p")):
+                call("write_to_array", {"capacity": 250}, env,
+                     {"X": src, "I": "i", "Array": arr}, {"Out": arr},
+                     device)
+        call("beam_search_decode", {"end_id": 1}, env,
+             {"Ids": "ids", "Parents": "par", "Scores": "pre_scores"},
+             {"SentenceIds": "sent", "SentenceScores": "ss"}, device)
+        out.update(sent=env["sent"], ss=env["ss"])
+        return {n: t.cpu() for n, t in out.items()}
+
+    card = run(dev)
+    torch.cuda.synchronize()  # a device assert would surface here
+    return card_cpu_err(card, run(torch.device("cpu"))), card
+
+
+def nmt_decode_card_vs_cpu():
+    """``build_nmt_decode`` at full width with ``max_len``
+    ``NMT_DECODE_CHECK_LEN`` on the card and the CPU from one start. At
+    the startup's weights the 30,000 log-probs of a row are nearly equal,
+    so a row's K beams end one or two float32 ulps apart (1.5e-5 at a
+    score of 165): the card's and the CPU's log-probs part by an ulp, and
+    a beam may take the other of two tied candidates. So the K scores of
+    every row must agree to 1e-5, and each of the card's paths, rescored
+    on the CPU by the teacher-forced StaticRNN (``build_nmt_rescore``),
+    must score what the card reported, to 1e-5; the rows whose ids are
+    identical are counted. A second run on the card, its feeds there,
+    counts the host syncs of a batch: the condition's read, once an
+    iteration and once more, and nothing else. Returns that line."""
+    import paddle_tpu_torch as fluid
+
+    cfg = dict(NMT_DECODE, max_len=NMT_DECODE_CHECK_LEN)
+    main, startup, sent_ids, sent_scores, steps = build_nmt_decode(fluid,
+                                                                   cfg)
+    init = fluid.Scope()
+    cpu = fluid.Executor(fluid.CPUPlace())
+    cpu.run(startup, scope=init)
+    arrays = {n: init.as_numpy(n) for n in init.vars}
+    feed = nmt_decode_feed(cfg)
+    out = []
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        scope = fluid.io.state_from_numpy(main, arrays, fluid.Scope(), place)
+        exe = fluid.Executor(place)
+        out.append(exe.run(main, feed=feed, scope=scope,
+                           fetch_list=[sent_ids, sent_scores, steps]))
+    dfeed = {k: torch.as_tensor(v, device=scope.find_var("dec_out_w").device)
+             for k, v in feed.items()}
+    syncs = host_syncs(lambda: exe.run(
+        main, feed=dfeed, fetch_list=[sent_ids, sent_scores, steps],
+        scope=scope, return_numpy=False))
+    (ci, cs, cn), (gi, gs, gn) = out
+    n = int(gn[0])
+    rmain, picked = build_nmt_rescore(fluid, cfg, n)
+    rescored = cpu.run(rmain, feed=dict(feed, **nmt_rescore_feed(cfg, gi, n)),
+                       fetch_list=[picked], scope=init)[0]
+    same = (gi == ci).all(axis=(1, 2))
+    return {"rows_identical": int(same.sum()), "rows": len(same),
+            "scores_err": float(np.max(np.abs(gs - cs)
+                                       / np.maximum(np.abs(cs), 1.0))),
+            "card_paths_rescored_on_cpu_err": float(np.max(np.abs(
+                path_scores(cfg, gi, rescored) - gs)
+                / np.maximum(np.abs(gs), 1.0))),
+            "smallest_gap_between_beams": float(np.min(-np.diff(cs, axis=1))),
+            "steps": [n, int(cn[0])], "host_syncs_a_batch": len(syncs),
+            "tol": 1e-5}
+
+
+# the op names the control-flow slice registers
+CONTROL_FLOW_OPS = 11
+
+
+def control_flow_ops_leg():
+    """Every op of the slice on the card against the CPU: ``recurrent`` at
+    the LM's full shapes (float32 against float64, forward and backward,
+    1e-4, the worst printed); the six array ops through a training
+    program (``build_array_train``: forward and backward, 1e-5 norm-wise,
+    integer outputs equal) and at their edges (op level, identical);
+    ``IfElse`` and ``cond`` (``conditional_block``) through training
+    programs (1e-5); ``beam_search`` at [32, 3, 30000] and
+    ``beam_search_decode`` over a capacity of 250 (identical); ``while``
+    through ``build_nmt_decode`` at full width and ``max_len`` 16 (scores
+    1e-5, the card's paths rescored on the CPU 1e-5, the rows of
+    identical ids counted: ``nmt_decode_card_vs_cpu``)."""
+    import paddle_tpu_torch as fluid
+
+    t_leg = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows, ops = {}, set()
+    t0 = time.perf_counter()
+    rec = recurrent_card_vs_cpu(dev)
+    worst = max(rec, key=rec.get)
+    rows["recurrent"] = {"worst": [worst, rec[worst]], "tensors": len(rec),
+                         "tol": 1e-4, "s": time.perf_counter() - t0}
+    check(rec[worst] <= 1e-4, "control_flow_ops recurrent: card against "
+          "CPU %r" % rec)
+    ops.add("recurrent")
+    rng = np.random.RandomState(34)
+    x = rng.randn(32, 64)
+    label = rng.randint(0, 10, (32, 1)).astype("int64")
+    for name, build, feed, held in (
+            ("arrays", build_array_train, {"x": x},
+             ("create_array", "write_to_array", "read_from_array",
+              "lod_array_length", "array_to_tensor",
+              "tensor_array_to_tensor")),
+            ("ifelse", build_ifelse_train, {"x": x, "label": label}, ()),
+            ("cond_true", build_cond_train, {"x": x, "flag": np.array(True)},
+             ("conditional_block",)),
+            ("cond_false", build_cond_train,
+             {"x": x, "flag": np.array(False)}, ())):
+        t0 = time.perf_counter()
+        card, cpu = cf_program_case(fluid, build, feed, seed=35)
+        err, exact = card_cpu_err(card, cpu)
+        rows[name] = {"err": err, "exact": exact, "tensors": len(cpu),
+                      "tol": 1e-5, "s": time.perf_counter() - t0}
+        check(err <= 1e-5 and exact and len(cpu) > 2,
+              "control_flow_ops %s: card against CPU %r" % (name,
+                                                             rows[name]))
+        ops.update(held)
+    t0 = time.perf_counter()
+    (err, exact), card = cf_ops_card_vs_cpu(dev)
+    rows["array_edges_and_beam_search"] = {
+        "err": err, "exact": exact, "lengths": [
+            int(card["n%d" % k][0]) for k in range(5)],
+        "finished_after": int((card["ids3"] == 1).sum()),
+        "s": time.perf_counter() - t0}
+    check(exact and err <= 1e-5 and rows["array_edges_and_beam_search"][
+        "lengths"] == [1, 3, 4, 4, 4],
+          "control_flow_ops array edges and beam search: card against CPU "
+          "%r" % rows["array_edges_and_beam_search"])
+    ops.update(("beam_search", "beam_search_decode"))
+    t0 = time.perf_counter()
+    dec = rows["while_nmt_decode"] = nmt_decode_card_vs_cpu()
+    dec["s"] = time.perf_counter() - t0
+    check(dec["scores_err"] <= 1e-5
+          and dec["card_paths_rescored_on_cpu_err"] <= 1e-5
+          and dec["steps"] == [NMT_DECODE_CHECK_LEN] * 2
+          and dec["host_syncs_a_batch"] == NMT_DECODE_CHECK_LEN + 1,
+          "control_flow_ops while (nmt decode at max_len %d): %r"
+          % (NMT_DECODE_CHECK_LEN, dec))
+    ops.add("while")
+    emit("control_flow_ops", cases=rows, ops_held=len(ops),
+         worst_recurrent={"tensor": worst, "err": rec[worst]},
+         seconds=time.perf_counter() - t_leg)
+    check(len(ops) == CONTROL_FLOW_OPS, "control_flow_ops: %d of the "
+          "slice's %d ops held: %s" % (len(ops), CONTROL_FLOW_OPS,
+                                       sorted(ops)))
+    torch.cuda.empty_cache()
+
+
+def control_flow_phase(xent_rows):
+    """The control-flow slice's legs: ``ptb_lm_train`` (StaticRNN
+    training, eager and captured), ``nmt_beam_decode`` (While, tensor
+    arrays and beam search, eager) and ``control_flow_ops`` (card against
+    CPU)."""
+    secs = {}
+    for name, leg, args in (("ptb_lm_train", ptb_lm_train_leg, (xent_rows,)),
+                            ("nmt_beam_decode", nmt_beam_decode_leg, ()),
+                            ("control_flow_ops", control_flow_ops_leg, ())):
+        t0 = time.perf_counter()
+        leg(*args)
+        secs[name] = time.perf_counter() - t0
+    emit("control_flow_seconds", **secs)
+
+
 def diagnose(args):
     """``--recipe-bisect [--deterministic] NAME...``: ``recipe_bisect`` of
     each recipe ("lamb", "adamw", "adam"; run ``--deterministic`` with
@@ -8473,6 +9442,7 @@ def main():
     timed(dense_ops_phase)
     timed(input_pipeline_phase, k4_rows, xent_rows)
     timed(sequence_models_phase, xent_rows, k4_rows)
+    timed(control_flow_phase, xent_rows)
     # the card again, so the end of a long log still names it
     emit("phase_seconds", nvidia_smi=smi, total=time.perf_counter() - t0,
          **phase_s)

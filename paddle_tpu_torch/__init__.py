@@ -41,6 +41,10 @@ Ported so far:
   :mod:`.dataset` readers, :class:`DataFeeder`, the checkpointable and
   MultiSlot CTR readers (:mod:`.data`), :class:`AsyncExecutor` with
   :class:`DataFeedDesc`, and the :mod:`.metrics` accumulators.
+* control flow (``layers.While``, ``cond``, ``Switch``, ``IfElse``,
+  ``StaticRNN``, ``DynamicRNN``), the tensor arrays and the batched beam
+  search (:mod:`.layers.beam_search`, re-exported by
+  :mod:`.contrib.decoder`).
 
 A Fluid script runs unchanged with::
 
@@ -49,6 +53,7 @@ A Fluid script runs unchanged with::
 
 from . import (  # noqa: F401
     amp,
+    contrib,
     data,
     dataset,
     evaluator,

@@ -11,6 +11,12 @@ into a CUDA graph for each feed signature and replay it
 as they were launched, so the strategies' scheduling and memory knobs
 have nothing to act on: they are accepted and warn.
 
+A program that holds a ``while`` or a ``conditional_block`` (``layers.While``,
+``cond``, ``Switch``) reads a device value on the host once a loop
+iteration or branch, which no graph replays: the captured step refuses it
+before its first step, naming the op, and nothing runs eagerly in its
+place; such a program runs through ``Executor.run``.
+
 ``BuildStrategy.pass_builder()`` is the user's Program-pass pipeline, run
 once at the first execution on a transactional clone after the fetch-safe
 default passes (``_apply_build_passes``); a failing pass leaves the

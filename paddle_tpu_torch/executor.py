@@ -103,6 +103,10 @@ _SEED_MIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
 # algorithm search, cuBLAS's workspaces and the kernels' library loads
 WARMUP_STEPS = 2
 
+# ops that read a device value on the host to choose what runs next: a
+# captured step refuses a program that holds one (in any block)
+HOST_CONTROL_FLOW = frozenset({"while", "conditional_block"})
+
 
 def _mix_seed(seed: int, step: int, idx: int) -> int:
     """A 63-bit generator seed from (seed, step, op position): a splitmix
@@ -687,10 +691,20 @@ class _CapturedStep:
     state any var an eager ``run()`` replaced in the scope, fills the
     static feeds and replays the graph; on the CPU it runs the body. A
     capture that fails raises, naming the op; nothing runs eagerly in its
-    place."""
+    place. A program holding a ``while`` or a ``conditional_block`` is
+    refused before its first step, on the CPU too."""
 
     def __init__(self, exe: Executor, program, plan, scope, sig, fetch_names,
                  accum=1):
+        for blk in program.blocks:
+            for i, op in enumerate(blk.ops):
+                if op.type in HOST_CONTROL_FLOW:
+                    raise RuntimeError(
+                        "the captured step (CompiledProgram, run_steps) "
+                        "cannot hold op %r (block %d, index %d): it reads "
+                        "its condition on the host to choose what runs "
+                        "next, which a CUDA graph cannot replay. Run this "
+                        "program with Executor.run." % (op.type, blk.idx, i))
         self.exe = exe
         self.program_ref = weakref.ref(program)
         self.plan = plan

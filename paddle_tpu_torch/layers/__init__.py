@@ -1,18 +1,31 @@
 # ported from paddle_tpu/layers/__init__.py
 """``fluid.layers``: the layer functions ported so far (io, tensor, nn,
-attention, sequence, rnn, the comparisons, logical layers and
-``DynamicRNN`` of control flow, the learning-rate schedulers and the
-generated wrappers). The rest of control flow, detection and beam search
-are not ported yet. Layer functions whose ops are not registered in the
-port still build; running them raises the registry's
+attention, sequence, rnn, control flow, the tensor arrays and beam
+search, the learning-rate schedulers and the generated wrappers).
+Detection is not ported yet. Layer functions whose ops are not
+registered in the port still build; running them raises the registry's
 ``NotImplementedError`` naming the op."""
 
-from . import (attention, control_flow, io, learning_rate_scheduler, nn,  # noqa: F401
-               rnn, sequence, tensor)
+from . import (attention, beam_search as beam_search_mod, control_flow,  # noqa: F401
+               io, learning_rate_scheduler, nn, rnn, sequence, tensor)
+from .beam_search import (  # noqa: F401
+    array_length,
+    array_read,
+    array_to_tensor,
+    array_write,
+    beam_search,
+    beam_search_decode,
+    create_array,
+)
 from .attention import multi_head_attention, scaled_dot_product_attention  # noqa: F401
 from .rnn import dynamic_gru, dynamic_lstm, dynamic_lstmp, gru_unit, lstm, lstm_unit  # noqa: F401
 from .control_flow import (  # noqa: F401
     DynamicRNN,
+    IfElse,
+    StaticRNN,
+    Switch,
+    While,
+    cond,
     equal,
     greater_equal,
     greater_than,
@@ -37,6 +50,7 @@ from .learning_rate_scheduler import (  # noqa: F401
 from .sequence import *  # noqa: F401,F403
 from .io import (batch, create_py_reader_by_data, data, double_buffer,  # noqa: F401
                  load, py_reader, read_file, shuffle)
+from .control_flow import is_empty  # noqa: F401
 from .layer_helper import LayerHelper, ParamAttr  # noqa: F401
 from .nn import *  # noqa: F401,F403
 from .layer_function_generator import *  # noqa: F401,F403

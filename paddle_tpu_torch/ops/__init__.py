@@ -1,12 +1,15 @@
 """Op implementation library of the port — importing this package
 registers every ported op: attention math, the training slice's ops, the
-sequence and recurrent families, the linear-chain CRF, and the
-hand-written kernels under :mod:`.kernels`."""
+sequence and recurrent families, the linear-chain CRF, control flow, the
+tensor arrays and beam search, and the hand-written kernels under
+:mod:`.kernels`."""
 
 from . import (  # noqa: F401
     activation_ops,
     attention_ops,
+    beam_search_ops,
     compare_ops,
+    control_flow_ops,
     gradient_ops,
     loss_ops,
     math_ops,

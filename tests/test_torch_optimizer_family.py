@@ -593,7 +593,6 @@ def appended_op_types():
 FRONT_END_OPS_LEFT = LAYER_OPS_LEFT | {
     "add_position_encoding", "affine_grid", "random_crop",
     "sampling_id", "similarity_focus", "teacher_student_sigmoid_loss",
-    "tensor_array_to_tensor",
 }
 
 
@@ -601,7 +600,7 @@ def test_front_end_op_types_left_unregistered():
     from paddle_tpu_torch.core.registry import registered_ops
 
     named = appended_op_types()
-    assert len(FRONT_END_OPS_LEFT) == 24
+    assert len(FRONT_END_OPS_LEFT) == 23
     assert named - set(registered_ops()) == FRONT_END_OPS_LEFT
     # what the dense slice made run: layers/tensor.py, layers.load, crop,
     # WeightNormParamAttr's assign, fluid.gradients, the optimizers

@@ -186,7 +186,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.data.multislot, paddle_tpu_torch.data.metrics, "
             "paddle_tpu_torch.data_feeder, paddle_tpu_torch.data_feed_desc, "
             "paddle_tpu_torch.async_executor, paddle_tpu_torch.metrics, "
-            "paddle_tpu_torch.evaluator, paddle_tpu_torch.ops.misc_ops; "
+            "paddle_tpu_torch.evaluator, paddle_tpu_torch.ops.misc_ops, "
+            "paddle_tpu_torch.ops.control_flow_ops, "
+            "paddle_tpu_torch.ops.beam_search_ops, "
+            "paddle_tpu_torch.layers.beam_search, paddle_tpu_torch.contrib, "
+            "paddle_tpu_torch.contrib.decoder; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']; "
             "assert not bad, bad")
@@ -244,7 +248,12 @@ def test_port_sources_name_no_jax_import():
             "paddle_tpu_torch/data/reader.py",
             "paddle_tpu_torch/async_executor.py",
             "paddle_tpu_torch/metrics.py",
-            "paddle_tpu_torch/ops/misc_ops.py"} <= names
+            "paddle_tpu_torch/ops/misc_ops.py",
+            "paddle_tpu_torch/ops/control_flow_ops.py",
+            "paddle_tpu_torch/ops/beam_search_ops.py",
+            "paddle_tpu_torch/layers/beam_search.py",
+            "paddle_tpu_torch/contrib/__init__.py",
+            "paddle_tpu_torch/contrib/decoder/__init__.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
