@@ -223,6 +223,28 @@ through ``Executor.run``, each score held to its path's log-probs
 rescored by a teacher-forced StaticRNN; ``control_flow_ops`` holds the
 slice's 11 ops on the card against the CPU.
 
+The op remainder (``op_remainder``): ``ocr_ctc_train`` trains the CRNN-CTC
+text recogniser of PaddlePaddle/models' ``ocr_recognition``
+(``crnn_ctc_model.py``: grey 1 x 48 x 384 lines, four conv groups of 16,
+32, 64 and 128 filters, im2sequence to 48 frames, two GRUs of 200, 96
+classes with blank 95, ``warpctc(norm_by_times)``, Momentum(1e-3, 0.9)
+with L2 4e-4; batch 32, seeded images and 4-20 character labels) eagerly
+and captured in turns, captured = eager, two eager runs from one start
+bit-equal; ``ocr_ctc_eval`` decodes the ``for_test`` clone greedily
+(``ctc_greedy_decoder``) and scores it (``edit_distance``,
+``fluid.metrics.EditDistance``): ids equal to a host greedy decode of the
+same logits, each distance a host Levenshtein exactly. ``srl_decode``
+scores its paths with ``chunk_eval`` (IOB, 29 types) into a
+``ChunkEvaluator``, counts equal to a host recount. ``word2vec_heads``
+trains the book's word2vec with ``hsigmoid`` and with ``nce`` (5
+negatives) in place of the softmax, K4b on the shared sparse table,
+captured = eager bit for bit. ``extra_ops`` holds every op of the
+slice card = CPU (1e-5, integer outputs and ``hash`` identical) and the
+random draws by their law; ``host_ops_compiled`` runs the ``Switch``
+schedule, the NMT ``While`` decoder and a ``py_func`` + ``Print`` program
+through ``CompiledProgram``, equal to ``Executor.run``, each step counted
+in ``Executor.host_op_steps``.
+
 Diagnostics, not run by default: ``python3 chip_smoke.py
 --recipe-bisect [--deterministic] lamb adamw adam`` checksums every op's
 outputs and gradients over two eager runs of BERT-base's recipe step from
@@ -905,13 +927,14 @@ def serve_captured_phase(model, cfg, stream, reqs_c, eng_c, secs_c,
 
 def profile_phase(model, stream, graphs=False):
     """Where the serve time goes: the kernel-path serve once more under
-    torch.profiler (eager, or with the dispatches replayed from graphs);
-    device busy share = kernel time summed over the CUDA events / wall
-    time of the run (the profiler's own host cost is in the wall time),
-    and the largest kernels by device time. (Recording the card's
-    activity alone cut the two runs from 77 to 30 s on the H100, and in
-    that run the sampled leg's profiled replays recorded too few kernels;
-    the cause was not found.)"""
+    torch.profiler (eager, or with the dispatches replayed from graphs),
+    recording the card's activity (CUPTI's kernels, copies and runtime
+    calls, not the torch ops) and summing the profiler's raw events
+    (``kineto_results``); device busy share = the CUDA events' time summed
+    / wall time of the run (the profiler's own host cost is in the wall
+    time), and the largest kernels by device time. (Recording the torch
+    ops too and averaging them with ``key_averages()`` took the two runs
+    77 s together on an H100 80GB HBM3 at 700 W.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -922,24 +945,27 @@ def profile_phase(model, stream, graphs=False):
     eng.warmup()
     reqs = [eng.submit(p, m) for p, m in stream]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     check(all(r.tokens_out for r in reqs), "profiled serve emitted nothing")
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    kern = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            item = kern.setdefault(e.name(), [0, 0])
+            item[0] += 1
+            item[1] += e.duration_ns()
+    busy_ms = sum(ns for _, ns in kern.values()) / 1e6
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]
     emit("serve_profile_captured" if graphs else "serve_profile",
          wall_ms=secs * 1e3, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / (secs * 1e3) if busy_ms else None,
-         kernels_launched=sum(e.count for e in kern),
+         kernels_launched=sum(c for c, _ in kern.values()),
          decode_dispatches=eng.dispatches,
-         top=[{"name": e.key[:80], "count": e.count,
-               "device_ms": e.self_device_time_total / 1e3} for e in top])
+         top=[{"name": name[:80], "count": c, "device_ms": ns / 1e6}
+              for name, (c, ns) in top])
     eng.close()
 
 
@@ -1500,45 +1526,49 @@ def train_profile_phase(exe, main, loss, feed, scope,
 
 
 def profile_step(step, phase, groups=None):
-    """One ``step()`` (it returns its wall seconds) under torch.profiler;
-    device busy share = kernel time summed over the CUDA events / wall time
-    of the step (the profiler's host cost is in the wall time);
-    ``host_syncs`` counts the CUDA calls that block the host. ``groups``
-    ({name: regular expression}) sums the kernels by the first pattern
-    their name matches, the rest under "other"."""
+    """One ``step()`` (it returns its wall seconds) under torch.profiler,
+    recording the card's activity (CUPTI's kernels, copies and runtime
+    calls, not the torch ops) and summing the profiler's raw events
+    (``kineto_results``); device busy share = the CUDA events' time summed
+    / wall time of the step (the profiler's host cost is in the wall
+    time); ``host_syncs`` counts the runtime calls that block the host,
+    ``host_top`` the host's largest runtime calls. ``groups`` ({name:
+    regular expression}) sums the kernels by the first pattern their name
+    matches, the rest under "other"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         secs = [step()]
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    kern, host = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        item = (kern if e.device_type() == DeviceType.CUDA
+                else host).setdefault(e.name(), [0, 0])
+        item[0] += 1
+        item[1] += e.duration_ns()
+    busy_ms = sum(ns for _, ns in kern.values()) / 1e6
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:10]
     by_group = None
     if groups:
         by_group = {g: {"device_ms": 0.0, "count": 0}
                     for g in list(groups) + ["other"]}
-        for e in kern:
+        for name, (c, ns) in kern.items():
             g = next((g for g, pat in groups.items()
-                      if re.search(pat, e.key, re.I)), "other")
-            by_group[g]["device_ms"] += e.self_device_time_total / 1e3
-            by_group[g]["count"] += e.count
-    host_all = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CPU]
-    host = sorted(host_all, key=lambda e: -e.self_cpu_time_total)[:8]
+                      if re.search(pat, name, re.I)), "other")
+            by_group[g]["device_ms"] += ns / 1e6
+            by_group[g]["count"] += c
+    host_top = sorted(host.items(), key=lambda kv: -kv[1][1])[:8]
     share = busy_ms / (secs[0] * 1e3) if busy_ms else None
     emit(phase, wall_ms=secs[0] * 1e3, device_busy_ms=busy_ms,
          device_busy_share=share,
-         kernels_launched=sum(e.count for e in kern), by_group=by_group,
-         host_syncs={e.key: e.count for e in host_all
-                     if "Synchronize" in e.key},
-         top=[{"name": e.key[:80], "count": e.count,
-               "device_ms": e.self_device_time_total / 1e3} for e in top],
-         host_top=[{"name": e.key[:60], "count": e.count,
-                    "self_cpu_ms": e.self_cpu_time_total / 1e3}
-                   for e in host])
+         kernels_launched=sum(c for c, _ in kern.values()),
+         by_group=by_group,
+         host_syncs={name: c for name, (c, _) in host.items()
+                     if "Synchronize" in name},
+         top=[{"name": name[:80], "count": c, "device_ms": ns / 1e6}
+              for name, (c, ns) in top],
+         host_top=[{"name": name[:60], "count": c, "self_cpu_ms": ns / 1e6}
+                   for name, (c, ns) in host_top])
     return share, by_group
 
 
@@ -3840,7 +3870,10 @@ def captured_leg(leg, main, loss, scope, feeds, amp, per_step,
     first feed: step ms (block wall / steps, synced at the block's end)
     and host ms (until the block is dispatched); launches a step (kernels
     run, and the host's launch calls), busy share and peak memory of
-    each.
+    each. The profiles record the card's activity alone
+    (``step_profile(cpu_ops=False)``): averaging the torch ops too took
+    ~4.5 s a Transformer-base step on an H100 80GB HBM3 at 700 W, and its
+    device times summed to more than the step's wall.
     With ``pipeline_batch`` the captured steps are driven by
     ``_timeit_pipeline``'s calls. Returns the launches a replay by kernel
     name."""
@@ -3906,13 +3939,16 @@ def captured_leg(leg, main, loss, scope, feeds, amp, per_step,
                                fetch_list=[loss], fetch_every=k,
                                scope=scope_c, return_numpy=False)
 
-    wall_e, busy_e, kern_e, _, calls_e, _ = step_profile(eager_step)
+    wall_e, busy_e, kern_e, _, calls_e, _ = step_profile(eager_step,
+                                                         cpu_ops=False)
     want = {name: c for name, (_, c) in per_step.items()}
     pats = "|".join(pat for pat, _ in per_step.values())
 
     (wall_c, busy_c, kern_c, graph_launches, calls_c, host_c), counts, \
-        tries = replay_profile(lambda: captured_steps(1), per_step)
-    host_block = step_profile(lambda: captured_steps(CAPTURED_BLOCK))[-1]
+        tries = replay_profile(lambda: captured_steps(1), per_step,
+                               cpu_ops=False)
+    host_block = step_profile(lambda: captured_steps(CAPTURED_BLOCK),
+                              cpu_ops=False)[-1]
     block_syncs = host_syncs(lambda: captured_steps(CAPTURED_BLOCK))
     check(graph_launches == 1, "%s: %d cudaGraphLaunch in one replay"
           % (leg, graph_launches))
@@ -5689,8 +5725,9 @@ def scheduled_leg(leg, main, loss, lr, scope, feeds, rate_fn, begin,
     runs under AMP; bit-equality reported), the same eager steps rerun
     from the start bit-equal, one capture and
     ``len(feeds) - 2`` replays, no host sync in an eager step, and each
-    kernel of ``per_step`` at its count in one replay; with ``tail``, the
-    optimizer tail's device ms (``tail_device_ms``). Returns the leg's
+    kernel of ``per_step`` at its count in one replay (the profiles as
+    ``captured_leg``'s); with ``tail``, the optimizer tail's device ms
+    (``tail_device_ms``). Returns the leg's
     numbers and its ``eager_step`` / ``captured_steps(k)`` for the timing
     in turns (the executors stay open: close them with ``close``)."""
     import paddle_tpu_torch as fluid
@@ -5809,9 +5846,10 @@ def scheduled_leg(leg, main, loss, lr, scope, feeds, rate_fn, begin,
 
     syncs = host_syncs(eager_step)
     check(not syncs, "%s: an eager step syncs the host: %s" % (leg, syncs))
-    wall_e, busy_e, kern_e, _, calls_e, _ = step_profile(eager_step)
+    wall_e, busy_e, kern_e, _, calls_e, _ = step_profile(eager_step,
+                                                         cpu_ops=False)
     (wall_c, busy_c, kern_c, graph_launches, calls_c, _), counts, tries = \
-        replay_profile(lambda: captured_steps(1), per_step)
+        replay_profile(lambda: captured_steps(1), per_step, cpu_ops=False)
     want = {name: c for name, (_, c) in per_step.items()}
     check(graph_launches == 1 and counts == want,
           "%s: %d graph launches, kernels in one replay %r, want %r; each "
@@ -6213,11 +6251,12 @@ def lookup_determinism(dev, reps=5):
     ids 32 times each; the word table: 4,096 ids of 30,522) and the
     Transformer's (16,384 ids of 30,000; and with 30 % of them the padding
     id 0): whether every run gives the same bits, the host syncs of one
-    call, and its ms, for the port's table gradient (``nn_ops._table_grad``,
-    the backward of ``nn_ops._Lookup``, which must give the same bits) and
+    call, and its ms, for the port's table gradient
+    (``core.sparse.segment_sum``, the backward of ``nn_ops._Lookup``,
+    which must give the same bits) and
     for ``F.embedding``'s own backward (the library's, which parts on the
     sentence table)."""
-    from paddle_tpu_torch.ops.nn_ops import _table_grad
+    from paddle_tpu_torch.core.sparse import segment_sum
 
     cases = {"bert_sent": (2, BERT_BATCH * BERT_SEQ, 768, "one"),
              "bert_pos": (512, BERT_BATCH * BERT_SEQ, 768, "tiled"),
@@ -6242,7 +6281,7 @@ def lookup_determinism(dev, reps=5):
                 pad = torch.rand(n, generator=gen, device=dev) < 0.3
                 ids = torch.where(pad, 0, ids)
         g = torch.randn(n, d, generator=gen, device=dev).bfloat16()
-        fns = {"F.embedding": _grad_embedding, "port": _table_grad}
+        fns = {"F.embedding": _grad_embedding, "port": segment_sum}
         for name, fn in fns.items():
             def grad(fn=fn):
                 return fn(ids, g, v)
@@ -7631,6 +7670,8 @@ SRL = dict(word_dict_len=44068, pred_dict_len=3162, mark_dict_len=2,
            label_dict_len=59, word_dim=32, mark_dim=5, hidden_dim=128,
            depth=8)
 SRL_BATCH, SRL_T, SRL_MIN = 10, 64, 8
+SRL_CHUNK_TYPES = (SRL["label_dict_len"] - 1 + 1) // 2   # 29
+SRL_EVAL_BATCHES = 3   # srl_decode's ChunkEvaluator batches
 SRL_NAMES = ("word", "predicate", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1",
              "ctx_p2", "mark")
 # test_recommender_system.py at MovieLens-1M's dictionaries
@@ -7693,10 +7734,15 @@ def build_srl(fluid):
         test = main.clone(for_test=True)
         with fluid.program_guard(test):
             path = srl.srl_decode(feature_out, length=length)
+            # label_semantic_roles's ChunkEvaluator: IOB over
+            # ceil((L - 1) / 2) chunk types
+            chunks = fluid.layers.chunk_eval(
+                path, target, chunk_scheme="IOB",
+                num_chunk_types=SRL_CHUNK_TYPES, seq_length=length)[3:]
         lr = fluid.layers.exponential_decay(0.01, 100000, 0.5,
                                             staircase=True)
         fluid.optimizer.SGD(lr).minimize(cost)
-    return main, startup, cost, (test, path)
+    return main, startup, cost, (test, path, chunks)
 
 
 def srl_feed(seed=0):
@@ -7789,7 +7835,7 @@ def nmt_feed(seed=0, dict_size=None):
     return feed
 
 
-def seq_leg(leg, build, feed, per_step, tokens, batch):
+def seq_leg(leg, build, feed, per_step, tokens, batch, decode=None):
     """One training leg of ``sequence_models``: the program built as the
     book's script builds it, its startup run on the card, then eager steps
     (``Executor.run``) and captured steps (``run_steps``, one step a call:
@@ -7802,7 +7848,10 @@ def seq_leg(leg, build, feed, per_step, tokens, batch):
     name (``per_step``: {name: (pattern, launches a step)}). The
     hand-written kernels' host counts (``kernel_counters``) are set to 0
     before the first step and read after the eager and captured steps.
-    Returns (line, those counts, counts in a replay)."""
+    ``decode(exe, extra, device feed, feed, scope)``, given, runs on the
+    eager run's trained state (``extra`` is what ``build`` returned last)
+    and goes into the line as ``decode``. Returns (line, those counts,
+    counts in a replay)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.monitor import metrics
 
@@ -7907,9 +7956,9 @@ def seq_leg(leg, build, feed, per_step, tokens, batch):
         params=len(main.all_parameters()),
         weights=sum(int(np.prod(p.shape)) for p in main.all_parameters()),
         nvidia_smi=SMI[0])
-    if extra is not None:
+    if decode is not None:
         t0 = time.perf_counter()
-        line["decode"] = srl_decode_leg(exe, extra, dfeed, feed, scope)
+        line["decode"] = decode(exe, extra, dfeed, feed, scope)
         stages["decode_s"] = time.perf_counter() - t0
     exe_c.close()
     line["stages"] = stages
@@ -7922,8 +7971,13 @@ def seq_leg(leg, build, feed, per_step, tokens, batch):
 def srl_decode_leg(exe, extra, dfeed, feed, scope):
     """``srl_decode`` on the ``for_test`` clone with the trained 'crfw':
     ms a batch (median of 4 after one warm-up), every path in [0, L) and 0
-    at the padding."""
-    test, path = extra
+    at the padding; then ``chunk_eval`` (IOB, 29 chunk types) on
+    ``SRL_EVAL_BATCHES`` batches into a ``fluid.metrics.ChunkEvaluator``,
+    each batch's counts equal to a host recount of its decoded paths
+    (``host_chunk_counts``)."""
+    import paddle_tpu_torch as fluid
+
+    test, path, chunks = extra
     secs = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -7938,9 +7992,87 @@ def srl_decode_leg(exe, extra, dfeed, feed, scope):
           and got.max() < SRL["label_dict_len"] and not got[pad].any(),
           "srl_decode: paths out of [0, %d) or not 0 at the padding"
           % SRL["label_dict_len"])
+    evaluator = fluid.metrics.ChunkEvaluator()
+    counts = []
+    for seed in range(SRL_EVAL_BATCHES):
+        f = srl_feed(seed)
+        paths, *n = exe.run(test, feed=f, fetch_list=[path] + list(chunks),
+                            scope=scope)
+        n = [int(np.asarray(c).reshape(-1)[0]) for c in n]
+        want = host_chunk_counts(paths, f["target"], f["length"],
+                                 SRL_CHUNK_TYPES)
+        check(n == [int(c) for c in want],
+              "srl_decode: chunk_eval counts %r, the host's recount %r"
+              % (n, list(want)))
+        evaluator.update(*n)
+        counts.append(n)
+    p, r, f1 = evaluator.eval()
     return {"ms_a_batch": float(np.median(secs[1:])), "ms": secs,
             "dtype": str(out.dtype), "labels_used": int(len(np.unique(
-                got[~pad])))}
+                got[~pad]))),
+            "chunk_eval": {"scheme": "IOB",
+                           "num_chunk_types": SRL_CHUNK_TYPES,
+                           "counts_infer_label_correct": counts,
+                           "equal_to_host_recount": True,
+                           "precision": p, "recall": r, "f1": f1}}
+
+
+# tag types and the begin, inside, end, single tags of each scheme
+# (chunk_eval_op.h; -1 where a scheme has no such tag)
+CHUNK_SCHEMES = {"IOB": (2, 0, 1, -1, -1), "IOE": (2, -1, 0, 1, -1),
+                 "IOBES": (4, 0, 1, 2, 3), "plain": (1, -1, -1, -1, -1)}
+
+
+def host_chunks(labels, length, num_chunk_types, scheme="IOB"):
+    """The chunks of one label row as Fluid's ``GetSegments`` walks it on
+    the host (chunk_eval_op.h): a set of (begin, end, type)."""
+    ntag, t_b, t_i, t_e, t_s = CHUNK_SCHEMES[scheme]
+    other = num_chunk_types
+
+    def ends(pt, pty, t, ty):
+        if pty == other:
+            return False
+        if ty == other or ty != pty:
+            return True
+        if pt in (t_b, t_i):
+            return t in (t_b, t_s)
+        return pt in (t_e, t_s)
+
+    def begins(pt, pty, t, ty):
+        if pty == other:
+            return ty != other
+        if ty == other:
+            return False
+        if ty != pty or t in (t_b, t_s):
+            return True
+        return t in (t_i, t_e) and pt in (t_e, t_s)
+
+    out, start, inside, tag, typ = set(), 0, False, -1, other
+    for i in range(int(length)):
+        ptag, ptyp = tag, typ
+        tag, typ = int(labels[i]) % ntag, int(labels[i]) // ntag
+        if inside and ends(ptag, ptyp, tag, typ):
+            out.add((start, i - 1, ptyp))
+            inside = False
+        if begins(ptag, ptyp, tag, typ):
+            start, inside = i, True
+    if inside:
+        out.add((start, int(length) - 1, typ))
+    return out
+
+
+def host_chunk_counts(inference, label, lengths, num_chunk_types,
+                      scheme="IOB", excluded=()):
+    """(inferred, labelled, correct) chunk counts of a batch by
+    :func:`host_chunks`, the ``excluded`` types left out."""
+    counts = np.zeros(3, np.int64)
+    for inf, lab, n in zip(inference, label, lengths):
+        a = {c for c in host_chunks(inf, n, num_chunk_types, scheme)
+             if c[2] not in excluded}
+        b = {c for c in host_chunks(lab, n, num_chunk_types, scheme)
+             if c[2] not in excluded}
+        counts += (len(a), len(b), len(a & b))
+    return counts
 
 
 def kernel_counters(reset=False):
@@ -8070,7 +8202,7 @@ def sequence_train_legs(xent_rows, k4_rows):
     feed = srl_feed()
     line, launches, _ = seq_leg(
         "srl_train", build_srl, feed, {}, int(feed["length"].sum()),
-        SRL_BATCH)
+        SRL_BATCH, decode=srl_decode_leg)
     check(launches["K2a"] == launches["K4b"] == 0,
           "srl_train: launches %r" % launches)
     emit("srl_train", config=SRL, padded_t=SRL_T, lengths=[SRL_MIN, SRL_T],
@@ -9342,6 +9474,805 @@ def control_flow_phase(xent_rows):
     emit("control_flow_seconds", **secs)
 
 
+# -- the op remainder: CTC, the sampled heads, the host ops -------------------
+
+# PaddlePaddle/models fluid/ocr_recognition crnn_ctc_model.py at its
+# published widths: grey 1 x 48 x 384 text lines, four groups of two 3 x 3
+# convs (16, 32, 64, 128 filters, batch norm + ReLU each) with a 2 x 2 max
+# pool after the first three, im2sequence over the 6-high map (48 frames of
+# 768), two fc of 600 into a forward and a reverse GRU of 200 (candidate
+# ReLU), fc to 95 characters + the blank (95); warpctc(norm_by_times),
+# Momentum(1e-3, 0.9) with L2 4e-4; batch 32, labels of 4-20 characters
+CRNN = dict(image=(1, 48, 384), filters=(16, 32, 64, 128), rnn_hidden=200,
+            num_classes=95, min_label=4, max_label=20)
+CRNN_BATCH = 32
+CRNN_L2, CRNN_LR, CRNN_MOMENTUM = 4e-4, 1e-3, 0.9
+CRNN_EVAL_BATCHES = 4      # ocr_ctc_eval: one warm-up and 3 timed
+# word2vec_heads: the book's N-gram model with the softmax fc replaced;
+# nce draws 5 negatives a word
+W2V_NCE_NEGATIVES = 5
+# SGD rates a head: each loss falls within a leg's 7 steps on one batch
+# (nce's through the noise of its fresh negatives each step)
+W2V_HEADS_LR = {"hsigmoid": 0.1, "nce": 0.2}
+# each leg's users, for its line
+OP_REMAINDER_USERS = {
+    "ocr_ctc_train": "text-line recognisers (CRNN-CTC, the Fluid model "
+                     "zoo's ocr_recognition)",
+    "word2vec_heads": "embedding and language-model trainers over large "
+                      "vocabularies, where a sampled or tree head replaces "
+                      "the full softmax",
+}
+
+
+def _crnn_attr(fluid, std, lr=1.0):
+    """crnn_ctc_model.py's parameter attributes: a normal initializer,
+    L2 decay, a learning-rate scale (one object a parameter)."""
+    return fluid.ParamAttr(initializer=fluid.initializer.Normal(0.0, std),
+                           regularizer=fluid.regularizer.L2Decay(CRNN_L2),
+                           learning_rate=lr)
+
+
+def crnn_encoder(fluid, images, filters, rnn_hidden, num_classes):
+    """crnn_ctc_model.py's ``encoder_net``: ``ocr_convs`` (the first
+    group's convs initialised at std 0.0005, the rest 0.01), im2sequence
+    over the map's whole height, the two GRUs, the output fc [B, T, C+1]
+    (one weight an input, as Fluid's ``fc`` over a list makes them)."""
+    L = fluid.layers
+    tmp = images
+    for g, ch in enumerate(filters):
+        for _ in range(2):
+            tmp = L.conv2d(tmp, num_filters=ch, filter_size=3, padding=1,
+                           param_attr=_crnn_attr(fluid, 0.0005 if g == 0
+                                                 else 0.01))
+            tmp = L.batch_norm(tmp, act="relu",
+                               param_attr=_crnn_attr(fluid, 0.01),
+                               bias_attr=_crnn_attr(fluid, 0.0))
+        if g < len(filters) - 1:
+            tmp = L.pool2d(tmp, pool_size=2, pool_type="max", pool_stride=2,
+                           ceil_mode=True)
+    seq = L.im2sequence(tmp, filter_size=[tmp.shape[2], 1], stride=[1, 1])
+    grus = []
+    for reverse in (False, True):
+        fc = L.fc(seq, rnn_hidden * 3, num_flatten_dims=2,
+                  param_attr=_crnn_attr(fluid, 0.02),
+                  bias_attr=_crnn_attr(fluid, 0.02))
+        grus.append(L.dynamic_gru(
+            fc, rnn_hidden, is_reverse=reverse,
+            param_attr=_crnn_attr(fluid, 0.02),
+            bias_attr=_crnn_attr(fluid, 0.02, lr=2.0),
+            candidate_activation="relu"))
+    return L.fc(grus, num_classes + 1, num_flatten_dims=2,
+                param_attr=[_crnn_attr(fluid, 0.02) for _ in grus],
+                bias_attr=_crnn_attr(fluid, 0.0))
+
+
+def build_crnn_ctc(fluid, image, filters, rnn_hidden, num_classes,
+                   max_label, **_):
+    """crnn_ctc_model.py's ``ctc_train_net`` over padded labels
+    ([B, max_label] + ``label_length``): the summed CTC loss (blank =
+    ``num_classes``, ``norm_by_times``) under Momentum with L2, and on its
+    ``for_test`` clone the greedy decode and the edit distance to the
+    label. Returns (main, startup, loss, (test program, logits, decoded
+    ids, decoded lengths, distances, sequence count))."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 4
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        L = fluid.layers
+        pixel = L.data("pixel", shape=list(image), dtype="float32")
+        label = L.data("label", shape=[max_label], dtype="int64")
+        label_len = L.data("label_length", shape=[], dtype="int64")
+        logits = crnn_encoder(fluid, pixel, filters, rnn_hidden, num_classes)
+        cost = L.warpctc(logits, label, blank=num_classes, norm_by_times=True,
+                         label_length=label_len)
+        loss = L.reduce_sum(cost)
+        decoded, decoded_len = L.ctc_greedy_decoder(logits, blank=num_classes)
+        dist, seq_num = L.edit_distance(decoded, label, normalized=False,
+                                        input_length=decoded_len,
+                                        label_length=label_len)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Momentum(CRNN_LR, CRNN_MOMENTUM).minimize(loss)
+    return main, startup, loss, (test, logits, decoded, decoded_len, dist,
+                                 seq_num)
+
+
+def crnn_feed(cfg, batch, seed=0):
+    """Seeded grey text-line images (the reader's ``pixel - 127.5`` range)
+    and label strings of ``min_label``-``max_label`` characters in
+    [0, num_classes), padded with 0."""
+    rng = np.random.RandomState(seed)
+    c, h, w = cfg["image"]
+    lens = rng.randint(cfg["min_label"], cfg["max_label"] + 1, batch)
+    label = rng.randint(0, cfg["num_classes"], (batch, cfg["max_label"]))
+    label[np.arange(cfg["max_label"])[None] >= lens[:, None]] = 0
+    return {"pixel": rng.uniform(-127.5, 127.5, (batch, c, h, w)).astype(
+                "float32"),
+            "label": label.astype("int64"),
+            "label_length": lens.astype("int64")}
+
+
+def levenshtein(a, b):
+    """The edit distance of two id lists, on the host."""
+    d = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        prev, d[0] = d[0], i
+        for j, y in enumerate(b, 1):
+            prev, d[j] = d[j], min(d[j] + 1, d[j - 1] + 1, prev + (x != y))
+    return d[-1]
+
+
+def greedy_collapse(logits, blank):
+    """Host CTC greedy decode of [B, T, C] logits: each row's argmax path,
+    repeats merged, blanks dropped."""
+    out = []
+    for row in np.argmax(logits, axis=-1):
+        keep, prev = [], -1
+        for v in row:
+            if v != blank and v != prev:
+                keep.append(int(v))
+            prev = v
+        out.append(keep)
+    return out
+
+
+def ocr_ctc_eval(exe, extra, dfeed, feed, scope):
+    """``ocr_ctc_eval``: the ``for_test`` clone on the trained weights,
+    ``CRNN_EVAL_BATCHES`` seeded batches (the first a warm-up): ms a
+    batch; every decoded id in [0, num_classes) with -1 past its length,
+    no blank and no repeat left, the ids equal to a host greedy decode of
+    the same logits, each distance equal to a host Levenshtein of the
+    pair exactly; the distances into ``fluid.metrics.EditDistance``."""
+    import paddle_tpu_torch as fluid
+
+    test, logits, decoded, decoded_len, dist, seq_num = extra
+    cfg, batch = CRNN, CRNN_BATCH
+    blank = cfg["num_classes"]
+    metric = fluid.metrics.EditDistance()
+    secs, rows = [], 0
+    for i in range(CRNN_EVAL_BATCHES):
+        f = feed if i == 0 else crnn_feed(cfg, batch, seed=100 + i)
+        df = dfeed if i == 0 else {k: torch.as_tensor(v, device=exe.place)
+                                   for k, v in f.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = exe.run(test, feed=df, fetch_list=[logits, decoded,
+                                                  decoded_len, dist, seq_num],
+                       scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) * 1e3)
+        lg, ids, n, d, sn = (o.cpu().numpy() for o in outs)
+        host = greedy_collapse(lg, blank)
+        for r in range(batch):
+            got = list(ids[r, :n[r]])
+            check(got == host[r] and (ids[r, n[r]:] == -1).all()
+                  and all(0 <= v < blank for v in got)
+                  and all(a != b for a, b in zip(got, got[1:])),
+                  "ocr_ctc_eval: row %d decoded %r (length %d), the host's "
+                  "greedy decode %r" % (r, list(ids[r]), n[r], host[r]))
+            want = levenshtein(got, list(f["label"][r, :f["label_length"][r]]))
+            check(float(d[r, 0]) == want,
+                  "ocr_ctc_eval: row %d distance %r, host Levenshtein %d"
+                  % (r, float(d[r, 0]), want))
+        metric.update(d, sn)
+        rows += batch
+    avg, err_rate = metric.eval()
+    return {"ms_a_batch": float(np.median(secs[1:])), "ms": secs,
+            "rows_checked": rows, "decoded_equal_to_host_greedy": True,
+            "distances_equal_to_host_levenshtein": True,
+            "avg_edit_distance": float(np.asarray(avg).item()),
+            "avg_instance_error": float(np.asarray(err_rate).item()),
+            "mean_decoded_length": float(n.mean()),
+            "nvidia_smi": SMI[0]}
+
+
+def eager_runs_bit_equal(build, feed, steps=3):
+    """Two eager runs of ``steps`` steps of ``build(fluid)``'s program on
+    the card from one start (the startup run once, its state cloned):
+    their losses and every state tensor bit-equal."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, loss, _ = build(fluid)
+    start = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=start)
+    feed = {k: torch.as_tensor(v, device=fluid.CUDAPlace(0))
+            for k, v in feed.items()}
+    runs = []
+    for _ in range(2):
+        scope = clone_scope(fluid, start)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        main._tpu_step_counter = 0
+        losses = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                          return_numpy=False)[0].clone()
+                  for _ in range(steps)]
+        runs.append((torch.stack(losses), scope))
+    (la, sa), (lb, sb) = runs
+    _, state_err, state_equal = state_norm_err(sa, sb)
+    return {"steps": steps, "losses_bit_equal": bool(torch.equal(la, lb)),
+            "state_bit_equal": bool(state_equal),
+            "state_max_norm_diff": state_err}
+
+
+def ocr_ctc_train_leg():
+    """``ocr_ctc_train`` (``seq_leg``: eager and captured steps in turns,
+    2 warm-ups, the capture step and 4 timed each; captured = eager 1e-6,
+    losses falling, no host sync in an eager step, profiles), its
+    ``ocr_ctc_eval`` on the eager run's weights, and two eager runs from
+    one start bit-equal; ``ocr_ctc_eval`` also at the startup weights.
+    The path reaches no hand-written kernel: CTC, the GRUs and the
+    convolutions are torch and cuDNN calls. The leg runs with cuDNN's
+    deterministic algorithms, as a user who wants repeatable runs sets
+    it: left to its default, cuDNN's backward parts the conv weights and
+    biases between two runs from one start on the H100 (82 state tensors
+    after 4 steps, the losses still equal), and captured from eager."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _ocr_ctc_train()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _ocr_ctc_train():
+    cfg = CRNN
+    feed = crnn_feed(cfg, CRNN_BATCH)
+    frames = CRNN_BATCH * cfg["image"][2] // 8
+    line, launches, _ = seq_leg(
+        "ocr_ctc_train", lambda fluid: build_crnn_ctc(fluid, **cfg), feed,
+        {}, frames, CRNN_BATCH, decode=ocr_ctc_eval)
+    check(launches["K2a"] == launches["K4a"] == launches["K4b"] == 0,
+          "ocr_ctc_train: launches %r" % launches)
+    t0 = time.perf_counter()
+    bits = eager_runs_bit_equal(lambda fluid: build_crnn_ctc(fluid, **cfg),
+                                feed)
+    check(bits["losses_bit_equal"] and bits["state_bit_equal"],
+          "ocr_ctc_train: two eager runs from one start part: %r" % bits)
+    bits["s"] = time.perf_counter() - t0
+    emit("ocr_ctc_train", config=cfg,
+         optimizer="Momentum(%g, %g) + L2Decay(%g)" % (
+             CRNN_LR, CRNN_MOMENTUM, CRNN_L2),
+         frames_a_step=frames, label_chars=int(feed["label_length"].sum()),
+         images_per_s_eager=line["sequences_per_s_eager"],
+         images_per_s_captured=line["sequences_per_s_captured"],
+         eager_runs=bits, cudnn_deterministic=True,
+         reduced=["seeded images and labels (no OCR dataset in the "
+                  "repository)"],
+         users=OP_REMAINDER_USERS["ocr_ctc_train"], **line)
+    # the decode also at the startup weights, whose paths are not yet all
+    # blanks
+    import paddle_tpu_torch as fluid
+
+    main, startup, _, extra = build_crnn_ctc(fluid, **cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    dfeed = {k: torch.as_tensor(v, device=exe.place) for k, v in feed.items()}
+    at_start = ocr_ctc_eval(exe, extra, dfeed, feed, scope)
+    emit("ocr_ctc_eval", batch=CRNN_BATCH, trained=line["decode"],
+         at_startup_weights=at_start)
+
+
+def build_word2vec_head(fluid, head):
+    """The book's N-gram word2vec (``tests/book/test_word2vec.py``) at its
+    widths (V = 2073, embedding 32, hidden 256, batch 100) with the
+    softmax fc replaced by ``hsigmoid`` or by ``nce`` (5 uniform
+    negatives), under SGD. The four context words are one lookup of
+    [B, 4] ids in the shared ``is_sparse`` table (both packages refuse a
+    sparse table looked up twice), so its rows-only gradient goes through
+    K4b once a step."""
+    v = W2V["dict_size"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 6
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        L = fluid.layers
+        words = [L.data(n, shape=[1], dtype="int64")
+                 for n in ("firstw", "secondw", "thirdw", "forthw")]
+        nextw = L.data("nextw", shape=[1], dtype="int64")
+        emb = L.embedding(L.concat(words, axis=1),
+                          size=[v, W2V["embed_size"]], is_sparse=True,
+                          param_attr=fluid.ParamAttr(name="shared_w"))
+        hidden = L.fc(L.reshape(emb, [-1, 4 * W2V["embed_size"]]),
+                      size=W2V["hidden_size"], act="sigmoid")
+        if head == "hsigmoid":
+            cost = L.hsigmoid(hidden, nextw, num_classes=v)
+        else:
+            cost = L.nce(hidden, nextw, num_total_classes=v,
+                         num_neg_samples=W2V_NCE_NEGATIVES)
+        loss = L.mean(cost)
+        fluid.optimizer.SGD(W2V_HEADS_LR[head]).minimize(loss)
+    return main, startup, loss, None
+
+
+def word2vec_heads_leg(k4_rows):
+    """``word2vec_heads``: ``seq_leg`` of each head (eager and captured in
+    turns, captured = eager bit for bit, losses and state: ``nce``'s
+    negatives come from the op's generator, reseeded each step, and the
+    shared table's duplicate ids are summed by ``merge_rows`` in one order
+    on every run), K4b once a step on the shared table by host count and
+    in one replay."""
+    feed = ngram_feed()
+    out = {}
+    for head in ("hsigmoid", "nce"):
+        line, launches, counts = seq_leg(
+            "word2vec_%s" % head,
+            lambda fluid, h=head: build_word2vec_head(fluid, h), feed,
+            {"K4b": (K4B_KERNEL, 1)}, W2V_BATCH, W2V_BATCH)
+        check(launches["K4b"] == SEQ_HOST_STEPS and launches["K2a"] == 0,
+              "word2vec_heads %s: launches %r" % (head, launches))
+        check(line["bit_equal"], "word2vec_heads %s: captured %r, eager "
+              "%r, state %.3g norm-wise: not bit-equal"
+              % (head, line["losses_captured"], line["losses_eager"],
+                 line["state_max_norm_diff"]))
+        line["words_per_s_eager"] = line.pop("sequences_per_s_eager")
+        line["words_per_s_captured"] = line.pop("sequences_per_s_captured")
+        out[head] = line
+        k4_rows[1].setdefault("word2vec_heads", {})[head] = {
+            "launches": launches["K4b"], "host_steps": SEQ_HOST_STEPS,
+            "captured_launches_a_step": counts["K4b"]}
+    emit("word2vec_heads", config=W2V, batch=W2V_BATCH,
+         optimizer={h: "SGD(%g)" % lr for h, lr in W2V_HEADS_LR.items()},
+         nce_negatives=W2V_NCE_NEGATIVES,
+         users=OP_REMAINDER_USERS["word2vec_heads"], **out)
+
+
+def op_remainder_cases():
+    """(name, op type, attrs, inputs (a thunk of CPU tensors), outputs) of
+    every op of the slice held card = CPU, at its path's shapes where a
+    path runs it: CTC at the CRNN's [32, 48, 96] with 20-character
+    labels, chunk_eval at the SRL tagger's [10, 64] over 29 types, the
+    heads at word2vec's [100, 256] over 2073 classes; the rest at small
+    model-like shapes. The random ops are held in their test mode (nce's
+    class-0 negatives, random_crop's centre) or, for ``sample_logits``,
+    on samples the card drew."""
+    g = torch.Generator().manual_seed(21)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    def ints(hi, *shape, lo=0):
+        return torch.randint(lo, hi, shape, generator=g)
+
+    b, t, c = CRNN_BATCH, CRNN["image"][2] // 8, CRNN["num_classes"] + 1
+    ml = CRNN["max_label"]
+
+    def ctc():
+        lab_len = ints(ml + 1, b, lo=CRNN["min_label"])
+        return {"Logits": randn(b, t, c, scale=2.0),
+                "Label": ints(c - 1, b, ml), "LabelLength": lab_len,
+                "LogitsLength": torch.full((b,), t)}
+
+    def greedy():
+        return {"Input": ints(c, b, t), "Length": ints(t + 1, b, lo=1)}
+
+    def edit():
+        return {"Hyps": ints(c - 1, b, t), "Refs": ints(c - 1, b, ml),
+                "HypsLength": ints(t + 1, b), "RefsLength": ints(ml + 1, b)}
+
+    def chunks():
+        lab = ints(SRL["label_dict_len"], SRL_BATCH, SRL_T)
+        inf = torch.where(torch.rand(lab.shape, generator=g) < 0.3,
+                          ints(SRL["label_dict_len"], SRL_BATCH, SRL_T), lab)
+        return {"Inference": inf, "Label": lab,
+                "Length": ints(SRL_T + 1, SRL_BATCH, lo=SRL_MIN)}
+
+    v, hd = W2V["dict_size"], W2V["hidden_size"]
+
+    def head(with_bias=True):
+        d = {"X": randn(W2V_BATCH, hd), "W": randn(v - 1, hd, scale=0.05),
+             "Label": ints(v, W2V_BATCH, 1)}
+        if with_bias:
+            d["Bias"] = randn(v - 1, scale=0.05)
+        return d
+
+    def nce():
+        return {"Input": randn(W2V_BATCH, hd), "Weight": randn(v, hd,
+                                                               scale=0.05),
+                "Bias": randn(v, scale=0.05), "Label": ints(v, W2V_BATCH, 1)}
+
+    def unpool():
+        # each window's recorded position, as max_pool2d_with_index makes it
+        n, ch, oh, ow = 16, 64, 28, 28
+        dy, dx = ints(2, n, ch, oh, ow), ints(2, n, ch, oh, ow)
+        rows = torch.arange(oh)[:, None] * 2 + dy
+        cols = torch.arange(ow)[None, :] * 2 + dx
+        return {"X": randn(n, ch, oh, ow), "Indices": (rows * 2 * ow + cols)
+                .to(torch.int32)}
+
+    edges = torch.zeros(8, 12, 2, dtype=torch.long)
+    for i in range(11):
+        edges[:, i] = torch.tensor([i // 2 + 1, i + 2])
+    return [
+        ("warpctc", "warpctc", {"blank": c - 1, "norm_by_times": True}, ctc,
+         {"Loss": 1}),
+        ("ctc_align", "ctc_align", {"blank": c - 1}, greedy,
+         {"Output": 1, "OutputLength": 1}),
+        ("edit_distance", "edit_distance", {"normalized": False}, edit,
+         {"Out": 1, "SequenceNum": 1}),
+        ("chunk_eval", "chunk_eval", {"num_chunk_types": SRL_CHUNK_TYPES,
+                                      "chunk_scheme": "IOB"}, chunks,
+         {"Precision": 1, "Recall": 1, "F1-Score": 1, "NumInferChunks": 1,
+          "NumLabelChunks": 1, "NumCorrectChunks": 1}),
+        ("hierarchical_sigmoid", "hierarchical_sigmoid", {"num_classes": v},
+         head, {"Out": 1, "PreOut": 1}),
+        ("nce_test_mode", "nce", {"num_neg_samples": W2V_NCE_NEGATIVES,
+                                  "num_total_classes": v, "is_test": True},
+         nce, {"Cost": 1, "SampleLogits": 1, "SampleLabels": 1}),
+        ("precision_recall", "precision_recall", {"class_number": 10},
+         lambda: {"Indices": ints(10, 256, 1), "Labels": ints(10, 256, 1),
+                  "Weights": torch.rand(256, 1, generator=g),
+                  "StatesInfo": ints(9, 10, 4).float()},
+         {"BatchMetrics": 1, "AccumMetrics": 1, "AccumStatesInfo": 1}),
+        ("positive_negative_pair", "positive_negative_pair", {"column": 0},
+         lambda: {"Score": ints(8, 512, 1).float(),
+                  "Label": ints(3, 512, 1).float(),
+                  "QueryID": ints(16, 512, 1),
+                  "Weight": torch.rand(512, 1, generator=g)},
+         {"PositivePair": 1, "NegativePair": 1, "NeutralPair": 1}),
+        ("spp", "spp", {"pyramid_height": 3, "pooling_type": "max"},
+         lambda: {"X": randn(16, 256, 13, 13)}, {"Out": 1}),
+        ("max_pool2d_with_index", "max_pool2d_with_index",
+         {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]},
+         lambda: {"X": randn(8, 64, 56, 56)}, {"Out": 1, "Mask": 1}),
+        ("unpool", "unpool", {"ksize": [2, 2], "strides": [2, 2]},
+         unpool, {"Out": 1}),
+        ("grid_sampler", "grid_sampler", {},
+         lambda: {"X": randn(8, 32, 28, 28),
+                  "Grid": torch.rand(8, 28, 28, 2, generator=g) * 2.4 - 1.2},
+         {"Output": 1}),
+        ("psroi_pool", "psroi_pool",
+         {"output_channels": 10, "pooled_height": 3, "pooled_width": 3,
+          "spatial_scale": 0.0625},
+         lambda: {"X": randn(2, 90, 38, 50),
+                  "ROIs": torch.cat([torch.rand(16, 2, generator=g) * 400,
+                                     torch.rand(16, 2, generator=g) * 200
+                                     + 400], dim=1),
+                  "BatchId": ints(2, 16)}, {"Out": 1}),
+        ("add_position_encoding", "add_position_encoding",
+         {"alpha": 1.0, "beta": 1.0}, lambda: {"X": randn(64, 256, 512)},
+         {"Out": 1}),
+        ("affine_grid", "affine_grid", {"output_shape": [32, 1, 48, 384]},
+         lambda: {"Theta": randn(32, 2, 3)}, {"Output": 1}),
+        ("modified_huber_loss", "modified_huber_loss", {},
+         lambda: {"X": randn(1024, 1) * 2, "Y": ints(2, 1024, 1).float()},
+         {"IntermediateVal": 1, "Out": 1}),
+        ("teacher_student_sigmoid_loss", "teacher_student_sigmoid_loss", {},
+         lambda: {"X": randn(1024, 1),
+                  "Label": torch.rand(1024, 1, generator=g) * 4 - 2},
+         {"Y": 1}),
+        ("random_crop_test_mode", "random_crop",
+         {"shape": [3, 224, 224], "is_test": True},
+         lambda: {"X": randn(16, 3, 256, 256)}, {"Out": 1}),
+        ("spectral_norm", "spectral_norm", {"dim": 0, "power_iters": 2},
+         lambda: {"Weight": randn(64, 64, 3, 3), "U": randn(64),
+                  "V": randn(576)}, {"Out": 1, "UOut": 1, "VOut": 1}),
+        ("conv_shift", "conv_shift", {},
+         lambda: {"X": randn(32, 128), "Y": randn(32, 3)}, {"Out": 1}),
+        ("similarity_focus", "similarity_focus",
+         {"axis": 1, "indexes": [0, 3]},
+         lambda: {"X": randn(16, 8, 32, 32)}, {"Out": 1}),
+        ("fused_embedding_seq_pool", "fused_embedding_seq_pool", {},
+         lambda: {"W": randn(10000, 64), "Ids": ints(10000, 256, 20, 1),
+                  "Length": ints(21, 256, lo=1)}, {"Out": 1}),
+        ("max_pool3d_with_index", "max_pool3d_with_index",
+         {"ksize": [2, 2, 2], "strides": [2, 2, 2]},
+         lambda: {"X": randn(8, 64, 8, 28, 28)}, {"Out": 1, "Mask": 1}),
+        ("fill", "fill", {"shape": [4, 8], "dtype": "float32",
+                          "value": [float(i) for i in range(32)]},
+         lambda: {}, {"Out": 1}),
+        ("tree_conv", "tree_conv", {"max_depth": 3},
+         lambda: {"NodesVector": randn(8, 13, 64), "EdgeSet": edges,
+                  "Filter": randn(64, 3, 32, 4)}, {"Out": 1}),
+        ("hash", "hash", {"num_hash": 4, "mod_by": 1000003},
+         lambda: {"X": ints(2 ** 31 - 1, 4096, 2, lo=-2 ** 31)}, {"Out": 1}),
+    ]
+
+
+def random_heads_on_card(dev):
+    """The slice's random draws on the card: ``nce``'s negatives uniform
+    in [0, V), ``sample_logits``'s log-uniform, ``sampling_id`` by its
+    rows' law, ``random_crop``'s offsets in range, each the same bits from
+    the same seed; ``sample_logits`` on the card's own samples (given as
+    ``CustomizedSamples``) = the CPU's."""
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+    from paddle_tpu_torch.executor import TraceContext
+
+    def run(op_type, attrs, inputs, outs):
+        draws = []
+        for _ in range(2):
+            env = {k: v.to(dev) for k, v in inputs.items()}
+            op = SimpleNamespace(type=op_type, attrs=dict(attrs), block=None,
+                                 inputs={k: [k] for k in inputs},
+                                 outputs={k: [k] for k in outs})
+            trace = TraceContext(SimpleNamespace(random_seed=5), False, dev,
+                                 0)
+            get_op_impl(op_type)(OpContext(op, env, trace))
+            draws.append({k: env[k] for k in outs})
+        same = all(torch.equal(draws[0][k], draws[1][k]) for k in outs)
+        return {k: v.cpu() for k, v in draws[0].items()}, same
+
+    g = torch.Generator().manual_seed(22)
+    v, n = W2V["dict_size"], 20000
+    out = {}
+    got, same = run("nce", {"num_neg_samples": W2V_NCE_NEGATIVES,
+                            "num_total_classes": v},
+                    {"Input": torch.randn(n, 8, generator=g),
+                     "Weight": torch.randn(v, 8, generator=g),
+                     "Label": torch.randint(0, v, (n, 1), generator=g)},
+                    ("SampleLabels",))
+    neg = got["SampleLabels"][:, 1:].double()
+    mean_sigma = ((v ** 2 - 1) / 12 / neg.numel()) ** 0.5
+    out["nce"] = {"ok": bool(same and neg.min() >= 0 and neg.max() < v and
+                             abs(float(neg.mean()) - (v - 1) / 2)
+                             < 5 * mean_sigma),
+                  "mean": float(neg.mean())}
+    logits = torch.randn(4000, v, generator=g)
+    labels = torch.randint(0, v, (4000, 1), generator=g)
+    got, same = run("sample_logits", {"num_samples": 20},
+                    {"Logits": logits, "Labels": labels},
+                    ("Samples", "Probabilities", "SampledLogits"))
+    neg = got["Samples"][:, 1:].long().reshape(-1)
+    # the share of draws below k under the log-uniform law
+    k = 10
+    want = np.log(k + 1.0) / np.log(v + 1.0)
+    share = float((neg < k).double().mean())
+    env = {"Logits": logits, "Labels": labels,
+           "CustomizedSamples": got["Samples"].long(),
+           "CustomizedProbabilities": got["Probabilities"]}
+    op = SimpleNamespace(type="sample_logits", attrs={"num_samples": 20},
+                         block=None, inputs={k_: [k_] for k_ in env},
+                         outputs={"SampledLogits": ["SampledLogits"]})
+    get_op_impl("sample_logits")(OpContext(op, env, SimpleNamespace(
+        is_test=False, device=torch.device("cpu"), program=None)))
+    # the accidental hits (pushed down by 1e20) must match; the rest to 1e-5
+    want_l, got_l = env["SampledLogits"].double(), got["SampledLogits"].double()
+    hit = want_l < -1e19
+    err = float((got_l - want_l)[~hit].norm() / want_l[~hit].norm())
+    same = same and torch.equal(hit, got_l < -1e19)
+    out["sample_logits"] = {
+        "ok": bool(same and neg.min() >= 0 and neg.max() < v
+                   and abs(share - want) < 5 * (want * (1 - want)
+                                                / neg.numel()) ** 0.5
+                   and err <= 1e-5),
+        "share_below_10": share, "want": want, "card_vs_cpu_err": err,
+        "accidental_hits": int(hit.sum())}
+    probs = torch.tensor([[0.1, 0.6, 0.0, 0.3]]).expand(n, 4)
+    got, same = run("sampling_id", {}, {"X": probs}, ("Out",))
+    freq = np.bincount(got["Out"].numpy(), minlength=4) / n
+    out["sampling_id"] = {
+        "ok": bool(same and got["Out"].dtype == torch.int32
+                   and freq[2] == 0 and np.abs(freq - probs[0].numpy()).max()
+                   < 5 * (0.25 / n) ** 0.5),
+        "freq": freq.tolist()}
+    x = torch.arange(16 * 3 * 20 * 20, dtype=torch.float32).reshape(
+        16, 3, 20, 20)
+    got, same = run("random_crop", {"shape": [3, 12, 12]}, {"X": x},
+                    ("Out",))
+    o = got["Out"][0, 0]
+    i0, j0 = divmod(int(o[0, 0]), 20)
+    out["random_crop"] = {
+        "ok": bool(same and 0 <= i0 <= 8 and 0 <= j0 <= 8
+                   and torch.equal(got["Out"], x[:, :, i0:i0 + 12,
+                                                 j0:j0 + 12])),
+        "offset": [i0, j0]}
+    check(all(r["ok"] for r in out.values()),
+          "extra_ops: random draws on the card %r" % out)
+    return out
+
+
+# the op names this slice registers (ROADMAP Queue 1 item 1)
+OP_REMAINDER_OPS = 31
+
+
+def extra_ops_leg(dev=None):
+    """``extra_ops``: every op of the slice forward and backward on the
+    card against the same call on the CPU (``op_remainder_cases``, float32
+    1e-5 norm-wise, integer outputs and ``hash`` identical), the random
+    draws on the card (``random_heads_on_card``), and the host ops
+    ``print``, ``py_func`` and ``delete_var`` in ``host_ops_compiled``."""
+    t_leg = time.perf_counter()
+    dev = dev or torch.device("cuda", torch.cuda.current_device())
+    rows, ops = {}, set()
+    for name, op_type, attrs, inputs, outs in op_remainder_cases():
+        inp = inputs()
+        t0 = time.perf_counter()
+        cpu_out, cpu_g = registered_op(op_type, attrs, inp, outs,
+                                       torch.device("cpu"))
+        card_out, card_g = registered_op(op_type, attrs, inp, outs, dev)
+        torch.cuda.synchronize()
+        e_out, exact = card_cpu_err(card_out, cpu_out)
+        e_grad, _ = card_cpu_err(card_g, cpu_g)
+        rows[name] = {"out_err": e_out, "grad_err": e_grad, "exact": exact,
+                      "grads": len(cpu_g),
+                      "shape": list(next(iter(cpu_out.values())).shape),
+                      "s": time.perf_counter() - t0}
+        check(e_out <= 1e-5 and e_grad <= 1e-5 and exact
+              and set(card_g) == set(cpu_g),
+              "extra_ops %s: card against CPU %r (tolerance 1e-5)"
+              % (name, rows[name]))
+        ops.add(op_type)
+    random_ops = random_heads_on_card(dev)
+    ops |= set(random_ops)
+    emit("extra_ops", cases=rows, random_ops=random_ops,
+         seconds=time.perf_counter() - t_leg, tol=1e-5, nvidia_smi=SMI[0])
+    return ops
+
+
+def build_host_py_func(fluid):
+    """An fc trained through a host tanh (``layers.py_func`` with a
+    backward callable) and tapped by ``layers.Print``, under SGD."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", shape=[64, 256], append_batch_size=False)
+        h = fluid.layers.fc(x, size=128)
+        out = main.global_block.create_var(name="host_tanh", shape=[64, 128],
+                                           dtype="float32")
+        fluid.layers.py_func(np.tanh, h, out, backward_func=lambda a, g: g * (
+            1.0 - np.tanh(a) ** 2))
+        out = fluid.layers.Print(out, message="host_tanh", first_n=1,
+                                 summarize=4)
+        loss = fluid.layers.mean(fluid.layers.square(out))
+        fluid.optimizer.SGD(0.5).minimize(loss)
+    return main, startup, loss
+
+
+def build_switch(fluid):
+    """A ``Switch`` learning-rate schedule: 0.1 below step 10, 0.01
+    below 20, 0.001 after (``tests/test_torch_control_flow.py``)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        L = fluid.layers
+        step = L.data("step", shape=[1], dtype="float32",
+                      append_batch_size=False)
+        lr = L.tensor.create_global_var([1], 0.0, "float32", persistable=True,
+                                        name="sw_lr")
+        with L.Switch() as switch:
+            for bound, rate in ((10.0, 0.1), (20.0, 0.01)):
+                with switch.case(L.less_than(
+                        step, L.fill_constant([1], "float32", bound))):
+                    L.tensor.assign(L.fill_constant([1], "float32", rate),
+                                    lr)
+            with switch.default():
+                L.tensor.assign(L.fill_constant([1], "float32", 0.001), lr)
+    return main, startup, lr
+
+
+def compiled_against_run(fluid, main, startup, feeds, fetch, arrays=None):
+    """``Executor.run`` and ``run(CompiledProgram(main))`` over ``feeds``
+    from one start on the card: (rows run, rows compiled, the compiled
+    executor's ``host_op_steps``, its warnings naming a host op)."""
+    import warnings
+
+    if arrays is None:
+        init = fluid.Scope()
+        fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=init)
+        arrays = {n: init.as_numpy(n) for n in init.vars}
+    rows, counted, warned = {}, 0, 0
+    for mode in ("run", "compiled"):
+        scope = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
+                                          fluid.CUDAPlace(0))
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        main._tpu_step_counter = 0
+        prog = main if mode == "run" else fluid.CompiledProgram(main)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rows[mode] = [[np.asarray(v) for v in exe.run(
+                prog, feed=f, fetch_list=fetch, scope=scope)] for f in feeds]
+        if mode == "compiled":
+            counted = exe.host_op_steps
+            warned = sum("needs the host while the step runs" in str(
+                w.message) for w in caught)
+        exe.close()
+    return rows["run"], rows["compiled"], counted, warned
+
+
+def host_ops_compiled_leg():
+    """``host_ops_compiled``: through ``CompiledProgram`` on the card, the
+    Switch schedule (0.1, 0.01, 0.001 at steps 5, 15, 25), the NMT beam
+    decoder under ``While`` (at ``max_len`` ``NMT_DECODE_CHECK_LEN``) and
+    an fc trained through ``py_func`` and ``Print``: each equal to
+    ``Executor.run`` from the same start (bit for bit), every step counted
+    in ``host_op_steps`` and one warning each; a ``DataFeeder`` on
+    ``CUDAPinnedPlace`` hands out pinned tensors; ``delete_var`` drops its
+    inputs."""
+    import paddle_tpu_torch as fluid
+
+    t_leg = time.perf_counter()
+    out = {}
+    main, startup, lr = build_switch(fluid)
+    feeds = [{"step": np.asarray([s], "float32")} for s in (5.0, 15.0, 25.0)]
+    ran, comp, n, warned = compiled_against_run(fluid, main, startup, feeds,
+                                                [lr])
+    rates = [float(r[0][0]) for r in comp]
+    check(np.allclose(rates, [0.1, 0.01, 0.001], rtol=1e-6)
+          and all(np.array_equal(a[0], b[0]) for a, b in zip(ran, comp))
+          and n == 3 and warned == 1,
+          "host_ops_compiled switch: rates %r, run %r, host_op_steps %d, "
+          "warnings %d" % (rates, ran, n, warned))
+    out["switch"] = {"rates": rates, "host_op_steps": n, "warnings": warned}
+
+    cfg = dict(NMT_DECODE, max_len=NMT_DECODE_CHECK_LEN)
+    main, startup, sent_ids, sent_scores, steps = build_nmt_decode(fluid,
+                                                                   cfg)
+    t0 = time.perf_counter()
+    ran, comp, n, warned = compiled_against_run(
+        fluid, main, startup, [nmt_decode_feed(cfg)],
+        [sent_ids, sent_scores, steps])
+    same = all(np.array_equal(a, b) for a, b in zip(ran[0], comp[0]))
+    check(same and n == 1 and warned == 1,
+          "host_ops_compiled nmt decode: compiled = run %s, host_op_steps "
+          "%d, warnings %d" % (same, n, warned))
+    out["nmt_beam_decode"] = {"max_len": cfg["max_len"],
+                              "steps": int(comp[0][2][0]),
+                              "host_op_steps": n, "warnings": warned,
+                              "equal_to_run": same,
+                              "s": time.perf_counter() - t0}
+
+    main, startup, loss = build_host_py_func(fluid)
+    rng = np.random.RandomState(3)
+    feeds = [{"x": rng.randn(64, 256).astype("float32")}] * 4
+    ran, comp, n, warned = compiled_against_run(fluid, main, startup, feeds,
+                                                [loss])
+    losses = [float(r[0]) for r in comp]
+    check(all(np.array_equal(a[0], b[0]) for a, b in zip(ran, comp))
+          and n == 4 and warned == 1 and losses[-1] < losses[0],
+          "host_ops_compiled py_func: run %r, compiled %r, host_op_steps "
+          "%d, warnings %d" % ([float(r[0]) for r in ran], losses, n, warned))
+    out["py_func"] = {"losses": losses, "host_op_steps": n,
+                      "warnings": warned}
+
+    with fluid.program_guard(fluid.Program(), fluid.Program()):
+        x = fluid.layers.data("x", shape=[3])
+        pinned = fluid.DataFeeder([x], place=fluid.CUDAPinnedPlace()).feed(
+            [(np.ones(3, "float32"),)] * 4)
+    check(all(v.is_pinned() for v in pinned.values()),
+          "host_ops_compiled: DataFeeder(CUDAPinnedPlace) gave unpinned "
+          "tensors")
+    out["pinned_feeder"] = True
+
+    # delete_var drops its inputs from the step's values on the card
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+
+    env = {"h": torch.ones(3, device=fluid.CUDAPlace(0)),
+           "keep": torch.zeros(1)}
+    get_op_impl("delete_var")(OpContext(SimpleNamespace(
+        type="delete_var", attrs={}, block=None, inputs={"X": ["h"]},
+        outputs={}), env, None))
+    check(set(env) == {"keep"}, "delete_var left %r" % sorted(env))
+    emit("host_ops_compiled", seconds=time.perf_counter() - t_leg, **out)
+    return {"while", "conditional_block", "print", "py_func", "delete_var"}
+
+
+def op_remainder_phase(k4_rows):
+    """The op-remainder slice's legs: ``ocr_ctc_train`` (+
+    ``ocr_ctc_eval``), ``word2vec_heads``, ``extra_ops`` and
+    ``host_ops_compiled``; the slice's ops held by these legs and by
+    ``srl_decode``'s ``chunk_eval`` must number ``OP_REMAINDER_OPS``."""
+    from paddle_tpu_torch.core.registry import registered_ops
+
+    secs = {}
+    t0 = time.perf_counter()
+    ocr_ctc_train_leg()
+    secs["ocr_ctc_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    word2vec_heads_leg(k4_rows)
+    secs["word2vec_heads"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops = extra_ops_leg()
+    secs["extra_ops"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops |= host_ops_compiled_leg()
+    secs["host_ops_compiled"] = time.perf_counter() - t0
+    held = ops - {"while", "conditional_block"}
+    check(len(held) == OP_REMAINDER_OPS and held <= set(registered_ops()),
+          "op_remainder: %d of the slice's %d ops held: %s"
+          % (len(held), OP_REMAINDER_OPS, sorted(held)))
+    emit("op_remainder_seconds", ops_held=len(held),
+         registered=len(registered_ops()), **secs)
+
+
 def diagnose(args):
     """``--recipe-bisect [--deterministic] NAME...``: ``recipe_bisect`` of
     each recipe ("lamb", "adamw", "adam"; run ``--deterministic`` with
@@ -9443,6 +10374,7 @@ def main():
     timed(input_pipeline_phase, k4_rows, xent_rows)
     timed(sequence_models_phase, xent_rows, k4_rows)
     timed(control_flow_phase, xent_rows)
+    timed(op_remainder_phase, k4_rows)
     # the card again, so the end of a long log still names it
     emit("phase_seconds", nvidia_smi=smi, total=time.perf_counter() - t0,
          **phase_s)

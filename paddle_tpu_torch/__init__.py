@@ -92,14 +92,15 @@ from .core.framework import (  # noqa: F401
     program_guard,
     test_mode,
 )
-from .core.place import CPUPlace, CUDAPlace, TPUPlace  # noqa: F401
+from .core.place import CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace  # noqa: F401
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
-from .executor import Executor  # noqa: F401
+from .executor import Executor, FetchHandle  # noqa: F401
 from .reader.py_reader import EOFException  # noqa: F401
 from .flags import flags, get_flag, set_flag  # noqa: F401
 from .layers.layer_helper import ParamAttr, WeightNormParamAttr  # noqa: F401
 
 __all__ = ["serving", "models", "CUDAPlace", "CPUPlace", "TPUPlace",
+           "CUDAPinnedPlace", "FetchHandle",
            "Program", "Variable", "program_guard", "default_main_program",
            "default_startup_program", "name_scope", "test_mode", "layers", "nets",
            "optimizer", "initializer", "io", "Executor", "Scope",

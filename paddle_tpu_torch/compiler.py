@@ -11,11 +11,13 @@ into a CUDA graph for each feed signature and replay it
 as they were launched, so the strategies' scheduling and memory knobs
 have nothing to act on: they are accepted and warn.
 
-A program that holds a ``while`` or a ``conditional_block`` (``layers.While``,
-``cond``, ``Switch``) reads a device value on the host once a loop
-iteration or branch, which no graph replays: the captured step refuses it
-before its first step, naming the op, and nothing runs eagerly in its
-place; such a program runs through ``Executor.run``.
+A program that holds a host op (``executor.HOST_OPS``: ``while`` and
+``conditional_block``, which ``layers.While``, ``cond`` and ``Switch``
+append and which read a device value on the host once a loop iteration or
+branch; ``print``, ``py_func`` and ``tree_conv``) holds work no graph
+replays: each of its steps runs eagerly on the executor's device, as
+``Executor.run`` runs it, counted by ``Executor.host_op_steps``, and the
+first one warns, naming the op.
 
 ``BuildStrategy.pass_builder()`` is the user's Program-pass pipeline, run
 once at the first execution on a transactional clone after the fetch-safe

@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["CPUPlace", "CUDAPlace", "TPUPlace", "resolve_device"]
+__all__ = ["CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "TPUPlace",
+           "resolve_device"]
 
 
 def CPUPlace() -> torch.device:
@@ -35,11 +36,33 @@ def CUDAPlace(device_id: int = 0) -> torch.device:
 TPUPlace = CUDAPlace
 
 
+class CUDAPinnedPlace:
+    """Page-locked host memory, from which the card copies without a
+    staging buffer (reference: ``platform/place.h`` ``CUDAPinnedPlace``).
+    It holds data on its way to the card and is no device a program runs
+    on: :func:`resolve_device` refuses it. ``DataFeeder(place=...)`` hands
+    out pinned host tensors for it, and the reader's ``DevicePrefetcher``
+    stages every batch in such memory."""
+
+    def __eq__(self, other):
+        return type(self) is type(other)
+
+    def __hash__(self):
+        return hash(type(self).__name__)
+
+    def __repr__(self):
+        return "CUDAPinnedPlace()"
+
+
 def resolve_device(device=None) -> torch.device:
     """``device`` (None, a string, a ``torch.device`` or a place) as a
     ``torch.device``. ``None`` resolves to ``cuda``, and a CUDA device
     without an index to the current card; a CUDA device raises
     ``RuntimeError`` when PyTorch sees no GPU."""
+    if isinstance(device, CUDAPinnedPlace):
+        raise ValueError(
+            "CUDAPinnedPlace is page-locked host memory for data on its way "
+            "to the card, not a device to run on; use CUDAPlace or CPUPlace")
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("unsupported device %r (cuda or cpu)" % (device,))

@@ -12,9 +12,11 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .core.dtypes import convert_dtype
 from .core.framework import Variable
+from .core.place import CUDAPinnedPlace
 
 __all__ = ["DataFeeder"]
 
@@ -29,7 +31,8 @@ class DataFeeder:
 
     def feed(self, iterable) -> Dict[str, np.ndarray]:
         """iterable: list of examples, each a tuple/list with one entry per
-        feed var. Returns {var_name: batched ndarray}."""
+        feed var. Returns {var_name: batched ndarray}, or pinned host
+        tensors when the feeder's place is a ``CUDAPinnedPlace``."""
         rows = list(iterable)
         if not rows:
             raise ValueError("DataFeeder.feed got an empty minibatch")
@@ -63,4 +66,7 @@ class DataFeeder:
                 if len(shape) > arr.ndim and shape[-1] == 1:
                     arr = arr.reshape(arr.shape + (1,))
                 out[var.name] = arr
+        if isinstance(self.place, CUDAPinnedPlace):
+            # page-locked host tensors, which the card copies directly
+            return {n: torch.from_numpy(a).pin_memory() for n, a in out.items()}
         return out

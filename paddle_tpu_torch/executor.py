@@ -76,6 +76,7 @@ flight recorder, fault injection, the metrics histograms and ``prepare``.
 from __future__ import annotations
 
 import time
+import warnings
 import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -103,9 +104,15 @@ _SEED_MIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
 # algorithm search, cuBLAS's workspaces and the kernels' library loads
 WARMUP_STEPS = 2
 
-# ops that read a device value on the host to choose what runs next: a
-# captured step refuses a program that holds one (in any block)
-HOST_CONTROL_FLOW = frozenset({"while", "conditional_block"})
+# ops that need the host while a step runs: ``while`` and
+# ``conditional_block`` read their condition there to choose what runs
+# next, ``print`` and ``py_func`` run Python on a host copy, ``tree_conv``
+# builds its patch matrices from a host copy of its edges. A CUDA graph
+# replays none of them, so a captured step whose program holds one (in any
+# block) runs every step eagerly on its device instead, counted by
+# ``Executor.host_op_steps``
+HOST_OPS = frozenset({"while", "conditional_block", "print", "py_func",
+                      "tree_conv"})
 
 
 def _mix_seed(seed: int, step: int, idx: int) -> int:
@@ -268,6 +275,9 @@ class Executor:
         self._plans: Dict[tuple, _Plan] = {}
         self._captured: Dict[tuple, "_CapturedStep"] = {}
         self._side_stream = None
+        # steps that CompiledProgram/run_steps ran eagerly because their
+        # program holds a host op (HOST_OPS)
+        self.host_op_steps = 0
 
     def close(self):
         """Drop every plan and captured step, and with each CUDA graph its
@@ -391,6 +401,10 @@ class Executor:
         if return_numpy:
             return [_to_numpy(t) for t in fetches]
         return fetches
+
+    def infer_from_program(self, *args, **kwargs):
+        """Fluid's alias of :meth:`run` (reference: executor.py:1779)."""
+        return self.run(*args, **kwargs)
 
     def run_steps(
         self,
@@ -691,20 +705,19 @@ class _CapturedStep:
     state any var an eager ``run()`` replaced in the scope, fills the
     static feeds and replays the graph; on the CPU it runs the body. A
     capture that fails raises, naming the op; nothing runs eagerly in its
-    place. A program holding a ``while`` or a ``conditional_block`` is
-    refused before its first step, on the CPU too."""
+    place.
+
+    A program holding a host op (:data:`HOST_OPS`, in any block) is never
+    captured: each of its steps runs eagerly on the executor's device, as
+    ``Executor.run`` would run it, adds one to ``Executor.host_op_steps``,
+    and the first one warns, naming the op, its block and its index."""
 
     def __init__(self, exe: Executor, program, plan, scope, sig, fetch_names,
                  accum=1):
-        for blk in program.blocks:
-            for i, op in enumerate(blk.ops):
-                if op.type in HOST_CONTROL_FLOW:
-                    raise RuntimeError(
-                        "the captured step (CompiledProgram, run_steps) "
-                        "cannot hold op %r (block %d, index %d): it reads "
-                        "its condition on the host to choose what runs "
-                        "next, which a CUDA graph cannot replay. Run this "
-                        "program with Executor.run." % (op.type, blk.idx, i))
+        # the first host op, as (type, block, index), or None
+        self.host_op = next(((op.type, blk.idx, i) for blk in program.blocks
+                             for i, op in enumerate(blk.ops)
+                             if op.type in HOST_OPS), None)
         self.exe = exe
         self.program_ref = weakref.ref(program)
         self.plan = plan
@@ -732,6 +745,8 @@ class _CapturedStep:
         """Run one step on ``feed``; returns its fetches, which the caller
         copies before the next step (static outputs on the card)."""
         exe, program, scope = self.exe, self.program_ref(), self.scope_ref()
+        if self.host_op is not None:
+            return self._host_op_step(program, scope, feed, step)
         block = program.global_block
         if self.warm_left > 0:
             self.warm_left -= 1
@@ -764,6 +779,25 @@ class _CapturedStep:
             self.graph.replay()
             metrics.REPLAYS.inc()
         return self.outputs
+
+    def _host_op_step(self, program, scope, feed, step):
+        """One eager step of a program that holds a host op, on the
+        executor's device and current stream; counted and, the first time
+        this executor takes one, warned."""
+        exe = self.exe
+        if not exe.host_op_steps:
+            warnings.warn(
+                "the captured step (CompiledProgram, run_steps) runs this "
+                "program eagerly on %s: it holds op %r (block %d, index %d), "
+                "which needs the host while the step runs, and a CUDA graph "
+                "cannot replay that" % ((exe.place,) + self.host_op),
+                RuntimeWarning, stacklevel=4)
+        exe.host_op_steps += 1
+        block = program.global_block
+        feeds = {n: exe._feed_tensor(block, n, v) for n, v in feed.items()}
+        env = exe._eager_step(program, self.plan, scope, feeds,
+                              self.fetch_names, step, self.accum)
+        return _fetches(env, self.fetch_names)
 
     def _static_body(self, program, step, trace=None):
         """The body on the static state and feeds, each state output

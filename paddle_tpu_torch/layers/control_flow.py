@@ -9,8 +9,9 @@ Sub-blocks hold the body ops, exactly Fluid's representation; the ops
 run them through the interpreter (``ops/control_flow_ops.py``,
 ``ops/rnn_ops.py``'s ``dynamic_rnn``). ``While`` and ``cond``/``Switch``
 read a device value on the host (``while``, ``conditional_block``), so a
-program holding one runs through ``Executor.run`` and is refused by the
-captured step; ``StaticRNN``, ``DynamicRNN`` and ``IfElse`` capture.
+program holding one runs eagerly, also under ``CompiledProgram`` and
+``run_steps`` (``executor.HOST_OPS``); ``StaticRNN``, ``DynamicRNN`` and
+``IfElse`` capture.
 """
 
 from __future__ import annotations

@@ -18,8 +18,8 @@ back).
   timestep (``core/interpreter.py``).
 - ``while`` reads its condition on the host once an iteration, as Fluid's
   ``while_op.cc`` does: the only host sync it adds, and the reason a
-  captured step refuses a program that holds one
-  (``executor._CapturedStep``). As under ``lax.while_loop``, there is no
+  captured step runs a program that holds one eagerly
+  (``executor.HOST_OPS``). As under ``lax.while_loop``, there is no
   gradient through it: a carry that depends on a parameter raises the JAX
   package's ``ValueError`` when a gradient reaches it, and a loss that
   does not read the carry trains.

@@ -32,7 +32,6 @@ the JAX package.
 from __future__ import annotations
 
 import math
-import threading
 
 import numpy as np
 import torch
@@ -40,6 +39,7 @@ import torch.nn.functional as F
 
 from ..core.dtypes import to_torch_dtype
 from ..core.registry import OpContext, register_op
+from ..core.sparse import segment_sum
 from .kernels.softmax_xent import softmax_xent
 from .math_ops import _abs
 from .tensor_ops import _cached
@@ -234,43 +234,10 @@ def margin_rank_loss_op(ctx: OpContext):
     ctx.set_output("Activated", (out > 0).to(x1.dtype))
 
 
-# held while a table gradient has torch's deterministic setting on
-_DETERMINISTIC = threading.Lock()
-
-
-def _table_grad(ids, rows, num_rows):
-    """The [num_rows, D] table gradient of a dense lookup: ``rows`` [N, D]
-    summed by ``ids`` [N], by ``F.embedding``'s own backward under
-    ``torch.use_deterministic_algorithms(True)`` for this one call. Left
-    to itself that backward sums the rows of an id repeated thousands of
-    times (BERT's sentence id 0: 4,096 rows a step) in an order that
-    changes between runs on the H100, a few ulp apart, which LAMB's trust
-    ratio then spread over the whole state; torch's deterministic path
-    gives the same bits on every run and stream, 0.04-0.05 ms slower
-    on an H100.
-
-    The setting is the process's, held for this call only. Two such calls
-    on two threads take it in turn (``_DETERMINISTIC``), so each restores
-    what it found. An op that another thread launches while it is held
-    runs under it too: the same function by torch's deterministic kernel
-    where torch has one, else its usual kernel with a warning
-    (``warn_only``). The executor's own thread launches nothing
-    meanwhile: it waits on the backward that makes this call."""
-    with _DETERMINISTIC:
-        prev = torch.are_deterministic_algorithms_enabled()
-        warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            return torch.ops.aten.embedding_dense_backward(
-                rows, ids, num_rows, -1, False)
-        finally:
-            torch.use_deterministic_algorithms(prev, warn_only=warn_only)
-
-
 class _Lookup(torch.autograd.Function):
     """Rows of a table at ``ids`` (the dense lookup), whose backward is
-    :func:`_table_grad`: the same bits in every run and on every
-    stream."""
+    :func:`~paddle_tpu_torch.core.sparse.segment_sum`: the same bits in
+    every run and on every stream."""
 
     @staticmethod
     def forward(ctx, w, ids):
@@ -281,7 +248,7 @@ class _Lookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return _table_grad(ids.reshape(-1), g.reshape(-1, g.shape[-1]),
+        return segment_sum(ids.reshape(-1), g.reshape(-1, g.shape[-1]),
                            ctx.num_rows), None
 
 

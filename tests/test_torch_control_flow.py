@@ -16,12 +16,14 @@ where it has parameters, the JAX startup state carried over by
 * ``conditional_block`` runs only the branch its predicate selects;
 * the layers' ``ValueError``/``TypeError`` messages equal the JAX
   layers';
-* the captured step refuses a ``conditional_block`` by name.
+* the captured step runs a ``conditional_block`` program eagerly, with
+  the JAX package's ``CompiledProgram`` rates, each step counted.
 """
 
 import numpy as np
 import pytest
 
+import chip_smoke
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
 
@@ -390,24 +392,9 @@ def test_ifelse_trains_through_both_branches():
 
 
 def build_switch(fluid):
-    main, startup = guard(fluid)
-    with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        step = fluid.layers.data("step", shape=[1], dtype="float32",
-                                 append_batch_size=False)
-        lr = fluid.layers.tensor.create_global_var(
-            [1], 0.0, "float32", persistable=True, name="sw_lr")
-        b1 = fluid.layers.fill_constant([1], "float32", 10.0)
-        b2 = fluid.layers.fill_constant([1], "float32", 20.0)
-        with fluid.layers.Switch() as switch:
-            with switch.case(fluid.layers.less_than(step, b1)):
-                fluid.layers.tensor.assign(
-                    fluid.layers.fill_constant([1], "float32", 0.1), lr)
-            with switch.case(fluid.layers.less_than(step, b2)):
-                fluid.layers.tensor.assign(
-                    fluid.layers.fill_constant([1], "float32", 0.01), lr)
-            with switch.default():
-                fluid.layers.tensor.assign(
-                    fluid.layers.fill_constant([1], "float32", 0.001), lr)
+    """``chip_smoke.build_switch``: 0.1 below step 10, 0.01 below 20, 0.001
+    after."""
+    main, startup, lr = chip_smoke.build_switch(fluid)
     return main, startup, [lr]
 
 
@@ -420,16 +407,25 @@ def test_switch_first_match_wins():
 
 
 def test_switch_refuses_capture_by_name():
-    main = build_switch(tfluid)[0]
+    """The captured step no longer refuses a ``conditional_block``: it runs
+    the Switch program eagerly, with the JAX package's CompiledProgram
+    rates at steps 5, 15 and 25, counts each step and warns once, naming
+    the op."""
+    main, startup, _ = build_switch(tfluid)
     exe = tfluid.Executor(tfluid.CPUPlace())
     scope = tfluid.Scope()
-    exe.run(build_switch(tfluid)[1], scope=scope)
-    with pytest.raises(RuntimeError, match="'conditional_block'.*"
-                                           "Executor.run"):
-        exe.run(tfluid.CompiledProgram(main),
-                feed={"step": np.asarray([5.0], "float32")},
-                fetch_list=["sw_lr"], scope=scope)
-    assert getattr(main, "_tpu_step_counter", 0) == 0  # no step ran
+    exe.run(startup, scope=scope)
+    compiled = tfluid.CompiledProgram(main)
+    got = []
+    with pytest.warns(RuntimeWarning, match="'conditional_block' "
+                                            r"\(block 0, index \d+\)"):
+        for s in (5.0, 15.0, 25.0):
+            got.append(float(exe.run(
+                compiled, feed={"step": np.asarray([s], "float32")},
+                fetch_list=["sw_lr"], scope=scope)[0][0]))
+    np.testing.assert_allclose(got, [0.1, 0.01, 0.001], rtol=1e-6)
+    assert exe.host_op_steps == 3
+    assert main._tpu_step_counter == 3
 
 
 def build_while_grad(fluid, loss_reads_carry):
@@ -521,7 +517,7 @@ def test_the_slice_registers_its_ops_as_the_jax_package():
     from paddle_tpu_torch.core.registry import registered_ops
 
     ported = set(registered_ops())
-    assert SLICE_OPS <= ported and len(ported) == 236
+    assert SLICE_OPS <= ported and len(ported) == 267
     assert ported <= set(jax_ops())
     for name in ("While", "cond", "StaticRNN", "IfElse", "Switch",
                  "is_empty", "beam_search", "beam_search_decode",

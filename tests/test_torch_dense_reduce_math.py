@@ -121,15 +121,18 @@ def run_jax(op_type, attrs, inputs, outs, diff, cot_seed=1):
     return got, grads, cots
 
 
-def run_port(op_type, attrs, inputs, outs, diff, cots):
+def run_port(op_type, attrs, inputs, outs, diff, cots, trace=None):
+    """The port's op on ``inputs``; ``trace`` (by default one on the CPU
+    with no generator) is the context the op sees."""
     flat = _flat(inputs)
     out_names = [n for ns in _out_names(outs).values() for n in ns]
     env = {n: _torch(v) for n, v in flat.items()}
     for n in diff:
         env[n].requires_grad_(True)
     leaves = [env[n] for n in diff]
-    trace = types.SimpleNamespace(is_test=False, device=torch.device("cpu"),
-                                  program=None)
+    if trace is None:
+        trace = types.SimpleNamespace(is_test=False, program=None,
+                                      device=torch.device("cpu"))
     treg.get_op_impl(op_type)(treg.OpContext(
         fake_op(op_type, attrs, inputs, outs), env, trace))
     got = {n: env[n] for n in out_names if n in env}

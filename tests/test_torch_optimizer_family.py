@@ -513,23 +513,21 @@ def layer_op_types():
     return found
 
 
-# the op types of layers/nn.py the port does not register yet (ROADMAP
-# Queue 3 item 2); a slice that registers one takes it off this list
-LAYER_OPS_LEFT = {
-    "chunk_eval", "ctc_align", "edit_distance",
-    "grid_sampler", "hash", "hierarchical_sigmoid",
-    "max_pool2d_with_index", "nce", "print", "psroi_pool", "py_func",
-    "sample_logits", "spectral_norm", "spp", "tree_conv", "unpool",
-    "warpctc",
-}
+# the op types of layers/nn.py the port does not register: none since the
+# op remainder (CTC, the sampled heads, the metric, vision-tail, extra and
+# host ops) was ported
+LAYER_OPS_LEFT = set()
 
 
 def test_layer_op_types_left_unregistered():
     from paddle_tpu_torch.core.registry import registered_ops
 
     named = layer_op_types()
-    assert len(LAYER_OPS_LEFT) == 17
+    assert len(LAYER_OPS_LEFT) == 0
     assert named - set(registered_ops()) == LAYER_OPS_LEFT
+    assert {"warpctc", "ctc_align", "edit_distance", "chunk_eval", "nce",
+            "hierarchical_sigmoid", "print", "py_func", "tree_conv",
+            "hash"} <= named
     assert {"clip", "clip_by_norm", "increment", "where", "elementwise_max",
             "elementwise_min", "elementwise_pow"} <= named
 
@@ -589,18 +587,15 @@ def appended_op_types():
 
 
 # the op types some front end of the port appends that it does not
-# register yet; a slice that registers one takes it off this list
-FRONT_END_OPS_LEFT = LAYER_OPS_LEFT | {
-    "add_position_encoding", "affine_grid", "random_crop",
-    "sampling_id", "similarity_focus", "teacher_student_sigmoid_loss",
-}
+# register: none, so every front end's ops run
+FRONT_END_OPS_LEFT = LAYER_OPS_LEFT | set()
 
 
 def test_front_end_op_types_left_unregistered():
     from paddle_tpu_torch.core.registry import registered_ops
 
     named = appended_op_types()
-    assert len(FRONT_END_OPS_LEFT) == 23
+    assert len(FRONT_END_OPS_LEFT) == 0
     assert named - set(registered_ops()) == FRONT_END_OPS_LEFT
     # what the dense slice made run: layers/tensor.py, layers.load, crop,
     # WeightNormParamAttr's assign, fluid.gradients, the optimizers

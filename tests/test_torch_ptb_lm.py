@@ -9,8 +9,7 @@ carried by ``io.state_from_numpy``, 5 steps of GradientClipByGlobalNorm(5)
 next step: losses and fetched states to 1e-5, the trained state 1e-5
 norm-wise. With dropout 0.5, the port's eager steps and its captured
 steps (``CompiledProgram``) are bit-equal on the CPU. A ``While``
-program given to ``CompiledProgram`` raises, naming the op, before any
-step runs.
+program given to ``CompiledProgram`` runs eagerly, each step counted.
 """
 
 import numpy as np
@@ -100,17 +99,23 @@ def test_eager_and_captured_steps_are_bit_equal_with_dropout(jax_run):
 
 
 def test_compiled_program_refuses_a_while_by_name():
+    """A ``While`` program given to ``CompiledProgram`` or ``run_steps`` is
+    no longer refused: each step runs eagerly, gives what ``Executor.run``
+    gives (the sum 45 after 10 iterations), is counted in
+    ``host_op_steps`` and the first warns, naming the op."""
     from test_torch_control_flow import build_while_sums
 
     main, startup, fetch = build_while_sums(tfluid)
     exe = tfluid.Executor(tfluid.CPUPlace())
     scope = tfluid.Scope()
     exe.run(startup, scope=scope)
-    with pytest.raises(RuntimeError, match="'while'.*Executor.run"):
-        exe.run(tfluid.CompiledProgram(main), feed={}, fetch_list=fetch,
-                scope=scope)
-    with pytest.raises(RuntimeError, match="'while'"):
-        exe.run_steps(main, [{}], steps=1, fetch_list=fetch, scope=scope)
-    assert getattr(main, "_tpu_step_counter", 0) == 0  # no step ran
+    with pytest.warns(RuntimeWarning, match=r"'while' \(block 0, index"):
+        s, i = exe.run(tfluid.CompiledProgram(main), feed={},
+                       fetch_list=fetch, scope=scope)
+    assert float(s[0]) == 45.0 and int(i[0]) == 10
+    (s, i), = exe.run_steps(main, [{}], steps=1, fetch_list=fetch,
+                            scope=scope)
+    assert float(s[0]) == 45.0 and int(i[0]) == 10
+    assert exe.host_op_steps == 2 and main._tpu_step_counter == 2
     s, i = exe.run(main, feed={}, fetch_list=fetch, scope=scope)
     assert float(s[0]) == 45.0 and int(i[0]) == 10

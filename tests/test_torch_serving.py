@@ -190,7 +190,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.ops.control_flow_ops, "
             "paddle_tpu_torch.ops.beam_search_ops, "
             "paddle_tpu_torch.layers.beam_search, paddle_tpu_torch.contrib, "
-            "paddle_tpu_torch.contrib.decoder; "
+            "paddle_tpu_torch.contrib.decoder, "
+            "paddle_tpu_torch.ops.loss_ops, paddle_tpu_torch.ops.metric_ops, "
+            "paddle_tpu_torch.ops.vision_ops, paddle_tpu_torch.ops.extra_ops; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']; "
             "assert not bad, bad")
@@ -253,7 +255,10 @@ def test_port_sources_name_no_jax_import():
             "paddle_tpu_torch/ops/beam_search_ops.py",
             "paddle_tpu_torch/layers/beam_search.py",
             "paddle_tpu_torch/contrib/__init__.py",
-            "paddle_tpu_torch/contrib/decoder/__init__.py"} <= names
+            "paddle_tpu_torch/contrib/decoder/__init__.py",
+            "paddle_tpu_torch/ops/metric_ops.py",
+            "paddle_tpu_torch/ops/vision_ops.py",
+            "paddle_tpu_torch/ops/extra_ops.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
