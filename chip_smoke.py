@@ -14,11 +14,13 @@ paths through the entry points a user calls:
 * serving: a GPT-2-small-width ``DecoderLM`` (seeded random weights)
   through ``ServingEngine.submit``/``run``, its decode dispatch replayed
   from a CUDA graph with K3 inside (K3 counted in a replay by CUPTI) and
-  eagerly, in turns; decode attention must go through K3, the streams
-  must match the eager dispatch bit for bit, the gather path and the
-  no-cache reference, and no page may leak; then sampled requests
-  (threefry bits card = CPU), speculation, the prefix cache, drain,
-  deadlines and a fault plan's retry/fail ladder;
+  its prefill from one graph a prompt bucket, and eagerly, in turns;
+  decode attention must go through K3, the streams must match the eager
+  dispatches bit for bit, the gather path and the no-cache reference,
+  and no page may leak; then sampled requests (threefry bits card =
+  CPU), speculation, the prefix cache (its resumes captured a bucket,
+  against an eager engine), drain, deadlines and a fault plan's
+  retry/fail ladder;
 * training: the Transformer-base program of
   ``__graft_entry__._build_transformer``, built with
   ``import paddle_tpu_torch as fluid`` and trained through
@@ -57,10 +59,12 @@ paths through the entry points a user calls:
   ``io.save_params``/``io.load_params`` into ``bench_bert_infer``'s
   program (batch 64 x 256) run in float32 and under ``fluid.amp.enable``;
   that program through ``io.save_inference_model`` into an
-  ``inference.Predictor`` on the card at batch 64 and 48 (exact, and
-  bucketed to 64), equal to the ``Executor``'s float32 run; and at 2
-  layers, batch 8, dropout 0 the card's losses must match the CPU's, in
-  float32 and under AMP.
+  ``inference.Predictor`` on the card at batch 64 and 48 (bucketed to 64,
+  the default, and exact), every run a captured step, equal to the
+  ``Executor``'s float32 run; ``Executor.prepare`` and ``memory_report``
+  on the AMP pretraining step (``prepare_memory``: prepared steps equal
+  unprepared ones bit for bit); and at 2 layers, batch 8, dropout 0 the
+  card's losses must match the CPU's, in float32 and under AMP.
 
 The vision and word2vec zoo: ``vgg_train`` trains VGG-16 with batch norm
 (``paddle_tpu/models/vgg.py``) at 64 x 3 x 224 x 224, 1000 classes, under
@@ -219,9 +223,11 @@ captured from one start in turns, the last states fed to the next step,
 K2a/K2b once a step at [700, 10000]; ``nmt_beam_decode`` decodes the NMT
 model by beam search under ``While`` (batch 32 x 50 source tokens, beam
 3, ``max_len`` 250, dict 30,000, widths 512; random weights) eagerly
-through ``Executor.run``, each score held to its path's log-probs
-rescored by a teacher-forced StaticRNN; ``control_flow_ops`` holds the
-slice's 11 ops on the card against the CPU.
+through ``Executor.run`` and captured through ``CompiledProgram`` (the
+loop body one graph replayed once an iteration), captured = eager bit
+for bit, each score held to its path's log-probs rescored by a
+teacher-forced StaticRNN; ``control_flow_ops`` holds the slice's 11 ops
+on the card against the CPU.
 
 The op remainder (``op_remainder``): ``ocr_ctc_train`` trains the CRNN-CTC
 text recogniser of PaddlePaddle/models' ``ocr_recognition``
@@ -241,9 +247,10 @@ negatives) in place of the softmax, K4b on the shared sparse table,
 captured = eager bit for bit. ``extra_ops`` holds every op of the
 slice card = CPU (1e-5, integer outputs and ``hash`` identical) and the
 random draws by their law; ``host_ops_compiled`` runs the ``Switch``
-schedule, the NMT ``While`` decoder and a ``py_func`` + ``Print`` program
-through ``CompiledProgram``, equal to ``Executor.run``, each step counted
-in ``Executor.host_op_steps``.
+schedule and the NMT ``While`` decoder through ``CompiledProgram``,
+captured (no step counted eager), and a ``py_func`` + ``Print`` program,
+each step of it counted in ``Executor.host_op_steps``, all equal to
+``Executor.run``.
 
 Diagnostics, not run by default: ``python3 chip_smoke.py
 --recipe-bisect [--deterministic] lamb adamw adam`` checksums every op's
@@ -629,11 +636,11 @@ def make_stream(vocab):
 
 def serve(model, stream, collect_logits=False, graphs=False, fuse=1, kw=None,
           warm=True, hook=None, **cfg):
-    """Serve ``stream`` on a fresh engine (``graphs``: the decode and
-    verify dispatches replayed from CUDA graphs; ``kw(i)``: request i's
-    extra submit arguments; ``hook(engine)`` before anything runs), after
-    ``warmup()`` unless ``warm`` is False; returns (engine, requests,
-    seconds of ``run()``)."""
+    """Serve ``stream`` on a fresh engine (``graphs``: the prefill, resume,
+    decode and verify dispatches replayed from CUDA graphs; ``kw(i)``:
+    request i's extra submit arguments; ``hook(engine)`` before anything
+    runs), after ``warmup()`` unless ``warm`` is False; returns (engine,
+    requests, seconds of ``run()``)."""
     from paddle_tpu_torch import serving
 
     eng = serving.ServingEngine(model, serving.ServingConfig(
@@ -653,12 +660,19 @@ def serve(model, stream, collect_logits=False, graphs=False, fuse=1, kw=None,
 
 
 def serve_metrics(eng, reqs, secs):
+    """The serve's end-to-end numbers; ``prompt_ms``: the median ms of a
+    prefill (and of a resume) by prompt bucket, its token's read included,
+    and ``prompt_pool_bytes``: the prompt graphs' memory pool."""
     ttft = sorted(r.ttft_s * 1e3 for r in reqs)
     n = max(1, eng.dispatches)
     return {"tokens": sum(len(r.tokens_out) for r in reqs),
             "seconds": secs,
             "tokens_per_s": sum(len(r.tokens_out) for r in reqs) / secs,
             "ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p99_ms": float(np.percentile(ttft, 99)),
+            "prompt_ms": {"%s/%d" % k: [len(v), float(np.median(v))]
+                          for k, v in sorted(eng.prompt_ms.items())},
+            "prompt_pool_bytes": eng.stats()["prompt_pool_bytes"],
             "decode_dispatch_ms_mean": eng.dispatch_s / n * 1e3,
             "decode_dispatch_host_ms_mean": eng.dispatch_host_s / n * 1e3,
             "decode_dispatches": eng.dispatches,
@@ -850,16 +864,19 @@ def replay_counts(eng, n_layer, fuse=1):
     return counts["K3"], (prof, tries)
 
 
-SERVE_TURNS = 3  # eager and captured serves a fuse width, in turns
+SERVE_TURNS = 2  # eager and captured serves a fuse width, in turns
 
 
 def serve_captured_phase(model, cfg, stream, reqs_c, eng_c, secs_c,
                          replay_k, launches):
     """The 24-request stream eager and captured in turns (``SERVE_TURNS``
-    each) at decode_fuse 1 and 4, each after ``warmup()``; captured streams
-    bit-identical to eager, collected logits within 1e-6; K3 n_layer x
-    fuse times in one replay (CUPTI); host ms and kernels a dispatch,
-    capture seconds, graphs and their pools."""
+    each) at decode_fuse 1 and 4, each after ``warmup()`` (which captures
+    every prompt bucket's prefill graph on the captured engines); captured
+    streams bit-identical to eager, collected logits within 1e-6; K3
+    n_layer x fuse times in one replay (CUPTI); TTFT p50 and p99,
+    tokens/s, prefill ms by bucket, host ms and kernels a dispatch,
+    capture seconds, graphs and their pools (the prompt graphs' one pool
+    apart)."""
     from paddle_tpu_torch.serving import FINISHED
 
     want = [r.tokens_out for r in reqs_c]
@@ -913,10 +930,14 @@ def serve_captured_phase(model, cfg, stream, reqs_c, eng_c, secs_c,
     summary = {}
     for fuse, runs in legs.items():
         for mode, rows in runs.items():
-            summary["fuse%d_%s" % (fuse, mode)] = {
+            row = summary["fuse%d_%s" % (fuse, mode)] = {
                 k: mean(rows, k) for k in (
-                    "tokens_per_s", "ttft_p50_ms", "decode_dispatch_ms_mean",
-                    "decode_dispatch_host_ms_mean")}
+                    "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+                    "decode_dispatch_ms_mean",
+                    "decode_dispatch_host_ms_mean", "prompt_pool_bytes")}
+            row["prefill_ms_by_bucket"] = {
+                b: float(np.mean([r["prompt_ms"][b][1] for r in rows]))
+                for b in rows[0]["prompt_ms"]}
     emit("serve_captured", nvidia_smi=SMI[0], turns=SERVE_TURNS,
          main_path={"k3_host_launches": launches,
                     "k3_per_replay": replay_k[0], "seconds": secs_c,
@@ -1116,9 +1137,12 @@ def prefix_stream(vocab):
 def serve_prefix_phase(model, cfg):
     """``serve_prefix``: the chat stream on an engine with
     prefix_cache_pages=64 against a cold engine (no prefix cache), both
-    captured: hits and resumes > 0, fewer prefills, streams equal to the
-    cold engine's (parting only at near ties, reported), page accounting
-    after drain(); TTFT p50 of hits against misses."""
+    captured (prefills and resumes too, one graph a prompt bucket): hits
+    and resumes > 0, fewer prefills, streams equal to the cold engine's
+    (parting only at near ties, reported), page accounting after drain();
+    TTFT p50 of hits against misses; the same prefix serve eager
+    (``cuda_graphs=False``): its streams equal the captured one's, TTFT
+    p50 and p99, tokens/s, prefill and resume ms by bucket each way."""
     from paddle_tpu_torch.serving import FINISHED
 
     stream = prefix_stream(cfg.vocab_size)
@@ -1157,6 +1181,12 @@ def serve_prefix_phase(model, cfg):
                            lambda i: eng_c.captured_logits(reqs_c[i]),
                            "prefix hit vs cold")
     stats = eng.stats()["prefix_cache"]
+    eng_e, reqs_e, secs_e = serve(model, stream, prefix_cache_pages=64)
+    check([r.tokens_out for r in reqs_e] == [r.tokens_out for r in reqs]
+          and eng_e.resumes == hits,
+          "prefix serve: eager streams differ from captured ones")
+    warm_eager = serve_metrics(eng_e, reqs_e, secs_e)
+    del eng_e, reqs_e
     summary = eng.drain(timeout_s=60.0)
     check(eng.page_accounting_ok() and eng.pool.num_used == 0,
           "pages left after drain with a prefix cache")
@@ -1175,8 +1205,8 @@ def serve_prefix_phase(model, cfg):
          ttft_p50_miss_ms=p50([r.ttft_s * 1e3 for r in miss]),
          admission_ms_p50_hit=p50([admit_ms[r.id] for r in hit]),
          admission_ms_p50_miss=p50([admit_ms[r.id] for r in miss]),
-         hits=len(hit), misses=len(miss), warm=warm, cold=cold,
-         drain=summary)
+         hits=len(hit), misses=len(miss), warm=warm, warm_eager=warm_eager,
+         cold=cold, drain=summary)
 
 
 def serve_lifecycle_phase(model, stream):
@@ -3401,7 +3431,90 @@ def bert_train_phase(xent_rows, amp, ckpt_dir=None):
     for row, kern in zip(xent_rows, K2_NAMES):
         row.setdefault("captured_launches_a_step", {})[
             "bert_" + mode] = counts[kern]
+    if amp:
+        prepare_memory_leg(main, loss, scope)
     del scope, exe
+    torch.cuda.empty_cache()
+
+
+PREPARE_STEPS = 3
+
+
+def prepare_memory_leg(main, loss, scope):
+    """``prepare_memory``: ``Executor.prepare`` and ``memory_report`` on
+    the BERT-base AMP training step (``bert_train``'s program, from copies
+    of its scope after its steps). ``run_steps`` of ``PREPARE_STEPS`` new
+    batches from one copy (its first two steps the captured step's eager
+    warm-ups), and from another copy ``memory_report`` with abstract
+    ``(shape, dtype)`` feeds (which prepares the step: warm-ups on copies
+    of the state and zero feeds, then the capture), then the same steps,
+    every one a replay: losses and state bit for bit, the step counters
+    equal, no warm-up left. Reports the prepare's seconds, the report and
+    its ``peak_hbm_bytes`` beside ``torch.cuda.max_memory_allocated()``
+    over the prepared steps, as a ratio."""
+    import paddle_tpu_torch as fluid
+
+    t_leg = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    feeds = [bert_feed(BERT_BATCH, seed=10 + i) for i in range(PREPARE_STEPS)]
+    abstract = {n: (v.shape, v.dtype) for n, v in feeds[0].items()}
+    step0 = getattr(main, "_tpu_step_counter", 0)
+    runs = {}
+    for prepared in (False, True):
+        sc = clone_scope(fluid, scope)
+        exe = fluid.Executor(dev)
+        main._tpu_step_counter = step0
+        report, prepare_s = None, 0.0
+        if prepared:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = exe.memory_report(main, abstract, [loss], sc)
+            torch.cuda.synchronize()
+            prepare_s = time.perf_counter() - t0
+            cap, = exe._captured.values()
+            check(cap.warm_left == 0 and cap.graph is not None
+                  and main._tpu_step_counter == step0,
+                  "prepare_memory: prepare left %d warm-ups, graph %s, the "
+                  "step counter at %d (from %d)" % (
+                      cap.warm_left, cap.graph is not None,
+                      main._tpu_step_counter, step0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows = exe.run_steps(main, feeds, steps=PREPARE_STEPS,
+                             fetch_list=[loss], scope=sc)
+        torch.cuda.synchronize()
+        runs[prepared] = {
+            "losses": [float(np.asarray(r[0]).reshape(-1)[0]) for r in rows],
+            "scope": sc, "steps_s": time.perf_counter() - t0,
+            "counter": main._tpu_step_counter,
+            "peak": torch.cuda.max_memory_allocated(),
+            "report": report, "prepare_s": prepare_s}
+        exe.close()
+    plain, prep = runs[False], runs[True]
+    _, state_err, state_equal = state_norm_err(prep["scope"], plain["scope"])
+    check(prep["losses"] == plain["losses"] and state_equal
+          and prep["counter"] == plain["counter"] == step0 + PREPARE_STEPS,
+          "prepare_memory: prepared steps %r against %r (state %.3g, equal "
+          "%s), step counters %d and %d" % (
+              prep["losses"], plain["losses"], state_err, state_equal,
+              prep["counter"], plain["counter"]))
+    report = prep["report"]
+    check(set(report) == {"argument_bytes", "output_bytes", "temp_bytes",
+                          "alias_bytes", "generated_code_bytes",
+                          "peak_hbm_bytes"}
+          and report["peak_hbm_bytes"] > 0,
+          "prepare_memory: memory_report %r" % report)
+    emit("prepare_memory", nvidia_smi=SMI[0], program="bert_train "
+         "(BERT-base, AMP)", steps=PREPARE_STEPS, losses=prep["losses"],
+         bit_equal=True, prepare_s=prep["prepare_s"],
+         steps_s={"plain": plain["steps_s"], "prepared": prep["steps_s"]},
+         memory_report=report,
+         max_memory_allocated_prepared=prep["peak"],
+         max_memory_allocated_plain=plain["peak"],
+         peak_hbm_over_max_allocated=report["peak_hbm_bytes"] / prep["peak"],
+         leg_s=time.perf_counter() - t_leg)
+    del runs, plain, prep
     torch.cuda.empty_cache()
 
 
@@ -3536,10 +3649,13 @@ def bert_predictor_phase(infer, runs=3):
     of ``bert_infer``'s program (feeds ids, pos, sent, mask, chain; target
     the float32 pooled output), ``inference.create_predictor`` of an
     ``AnalysisConfig`` of that directory (the card by default), once as
-    configured by default (no batch bucketing) and once with
-    ``switch_batch_bucketing(True)``. Each runs at batch 64 and at 48 (the
-    bucketing one pads 48 to 64 and slices back), one warm-up and ``runs``
-    timed runs:
+    configured by default (batch bucketing, as in the JAX package) and
+    once with ``switch_batch_bucketing(False)``. Every run is the captured
+    step (``CompiledProgram``: one CUDA graph a feed shape). Each runs at
+    batch 64 and at 48 (the bucketing one pads 48 to 64, the shape whose
+    graph it already holds, and slices back), its warm-ups and capture
+    (``executor.WARMUP_STEPS`` + 1 runs) untimed, then ``runs`` timed
+    runs:
 
     * the outputs equal the ``Executor``'s float32 run of the same program
       on the rows it ran bit for bit: the exact batch, or the 64 rows a
@@ -3554,6 +3670,7 @@ def bert_predictor_phase(infer, runs=3):
     float32."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import inference
+    from paddle_tpu_torch.executor import WARMUP_STEPS
 
     main, scope, exe, out = (infer[k] for k in ("main", "scope", "exe", "out"))
     feed = infer["feed"]
@@ -3565,14 +3682,14 @@ def bert_predictor_phase(infer, runs=3):
                                           main_program=main)
         save_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        preds[False] = inference.create_predictor(
+        preds[True] = inference.create_predictor(
             inference.AnalysisConfig(model_dir))
         load_s = time.perf_counter() - t0
         config = inference.AnalysisConfig(model_dir)
-        config.switch_batch_bucketing(True)
-        preds[True] = inference.create_predictor(config)
-    check(not preds[False].config.batch_bucketing(),
-          "the default AnalysisConfig buckets batches")
+        config.switch_batch_bucketing(False)
+        preds[False] = inference.create_predictor(config)
+    check(preds[True].config.batch_bucketing(),
+          "the default AnalysisConfig does not bucket batches")
     check(all(p._exe.place.type == "cuda" for p in preds.values()),
           "the Predictor is not on the card")
     amp_dtype = getattr(preds[False]._program, "_amp_dtype", None)
@@ -3586,7 +3703,8 @@ def bert_predictor_phase(infer, runs=3):
         for bucketing, pred in preds.items():
             ran = BERT_INFER_BATCH if bucketing else batch
             ran_rows = infer["want"][:batch] if bucketing else exact
-            pred.run(args)
+            for _ in range(WARMUP_STEPS + 1):
+                pred.run(args)
             secs = []
             for _ in range(runs):
                 t0 = time.perf_counter()
@@ -3610,7 +3728,10 @@ def bert_predictor_phase(infer, runs=3):
                     float(np.abs(got - exact).max()),
                 "elementwise_err_of_1e-5_rel_1e-6_row": scaled_err(
                     torch.as_tensor(got), torch.as_tensor(exact), 1e-5),
-                "handles_bit_equal": bool(np.array_equal(staged, got))}
+                "handles_bit_equal": bool(np.array_equal(staged, got)),
+                "captured_steps": len(pred._exe._captured),
+                "graphs": sum(c.graph is not None
+                              for c in pred._exe._captured.values())}
             check(got.shape == (batch, 768)
                   and r["bit_equal_to_executor_rows_run"],
                   "Predictor at batch %d (bucketing %s) != the Executor's "
@@ -3621,8 +3742,15 @@ def bert_predictor_phase(infer, runs=3):
             check(r["handles_bit_equal"], "Predictor handle run != "
                   "positional run at batch %d (bucketing %s)"
                   % (batch, bucketing))
+            check(r["graphs"] == r["captured_steps"]
+                  == (1 if bucketing or batch == BERT_INFER_BATCH else 2)
+                  and pred._exe.host_op_steps == 0,
+                  "Predictor at batch %d (bucketing %s): %d graphs of %d "
+                  "captured steps" % (batch, bucketing, r["graphs"],
+                                      r["captured_steps"]))
     emit("bert_predictor", model="bench_bert_infer program (BERT-base, "
          "loaded weights)", feeds=BERT_FEEDS, save_s=save_s, load_s=load_s,
+         nvidia_smi=SMI[0], runs_captured=True,
          device=str(preds[False]._exe.place), amp=amp_dtype,
          runs_in="float32 (the desc carries no AMP mode)",
          tol={"executor_rows_run": "bit equal",
@@ -6740,7 +6868,7 @@ DENSE_OPS = 72
 
 
 # optimizer_parity: each optimizer class, the clips and the schedules on
-# BERT at 2 layers (float32, dropout 0, batch 8)
+# BERT at 2 layers (float32, dropout 0, batch PARITY_BATCH)
 # the rates keep every run descending: the adaptive updates move each
 # weight by about their rate (Adagrad, FTRL, Adamax, Adam) or a few times
 # it (RMSProp and DecayedAdagrad at decay 0.95: 1/sqrt(0.05) = 4.5; Adadelta
@@ -6791,6 +6919,9 @@ PARITY_SCHEDULES = {
     "linear_lr_warmup": lambda L: L.linear_lr_warmup(1e-2, 2, 0.0, 1e-2),
 }
 PARITY_STEPS = 3
+# the batch of optimizer_parity: 4, not bert_parity's 8, halves its CPU
+# reference's time (88 of the phase's 116 s at 8 on the H100's host)
+PARITY_BATCH = 4
 
 
 def parity_config(name):
@@ -6817,8 +6948,8 @@ def parity_config(name):
 
 
 def optimizer_parity_phase():
-    """BERT at full width, 2 layers, batch 8, dropout 0, float32 (as
-    ``bert_parity``), 3 steps under each of the 16 optimizer
+    """BERT at full width, 2 layers, batch ``PARITY_BATCH``, dropout 0,
+    float32, 3 steps under each of the 16 optimizer
     configurations (``PARITY_OPTIMIZERS``: the 14 classes, Momentum with
     and without Nesterov, RMSProp centered and not, ProximalGD and
     ProximalAdagrad with l1 > 0), ModelAverage, the three clips and the
@@ -6836,7 +6967,7 @@ def optimizer_parity_phase():
     import paddle_tpu_torch as fluid
 
     t_phase = time.perf_counter()
-    feed = bert_feed(8)
+    feed = bert_feed(PARITY_BATCH)
     names_all = (list(PARITY_OPTIMIZERS) + ["ModelAverage"]
                  + list(PARITY_CLIPS) + list(PARITY_SCHEDULES))
     results, secs = {}, {"build": 0.0, "card": 0.0, "captured": 0.0,
@@ -6954,9 +7085,10 @@ def optimizer_parity_phase():
         exe.close()
         del card, cap, cpu, start
     torch.cuda.empty_cache()
-    emit("optimizer_parity", n_layer=2, batch=8, seq=BERT_SEQ, dropout=0.0,
-         steps=PARITY_STEPS, configurations=len(results), seconds_by_part=secs,
-         seconds=time.perf_counter() - t_phase, results=results)
+    emit("optimizer_parity", n_layer=2, batch=PARITY_BATCH, seq=BERT_SEQ,
+         dropout=0.0, steps=PARITY_STEPS, configurations=len(results),
+         seconds_by_part=secs, seconds=time.perf_counter() - t_phase,
+         results=results)
 
 
 # -- slice 18: the input pipeline -----------------------------------------------
@@ -8891,7 +9023,8 @@ PTB_WARMUP, PTB_TIMED = 2, 4   # ptb_lm_train's eager and captured steps
 # capture step's twin, the timed ones), the captured run's eager warm-ups
 # and its capture
 PTB_HOST_STEPS = 2 * PTB_WARMUP + 2 + PTB_TIMED
-NMT_DECODE_BATCHES = 4         # one warm-up and 3 timed
+NMT_DECODE_BATCHES = 2         # eager: one warm-up and 1 timed
+NMT_CAPTURED_BATCHES = 3       # captured, after Executor.prepare: 3 timed
 NMT_DECODE_CHECK_LEN = 16      # the card-against-CPU decode's max_len
 
 
@@ -9029,16 +9162,23 @@ def ptb_lm_train_leg(xent_rows):
 
 def nmt_beam_decode_leg():
     """The NMT model's beam-search decoder under ``While`` at full width
-    (``build_nmt_decode`` at ``NMT_DECODE``), eagerly through
-    ``Executor.run`` (the loop reads its condition on the host, so it
-    cannot capture): 1 warm-up batch and 3 timed; ms a batch, decode
-    steps, ms a step, generated tokens/s (B·K·steps), and from one
+    (``build_nmt_decode`` at ``NMT_DECODE``) in two modes from one scope:
+    eagerly through ``Executor.run`` (the loop's condition read on the
+    host, every op launched from Python; 1 warm-up batch and 1 timed), and
+    captured through ``CompiledProgram`` (``Executor.prepare`` first: its
+    warm-ups on copies, then the graphs of the ops before the loop, of the
+    loop body and of the ops after it, one replay of the body an
+    iteration after a host read of the condition; ``NMT_CAPTURED_BATCHES``
+    timed), and ``run_steps`` once. For each mode: ms a batch, decode
+    steps, ms a decode step, generated tokens/s (B·K·steps), and from one
     profiled batch (CUPTI) kernels and the host's launch calls a decode
-    step and the busy share (the host syncs are counted by
-    ``nmt_decode_card_vs_cpu``). Checks: every id in
+    step and the busy share, host syncs a batch (the sync debug mode),
+    capture seconds and graphs. Checks: the captured ids and scores equal
+    the eager ones bit for bit (and ``run_steps``' too); every id in
     [0, V), each row's K scores descending, and each score the sum of its
     path's log-probs rescored on the card by a teacher-forced StaticRNN
-    of the same cell (``build_nmt_rescore``), to 1e-4 relative."""
+    of the same cell (``build_nmt_rescore``), to 1e-4 relative; the
+    captured step stays captured (``host_op_steps`` 0, 3 graphs)."""
     import paddle_tpu_torch as fluid
 
     t_leg = time.perf_counter()
@@ -9046,31 +9186,74 @@ def nmt_beam_decode_leg():
     dev = fluid.CUDAPlace(0)
     main, startup, sent_ids, sent_scores, steps = build_nmt_decode(fluid,
                                                                    cfg)
+    fetch = [sent_ids, sent_scores, steps]
     scope = fluid.Scope()
     exe = fluid.Executor(dev)
     exe.run(startup, scope=scope)
     feed = {k: torch.as_tensor(v, device=dev)
             for k, v in nmt_decode_feed(cfg).items()}
-
-    def batch():
-        return exe.run(main, feed=feed,
-                       fetch_list=[sent_ids, sent_scores, steps],
-                       scope=scope, return_numpy=False)
-
-    secs = []
-    for _ in range(NMT_DECODE_BATCHES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = batch()
-        torch.cuda.synchronize()
-        secs.append((time.perf_counter() - t0) * 1e3)
-    ids, scores = out[0].cpu().numpy(), out[1].cpu().numpy()
-    n_steps = int(out[2].reshape(-1)[0])
-    stages = {"batches_s": sum(secs) / 1e3}
+    exe_c = fluid.Executor(dev)
+    compiled = fluid.CompiledProgram(main)
+    runs = {
+        "eager": lambda: exe.run(main, feed=feed, fetch_list=fetch,
+                                 scope=scope, return_numpy=False),
+        "captured": lambda: exe_c.run(compiled, feed=feed, fetch_list=fetch,
+                                      scope=scope, return_numpy=False)}
+    stages, modes, outs = {}, {}, {}
     t0 = time.perf_counter()
-    wall, busy, kern, _, calls, host_top = step_profile(batch,
-                                                        cpu_ops=False)
-    stages["profile_s"] = time.perf_counter() - t0
+    cap = exe_c.prepare(compiled, feed, fetch, scope)
+    stages["prepare_s"] = time.perf_counter() - t0
+    for mode, n_batches in (("eager", NMT_DECODE_BATCHES),
+                            ("captured", NMT_CAPTURED_BATCHES)):
+        secs = []
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = runs[mode]()
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t1) * 1e3)
+        stages[mode + "_batches_s"] = time.perf_counter() - t0
+        outs[mode] = [o.cpu().numpy() for o in out]
+        n_steps = int(outs[mode][2].reshape(-1)[0])
+        t0 = time.perf_counter()
+        wall, busy, kern, graph_launches, calls, host_top = step_profile(
+            runs[mode], cpu_ops=False)
+        syncs = host_syncs(runs[mode])
+        stages[mode + "_profile_s"] = time.perf_counter() - t0
+        timed = secs[1:] if mode == "eager" else secs
+        ms = float(np.median(timed))
+        b, k = cfg["batch"], cfg["beam"]
+        modes[mode] = {
+            "steps_run": n_steps, "ms_a_batch": ms, "ms": secs,
+            "ms_a_decode_step": ms / n_steps,
+            "generated_tokens_per_s": b * k * n_steps / ms * 1e3,
+            "kernels_a_decode_step": sum(kern.values()) / n_steps,
+            "host_launch_calls_a_decode_step": calls / n_steps,
+            "graph_launches_a_batch": graph_launches,
+            "busy_share": busy / wall, "device_busy_ms": busy,
+            "profiled_wall_ms": wall, "host_syncs_a_batch": len(syncs),
+            "runtime_top": host_top,
+            "capture_s": cap.capture_s if mode == "captured" else 0.0,
+            "graphs": cap.graphs if mode == "captured" else 0,
+            "graph_pool_bytes": cap.pool_bytes if mode == "captured" else 0}
+    (ids, scores, _), (c_ids, c_scores, c_steps) = outs["eager"], \
+        outs["captured"]
+    t0 = time.perf_counter()
+    (r_ids, r_scores, r_steps), = exe_c.run_steps(main, [feed], steps=1,
+                                                  fetch_list=fetch,
+                                                  scope=scope)
+    stages["run_steps_s"] = time.perf_counter() - t0
+    check(np.array_equal(c_ids, ids) and np.array_equal(c_scores, scores)
+          and np.array_equal(r_ids, ids) and np.array_equal(r_scores, scores)
+          and int(c_steps[0]) == int(r_steps[0]) == modes["eager"][
+              "steps_run"],
+          "nmt_beam_decode: captured ids and scores differ from eager ones")
+    check(exe_c.host_op_steps == 0 and cap.graphs == 3
+          and cap.host_op is None,
+          "nmt_beam_decode: the captured step ran eagerly (%d steps) or "
+          "has %d graphs" % (exe_c.host_op_steps, cap.graphs))
+    n_steps = modes["eager"]["steps_run"]
     t0 = time.perf_counter()
     rmain, picked = build_nmt_rescore(fluid, cfg, n_steps)
     got = exe.run(rmain, feed=dict(feed, **{
@@ -9089,23 +9272,20 @@ def nmt_beam_decode_leg():
           "nmt_beam_decode: a row's scores not descending: %r" % scores[:2])
     check(score_err <= 1e-4, "nmt_beam_decode: scores against their paths' "
           "rescored log-probs %.3g (tolerance 1e-4)" % score_err)
-    ms = float(np.median(secs[1:]))
-    emit("nmt_beam_decode", config=cfg, steps_run=n_steps, ms_a_batch=ms,
-         ms=secs, ms_a_decode_step=ms / n_steps,
-         generated_tokens_per_s=b * k * n_steps / ms * 1e3,
-         kernels_a_decode_step=sum(kern.values()) / n_steps,
-         host_launch_calls_a_decode_step=calls / n_steps,
-         busy_share=busy / wall, device_busy_ms=busy, profiled_wall_ms=wall,
-         stream_syncs_a_batch=host_top.get("cudaStreamSynchronize",
-                                           [0])[0], runtime_top=host_top,
-         rescored_max_rel_diff=score_err, scores_best_beam=scores[:4, 0]
-         .tolist(), finished_beams=int((ids == cfg["eos"]).any(2).sum()),
+    emit("nmt_beam_decode", config=cfg, modes=modes,
+         captured_bit_equal_to_eager=True,
+         speedup_a_decode_step=modes["eager"]["ms_a_decode_step"]
+         / modes["captured"]["ms_a_decode_step"],
+         rescored_max_rel_diff=score_err,
+         scores_best_beam=scores[:4, 0].tolist(),
+         finished_beams=int((ids == cfg["eos"]).any(2).sum()),
          reduced=["random weights from the startup program (no beam ends "
                   "early, so every batch runs all 250 steps)",
                   "seeded source ids and lengths (no WMT data)"],
          users=CF_USERS["nmt_beam_decode"], stages=stages,
          leg_s=time.perf_counter() - t_leg, nvidia_smi=SMI[0])
-    del scope, exe
+    exe_c.close()
+    del scope, exe, exe_c
     torch.cuda.empty_cache()
 
 
@@ -10140,14 +10320,15 @@ def build_switch(fluid):
 def compiled_against_run(fluid, main, startup, feeds, fetch, arrays=None):
     """``Executor.run`` and ``run(CompiledProgram(main))`` over ``feeds``
     from one start on the card: (rows run, rows compiled, the compiled
-    executor's ``host_op_steps``, its warnings naming a host op)."""
+    executor's ``host_op_steps``, its warnings naming a host op, the
+    graphs its captured steps hold)."""
     import warnings
 
     if arrays is None:
         init = fluid.Scope()
         fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=init)
         arrays = {n: init.as_numpy(n) for n in init.vars}
-    rows, counted, warned = {}, 0, 0
+    rows, counted, warned, graphs = {}, 0, 0, 0
     for mode in ("run", "compiled"):
         scope = fluid.io.state_from_numpy(main, arrays, fluid.Scope(),
                                           fluid.CUDAPlace(0))
@@ -10160,59 +10341,65 @@ def compiled_against_run(fluid, main, startup, feeds, fetch, arrays=None):
                 prog, feed=f, fetch_list=fetch, scope=scope)] for f in feeds]
         if mode == "compiled":
             counted = exe.host_op_steps
-            warned = sum("needs the host while the step runs" in str(
-                w.message) for w in caught)
+            warned = sum("runs this program eagerly" in str(w.message)
+                         for w in caught)
+            graphs = sum(c.graphs for c in exe._captured.values())
         exe.close()
-    return rows["run"], rows["compiled"], counted, warned
+    return rows["run"], rows["compiled"], counted, warned, graphs
 
 
 def host_ops_compiled_leg():
     """``host_ops_compiled``: through ``CompiledProgram`` on the card, the
-    Switch schedule (0.1, 0.01, 0.001 at steps 5, 15, 25), the NMT beam
-    decoder under ``While`` (at ``max_len`` ``NMT_DECODE_CHECK_LEN``) and
-    an fc trained through ``py_func`` and ``Print``: each equal to
-    ``Executor.run`` from the same start (bit for bit), every step counted
-    in ``host_op_steps`` and one warning each; a ``DataFeeder`` on
-    ``CUDAPinnedPlace`` hands out pinned tensors; ``delete_var`` drops its
-    inputs."""
+    Switch schedule (0.1, 0.01, 0.001 at steps 5, 15, 25) and the NMT beam
+    decoder under ``While`` (at ``max_len`` ``NMT_DECODE_CHECK_LEN``, three
+    batches) are captured: no step eager (``host_op_steps`` 0), no
+    warning, the third step a graph replay (one graph for the Switch step,
+    three for the decode: the ops before the loop, its body, the ops after
+    it); an fc trained through ``py_func`` and ``Print`` still runs
+    eagerly, every step counted in ``host_op_steps`` and one warning; each
+    equal to ``Executor.run`` from the same start (bit for bit); a
+    ``DataFeeder`` on ``CUDAPinnedPlace`` hands out pinned tensors;
+    ``delete_var`` drops its inputs."""
     import paddle_tpu_torch as fluid
 
     t_leg = time.perf_counter()
     out = {}
     main, startup, lr = build_switch(fluid)
     feeds = [{"step": np.asarray([s], "float32")} for s in (5.0, 15.0, 25.0)]
-    ran, comp, n, warned = compiled_against_run(fluid, main, startup, feeds,
-                                                [lr])
+    ran, comp, n, warned, graphs = compiled_against_run(
+        fluid, main, startup, feeds, [lr])
     rates = [float(r[0][0]) for r in comp]
     check(np.allclose(rates, [0.1, 0.01, 0.001], rtol=1e-6)
           and all(np.array_equal(a[0], b[0]) for a, b in zip(ran, comp))
-          and n == 3 and warned == 1,
+          and n == 0 and warned == 0 and graphs == 1,
           "host_ops_compiled switch: rates %r, run %r, host_op_steps %d, "
-          "warnings %d" % (rates, ran, n, warned))
-    out["switch"] = {"rates": rates, "host_op_steps": n, "warnings": warned}
+          "warnings %d, graphs %d" % (rates, ran, n, warned, graphs))
+    out["switch"] = {"rates": rates, "host_op_steps": n, "warnings": warned,
+                     "graphs": graphs}
 
     cfg = dict(NMT_DECODE, max_len=NMT_DECODE_CHECK_LEN)
     main, startup, sent_ids, sent_scores, steps = build_nmt_decode(fluid,
                                                                    cfg)
     t0 = time.perf_counter()
-    ran, comp, n, warned = compiled_against_run(
-        fluid, main, startup, [nmt_decode_feed(cfg)],
+    ran, comp, n, warned, graphs = compiled_against_run(
+        fluid, main, startup, [nmt_decode_feed(cfg)] * 3,
         [sent_ids, sent_scores, steps])
-    same = all(np.array_equal(a, b) for a, b in zip(ran[0], comp[0]))
-    check(same and n == 1 and warned == 1,
+    same = all(np.array_equal(a, b) for r, c in zip(ran, comp)
+               for a, b in zip(r, c))
+    check(same and n == 0 and warned == 0 and graphs == 3,
           "host_ops_compiled nmt decode: compiled = run %s, host_op_steps "
-          "%d, warnings %d" % (same, n, warned))
+          "%d, warnings %d, graphs %d" % (same, n, warned, graphs))
     out["nmt_beam_decode"] = {"max_len": cfg["max_len"],
-                              "steps": int(comp[0][2][0]),
+                              "steps": int(comp[-1][2][0]),
                               "host_op_steps": n, "warnings": warned,
-                              "equal_to_run": same,
+                              "graphs": graphs, "equal_to_run": same,
                               "s": time.perf_counter() - t0}
 
     main, startup, loss = build_host_py_func(fluid)
     rng = np.random.RandomState(3)
     feeds = [{"x": rng.randn(64, 256).astype("float32")}] * 4
-    ran, comp, n, warned = compiled_against_run(fluid, main, startup, feeds,
-                                                [loss])
+    ran, comp, n, warned, _ = compiled_against_run(fluid, main, startup,
+                                                   feeds, [loss])
     losses = [float(r[0]) for r in comp]
     check(all(np.array_equal(a[0], b[0]) for a, b in zip(ran, comp))
           and n == 4 and warned == 1 and losses[-1] < losses[0],

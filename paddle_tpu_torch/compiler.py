@@ -11,13 +11,18 @@ into a CUDA graph for each feed signature and replay it
 as they were launched, so the strategies' scheduling and memory knobs
 have nothing to act on: they are accepted and warn.
 
-A program that holds a host op (``executor.HOST_OPS``: ``while`` and
-``conditional_block``, which ``layers.While``, ``cond`` and ``Switch``
-append and which read a device value on the host once a loop iteration or
-branch; ``print``, ``py_func`` and ``tree_conv``) holds work no graph
-replays: each of its steps runs eagerly on the executor's device, as
-``Executor.run`` runs it, counted by ``Executor.host_op_steps``, and the
-first one warns, naming the op.
+Control flow is captured as the JAX package compiles it: a
+``conditional_block`` (``cond``, ``Switch``) runs both branches and
+selects each output on the device, and a ``while`` in the global block of
+a program without backward ops splits the step into graphs, one a run of
+ops and one a loop body, replayed once an iteration after a host read of
+the condition (``executor._CapturedStep``). A program that holds a host
+op (``executor.HOST_OPS``: ``print``, ``py_func``, ``tree_conv``), a
+``while`` anywhere else or a branch that indexes by its data
+(``executor.INDEXING_OPS``) holds work no graph replays: each of its
+steps runs eagerly on the executor's device, as ``Executor.run`` runs it,
+counted by ``Executor.host_op_steps``, and the first one warns, naming
+the op.
 
 ``BuildStrategy.pass_builder()`` is the user's Program-pass pipeline, run
 once at the first execution on a transactional clone after the fetch-safe

@@ -57,7 +57,14 @@ package's one compiled dispatch: ``Executor.run(CompiledProgram)`` and
 body once into a ``torch.cuda.CUDAGraph`` for each feed signature, and
 replay it. The scope's tensors are the graph's static state, which the
 body updates with ``copy_``. On the CPU the same calls run the body step
-by step, without a graph.
+by step, without a graph. What the JAX package compiles as control flow
+is captured too: a ``conditional_block`` runs both branches and selects
+on the device (``lax.cond``), and a forward program's ``while`` loops
+become graphs of their own, one replayed once an iteration after a host
+read of the condition, between graphs of the ops before and after them.
+:meth:`Executor.prepare` warms a step up on copies and captures it before
+its first run; :meth:`Executor.memory_report` reads the prepared step's
+memory.
 
 Programs with started py_readers (``layers.py_reader``) are fed from
 them, as in the JAX package: ``run`` takes one batch from each started
@@ -70,7 +77,7 @@ While a step is captured no prefetcher issues CUDA work
 (``reader.prefetcher.CAPTURE_LOCK``).
 
 Left out against the JAX package: meshes, the numerics watchdog, the
-flight recorder, fault injection, the metrics histograms and ``prepare``.
+flight recorder, fault injection and the metrics histograms.
 """
 
 from __future__ import annotations
@@ -84,6 +91,7 @@ import numpy as np
 import torch
 
 from . import ops  # noqa: F401  (registers the ops)
+from .ops import control_flow_ops as _cf
 from .core.dtypes import to_torch_dtype
 from .core.framework import (Program, Variable, default_main_program,
                              grad_var_name, in_test_mode)
@@ -94,6 +102,7 @@ from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .monitor import metrics
 from .reader.prefetcher import CAPTURE_LOCK, DevicePrefetcher
 from .reader.py_reader import EOFException
+from .serving.captured import end_failed_capture
 
 __all__ = ["Executor", "FeedError", "FetchHandle", "global_scope",
            "scope_guard"]
@@ -104,15 +113,23 @@ _SEED_MIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
 # algorithm search, cuBLAS's workspaces and the kernels' library loads
 WARMUP_STEPS = 2
 
-# ops that need the host while a step runs: ``while`` and
-# ``conditional_block`` read their condition there to choose what runs
-# next, ``print`` and ``py_func`` run Python on a host copy, ``tree_conv``
-# builds its patch matrices from a host copy of its edges. A CUDA graph
-# replays none of them, so a captured step whose program holds one (in any
-# block) runs every step eagerly on its device instead, counted by
-# ``Executor.host_op_steps``
-HOST_OPS = frozenset({"while", "conditional_block", "print", "py_func",
-                      "tree_conv"})
+# ops that need the host while a step runs: ``print`` and ``py_func`` run
+# Python on a host copy, ``tree_conv`` builds its patch matrices from a
+# host copy of its edges. A CUDA graph replays none of them, so a captured
+# step whose program holds one (in any block) runs every step eagerly on
+# its device instead, counted by ``Executor.host_op_steps``. So does a
+# ``while`` the captured step cannot split the step at: one inside another
+# block, or in a program that trains (no model of either package trains
+# through a ``while``: its gradient raises)
+HOST_OPS = frozenset({"print", "py_func", "tree_conv"})
+
+# ops that index by their data: run untaken in a captured
+# ``conditional_block`` they may see an index out of range, a device
+# assert on the card, so a branch holding one keeps the step eager
+INDEXING_OPS = frozenset({"gather", "gather_nd", "scatter",
+                          "sequence_scatter", "one_hot", "lookup_table",
+                          "fused_embedding_seq_pool", "unpool", "psroi_pool",
+                          "sample_logits"})
 
 
 def _mix_seed(seed: int, step: int, idx: int) -> int:
@@ -136,11 +153,15 @@ class TraceContext:
     training step the names of its sparse tables (``sparse_params``) with
     the (ids, virtual rows leaf) their lookups register (``sparse_rows``).
     ``generators`` ({op position: (generator, op)}) is the plan's; a
-    context without one makes its own."""
+    context without one makes its own. ``both_branches`` (the captured
+    step) makes a ``conditional_block`` run both branches and select on
+    the device."""
 
     def __init__(self, program: Program, is_test: bool, device: torch.device,
-                 step: int, generators: Optional[dict] = None):
+                 step: int, generators: Optional[dict] = None,
+                 both_branches: bool = False):
         self.program = program
+        self.both_branches = both_branches
         self.is_test = is_test
         self.device = device
         self.step = int(step)
@@ -532,6 +553,50 @@ class Executor:
             return []
         return rows if return_numpy else handles
 
+    def prepare(
+        self,
+        program: Optional[Program] = None,
+        feed: Optional[Dict[str, Any]] = None,
+        fetch_list: Optional[Sequence] = None,
+        scope: Optional[Scope] = None,
+    ):
+        """Build and capture the step for ``feed`` ahead of its first run
+        (reference: the JAX package's ``Executor.prepare``, which compiles
+        it ahead of time). ``feed`` values may be arrays or ``(shape,
+        dtype)`` tuples; only their shapes and dtypes matter. Accepts a
+        ``CompiledProgram`` like ``run()``. The warm-up steps run on copies
+        of the scope's state (and on zeros for an abstract feed), so the
+        scope and the step counter stay as they were: ``prepare`` and then
+        N runs give the bits of N runs, and the first of them replays.
+        Returns the captured step (``_CapturedStep``), the one a later
+        ``run(CompiledProgram)`` or ``run_steps`` at the same feed shapes,
+        fetches and scope takes."""
+        if scope is None:
+            scope = global_scope()
+        src, accum = self._unwrap_program(program, scope)
+        fetch_names = self._fetch_names(fetch_list)
+        prog = self._maybe_optimize(src, fetch_names, scope)
+        sig, arrays = _feed_signature(_concrete_feed(feed or {}))
+        cap = self._captured_step(prog, scope, sig, fetch_names, accum)
+        cap.prepare(prog, scope, arrays,
+                    getattr(src, "_tpu_step_counter", 0))
+        return cap
+
+    def memory_report(self, program=None, feed=None, fetch_list=None,
+                      scope=None) -> Dict[str, float]:
+        """The memory of the step :meth:`prepare` builds for ``feed``
+        (arrays or ``(shape, dtype)`` tuples), with the JAX package's keys
+        (``paddle_tpu/monitor/device.py``): on the card ``argument_bytes``
+        (the static state and feeds), ``output_bytes`` (the fetches and the
+        state written), ``temp_bytes`` (what the graphs' memory pools hold
+        beyond the fetches in them), ``alias_bytes`` (outputs written into
+        their arguments), ``generated_code_bytes`` (0: a CUDA graph
+        replays kernels already loaded) and ``peak_hbm_bytes``. The CPU
+        has no graph: the pools' keys and the peak are left out, as the
+        JAX package leaves out what its backend lacks. Run the startup
+        program first, so the parameters are part of the figure."""
+        return self.prepare(program, feed, fetch_list, scope).memory_report()
+
     @staticmethod
     def _unwrap_program(program, scope):
         """(plain program, gradient accumulation steps) of a possibly
@@ -563,13 +628,13 @@ class Executor:
 
     # -- the step body --------------------------------------------------------
     def _eager_step(self, program, plan, scope, feeds, fetch_names, step,
-                    accum=1):
+                    accum=1, both_branches=False):
         """One eager step: the body on the scope's state, then every
         persistable it computed set into the scope. Returns the env."""
         state = self._gather_state(plan, scope)
         plan.reseed(program, step)
         trace = TraceContext(program, plan.is_test, self.place, step,
-                             plan.generators)
+                             plan.generators, both_branches)
         env = self._body(plan, state, feeds, fetch_names, trace, accum)
         for n in plan.state_names:
             val = env.get(n)
@@ -583,26 +648,11 @@ class Executor:
         runs eagerly and under capture; it reads the host for nothing.
         ``accum`` > 1 splits a training step into that many microbatches
         (:meth:`_train_step`); a program without a backward ignores it."""
-        env: Dict[str, Any]
         if plan.bw is None or plan.marker_idx is None:
-            env = dict(state)
-            env.update(feeds)
-            if plan.amp_dtype is not None:
-                # the ops see a cast copy; the float32 state survives an
-                # eval or fetch run as it was. Only what an op rewrote
-                # (another tensor under the name) goes back, in the
-                # state's dtype.
-                env = _amp_cast(env, plan.amp_dtype)
-                before = dict(env)
+            env, before = _forward_env(plan, state, feeds)
             with torch.no_grad():
                 run_block_ops(plan.ops, env, trace)
-            if plan.amp_dtype is not None:
-                for n, held in state.items():
-                    val = env.get(n)
-                    if val is before.get(n):
-                        env[n] = held
-                    elif val is not None and val.dtype != held.dtype:
-                        env[n] = val.to(held.dtype)
+            _forward_done(plan, state, env, before)
             return env
         return self._train_step(plan.ops, plan.marker_idx, plan.bw, state,
                                 feeds, trace, fetch_names, plan.amp_dtype,
@@ -696,28 +746,43 @@ class _CapturedStep:
     microbatches.
 
     Its first ``WARMUP_STEPS`` steps run eagerly (on a side stream on the
-    card); they are real steps with their own step indexes. Then the scope's
-    persistable tensors become the static state, the feeds get static
-    buffers, and on the card the body is captured once into a
-    ``torch.cuda.CUDAGraph``, its generators registered with the graph
-    (capture executes nothing: the first replay runs the step captured).
-    Each later step reseeds the generators, brings back into the static
-    state any var an eager ``run()`` replaced in the scope, fills the
-    static feeds and replays the graph; on the CPU it runs the body. A
+    card); they are real steps with their own step indexes
+    (:meth:`prepare` runs them on copies instead, before the first step).
+    Then the scope's persistable tensors become the static state, the
+    feeds get static buffers, and on the card the body is captured once
+    into a ``torch.cuda.CUDAGraph``, its generators registered with the
+    graph (capture executes nothing: the first replay runs the step
+    captured). Each later step reseeds the generators, brings back into the
+    static state any var an eager ``run()`` replaced in the scope, fills
+    the static feeds and replays the graph; on the CPU it runs the body. A
     capture that fails raises, naming the op; nothing runs eagerly in its
-    place.
+    place. The warm-ups, the capture and the body run every
+    ``conditional_block`` with both branches (``TraceContext.both_branches``).
 
-    A program holding a host op (:data:`HOST_OPS`, in any block) is never
-    captured: each of its steps runs eagerly on the executor's device, as
-    ``Executor.run`` would run it, adds one to ``Executor.host_op_steps``,
-    and the first one warns, naming the op, its block and its index."""
+    A forward program whose global block holds ``while`` ops is split at
+    them (:attr:`pieces`): each run of ops between loops is a graph, and
+    each loop's body another, keyed by the loop and its carry's shapes,
+    each graph in a memory pool of its own (graphs sharing one pool broke
+    a later cuBLAS capture on the H100: ``serving/captured.py``). The run
+    before a loop ends by copying the carry into static tensors; the body
+    reads them and writes the next iteration's carry back into them
+    (``control_flow_ops.write_carry``); a step replays the graph of each
+    run and, for each loop, reads the condition on the host and replays
+    the body while it holds.
+
+    A program that holds a host op (:data:`HOST_OPS`, in any block), a
+    ``while`` outside the global block or a ``while`` beside backward ops
+    is never captured: each of its steps runs eagerly on the executor's
+    device, as ``Executor.run`` would run it, adds one to
+    ``Executor.host_op_steps``, and the first one warns, naming the op,
+    its block and its index. So does one whose ``conditional_block``
+    branch holds an op of :data:`INDEXING_OPS`."""
 
     def __init__(self, exe: Executor, program, plan, scope, sig, fetch_names,
                  accum=1):
-        # the first host op, as (type, block, index), or None
-        self.host_op = next(((op.type, blk.idx, i) for blk in program.blocks
-                             for i, op in enumerate(blk.ops)
-                             if op.type in HOST_OPS), None)
+        # the first op that keeps the step eager, as (type, block, index,
+        # why), or None
+        self.host_op = _eager_reason(program, plan)
         self.exe = exe
         self.program_ref = weakref.ref(program)
         self.plan = plan
@@ -730,13 +795,27 @@ class _CapturedStep:
         self.feeds: Dict[str, torch.Tensor] = {}
         self.outputs: List[torch.Tensor] = []
         self.graph = None
+        # (start, end, while op or None) of each run of global-block ops
+        # and the loop after it, for a forward program with a ``while``
+        self.pieces = _pieces(plan) if self.host_op is None else None
+        # the replay plan of a split step: ("ops", graph or None) and
+        # ("loop", condition name, body graph), in order, and the pieces'
+        # state ({"env": the static tensors the graphs read and write})
+        self.replays: List[tuple] = []
+        self.box: Dict[str, Any] = {}
+        self.graphs = 0
+        self.pool_bytes = 0
+        self.capture_s = 0.0
+        self.warm_shapes: List[tuple] = []
 
     def release(self):
-        """Drop the graph (and with it its memory pool) and the static
+        """Drop the graphs (and with them their memory pools) and the static
         buffers."""
-        if self.graph is not None:
-            self.graph.reset()
+        for g in [self.graph] + [r[-1] for r in self.replays]:
+            if g is not None:
+                g.reset()
         self.graph = None
+        self.replays, self.box = [], {}
         self.state = None
         self.feeds = {}
         self.outputs = []
@@ -747,24 +826,9 @@ class _CapturedStep:
         exe, program, scope = self.exe, self.program_ref(), self.scope_ref()
         if self.host_op is not None:
             return self._host_op_step(program, scope, feed, step)
-        block = program.global_block
         if self.warm_left > 0:
             self.warm_left -= 1
-            feeds = {n: exe._feed_tensor(block, n, v)
-                     for n, v in feed.items()}
-            if exe.place.type != "cuda":
-                env = exe._eager_step(program, self.plan, scope, feeds,
-                                      self.fetch_names, step, self.accum)
-                return _fetches(env, self.fetch_names)
-            cur = torch.cuda.current_stream(exe.place)
-            side = exe._stream()
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                env = exe._eager_step(program, self.plan, scope, feeds,
-                                      self.fetch_names, step, self.accum)
-                outs = _fetches(env, self.fetch_names)
-            cur.wait_stream(side)
-            return outs
+            return self._warm_step(program, scope, feed, step)
         if self.state is None:
             self._capture(program, scope, step)
         self._restore_state(scope)
@@ -775,10 +839,100 @@ class _CapturedStep:
         self.plan.reseed(program, step)
         if exe.place.type != "cuda":
             self.outputs = self._static_body(program, step)
-        else:
+        elif self.pieces is None:
             self.graph.replay()
             metrics.REPLAYS.inc()
+        else:
+            self._replay_pieces()
         return self.outputs
+
+    def _warm_step(self, program, scope, feed, step):
+        """One eager warm-up step on ``scope`` (a real one, or
+        :meth:`prepare`'s copies), on a side stream on the card."""
+        exe = self.exe
+        block = program.global_block
+        feeds = {n: exe._feed_tensor(block, n, v) for n, v in feed.items()}
+
+        def run():
+            env = exe._eager_step(program, self.plan, scope, feeds,
+                                  self.fetch_names, step, self.accum,
+                                  both_branches=True)
+            return _fetches(env, self.fetch_names)
+
+        if exe.place.type != "cuda":
+            outs = run()
+        else:
+            cur = torch.cuda.current_stream(exe.place)
+            side = exe._stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                outs = run()
+            cur.wait_stream(side)
+        self.warm_shapes = [(tuple(o.shape), o.dtype) for o in outs]
+        return outs
+
+    def prepare(self, program, scope, feed, step):
+        """The warm-ups on copies of the scope's state and on ``feed`` (the
+        caller's arrays, or zeros for an abstract feed), then, on the card,
+        the capture against the scope's own tensors: the scope, its values
+        and the program's step counter stay as they were, and the next
+        step replays."""
+        if self.host_op is not None:
+            return
+        while self.warm_left > 0:
+            self.warm_left -= 1
+            throwaway = Scope()
+            for n in self.plan.state_names:
+                val = scope.find_var(n)
+                if val is not None:
+                    throwaway.set_var(n, val.clone() if isinstance(
+                        val, torch.Tensor) else np.array(val))
+            self._warm_step(program, throwaway, feed, step)
+        if self.state is None:
+            self._capture(program, scope, step)
+
+    def memory_report(self) -> Dict[str, float]:
+        """The JAX package's ``memory_analysis`` keys for this step: the
+        static state and feeds (``argument_bytes``), the fetches and the
+        state the step writes (``output_bytes``), the state written in
+        place and the fetches that are arguments (``alias_bytes``); on the
+        card also the bytes the graphs' memory pools hold beyond the
+        fetches that live in them (``temp_bytes``), no generated code (a
+        graph replays kernels already loaded) and ``peak_hbm_bytes``
+        (arguments + outputs + temporaries - aliases). A step kept eager
+        has no static buffers and reports nothing."""
+        if self.state is None:
+            return {}
+        args = {id(t): t for t in list(self.state.values())
+                + list(self.feeds.values())}
+        arg_bytes = sum(_nbytes(t) for t in args.values())
+        written = sum(_nbytes(t) for n, t in self.state.items()
+                      if n in self._written)
+        if self.outputs:
+            fetched = [(_nbytes(o), _is_argument(o, args))
+                       for o in self.outputs]
+        else:
+            fetched = [(int(np.prod(shape)) * dt.itemsize, False)
+                       for shape, dt in self.warm_shapes]
+        out_bytes = written + sum(b for b, _ in fetched)
+        alias = written + sum(b for b, arg in fetched if arg)
+        out = {"argument_bytes": float(arg_bytes),
+               "output_bytes": float(out_bytes),
+               "alias_bytes": float(alias)}
+        if self.exe.place.type == "cuda":
+            temp = max(0, self.pool_bytes - sum(b for b, arg in fetched
+                                                if not arg))
+            out.update(temp_bytes=float(temp), generated_code_bytes=0.0)
+            out["peak_hbm_bytes"] = max(
+                0.0, arg_bytes + out_bytes + temp - alias)
+        return out
+
+    @property
+    def _written(self):
+        """The persistable names the step writes (outputs of its ops)."""
+        program = self.program_ref()
+        return {n for blk in program.blocks for op in blk.ops
+                for n in op.output_arg_names}
 
     def _host_op_step(self, program, scope, feed, step):
         """One eager step of a program that holds a host op, on the
@@ -789,8 +943,7 @@ class _CapturedStep:
             warnings.warn(
                 "the captured step (CompiledProgram, run_steps) runs this "
                 "program eagerly on %s: it holds op %r (block %d, index %d), "
-                "which needs the host while the step runs, and a CUDA graph "
-                "cannot replay that" % ((exe.place,) + self.host_op),
+                "%s" % ((exe.place,) + self.host_op),
                 RuntimeWarning, stacklevel=4)
         exe.host_op_steps += 1
         block = program.global_block
@@ -799,16 +952,9 @@ class _CapturedStep:
                               self.fetch_names, step, self.accum)
         return _fetches(env, self.fetch_names)
 
-    def _static_body(self, program, step, trace=None):
-        """The body on the static state and feeds, each state output
-        written back into its static tensor with ``copy_`` (one an op
-        updated in place is skipped); returns the fetches."""
-        exe, plan = self.exe, self.plan
-        if trace is None:
-            trace = TraceContext(program, plan.is_test, exe.place, step,
-                                 plan.generators)
-        env = exe._body(plan, self.state, self.feeds, self.fetch_names, trace,
-                        self.accum)
+    def _write_back(self, env):
+        """Each state output of ``env`` written back into its static tensor
+        with ``copy_`` (one an op updated in place is skipped)."""
         with torch.no_grad():
             for n, held in self.state.items():
                 val = env.get(n)
@@ -820,11 +966,104 @@ class _CapturedStep:
                         "static tensor is %s" % (n, list(val.shape),
                                                  list(held.shape)))
                 held.copy_(val)
+
+    def _static_body(self, program, step, trace=None):
+        """The body on the static state and feeds, each state output
+        written back into its static tensor; returns the fetches. A split
+        step (:attr:`pieces`) runs piece by piece (:meth:`_run_pieces`)."""
+        exe, plan = self.exe, self.plan
+        if trace is None:
+            trace = TraceContext(program, plan.is_test, exe.place, step,
+                                 plan.generators, both_branches=True)
+        if self.pieces is not None:
+            return self._run_pieces(program, trace)
+        env = exe._body(plan, self.state, self.feeds, self.fetch_names, trace,
+                        self.accum)
+        self._write_back(env)
         return _fetches(env, self.fetch_names)
+
+    def _run_pieces(self, program, trace, capture=None):
+        """The split step: each run of ops on the env (the first also makes
+        it from the static state and feeds; one before a loop ends by
+        copying the loop's carry into new static tensors; the last writes
+        the state back and makes the fetches), each loop's body while its
+        condition, read on the host, holds. With ``capture`` (a function
+        that captures a function into a graph and returns it) nothing runs:
+        each run of ops and each loop body is captured once, in order, and
+        :attr:`replays` is filled. Returns the fetches."""
+        plan, box = self.plan, {}
+        replays = []
+        for k, (start, end, loop) in enumerate(self.pieces):
+            last = k == len(self.pieces) - 1
+
+            def ops(start=start, end=end, loop=loop, first=k == 0,
+                    last=last):
+                if first:
+                    box["env"], box["before"] = _forward_env(
+                        plan, self.state, self.feeds)
+                env = box["env"]
+                with torch.no_grad():
+                    run_block_ops(plan.ops[start:end], env, trace,
+                                  offset=start)
+                    if loop is not None:
+                        _, _, carry = _cf.loop_parts(program, loop)
+                        _cf.check_carry({n: env[n] for n in carry})
+                        env.update({n: _cf.copy_value(env[n])
+                                    for n in carry})
+                    if last:
+                        _forward_done(plan, self.state, env, box["before"])
+                        self._write_back(env)
+                        box["outs"] = _fetches(env, self.fetch_names)
+
+            empty = start == end and loop is None and k > 0 and (
+                plan.amp_dtype is None and not _needs_write_back(
+                    self.state, box["env"]))
+            if capture is None:
+                ops()
+            elif empty:
+                ops()
+                replays.append(("ops", None))
+            else:
+                replays.append(("ops", capture(ops)))
+            if loop is None:
+                continue
+            block, cond, carry = _cf.loop_parts(program, loop)
+
+            def body(block=block, carry=carry):
+                env = box["env"]
+                local = dict(env)
+                with torch.no_grad():
+                    _cf.run_body(block, local, trace)
+                    _cf.write_carry(env, local, carry)
+
+            if capture is not None:
+                replays.append(("loop", cond, capture(body)))
+                continue
+            while bool(box["env"][cond].reshape(())):
+                body()
+        if capture is not None:
+            self.replays, self.box = replays, box
+        return box["outs"]
+
+    def _replay_pieces(self):
+        """One step of a split step on the card: the graph of each run of
+        ops; for each loop, the body's graph while the condition (one host
+        read an iteration) holds."""
+        for entry in self.replays:
+            if entry[0] == "ops":
+                if entry[1] is not None:
+                    entry[1].replay()
+                    metrics.REPLAYS.inc()
+                continue
+            _, cond, body = entry
+            while bool(self.box["env"][cond].reshape(())):
+                body.replay()
+                metrics.REPLAYS.inc()
 
     def _capture(self, program, scope, step):
         """Take the scope's tensors as the static state, allocate the
-        static feeds and, on the card, capture the body."""
+        static feeds and, on the card, capture the body (a split step: its
+        graphs)."""
         exe, plan = self.exe, self.plan
         state = exe._gather_state(plan, scope)
         for n, t in state.items():
@@ -840,26 +1079,48 @@ class _CapturedStep:
         if exe.place.type != "cuda":
             return
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        if plan.generators and not hasattr(graph, "register_generator_state"):
+        if plan.generators and not hasattr(torch.cuda.CUDAGraph(),
+                                           "register_generator_state"):
             raise RuntimeError(
                 "this torch (%s) cannot register a generator with a CUDA "
                 "graph, so a program with stochastic ops cannot be "
                 "captured" % torch.__version__)
-        for gen, _ in plan.generators.values():
-            graph.register_generator_state(gen)
         plan.reseed(program, step)
         trace = TraceContext(program, plan.is_test, exe.place, step,
-                             plan.generators)
-        try:
+                             plan.generators, both_branches=True)
+        # torch.cuda.graph empties the allocator's cache on entry; doing it
+        # first makes the growth of reserved memory the graphs' pools
+        torch.cuda.synchronize(exe.place)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(exe.place)
+        graphs = []
+
+        def capture(fn):
+            graph = torch.cuda.CUDAGraph()
+            for gen, _ in plan.generators.values():
+                graph.register_generator_state(gen)
             # no prefetcher worker issues CUDA work during the capture
             with CAPTURE_LOCK, torch.cuda.graph(graph, stream=exe._stream()):
-                self.outputs = self._static_body(program, step, trace)
+                fn()
+            graphs.append(graph)
+            return graph
+
+        try:
+            if self.pieces is None:
+                graph = capture(lambda: setattr(
+                    self, "outputs", self._static_body(program, step, trace)))
+            else:
+                self.outputs = self._run_pieces(program, trace, capture)
         except Exception as e:
             # the next step captures again (and fails again): nothing runs
             # eagerly in the graph's place
+            for g in graphs:
+                g.reset()
+            end_failed_capture(exe._stream(), [
+                gen for gen, _ in plan.generators.values()])
             self.state, self.feeds, self.outputs = None, {}, []
-            op = plan.ops[trace.current_op_idx] if plan.ops else None
+            self.replays, self.box = [], {}
+            op = _op_at(program, trace.current_op_idx)
             raise RuntimeError(
                 "capturing the step into a CUDA graph failed at op %d (%s, "
                 "outputs %s); it is not run eagerly in its place. "
@@ -868,9 +1129,13 @@ class _CapturedStep:
                 % (trace.current_op_idx, getattr(op, "type", None),
                    getattr(op, "output_arg_names", None),
                    type(e).__name__, e)) from e
-        self.graph = graph
-        metrics.CAPTURES.inc()
-        metrics.CAPTURE_MS.set((time.perf_counter() - t0) * 1e3)
+        if self.pieces is None:
+            self.graph = graph
+        self.graphs = len(graphs)
+        self.pool_bytes = torch.cuda.memory_reserved(exe.place) - before
+        self.capture_s = time.perf_counter() - t0
+        metrics.CAPTURES.inc(len(graphs))
+        metrics.CAPTURE_MS.set(self.capture_s * 1e3)
 
     def _restore_state(self, scope):
         """Bring back each static tensor an eager ``run()`` (or the user)
@@ -890,6 +1155,72 @@ class _CapturedStep:
                 with torch.no_grad():
                     held.copy_(cur)
             scope.set_var(n, held)
+
+
+def _eager_reason(program, plan):
+    """The first op that keeps a program's captured step eager, as (type,
+    block, index, why), or None."""
+    trains = plan.bw is not None and plan.marker_idx is not None
+    for blk in program.blocks:
+        for i, op in enumerate(blk.ops):
+            why = None
+            if op.type in HOST_OPS:
+                why = ("which needs the host while the step runs, and a "
+                       "CUDA graph cannot replay that")
+            elif op.type == "while" and (blk.idx != 0 or trains):
+                why = ("a loop the captured step splits only in the global "
+                       "block of a program without backward ops")
+            elif op.type == "conditional_block":
+                hit = next((o.type for key in ("true_block", "false_block")
+                            if op.attrs.get(key, -1) >= 0
+                            for o in _cf.block_ops(
+                                program, program.blocks[op.attrs[key]])
+                            if o.type in INDEXING_OPS), None)
+                if hit is not None:
+                    why = ("whose branch holds %r, which may index out of "
+                           "range when its branch is not taken" % hit)
+            if why is not None:
+                return op.type, blk.idx, i, why
+    return None
+
+
+def _pieces(plan):
+    """(start, end, while op or None) of each run of global-block ops and
+    the loop after it, for a forward program holding a ``while``; None for
+    any other."""
+    loops = [i for i, op in enumerate(plan.ops) if op.type == "while"]
+    if not loops:
+        return None
+    out, start = [], 0
+    for i in loops:
+        out.append((start, i, plan.ops[i]))
+        start = i + 1
+    out.append((start, len(plan.ops), None))
+    return out
+
+
+def _needs_write_back(state, env):
+    return any(env.get(n) is not None and env.get(n) is not held
+               for n, held in state.items())
+
+
+def _op_at(program, idx):
+    """The op at an interpreter position (``10_000 * block.idx + i``)."""
+    blk, i = divmod(idx, 10_000)
+    if blk < len(program.blocks) and i < len(program.blocks[blk].ops):
+        return program.blocks[blk].ops[i]
+    return None
+
+
+def _nbytes(t) -> int:
+    if isinstance(t, tuple):
+        return sum(_nbytes(v) for v in t)
+    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+
+
+def _is_argument(t, args) -> bool:
+    ptr = t.untyped_storage().data_ptr()
+    return any(a.untyped_storage().data_ptr() == ptr for a in args.values())
 
 
 def _started_readers(program):
@@ -958,6 +1289,18 @@ def _feed_signature(feed):
     return tuple(sig), conv
 
 
+def _concrete_feed(feed):
+    """``feed`` with each ``(shape, dtype)`` tuple made a tensor of zeros
+    (an array stays as it is)."""
+    out = {}
+    for n, v in feed.items():
+        if isinstance(v, tuple) and len(v) == 2 and not hasattr(v, "dtype"):
+            shape, dtype = v
+            v = torch.zeros(tuple(shape), dtype=to_torch_dtype(dtype))
+        out[n] = v
+    return out
+
+
 def _microbatches(feeds, accum):
     """The feeds as ``accum`` microbatches, each a dict of dim-0 slices
     (views); a batch that ``accum`` does not divide raises, as the JAX
@@ -979,6 +1322,31 @@ def _fetches(env, fetch_names) -> List[torch.Tensor]:
         raise KeyError("fetch of %s: not computed by the program and not "
                        "in the scope" % missing)
     return [env[f].detach() for f in fetch_names]
+
+
+def _forward_env(plan, state, feeds):
+    """(env, its values before the ops) of a step without backward ops:
+    the state and feeds, under AMP cast copies (the float32 state survives
+    an eval or fetch run as it was; :func:`_forward_done`)."""
+    env = dict(state)
+    env.update(feeds)
+    if plan.amp_dtype is None:
+        return env, None
+    env = _amp_cast(env, plan.amp_dtype)
+    return env, dict(env)
+
+
+def _forward_done(plan, state, env, before):
+    """Under AMP, only what an op rewrote (another tensor under the name)
+    goes back, in the state's dtype; the rest is the state as it was."""
+    if plan.amp_dtype is None:
+        return
+    for n, held in state.items():
+        val = env.get(n)
+        if val is before.get(n):
+            env[n] = held
+        elif val is not None and val.dtype != held.dtype:
+            env[n] = val.to(held.dtype)
 
 
 def _amp_cast(tensors: Dict[str, torch.Tensor], dtype) -> Dict[str, Any]:

@@ -4,10 +4,13 @@
 Reference: ``PaddlePredictor``/``CreatePaddlePredictor``
 (``inference/api/paddle_api.h:186,314``) and ``AnalysisPredictor``
 (``api/analysis_predictor.cc:183,337``). The reference loads a ProgramDesc,
-runs an IR-pass fusion pipeline, and executes with NaiveExecutor. Here the
-saved program desc is loaded with ``io.load_inference_model`` and run by
-the port's eager :class:`~..executor.Executor` on the card, op by op; the
-IR options are accepted and change nothing.
+runs an IR-pass fusion pipeline, and executes with NaiveExecutor. The JAX
+package jit-compiles the loaded program whole, one compile a feed shape.
+Here the saved program desc is loaded with ``io.load_inference_model`` and
+each run is the port's captured step (``CompiledProgram`` through
+:class:`~..executor.Executor`): on the card one CUDA graph a feed shape,
+captured after two eager warm-ups and replayed; on the CPU the same
+step's static body. The IR options are accepted and change nothing.
 
 The desc carries no AMP mode, so a loaded model runs in float32 (as in
 the JAX package).
@@ -37,15 +40,14 @@ class AnalysisConfig:
         self.params_file = params_file
         self._use_gpu = True
         self._device_id = 0
-        self._ir_optim = True  # accepted; the eager executor fuses nothing
+        self._ir_optim = True  # accepted; the captured step fuses nothing
         self._memory_optim = True
-        # Off by default, unlike the JAX package, whose buckets bound the
-        # XLA recompiles a varying-batch client causes: the eager executor
-        # compiles nothing per shape, so padding a batch up to the next
-        # power of two only adds rows (and for a batch-reducing fetch a
-        # second run). Fixed shapes pay off once a step is captured whole
-        # (a CUDA graph), which the port does not do yet.
-        self._batch_bucketing = False
+        # Round batch sizes up to power-of-two buckets, as the JAX package
+        # does by default: each feed shape is one captured step (its
+        # warm-ups, its graph and the graph's memory pool), so a
+        # varying-batch client makes O(log max_batch) of them instead of
+        # one per batch size. Outputs are sliced back to the true batch.
+        self._batch_bucketing = True
 
     def enable_use_gpu(self, memory_pool_init_size_mb=100, device_id=0):
         self._use_gpu = True
@@ -64,10 +66,9 @@ class AnalysisConfig:
         self._memory_optim = x
 
     def switch_batch_bucketing(self, x: bool = True):
-        """Round each batch up to the next power of two
-        (``switch_batch_bucketing(True)``), as the JAX package does by
-        default, so a varying-batch client meets O(log max_batch) feed
-        shapes; outputs are sliced back to the true batch."""
+        """Opt out (``switch_batch_bucketing(False)``) to capture a step
+        per exact batch size, e.g. when a fixed-batch client wants no
+        padding."""
         self._batch_bucketing = bool(x)
 
     def batch_bucketing(self) -> bool:
@@ -122,6 +123,7 @@ class Predictor:
 
     def __init__(self, config: AnalysisConfig):
         from .. import io as io_mod
+        from ..compiler import CompiledProgram
         from ..core.place import CPUPlace, CUDAPlace
         from ..executor import Executor
 
@@ -136,6 +138,7 @@ class Predictor:
                     config.model_dir, self._exe,
                     model_filename=config.prog_file,
                     params_filename=config.params_file))
+        self._compiled = CompiledProgram(self._program)
         self._staged_inputs: Dict[str, np.ndarray] = {}
         self._declared_shapes: Dict[str, tuple] = {}
         self._last_outputs: Dict[str, np.ndarray] = {}
@@ -158,11 +161,14 @@ class Predictor:
         """run([x1, x2, ...]) positional over feed names, or run() after
         staging via input handles. Returns outputs (numpy) in fetch order.
 
-        With batch bucketing on (``AnalysisConfig.
-        switch_batch_bucketing(True)``; off by default), the leading dim is
+        Each run is the captured step at its feed shapes. With batch
+        bucketing on (the default; ``AnalysisConfig.
+        switch_batch_bucketing(False)`` opts out), the leading dim is
         padded up to the next power of two before the step and sliced back
-        after. Models with a batch-reducing fetch fall back to an
-        exact-shape run (the reduction over padded rows would be wrong);
+        after, bounding the captured steps to O(log max_batch) for a
+        varying-batch client. Models with a batch-reducing fetch fall back
+        to an exact-shape run (the reduction over padded rows would be
+        wrong);
         the one undetectable edge is an output whose NON-batch leading dim
         coincidentally equals the padded batch while every other output is
         per-row — opt out of bucketing for such models."""
@@ -178,7 +184,7 @@ class Predictor:
         exact_feed = dict(feed) if self.config.batch_bucketing() else None
         batch = self._bucket_batch(feed) if exact_feed is not None else None
         with scope_guard(self._scope):
-            outs = self._exe.run(self._program, feed=feed,
+            outs = self._exe.run(self._compiled, feed=feed,
                                  fetch_list=self._fetch_names)
             if batch is not None:
                 real, padded = batch
@@ -191,7 +197,7 @@ class Predictor:
                     # dim — its value over the padded rows would be WRONG,
                     # and there is no way to un-reduce it. Re-run at the
                     # exact batch.
-                    outs = self._exe.run(self._program, feed=exact_feed,
+                    outs = self._exe.run(self._compiled, feed=exact_feed,
                                          fetch_list=self._fetch_names)
         self._last_outputs = dict(zip(self._fetch_names, outs))
         return outs

@@ -7,11 +7,11 @@ the comparisons (``less_than`` ... ``not_equal``), the logical layers
 
 Sub-blocks hold the body ops, exactly Fluid's representation; the ops
 run them through the interpreter (``ops/control_flow_ops.py``,
-``ops/rnn_ops.py``'s ``dynamic_rnn``). ``While`` and ``cond``/``Switch``
-read a device value on the host (``while``, ``conditional_block``), so a
-program holding one runs eagerly, also under ``CompiledProgram`` and
-``run_steps`` (``executor.HOST_OPS``); ``StaticRNN``, ``DynamicRNN`` and
-``IfElse`` capture.
+``ops/rnn_ops.py``'s ``dynamic_rnn``). Under ``CompiledProgram`` and
+``run_steps`` all of them capture: ``cond``/``Switch`` select both
+branches' outputs on the device, and a ``While`` of a forward program
+replays its body as a graph once an iteration, its condition read on the
+host (``executor._CapturedStep``).
 """
 
 from __future__ import annotations
@@ -134,7 +134,8 @@ class While:
 
 def cond(pred: Variable, true_fn: Callable, false_fn: Optional[Callable] = None):
     """Functional two-branch conditional (the ``conditional_block`` op:
-    the predicate read on the host, the selected branch run).
+    ``Executor.run`` reads the predicate on the host and runs the selected
+    branch; the captured step runs both and selects on the device).
 
     Returns the true_fn/false_fn result (a Variable or tuple of Variables;
     both branches must return matching shapes/dtypes, as the JAX package's

@@ -80,7 +80,8 @@ def calc_gradient_op(ctx: OpContext):
         env.update(zip(input_names, leaves))
         outer = ctx.trace
         trace = TraceContext(outer.program, outer.is_test, outer.device,
-                             outer.step)
+                             outer.step,
+                             both_branches=outer.both_branches)
         for i, o in sliced:
             trace.current_op_idx = i
             try:

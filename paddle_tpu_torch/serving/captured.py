@@ -1,29 +1,50 @@
-# ported from paddle_tpu/serving/engine.py (_get_decode_exe / _get_verify_exe, lines 1273-1406)
+# ported from paddle_tpu/serving/engine.py (_get_prefill_exe, _get_decode_exe, _get_verify_exe, lines 1241-1406)
 """The serving dispatch as a CUDA graph: the port's counterpart of the JAX
-package's AOT-compiled decode and verify executables.
+package's AOT-compiled prefill, decode and verify executables.
 
 A :class:`CapturedDispatch` holds one dispatch body at one shape (a decode
-of ``decode_fuse`` steps, or a verify window of width W; with or without
-the sampler). The body reads and writes only static tensors: the engine's
-slot-state vectors and KV cache, updated in place, and the dispatch's own
-input and output buffers. On the card its first run is an eager warm-up
-on a side stream (a real dispatch: it allocates what the body keeps
-between launches, such as the paged-attention kernel's arrival counters
-of that stream, outside any graph); the second captures the body on the
-same stream into a ``torch.cuda.CUDAGraph`` and replays it, and every
-later run replays. On the CPU the body runs as it is. A capture that fails
-raises :class:`CaptureError` naming the dispatch: nothing runs eagerly in
-the graph's place.
+of ``decode_fuse`` steps, or a verify window of width W, with or without
+the sampler; a prefill, or a prefix-hit resume, at one prompt bucket).
+The body reads and writes only static tensors: the engine's slot-state
+vectors and KV cache, updated in place, and the dispatch's own input and
+output buffers. Each graph has a memory pool of its own: graphs that
+shared one pool, replayed in any order across engines, failed a later
+capture in cuBLAS on the H100. On the card its first run
+is an eager warm-up on a side stream (a real dispatch: it allocates what
+the body keeps between launches, such as the paged-attention kernel's
+arrival counters of that stream, outside any graph); the second captures
+the body on the same stream into a ``torch.cuda.CUDAGraph`` and replays
+it, and every later run replays. On the CPU the body runs as it is. A
+capture that fails raises :class:`CaptureError` naming the dispatch:
+nothing runs eagerly in the graph's place.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Callable, Optional
 
 import torch
 
-__all__ = ["CaptureError", "CapturedDispatch"]
+__all__ = ["CaptureError", "CapturedDispatch", "end_failed_capture"]
+
+
+def end_failed_capture(stream, generators=()) -> None:
+    """Take the CUDA generators out of capture mode after a capture that
+    raised: ``torch.cuda.graph`` puts the default generator and the ones
+    registered with the graph in capture mode when the capture begins and
+    takes them out only when it ends cleanly, and a generator left in it
+    raises at its next eager draw. An empty capture of them on
+    ``stream`` ends the mode."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the graph is empty
+        with torch.cuda.graph(graph, stream=stream):
+            pass
+    graph.reset()
 
 
 class CaptureError(RuntimeError):
@@ -84,6 +105,7 @@ class CapturedDispatch:
             with torch.cuda.graph(graph, stream=self.stream):
                 self.body()
         except Exception as e:
+            end_failed_capture(self.stream)
             raise CaptureError(
                 "capturing the serving %s dispatch into a CUDA graph failed; "
                 "it is not run eagerly in its place. A captured dispatch may "

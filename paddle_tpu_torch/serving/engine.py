@@ -21,9 +21,13 @@ Where the JAX package compiles a dispatch into one AOT executable, the
 port captures it into a CUDA graph (serving.captured): one graph per
 ``decode_fuse`` width and one per verify window width, each with or
 without the sampler, replayed with one host sync at the dispatch's end,
-where the retire/admit decisions need the emitted tokens. The slot state
-is static tensors written in place, never rebound. Prefill and resume run
-eagerly, once per request.
+where the retire/admit decisions need the emitted tokens; and one graph
+per prompt bucket for the prefill (``model.prefill``, the prompt's KV
+written through its page-table row, the first token sampled at the
+prompt's last position) and one per bucket for a prefix-hit resume (the
+remainder padded to the bucket, its writes masked past the remainder),
+each replayed with one host read of its token. The slot state is static
+tensors written in place, never rebound.
 
 Decoding is greedy (``argmax``, first maximum on ties) at temperature 0
 and otherwise the JAX package's seeded Gumbel-argmax sampler over a
@@ -319,6 +323,9 @@ class ServingEngine:
         self.dispatches = 0
         self.dispatch_host_s = 0.0  # launch side of every dispatch
         self.dispatch_s = 0.0       # whole dispatches, host sync included
+        # ("prefill" | "resume", bucket) -> ms of each, its token read
+        # included
+        self.prompt_ms: Dict[tuple, List[float]] = {}
 
     # -- public API -----------------------------------------------------------
     def close(self) -> None:
@@ -521,6 +528,9 @@ class ServingEngine:
             "decode_steps": self.decode_steps,
             "cuda_graphs": sum(d.graph is not None
                                for d in self._dispatches.values()),
+            "prompt_pool_bytes": sum(
+                d.pool_bytes for (kind, _, _), d in self._dispatches.items()
+                if kind in ("prefill", "resume")),
         }
         if self.pool is not None:
             out["pages_in_use"] = self.pool.num_used
@@ -633,23 +643,31 @@ class ServingEngine:
         return [int(t) for t in req.prompt[:n_tok]], meta, blobs
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
-        """Run each prefill bucket once (the given ones, default all:
+        """Warm each prefill bucket up (the given ones, default all:
         first-use costs such as cuBLAS handles and the allocator's blocks
         are paid here, not by the first requests) and, on the card,
-        capture the decode dispatch at ``decode_fuse`` and, with
-        speculation on, the verify window at ``speculation + 1``, greedy
-        and sampled. Needs an idle engine: the captured bodies run once on
-        it, with every slot inactive, which changes no state."""
+        capture its graph, and with a prefix cache armed the resume's at
+        each bucket; capture the decode dispatch at ``decode_fuse`` and,
+        with speculation on, the verify window at ``speculation + 1``,
+        greedy and sampled. Needs an idle engine: the bodies run on it
+        with a prompt of length 0 (every KV write goes to the sink row)
+        and every slot inactive, which changes no state a request reads
+        (slot 0's page-table row is rewritten before its next use)."""
         if self.scheduler.occupancy:
             raise RuntimeError("warmup() needs an idle engine; %d slots "
                                "are running" % self.scheduler.occupancy)
         dev = self.device
+        kinds = ["prefill"]
+        if self.prefix_cache is not None and self._spec_capable:
+            kinds.append("resume")
         for b in (buckets or self.cfg.prompt_buckets):
-            n = self._bucket_for(b)
-            self.model.prefill(
-                torch.full((1, n), self.cfg.pad_id, dtype=torch.int32,
-                           device=dev),
-                torch.tensor([n], dtype=torch.int32, device=dev))
+            for kind in kinds:
+                d = self._prompt_dispatch(kind, self._bucket_for(b))
+                d.inputs[0].zero_()
+                d.inputs[1].copy_(d.inputs[0])
+                d.run()
+                while d.capture and d.graph is None:
+                    d.run()
         if dev.type != "cuda" or not self.cfg.cuda_graphs:
             return
         keys = [("decode", self.cfg.decode_fuse)]
@@ -704,69 +722,150 @@ class ServingEngine:
                 finished.append(done)
         return finished
 
-    def _scalars(self, req: Request, position: int):
-        """The request's sampling parameters as [1] tensors on the device,
-        keyed at ``position``."""
-        dev = self.device
-        return (torch.tensor([req.temperature], dtype=torch.float32,
-                             device=dev),
-                torch.tensor([req.top_k], dtype=torch.int32, device=dev),
-                torch.tensor([req.seed], dtype=torch.int32, device=dev),
-                torch.tensor([position], dtype=torch.int32, device=dev))
+    def _prompt_dispatch(self, kind: str, bucket: int) -> CapturedDispatch:
+        """The ``prefill`` or ``resume`` dispatch at ``bucket``, with its
+        buffers: ``inputs`` (a host int32 staging vector, pinned on the
+        card, and its static copy on the device; layout in
+        :meth:`_prompt_inputs`), ``out`` (the first token, int32 [1]) and
+        ``logits`` (its logits row)."""
+        key = (kind, bucket, True)
+        d = self._dispatches.get(key)
+        if d is None:
+            dev = self.device
+            width = self.cache_ops.pages_per_slot if self.cfg.paged else 1
+            n = bucket + 6 + width
+            host = torch.zeros((n,), dtype=torch.int32)
+            if dev.type == "cuda":
+                host = host.pin_memory()
+            ins = torch.zeros((n,), dtype=torch.int32, device=dev)
+            out = torch.zeros((1,), dtype=torch.int32, device=dev)
+            last = torch.zeros((self.model.cfg.vocab_size,),
+                               dtype=self.model.cfg.dtype, device=dev)
+            body = (self._prefill_body if kind == "prefill"
+                    else self._resume_body)(bucket, ins, out, last)
+            d = CapturedDispatch("%s(bucket=%d)" % (kind, bucket), body, dev,
+                                 self._stream, capture=self.cfg.cuda_graphs)
+            d.out, d.logits, d.inputs = out, last, (host, ins)
+            self._dispatches[key] = d
+        return d
+
+    @staticmethod
+    def _prompt_inputs(ins, bucket):
+        """The views of a prompt dispatch's static int32 inputs: the
+        tokens [1, bucket], then [1] each of the length (the prompt's, or
+        the prefix's on a resume), the remainder's length (a resume's),
+        the slot, top-k, the seed and the temperature's float32 bits, then
+        the slot's page-table row (the slot itself in the contiguous
+        layout)."""
+        b = bucket
+        return (ins[:b].view(1, b), ins[b:b + 1], ins[b + 1:b + 2],
+                ins[b + 2:b + 3], ins[b + 3:b + 4], ins[b + 4:b + 5],
+                ins[b + 5:b + 6].view(torch.float32), ins[b + 6:])
+
+    def _stage(self, d, bucket, tokens, length, rem, slot, req, dest):
+        """Fill a prompt dispatch's host staging vector and copy it to the
+        device in one transfer."""
+        host, ins = d.inputs
+        hv = host.numpy()
+        hv[:] = 0
+        hv[:bucket] = self.cfg.pad_id
+        hv[:len(tokens)] = tokens
+        hv[bucket:bucket + 5] = (length, rem, slot, req.top_k, req.seed)
+        hv[bucket + 5:bucket + 6].view(np.float32)[0] = req.temperature
+        hv[bucket + 6:bucket + 6 + len(dest)] = dest
+        ins.copy_(host, non_blocking=True)
+
+    def _prefill_body(self, bucket, ins, out, last_out):
+        """The prefill at ``bucket`` on static inputs: the slot's
+        page-table row set, ``model.prefill``, each layer's prompt KV
+        written below the length (the rest to the sink row), and the first
+        token picked from the logits row at ``length - 1``, keyed by that
+        position (decode then keys length, length+1, ...)."""
+        cfg, model, ops = self.cfg, self.model, self.cache_ops
+        toks, length, _, slot, top_k, seed, temp, dest = \
+            self._prompt_inputs(ins, bucket)
+
+        def body():
+            with torch.no_grad():
+                if cfg.paged:
+                    self._cache["pt"].index_copy_(0, slot.long(), dest[None])
+                logits, kvs = model.prefill(toks, length)
+                for i, (k, v) in enumerate(kvs):
+                    ops.write_prompt(self._cache, i, k[0], v[0],
+                                     dest if cfg.paged else slot, length[0])
+                pos = length - 1
+                last = logits[0].index_select(0, pos.clamp_min(0).long())
+                out.copy_(_sample_tokens(last, temp, top_k, seed, pos))
+                last_out.copy_(last[0])
+
+        return body
+
+    def _resume_body(self, bucket, ins, out, last_out):
+        """The prefix-hit resume at ``bucket`` on static inputs: the slot's
+        page-table row set, then the prompt's remainder (``rem`` tokens
+        from position ``length``, the prefix's) through the model's verify
+        window for this one slot, padded to ``bucket`` with the writes past
+        the remainder masked (the JAX package scans ``model.decode`` over
+        the remainder bucket: the same positions, K/V written before
+        attention); the first token is keyed (seed, prompt length - 1), as
+        the cold prefill keys it."""
+        model, ops, dev = self.model, self.cache_ops, self.device
+        toks, length, rem, slot, top_k, seed, temp, row = \
+            self._prompt_inputs(ins, bucket)
+
+        def body():
+            with torch.no_grad():
+                self._cache["pt"].index_copy_(0, slot.long(), row[None])
+                one = {"k": self._cache["k"], "v": self._cache["v"],
+                       "pt": row[None]}
+                j = torch.arange(bucket, dtype=torch.int32, device=dev)
+                logits, _ = model.verify(
+                    one, ops, toks, length,
+                    torch.ones(1, dtype=torch.bool, device=dev),
+                    (j < rem)[None])
+                last = logits[0].index_select(
+                    0, (rem - 1).clamp_min(0).long())
+                out.copy_(_sample_tokens(last, temp, top_k, seed,
+                                         length + rem - 1))
+                last_out.copy_(last[0])
+
+        return body
 
     def _prefill(self, req: Request, slot: int, bucket: int
                  ) -> Optional[Request]:
-        """Prefill one admitted request at its bucket width, write its KV
-        into the cache and pick its first token, keyed by the last PROMPT
-        position (decode then keys length, length+1, ...); returns the
-        request if it finished at once. With a prefix cache armed, a
-        prompt whose page-aligned prefix is cached skips the full prefill
-        (:meth:`_prefill_from_prefix`)."""
-        cfg, dev, n = self.cfg, self.device, req.prompt_len
+        """Prefill one admitted request at its bucket width through the
+        bucket's dispatch (a graph replay on the card), read its first
+        token; returns the request if it finished at once. With a prefix
+        cache armed, a prompt whose page-aligned prefix is cached skips
+        the full prefill (:meth:`_prefill_from_prefix`)."""
         if self.prefix_cache is not None and self._spec_capable:
             entry = self.prefix_cache.lookup(req.prompt)
             if entry is not None:
                 return self._prefill_from_prefix(req, slot, entry)
-        prompt = np.full((1, bucket), cfg.pad_id, np.int32)
-        prompt[0, :n] = req.prompt
         t0 = time.perf_counter()
-        if cfg.paged:
-            dest = torch.as_tensor(self.cache_ops.prompt_dest(req.pages),
-                                   device=dev)
-            self._cache["pt"][slot] = dest
-        else:
-            dest = self.cache_ops.prompt_dest(slot)
-        with torch.no_grad():
-            logits, kvs = self.model.prefill(
-                torch.as_tensor(prompt, device=dev),
-                torch.tensor([n], dtype=torch.int32, device=dev))
-            for i, (k, v) in enumerate(kvs):
-                self.cache_ops.write_prompt(self._cache, i, k[0], v[0], dest,
-                                            n)
-            last = logits[0, n - 1]
-            tok = int(_sample_tokens(last[None],
-                                     *self._scalars(req, n - 1))[0])
-        t1 = time.perf_counter()
-        _sm.PREFILL_MS.observe((t1 - t0) * 1e3)
+        d = self._prompt_dispatch("prefill", bucket)
+        dest = (self.cache_ops.prompt_dest(req.pages) if self.cfg.paged
+                else [slot])
+        self._stage(d, bucket, req.prompt, req.prompt_len, 0, slot, req,
+                    dest)
+        d.run()
+        tok = int(d.out[0])  # the prefill's one host sync
+        ms = (time.perf_counter() - t0) * 1e3
+        _sm.PREFILL_MS.observe(ms)
         _sm.PREFILL_COUNT.inc()
+        self.prompt_ms.setdefault(("prefill", bucket), []).append(ms)
         self.prefills += 1
-        return self._finish_prefill(req, slot, tok, last)
+        return self._finish_prefill(req, slot, tok, d.logits)
 
     def _prefill_from_prefix(self, req: Request, slot: int, entry
                              ) -> Optional[Request]:
-        """Serve admission from a prefix-cache hit: point this slot's page
-        table at the request's pages, row-copy the cached prefix KV into
-        them, then run ONLY the prompt remainder, teacher-forced, through
-        the model's verify window for this one slot (the JAX package scans
-        ``model.decode`` over the remainder bucket: the same positions,
-        K/V written before attention, in one forward here instead of one
-        a token). The first token is keyed (seed, prompt_len-1), as the
-        cold prefill keys it, so hit and miss generate the same stream."""
+        """Serve admission from a prefix-cache hit: row-copy the cached
+        prefix KV into the request's pages, then run ONLY the prompt
+        remainder through the resume dispatch at its bucket, so hit and
+        miss generate the same stream."""
         ps, dev = self.cfg.page_size, self.device
         n = entry.n_tokens
         npages = len(entry.pages)
-        self._cache["pt"][slot] = torch.as_tensor(
-            self.cache_ops.prompt_dest(req.pages), device=dev)
         rows = np.arange(ps, dtype=np.int64)
         src = torch.as_tensor(
             np.concatenate([p * ps + rows for p in entry.pages]), device=dev)
@@ -777,26 +876,18 @@ class ServingEngine:
         for name in ("k", "v"):
             self._cache[name][:, dst] = self._cache[name][:, src]
         rem = req.prompt_len - n
-        toks = torch.as_tensor(np.asarray(req.prompt[n:], np.int32)[None],
-                               device=dev)
-        # the slot's own page-table row as a one-slot cache state; the
-        # pools are the engine's tensors, written in place
-        one = {"k": self._cache["k"], "v": self._cache["v"],
-               "pt": self._cache["pt"][slot:slot + 1]}
-        with torch.no_grad():
-            logits, _ = self.model.verify(
-                one, self.cache_ops, toks,
-                torch.tensor([n], dtype=torch.int32, device=dev),
-                torch.ones(1, dtype=torch.bool, device=dev),
-                torch.ones((1, rem), dtype=torch.bool, device=dev))
-            last = logits[0, rem - 1]
-            tok = int(_sample_tokens(
-                last[None], *self._scalars(req, req.prompt_len - 1))[0])
-        t1 = time.perf_counter()
-        _sm.PREFILL_MS.observe((t1 - t0) * 1e3)
+        bucket = self._bucket_for(rem)
+        d = self._prompt_dispatch("resume", bucket)
+        self._stage(d, bucket, req.prompt[n:], n, rem, slot, req,
+                    self.cache_ops.prompt_dest(req.pages))
+        d.run()
+        tok = int(d.out[0])
+        ms = (time.perf_counter() - t0) * 1e3
+        _sm.PREFILL_MS.observe(ms)
         # deliberately NOT PREFILL_COUNT: "fewer prefills than cold" reads it
+        self.prompt_ms.setdefault(("resume", bucket), []).append(ms)
         self.resumes += 1
-        return self._finish_prefill(req, slot, tok, last)
+        return self._finish_prefill(req, slot, tok, d.logits)
 
     def _finish_prefill(self, req: Request, slot: int, tok: int,
                         last_logits) -> Optional[Request]:
@@ -809,8 +900,9 @@ class ServingEngine:
         _sm.TTFT_MS.observe((now - req.submitted_t) * 1e3)
         req.tokens_out.append(tok)
         if cfg.collect_logits:
+            # copied: the row is the dispatch's static buffer
             self._captured_logits.setdefault(req.id, []).append(
-                last_logits.float().cpu().numpy())
+                last_logits.float().cpu().numpy().copy())
         if (cfg.eos_id is not None and tok == cfg.eos_id) \
                 or req.max_new_tokens == 1:
             return self._retire(slot)

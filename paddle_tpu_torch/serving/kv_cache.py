@@ -353,9 +353,12 @@ class ContiguousKVCache(_KVCacheBase):
 
     def write_prompt(self, state: Cache, layer: int, k_new, v_new, dest,
                      length) -> Cache:
+        """``dest`` is the slot (an int, or a tensor of one element on the
+        cache's device: no host read, so a captured prefill takes it)."""
         s = k_new.shape[0]
         j = torch.arange(s, device=k_new.device)
         pos_c = torch.where(j < length, j, self.max_ctx)
-        state["k"][layer, int(dest)].index_copy_(0, pos_c, k_new)
-        state["v"][layer, int(dest)].index_copy_(0, pos_c, v_new)
+        slot = torch.as_tensor(dest, device=k_new.device).reshape(1).long()
+        state["k"][layer].index_put_((slot.expand(s), pos_c), k_new)
+        state["v"][layer].index_put_((slot.expand(s), pos_c), v_new)
         return state

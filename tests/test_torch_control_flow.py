@@ -16,9 +16,12 @@ where it has parameters, the JAX startup state carried over by
 * ``conditional_block`` runs only the branch its predicate selects;
 * the layers' ``ValueError``/``TypeError`` messages equal the JAX
   layers';
-* the captured step runs a ``conditional_block`` program eagerly, with
-  the JAX package's ``CompiledProgram`` rates, each step counted.
+* the captured step captures a ``conditional_block`` program (both
+  branches, selected on the device), with the JAX package's
+  ``CompiledProgram`` rates and no step counted eager.
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -407,25 +410,28 @@ def test_switch_first_match_wins():
 
 
 def test_switch_refuses_capture_by_name():
-    """The captured step no longer refuses a ``conditional_block``: it runs
-    the Switch program eagerly, with the JAX package's CompiledProgram
-    rates at steps 5, 15 and 25, counts each step and warns once, naming
-    the op."""
+    """The captured step captures a ``conditional_block``: the Switch
+    program runs as a captured step (both branches on the device, each
+    output selected by the predicate), with the JAX package's
+    CompiledProgram rates at steps 5, 15 and 25, no step counted eager and
+    no warning."""
     main, startup, _ = build_switch(tfluid)
     exe = tfluid.Executor(tfluid.CPUPlace())
     scope = tfluid.Scope()
     exe.run(startup, scope=scope)
     compiled = tfluid.CompiledProgram(main)
     got = []
-    with pytest.warns(RuntimeWarning, match="'conditional_block' "
-                                            r"\(block 0, index \d+\)"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
         for s in (5.0, 15.0, 25.0):
             got.append(float(exe.run(
                 compiled, feed={"step": np.asarray([s], "float32")},
                 fetch_list=["sw_lr"], scope=scope)[0][0]))
     np.testing.assert_allclose(got, [0.1, 0.01, 0.001], rtol=1e-6)
-    assert exe.host_op_steps == 3
+    assert exe.host_op_steps == 0
     assert main._tpu_step_counter == 3
+    cap, = exe._captured.values()
+    assert cap.host_op is None and cap.state is not None
 
 
 def build_while_grad(fluid, loss_reads_carry):

@@ -15,10 +15,9 @@
 * ``tests/test_inference.py``'s cases, less StableHLO: the positional and
   handle APIs, ``reshape`` validation, handle reuse across batches, batch
   bucketing to powers of two (here: which feed batches the executor saw,
-  the eager executor keeps no compile cache), and the exact re-run for a
-  fetch that reduces over the batch. Bucketing is off by default in the
-  port (it bounds recompiles, which the eager executor does not have), on
-  in the JAX package.
+  each a captured step), and the exact re-run for a fetch that reduces
+  over the batch. Bucketing is on by default in both packages (it bounds
+  the captured steps, as it bounds the JAX package's recompiles).
 * ``save_vars``/``load_vars`` round trips, combined and one file per var;
   the legacy q/k/v and Adam beta-pow migrations; bfloat16 refused.
 * The device rule: the default ``AnalysisConfig`` asks for the card and
@@ -305,9 +304,9 @@ def test_predictor_batch_bucketing(tmp_path, rng, monkeypatch):
 
 
 def test_bucketing_is_off_by_default(tmp_path, rng, monkeypatch):
-    """The port's default config runs each batch at its own size; the JAX
-    package's buckets by default."""
-    assert not inference.AnalysisConfig().batch_bucketing()
+    """The port's default config buckets, as the JAX package's does: a
+    batch of 3 runs as 4 (one captured step) and is sliced back."""
+    assert inference.AnalysisConfig().batch_bucketing()
     assert jinference.AnalysisConfig().batch_bucketing()
     model_dir, xs, want = _train_and_save(tmp_path, rng)
     predictor = inference.create_predictor(cpu_config(model_dir))
@@ -321,7 +320,8 @@ def test_bucketing_is_off_by_default(tmp_path, rng, monkeypatch):
     monkeypatch.setattr(predictor._exe, "run", counting)
     out, = predictor.run([xs[:3]])
     np.testing.assert_allclose(out, want[:3], rtol=1e-5, atol=1e-6)
-    assert seen == [3]
+    assert seen == [4]
+    assert isinstance(predictor._compiled, tfluid.CompiledProgram)
 
 
 def test_iohandle_reshape_validates_against_staged(tmp_path, rng):
