@@ -252,6 +252,30 @@ captured (no step counted eager), and a ``py_func`` + ``Print`` program,
 each step of it counted in ``Executor.host_op_steps``, all equal to
 ``Executor.run``.
 
+The model's lifecycle: ``checkpoint_resume`` (after ``bert_train``)
+trains BERT-base under AMP at 32 x 128 with dropout 0.1 from a record
+file (``recordio`` → ``reader.batch`` → ``ParallelExecutor.run``,
+captured), 6 steps uninterrupted against 3, ``save_checkpoint``, a fresh
+program's ``load_checkpoint`` with the step counter set, and 3 more:
+losses and state bit for bit, K2 launching in every run, a reload into
+the first scope replaying its graph bit for bit, and a save under
+``io.save_checkpoint@2=fatal`` leaving a torn serial that the load skips;
+it reports the checkpoint's bytes, save and load seconds and the fsync's
+share. ``qat_resnet50`` (after ``resnet_parity``) trains ResNet-50 at
+64 x 224 quantization-aware (``QuantizeTranspiler``, moving-average
+activations), captured = eager bit for bit, timed against the captured
+float32 step; freezes it and holds every fake-quant op of the frozen
+program card = CPU on the card's own inputs bit for bit
+(``card_cpu_op_trace``), reporting the logits' end-to-end difference;
+stores the weights int8 on the card; and calibrates the float32
+inference program (``Calibrator``, ``abs_max`` and ``KL``, 2 batches of
+8), counting top-1 agreement. ``export_bert`` (after ``bert_predictor``)
+exports BERT-base with ``torch.export`` and a symbolic batch, runs the
+artifact at 48 and 64 against the Predictor (1e-5), and shows that an
+export of the causal LM at S = 2048 raises naming K1a. ``op_harness``
+(last) runs the port's ``OpTest`` on the card against the CPU for the 7
+fake-quant ops and a handful of dense ops.
+
 Diagnostics, not run by default: ``python3 chip_smoke.py
 --recipe-bisect [--deterministic] lamb adamw adam`` checksums every op's
 outputs and gradients over two eager runs of BERT-base's recipe step from
@@ -271,6 +295,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3667,7 +3692,8 @@ def bert_predictor_phase(infer, runs=3):
       for bit.
 
     The saved desc carries no AMP mode, so the loaded model runs in
-    float32."""
+    float32. Returns each run's output and median ms by
+    "<batch>_<bucketed|exact>", for ``export_bert``."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import inference
     from paddle_tpu_torch.executor import WARMUP_STEPS
@@ -3694,7 +3720,7 @@ def bert_predictor_phase(infer, runs=3):
           "the Predictor is not on the card")
     amp_dtype = getattr(preds[False]._program, "_amp_dtype", None)
     check(amp_dtype is None, "the loaded program carries AMP %r" % amp_dtype)
-    res = {}
+    res, outs = {}, {}
     for batch in (BERT_INFER_BATCH, 48):
         f = {k: v[:batch] for k, v in feed.items()}
         args = [f[n] for n in BERT_FEEDS]
@@ -3717,6 +3743,7 @@ def bert_predictor_phase(infer, runs=3):
             rel = float(np.linalg.norm((got - exact).astype(np.float64))
                         / np.linalg.norm(exact.astype(np.float64)))
             key = "%d_%s" % (batch, "bucketed" if bucketing else "exact")
+            outs[key] = got
             r = res[key] = {
                 "batch_run": ran, "shape": list(got.shape),
                 "run_ms_median": float(np.median(secs)) * 1e3,
@@ -3757,6 +3784,8 @@ def bert_predictor_phase(infer, runs=3):
               "executor_exact_batch": "1e-5 norm-wise"}, batches=res)
     del preds
     torch.cuda.empty_cache()
+    return {k: {"out": outs[k], "run_ms_median": r["run_ms_median"]}
+            for k, r in res.items()}
 
 
 def bert_parity_phase():
@@ -3807,8 +3836,8 @@ def bert_parity_phase():
 # one CUDA graph capture, replays) against eager ``run()`` steps from one
 # start state on one list of feeds, then times both in turns in this call.
 CAPTURED_STEPS = 6   # steps each leg runs eagerly and captured
-CAPTURED_TURNS = 3   # rounds of (an eager block, a captured block)
-CAPTURED_BLOCK = 4   # steps a timed block: one run_steps chunk
+CAPTURED_TURNS = 2   # rounds of (an eager block, a captured block)
+CAPTURED_BLOCK = 3   # steps a timed block: one run_steps chunk
 # the hand-written kernels by the name the profiler records
 K2_NAMES = {"K2a": r"xent_fwd", "K2b": r"xent_bwd"}
 K1_NAMES = {"K1a": r"flash_fwd", "K1b": r"flash_dkv", "K1c": r"flash_dq"}
@@ -5298,6 +5327,9 @@ def run_op(op_type, attrs, inputs, out_slot, cot=None):
 
 # DCGAN's generator transposes: (C_in, C_out, input size)
 DCGAN = [(1024, 512, 4), (512, 256, 7), (256, 128, 13)]
+# the 3-D cases' batch: 4 clips (at 8 their float64 CPU references took
+# most of the phase's time)
+C3D_BATCH = 4
 
 
 def conv_family_cases():
@@ -5306,9 +5338,10 @@ def conv_family_cases():
     -> 128 channels, 5 x 5, stride 2 from 4 x 4, batch 64; padding 2, so
     4 -> 7 -> 13 -> 25 without an output size), a depthwise transpose
     [64, 256, 32, 32] (groups 256, 4 x 4, stride 2), C3D's conv2/pool2
-    (Tran et al. 2015: [8, 64, 16, 56, 56] -> 128 channels, 3^3, pad 1;
-    pool 2^3) and a 3-D transpose [8, 128, 8, 28, 28] -> 64, 2^3, stride
-    2. Yields (name, op, input shape, filter shape, attrs, slot)."""
+    (Tran et al. 2015: [C3D_BATCH, 64, 16, 56, 56] -> 128 channels, 3^3,
+    pad 1; pool 2^3) and a 3-D transpose [C3D_BATCH, 128, 8, 28, 28] ->
+    64, 2^3, stride 2. Yields (name, op, input shape, filter shape, attrs,
+    slot)."""
     t2 = {"strides": [2, 2], "paddings": [2, 2], "dilations": [1, 1],
           "groups": 1}
     for ci, co, hw in DCGAN:
@@ -5318,16 +5351,19 @@ def conv_family_cases():
            (64, 256, 32, 32), (256, 1, 4, 4),
            {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
             "groups": 256}, "Output")
-    yield ("c3d_conv2", "conv3d", (8, 64, 16, 56, 56), (128, 64, 3, 3, 3),
+    yield ("c3d_conv2", "conv3d", (C3D_BATCH, 64, 16, 56, 56),
+           (128, 64, 3, 3, 3),
            {"strides": [1] * 3, "paddings": [1] * 3, "dilations": [1] * 3,
             "groups": 1}, "Output")
     for ptype in ("max", "avg"):
-        yield ("c3d_pool2_" + ptype, "pool3d", (8, 128, 16, 56, 56), None,
+        yield ("c3d_pool2_" + ptype, "pool3d", (C3D_BATCH, 128, 16, 56, 56),
+               None,
                {"pooling_type": ptype, "ksize": [2] * 3, "strides": [2] * 3,
                 "paddings": [0] * 3}, "Out")
-    yield ("conv3d_transpose", "conv3d_transpose", (8, 128, 8, 28, 28),
-           (128, 64, 2, 2, 2), {"strides": [2] * 3, "paddings": [0] * 3,
-                                "dilations": [1] * 3, "groups": 1}, "Output")
+    yield ("conv3d_transpose", "conv3d_transpose",
+           (C3D_BATCH, 128, 8, 28, 28), (128, 64, 2, 2, 2),
+           {"strides": [2] * 3, "paddings": [0] * 3, "dilations": [1] * 3,
+            "groups": 1}, "Output")
 
 
 def conv_flop(op_type, x_shape, w_shape, out_shape):
@@ -5369,8 +5405,11 @@ def conv_family_phase():
                                            / np.sqrt(np.prod(ws[1:])))
         for v in ref_in.values():
             v.requires_grad_(True)
-        want, _ = run_op(op, attrs, ref_in, slot)
-        cot = bf16_values(np.random.RandomState(99).randn(*want.shape))
+        # the output's shape from a float32 run on the card: the float64
+        # reference runs once, with the cotangent
+        shape = run_op(op, attrs, {k: v.detach().to(dev, torch.float32)
+                                   for k, v in ref_in.items()}, slot)[0].shape
+        cot = bf16_values(np.random.RandomState(99).randn(*shape))
         want, want_g = run_op(op, attrs, ref_in, slot, cot)
         want = want.detach().numpy()
         want_g = {k: g.numpy() for k, g in want_g.items()}
@@ -5542,6 +5581,7 @@ def tail_device_ms(exe, main, fetch, scope, feed, reps=20):
     run back to back with no host gap between launches; CUPTI's busy ms
     and kernel count of one replay beside it."""
     import paddle_tpu_torch.executor as ex
+    from paddle_tpu_torch.serving.captured import gc_paused
 
     names = fetch_names(fetch)
     opt = exe._maybe_optimize(main, names, scope)
@@ -5580,7 +5620,8 @@ def tail_device_ms(exe, main, fetch, scope, feed, reps=20):
             inner(seg, nxt, seen["trace"], offset)
         graph = torch.cuda.CUDAGraph()
         side.wait_stream(torch.cuda.current_stream())
-        with torch.no_grad(), torch.cuda.graph(graph, stream=side):
+        with torch.no_grad(), gc_paused(), torch.cuda.graph(graph,
+                                                            stream=side):
             inner(seg, dict(env), seen["trace"], offset)
         torch.cuda.current_stream().wait_stream(side)
         graph.replay()
@@ -10460,6 +10501,681 @@ def op_remainder_phase(k4_rows):
          registered=len(registered_ops()), **secs)
 
 
+# -- the model's lifecycle ----------------------------------------------------
+
+# the BERT feed's fields, in the order one example's bytes hold them
+BERT_RECORD = (("ids", "int64", (BERT_SEQ,)), ("pos", "int64", (BERT_SEQ,)),
+               ("sent", "int64", (BERT_SEQ,)),
+               ("mask", "float32", (BERT_SEQ,)),
+               ("mpos", "int64", (BERT_MASK,)),
+               ("mlbl", "int64", (BERT_MASK, 1)), ("nsp", "int64", (1,)))
+RESUME_STEPS = 6       # checkpoint_resume: the uninterrupted run's steps
+RESUME_AT = 3          # the step the checkpoint is saved after
+
+
+def bert_examples(feed):
+    """One batch of ``bert_feed`` as per-example raw byte records (each
+    field's row in ``BERT_RECORD`` order)."""
+    n = feed["ids"].shape[0]
+    per = {k: np.asarray(feed[k]).reshape((n,) + shape)
+           for k, _, shape in BERT_RECORD}
+    return [b"".join(per[k][i].tobytes() for k, _, _ in BERT_RECORD)
+            for i in range(n)]
+
+
+def bert_batch_feed(records):
+    """The feed dict of a batch of ``bert_examples`` records."""
+    cols = {k: [] for k, _, _ in BERT_RECORD}
+    for rec in records:
+        off = 0
+        for k, dt, shape in BERT_RECORD:
+            size = int(np.prod(shape)) * np.dtype(dt).itemsize
+            cols[k].append(np.frombuffer(rec, dt, int(np.prod(shape)), off)
+                           .reshape(shape))
+            off += size
+    out = {k: np.stack(v) for k, v in cols.items()}
+    out["mlbl"] = out["mlbl"].reshape(-1, 1)
+    return out
+
+
+def checkpoint_resume_phase(xent_rows):
+    """``checkpoint_resume``: BERT-base pretraining under AMP at full width
+    (batch 32 x 128, dropout 0.1, Adam(1e-4)), fed from a record file:
+    ``RESUME_STEPS`` seeded batches written as one record an example by
+    ``recordio.write_records`` and read back through ``recordio_reader`` →
+    ``reader.batch`` into ``ParallelExecutor(use_cuda=True).run`` (a
+    captured step: two eager warm-ups, a capture, replays), each batch
+    byte for byte the one written. Run A trains ``RESUME_STEPS`` steps
+    uninterrupted. Run B, a fresh program, scope and ParallelExecutor from
+    A's start state, trains ``RESUME_AT`` steps and ``save_checkpoint``s
+    with ``{"step": RESUME_AT}``; run C, fresh again, ``load_checkpoint``s,
+    sets ``main._tpu_step_counter`` from the trainer args and trains the
+    rest. B's and C's losses and C's persistables must equal A's bit for
+    bit, K2a and K2b launch in every run, and a load into A's scope after
+    A's capture (counter set back) must repeat A's last steps bit for bit
+    through A's graph (``io.load_vars`` of the checkpoint's files, which
+    leaves A's program and its captured step as they are, so the replays
+    copy the loaded tensors into the graph's state; ``load_checkpoint``
+    bumps the program's version and captures anew). With
+    ``io.save_checkpoint@2=fatal`` armed the second
+    save raises and leaves an unpublished staging dir, which
+    ``load_checkpoint`` skips. Reports the checkpoint's bytes, the save and
+    load seconds and the fsync's share of the save."""
+    import warnings
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as fio
+    from paddle_tpu_torch import recordio
+    from paddle_tpu_torch.monitor import metrics
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+    from paddle_tpu_torch.reliability import faults
+
+    t_leg = time.perf_counter()
+    dev = fluid.CUDAPlace(0)
+    tmp = tempfile.mkdtemp()
+    feeds = [bert_feed(BERT_BATCH, seed=100 + i) for i in range(RESUME_STEPS)]
+    rio = os.path.join(tmp, "bert.rio")
+    t0 = time.perf_counter()
+    n_rec = recordio.write_records(
+        rio, (r for f in feeds for r in bert_examples(f)))
+    write_s = time.perf_counter() - t0
+    check(n_rec == RESUME_STEPS * BERT_BATCH,
+          "checkpoint_resume: %d records written" % n_rec)
+
+    def batches(skip=0):
+        reader = fluid.reader.batch(recordio.recordio_reader(rio), BERT_BATCH)
+        for i, recs in enumerate(reader()):
+            if i >= skip:
+                yield bert_batch_feed(recs)
+
+    for got, want in zip(batches(), feeds):
+        check(all(got[k].dtype == want[k].dtype
+                  and np.array_equal(got[k], want[k]) for k in want),
+              "checkpoint_resume: a batch read back from the record file "
+              "differs from the one written")
+
+    def parallel(main, loss, scope):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            return fluid.ParallelExecutor(True, loss_name=loss.name,
+                                          main_program=main, scope=scope)
+
+    def train(pe, loss, source, n):
+        sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+        losses = []
+        for _, f in zip(range(n), source):
+            losses.append(float(np.asarray(pe.run([loss], feed=f)[0])
+                                .reshape(-1)[0]))
+        torch.cuda.synchronize()
+        return losses, (sx.LAUNCHES_FWD, sx.LAUNCHES_BWD)
+
+    main_a, startup_a, loss_a = build_bert(fluid, True)
+    scope_a = fluid.Scope()
+    fluid.Executor(dev).run(startup_a, scope=scope_a)
+    start = clone_scope(fluid, scope_a)
+    pe_a = parallel(main_a, loss_a, scope_a)
+    losses_a, k2_a = train(pe_a, loss_a, batches(), RESUME_STEPS)
+    final_a = clone_scope(fluid, scope_a)
+
+    main_b, _, loss_b = build_bert(fluid, True)
+    scope_b = clone_scope(fluid, start)
+    pe_b = parallel(main_b, loss_b, scope_b)
+    losses_b, k2_b = train(pe_b, loss_b, batches(), RESUME_AT)
+    ckpt = os.path.join(tmp, "ckpt")
+    fsync_s = [0.0]
+    fsync_tree = fio._fsync_tree
+
+    def timed_fsync(path):
+        t = time.perf_counter()
+        fsync_tree(path)
+        fsync_s[0] += time.perf_counter() - t
+
+    faults.install(faults.FaultPlan.parse("io.save_checkpoint@2=fatal"))
+    fio._fsync_tree = timed_fsync
+    try:
+        with fluid.scope_guard(scope_b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serial = fluid.io.save_checkpoint(
+                pe_b._exe, ckpt, main_b, trainer_args={"step": RESUME_AT})
+            save_s = time.perf_counter() - t0
+            torn = None
+            try:
+                fluid.io.save_checkpoint(pe_b._exe, ckpt, main_b,
+                                         trainer_args={"step": -1})
+            except faults.InjectedFault as e:
+                torn = str(e)
+    finally:
+        fio._fsync_tree = fsync_tree
+        faults.clear()
+    pe_b._exe.close()
+    ck0 = os.path.join(ckpt, "checkpoint_%d" % serial)
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ck0, f))
+                     for f in os.listdir(ck0))
+    names = sorted(os.listdir(ckpt))
+    check(torn is not None and serial == 0 and len(names) == 2
+          and names[0] == "checkpoint_0"
+          and names[1].startswith("checkpoint_1.tmp."),
+          "checkpoint_resume: the armed second save left %r (raised %r)"
+          % (names, torn))
+    check(not any(t.dtype == torch.bfloat16 for t in scope_b.vars.values()
+                  if isinstance(t, torch.Tensor)),
+          "checkpoint_resume: a bfloat16 persistable in the AMP scope")
+
+    main_c, startup_c, loss_c = build_bert(fluid, True)
+    scope_c = fluid.Scope()
+    exe_c = fluid.Executor(dev)
+    exe_c.run(startup_c, scope=scope_c)
+    with fluid.scope_guard(scope_c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        args = fluid.io.load_checkpoint(exe_c, ckpt, main_c)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    check(args == {"trainer_id": 0, "step": RESUME_AT},
+          "checkpoint_resume: load_checkpoint gave %r (the torn serial not "
+          "skipped?)" % (args,))
+    main_c._tpu_step_counter = args["step"]
+    pe_c = parallel(main_c, loss_c, scope_c)
+    losses_c, k2_c = train(pe_c, loss_c, batches(RESUME_AT),
+                           RESUME_STEPS - RESUME_AT)
+    _, err_c, equal_c = state_norm_err(scope_c, final_a)
+    pe_c._exe.close()
+
+    # A again: the checkpoint's files into the scope whose tensors A's
+    # graph holds (io.load_vars of its index: A's program and its captured
+    # step stay as they are), the counter back; the next steps replay A's
+    # graph, which must first copy the loaded tensors into its state
+    cap, = pe_a._exe._captured.values()
+    graph_before, caps0 = cap.graph, metrics.CAPTURES.value
+    with fluid.scope_guard(scope_a):
+        fluid.io.load_vars(pe_a._exe, ck0)
+    main_a._tpu_step_counter = args["step"]
+    again, k2_again = train(pe_a, loss_a, batches(RESUME_AT),
+                            RESUME_STEPS - RESUME_AT)
+    _, err_again, equal_again = state_norm_err(scope_a, final_a)
+    check(list(pe_a._exe._captured.values()) == [cap]
+          and cap.graph is graph_before and graph_before is not None
+          and metrics.CAPTURES.value == caps0 and k2_again == (0, 0),
+          "checkpoint_resume: the load into A's scope did not replay A's "
+          "graph (captured steps %d, captures %d, K2 host launches %r)"
+          % (len(pe_a._exe._captured), metrics.CAPTURES.value - caps0,
+             k2_again))
+    pe_a._exe.close()
+    resumed = losses_b + losses_c
+    emit("checkpoint_resume", nvidia_smi=SMI[0], program="bench_bert "
+         "(BERT-base, AMP, dropout 0.1)", batch=BERT_BATCH, seq=BERT_SEQ,
+         steps=RESUME_STEPS, resume_at=RESUME_AT, records=n_rec,
+         record_file_bytes=os.path.getsize(rio), record_write_s=write_s,
+         losses_uninterrupted=losses_a, losses_resumed=resumed,
+         losses_reloaded_into_a=again,
+         bit_equal=bool(resumed == losses_a and equal_c),
+         reload_into_captured_bit_equal=bool(
+             again == losses_a[RESUME_AT:] and equal_again),
+         state_normwise_err=err_c, state_normwise_err_reload=err_again,
+         k2_host_launches={"a": k2_a, "b": k2_b, "c": k2_c,
+                           "a_reloaded": k2_again},
+         checkpoint_bytes=ckpt_bytes, save_s=save_s, load_s=load_s,
+         fsync_s=fsync_s[0], fsync_share_of_save=fsync_s[0] / save_s,
+         torn_serial_skipped=True, fault=torn,
+         leg_s=time.perf_counter() - t_leg)
+    check(resumed == losses_a and equal_c,
+          "checkpoint_resume: resumed losses %r against %r, state "
+          "norm-wise %.3g (bit-equal %s)" % (resumed, losses_a, err_c,
+                                             equal_c))
+    check(again == losses_a[RESUME_AT:] and equal_again,
+          "checkpoint_resume: reloaded into A %r against %r, state %.3g"
+          % (again, losses_a[RESUME_AT:], err_again))
+    # host counts: the two eager warm-ups and the capture, at both shapes
+    check(all(min(k) > 0 for k in (k2_a, k2_b, k2_c)),
+          "checkpoint_resume: K2 host launches %r / %r / %r"
+          % (k2_a, k2_b, k2_c))
+    for row, i in zip(xent_rows, (0, 1)):
+        row.setdefault("lifecycle_launches", {})["checkpoint_resume"] = \
+            k2_a[i] + k2_b[i] + k2_c[i]
+    shutil.rmtree(tmp, ignore_errors=True)
+    del start, final_a, scope_a, scope_b, scope_c
+    torch.cuda.empty_cache()
+
+
+QAT_STEPS = 4          # qat_resnet50: eager and captured steps
+QAT_TURNS = 2          # timed turns of (QAT block, fp32 block)
+QAT_CHECK_BATCH = 8    # the frozen program's card-against-CPU batch
+CALIB_BATCHES = 2      # calibration batches of QAT_CHECK_BATCH images
+
+
+def build_resnet_qat(fluid, qat):
+    """ResNet-50 as bench_resnet50 builds it (float32, Momentum(0.1,
+    0.9)), with its inference clone taken before the optimizer; ``qat``
+    transpiles it first (``QuantizeTranspiler``, abs-max weights,
+    moving-average activations). Returns (main, startup, test, loss,
+    logits, transpiler)."""
+    from paddle_tpu_torch.models import resnet as rn
+
+    main, startup = fluid.Program(), fluid.Program()
+    t = None
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", shape=[3, RESNET_IMAGE, RESNET_IMAGE])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        logits, loss, _ = rn.resnet(img, label, depth=50,
+                                    class_num=RESNET_CLASSES)
+        if qat:
+            t = fluid.contrib.QuantizeTranspiler(
+                activation_quantize_type="moving_average_abs_max")
+            t.training_transpile(main, startup)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Momentum(0.1, 0.9).minimize(loss)
+    return main, startup, test, loss, logits, t
+
+
+def card_cpu_op_trace(program, card_scope, cpu_scope, feed, dev, fetch):
+    """The forward ``program`` op by op on the card; after each op the
+    same op on the CPU, on CPU copies of the inputs the card's op read.
+    Also the whole forward on the CPU from ``cpu_scope``. Returns (by op
+    type: the ops, how many gave the card's bits on the CPU, the largest
+    norm-wise difference of an output, and for the quantizers the elements
+    whose level differs between the card's and the CPU's whole forwards;
+    {name: (card's, CPU's)} of each ``fetch`` name from the whole
+    forwards, as arrays)."""
+    from paddle_tpu_torch.core.dtypes import to_torch_dtype
+    from paddle_tpu_torch.core.interpreter import run_block_ops
+    from paddle_tpu_torch.executor import TraceContext
+
+    block = program.global_block
+    cpu = torch.device("cpu")
+
+    def env_of(scope, device):
+        env = {v.name: scope.find_var(v.name) for v in program.list_vars()
+               if v.persistable and scope.find_var(v.name) is not None}
+        for k, a in feed.items():
+            env[k] = torch.as_tensor(a).to(
+                device=device, dtype=to_torch_dtype(block.var(k).dtype))
+        return env
+
+    card, whole_cpu = env_of(card_scope, dev), env_of(cpu_scope, cpu)
+    t_card = TraceContext(program, True, dev, 0)
+    t_cpu = TraceContext(program, True, cpu, 0)
+    by_type = {}
+    with torch.no_grad():
+        run_block_ops(block.ops, whole_cpu, t_cpu)
+        for i, op in enumerate(block.ops):
+            ins = {n: card[n] for n in op.input_arg_names if n in card}
+            run_block_ops([op], card, t_card, offset=i)
+            local = {n: v.cpu() for n, v in ins.items()}
+            run_block_ops([op], local, t_cpu, offset=i)
+            row = by_type.setdefault(op.type, {
+                "ops": 0, "bit_equal": 0, "max_normwise_err": 0.0})
+            row["ops"] += 1
+            equal = True
+            for n in op.output_arg_names:
+                if n not in card:  # an output the op leaves unset
+                    continue
+                got, want = card[n].cpu(), local[n]
+                equal = equal and torch.equal(got, want)
+                d = float(torch.linalg.vector_norm((got - want).double()))
+                w = float(torch.linalg.vector_norm(want.double()))
+                row["max_normwise_err"] = max(row["max_normwise_err"],
+                                              d / max(w, 1e-30))
+            row["bit_equal"] += int(equal)
+            if op.type.startswith("fake_quantize"):
+                out = op.output("Out")[0]
+                row["levels_differing_whole_forward"] = row.get(
+                    "levels_differing_whole_forward", 0) + int(
+                    (card[out].cpu() != whole_cpu[out]).sum())
+                row["elements"] = row.get("elements", 0) + card[out].numel()
+    return by_type, {n: (card[n].cpu().numpy(), whole_cpu[n].numpy())
+                     for n in fetch}
+
+
+def qat_resnet50_phase(xent_rows):
+    """``qat_resnet50``: ResNet-50 at full width in float32 (batch 64 x 224,
+    cuDNN's deterministic algorithms, TF32 off) with quantization-aware
+    training (``QuantizeTranspiler.training_transpile``: a fake quant +
+    dequant pair on every conv2d and mul input, moving-average activation
+    scales as persistable state). ``QAT_STEPS`` eager steps and the same
+    steps captured (``run_steps``) from one start must agree bit for bit,
+    losses and state, K2a/K2b launching; captured QAT and captured fp32
+    steps are timed in turns. ``freeze_program`` then puts the weights on
+    the int grid and the activation quantizers on their frozen scales.
+    The card = CPU check of the fake-quant ops is op by op
+    (``card_cpu_op_trace``): each of the frozen program's fake-quant ops,
+    run on the CPU on the inputs its card run read, must give the card's
+    bits. The logits of the whole frozen forward on the card against the
+    CPU's (same state and feed) are reported with the quantized levels
+    that differ between the two forwards: the batch norms part by ulps,
+    and a value at a level's edge rounds to another level.
+    ``convert_to_int8`` stores every conv and fc weight as int8 on the
+    card. Last the ``Calibrator`` (``abs_max`` and ``KL``)
+    calibrates the fp32 inference program over ``CALIB_BATCHES`` batches
+    and the top-1 labels of a seeded batch are counted against fp32's."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.executor import WARMUP_STEPS
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    t_leg = time.perf_counter()
+    prev = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = True
+    dev = fluid.CUDAPlace(0)
+    main, startup, test, loss, logits, qt = build_resnet_qat(fluid, True)
+    n_fake = sum(op.type.startswith("fake_") for op in main.global_block.ops)
+    scope = fluid.Scope()
+    exe = fluid.Executor(dev)
+    exe.run(startup, scope=scope)
+    scope_c = clone_scope(fluid, scope)
+    feeds = [resnet_feed(RESNET_BATCH, seed=40 + i) for i in range(QAT_STEPS)]
+    sx.LAUNCHES_FWD = sx.LAUNCHES_BWD = 0
+    eager = [float(exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0])
+             for f in feeds]
+    k2 = (sx.LAUNCHES_FWD, sx.LAUNCHES_BWD)
+    main._tpu_step_counter = 0
+    exe_c = fluid.Executor(dev)
+    got = [float(r[0]) for r in exe_c.run_steps(
+        main, feeds, fetch_list=[loss], fetch_every=QAT_STEPS,
+        scope=scope_c)]
+    _, state_err, state_equal = state_norm_err(scope_c, scope)
+    scales = sorted(n for n in scope.vars if n.endswith(".scale"))
+    check(got == eager and state_equal and bool(np.isfinite(eager).all()),
+          "qat_resnet50: captured %r against eager %r, state %.3g (bit-"
+          "equal %s)" % (got, eager, state_err, state_equal))
+    check(k2 == (QAT_STEPS, QAT_STEPS),
+          "qat_resnet50: K2 launches %r in %d eager steps" % (k2, QAT_STEPS))
+
+    # captured QAT against captured fp32 steps, in turns
+    main_f, startup_f, test_f, loss_f, logits_f, _ = build_resnet_qat(
+        fluid, False)
+    scope_f = fluid.Scope()
+    exe.run(startup_f, scope=scope_f)
+    exe_f = fluid.Executor(dev)
+    exe_f.run_steps(main_f, feeds, fetch_list=[loss_f], scope=scope_f)
+    dfeed = {k: torch.as_tensor(v, device=dev) for k, v in feeds[0].items()}
+    times = {"qat": [], "fp32": []}
+    legs = {"qat": (exe_c, main, loss, scope_c),
+            "fp32": (exe_f, main_f, loss_f, scope_f)}
+    for _ in range(QAT_TURNS):
+        for name, (e, m, lo, sc) in legs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.run_steps(m, (dfeed for _ in range(CAPTURED_BLOCK)),
+                        steps=CAPTURED_BLOCK, fetch_list=[lo],
+                        fetch_every=CAPTURED_BLOCK, scope=sc,
+                        return_numpy=False)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / CAPTURED_BLOCK
+                               * 1e3)
+    graphs = [c.graph is not None for c in exe_c._captured.values()]
+    exe_f.close()
+
+    # freeze: card against CPU on the same state and feed
+    frozen_scope = clone_scope(fluid, scope_c)
+    exe_c.close()
+    qt.freeze_program(test, scope=frozen_scope)
+    xfeed = resnet_feed(QAT_CHECK_BATCH, seed=50)
+    cpu_scope = fluid.Scope()
+    for k, v in frozen_scope.vars.items():
+        cpu_scope.set_var(k, v.cpu() if isinstance(v, torch.Tensor) else v)
+    t0 = time.perf_counter()
+    op_trace, fetched = card_cpu_op_trace(test, frozen_scope, cpu_scope,
+                                          xfeed, dev, [logits.name])
+    trace_s = time.perf_counter() - t0
+    on_card, on_cpu = fetched[logits.name]
+    frozen_err = float(np.linalg.norm((on_card - on_cpu).astype(np.float64))
+                       / np.linalg.norm(on_cpu.astype(np.float64)))
+    frozen_top1 = int((np.argmax(on_card, 1) == np.argmax(on_cpu, 1)).sum())
+    emit("qat_resnet50_frozen_ops", nvidia_smi=SMI[0],
+         logits_card_vs_cpu=frozen_err, top1_agree=frozen_top1,
+         of=QAT_CHECK_BATCH, by_type=op_trace, seconds=trace_s)
+    quant_equal = all(r["bit_equal"] == r["ops"] for t, r in op_trace.items()
+                      if t.startswith("fake_"))
+    check(quant_equal, "qat_resnet50: a fake-quant op of the frozen program "
+          "on the card parts from the CPU on the same inputs: %r"
+          % {t: r for t, r in op_trace.items() if t.startswith("fake_")})
+    w_names = sorted({op.input("Filter")[0] if op.type == "conv2d"
+                      else op.input("Y")[0] for op in test.global_block.ops
+                      if op.type in ("conv2d", "mul")})
+    on_grid = all(bool(torch.equal(frozen_scope.find_var(w),
+                                   torch.round(frozen_scope.find_var(w))))
+                  for w in w_names)
+    converted = qt.convert_to_int8(test, scope=frozen_scope)
+    int8_ok = sorted(converted) == w_names and all(
+        frozen_scope.find_var(w).dtype == torch.int8
+        and frozen_scope.find_var(w).device.type == "cuda" for w in w_names)
+    # end to end the logits are reported, not held to 1e-5: the batch
+    # norms' and the average pool's outputs part by ulps between the card
+    # and the CPU, and a quantizer rounds a value that sits at a level's
+    # edge to another level on each (PERF.md §6)
+    check(on_grid and bool(np.isfinite(on_card).all()),
+          "qat_resnet50: frozen logits on the card %s (weights on the int "
+          "grid: %s)" % ("finite" if np.isfinite(on_card).all()
+                         else "not finite", on_grid))
+    check(int8_ok, "qat_resnet50: convert_to_int8 gave %d of %d weights"
+          % (len(converted), len(w_names)))
+    del frozen_scope, cpu_scope, scope_c
+
+    # post-training calibration of the fp32 inference program
+    calib_feeds = [resnet_feed(QAT_CHECK_BATCH, seed=60 + i)
+                   for i in range(CALIB_BATCHES)]
+    fp32_out = exe.run(test_f, feed=xfeed, fetch_list=[logits_f],
+                       scope=scope_f)[0]
+    calib = {}
+    for algo in ("abs_max", "KL"):
+        sc = clone_scope(fluid, scope_f)
+        t0 = time.perf_counter()
+        c = fluid.contrib.Calibrator(test_f, exe, scope=sc, algo=algo)
+        for f in calib_feeds:
+            c.sample_data(f)
+        qprog = c.calibrate()
+        secs = time.perf_counter() - t0
+        q_out = exe.run(qprog, feed=xfeed, fetch_list=[logits_f],
+                        scope=sc)[0]
+        agree = int((np.argmax(q_out, 1) == np.argmax(fp32_out, 1)).sum())
+        calib[algo] = {"seconds": secs, "activations": len(c._act_names),
+                       "top1_agree": agree, "of": QAT_CHECK_BATCH,
+                       "logits_normwise_diff_to_fp32": float(
+                           np.linalg.norm(q_out - fp32_out)
+                           / np.linalg.norm(fp32_out))}
+        check(bool(np.isfinite(q_out).all()),
+              "qat_resnet50: calibrated (%s) logits not finite" % algo)
+        del sc
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = prev
+    emit("qat_resnet50", nvidia_smi=SMI[0], batch=RESNET_BATCH,
+         image=RESNET_IMAGE, fake_quant_ops=n_fake, scale_vars=len(scales),
+         steps=QAT_STEPS, warmup_steps=WARMUP_STEPS, losses_eager=eager,
+         losses_captured=got, bit_equal=True, k2_launches=k2,
+         graphs=sum(graphs),
+         step_ms_captured_qat=float(np.median(times["qat"])),
+         step_ms_captured_fp32=float(np.median(times["fp32"])),
+         step_ms_turns=times,
+         qat_over_fp32=float(np.median(times["qat"])
+                             / np.median(times["fp32"])),
+         frozen_logits_card_vs_cpu=frozen_err,
+         frozen_top1_card_vs_cpu=frozen_top1,
+         frozen_levels_differing=sum(
+             r.get("levels_differing_whole_forward", 0)
+             for r in op_trace.values()),
+         frozen_quantized_elements=sum(r.get("elements", 0)
+                                       for r in op_trace.values()),
+         frozen_check_batch=QAT_CHECK_BATCH,
+         frozen_trace_s=trace_s, weights_on_int_grid=on_grid,
+         int8_weights=len(converted), calibration=calib,
+         leg_s=time.perf_counter() - t_leg)
+    for row, n in zip(xent_rows, k2):
+        row.setdefault("lifecycle_launches", {})["qat_resnet50"] = n
+    del scope, scope_f, exe
+    torch.cuda.empty_cache()
+
+
+EXPORT_BATCHES = (48, 64)   # export_bert: the artifact's batches
+EXPORT_RUNS = 3             # timed runs a batch
+
+
+def export_bert_phase(infer, pred):
+    """``export_bert``: ``inference.export_program`` of ``bert_infer``'s
+    program (BERT-base, 64 x 256 example feed, the loaded weights) with a
+    symbolic batch, ``load_program`` of the artifact, and runs at batch 48
+    and 64, whose outputs must match the ``Predictor``'s (exact batch) to
+    1e-5 norm-wise; the export seconds, the artifact's bytes and the ms a
+    run (numpy in, numpy out, as the Predictor is timed) beside the
+    Predictor's. BERT at S = 128 and 256 stays on the composed attention
+    (``FLAGS_flash_attention_min_seq`` 2048), so no kernel is on its path.
+    Then the causal LM at S = 2048 (one layer, the flash route: K1a):
+    its export must raise ``ExportRefused`` naming K1a."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.ops.kernels import _build
+
+    t_leg = time.perf_counter()
+    main, scope, out = (infer[k] for k in ("main", "scope", "out"))
+    feed = infer["feed"]
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = inference.export_program(d, BERT_FEEDS, [out], feed,
+                                        program=main, scope=scope)
+        export_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = inference.load_program(d)
+        load_s = time.perf_counter() - t0
+    check(loaded.device.type == "cuda",
+          "export_bert: the artifact's weights are on %s" % loaded.device)
+    for batch in EXPORT_BATCHES:
+        f = {k: v[:batch] for k, v in feed.items()}
+        loaded.run(f)
+        secs = []
+        for _ in range(EXPORT_RUNS):
+            t0 = time.perf_counter()
+            got, = loaded.run(f)
+            secs.append(time.perf_counter() - t0)
+        want = pred["%d_exact" % batch]["out"]
+        rel = float(np.linalg.norm((got - want).astype(np.float64))
+                    / np.linalg.norm(want.astype(np.float64)))
+        res[batch] = {"run_ms_median": float(np.median(secs)) * 1e3,
+                      "run_ms": [x * 1e3 for x in secs],
+                      "predictor_run_ms_median":
+                          pred["%d_exact" % batch]["run_ms_median"],
+                      "normwise_rel_err_to_predictor": rel,
+                      "max_abs_diff_to_predictor":
+                          float(np.abs(got - want).max())}
+        check(got.shape == (batch, 768) and rel <= 1e-5,
+              "export_bert at batch %d: %s, %.3g from the Predictor "
+              "norm-wise" % (batch, got.shape, rel))
+    del loaded
+    # the flash route: the export meets K1a and refuses, naming it
+    lm, lm_startup, lm_loss = build_causal_lm(fluid, LONGCTX_SEQ, False,
+                                              dropout=0.0, n_layer=1)
+    lm_scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(lm_startup, scope=lm_scope)
+    refused = None
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            inference.export_program(d, ["ids", "lbl"], [lm_loss],
+                                     longctx_feed(2, LONGCTX_SEQ),
+                                     program=lm, scope=lm_scope)
+        except _build.ExportRefused as e:
+            refused = str(e)
+    check(refused is not None and "K1a (flash_fwd)" in refused,
+          "export_bert: the causal LM's export did not refuse K1a: %r"
+          % refused)
+    emit("export_bert", nvidia_smi=SMI[0], model="bench_bert_infer program "
+         "(BERT-base, loaded weights, float32)", symbolic_batch=True,
+         example_batch=BERT_INFER_BATCH, export_s=export_s,
+         artifact_bytes=size, load_s=load_s, batches=res,
+         tol="1e-5 norm-wise", causal_lm_refused=refused,
+         leg_s=time.perf_counter() - t_leg)
+    del lm_scope
+    torch.cuda.empty_cache()
+
+
+def op_harness_cases():
+    """(op, inputs, attrs, output slots) for ``op_harness``: the 7
+    fake-quant ops (training and test mode) and a handful of dense ops, at
+    small shapes."""
+    rng = np.random.RandomState(70)
+
+    def r(*s, scale=1.0):
+        return (rng.randn(*s) * scale).astype("float32")
+
+    state = {"InScale": np.asarray([1.5], "float32"),
+             "InAccum": np.asarray([2.0], "float32"),
+             "InState": np.asarray([1.9], "float32")}
+    window = np.zeros(16, "float32")
+    window[:4] = [0.5, 3.0, 1.0, 2.0]
+    yield ("fake_quantize_abs_max", {"X": r(64, 256, scale=3.0)},
+           {"bit_length": 8}, ["Out", "OutScale"])
+    yield ("fake_channel_wise_quantize_abs_max", {"X": r(64, 32, 3, 3)},
+           {"bit_length": 8}, ["Out", "OutScale"])
+    for test in (False, True):
+        yield ("fake_quantize_range_abs_max",
+               {"X": r(64, 256), "InScale": np.asarray([2.5], "float32"),
+                "Iter": np.asarray([21], "int64"), "OutScales": window},
+               {"bit_length": 8, "window_size": 16, "is_test": test},
+               ["Out"] if test else ["Out", "OutScale", "OutScales"])
+        for op in ("fake_quantize_moving_average_abs_max",
+                   "fake_quantize_dequantize_moving_average_abs_max"):
+            yield (op, dict(state, X=r(32, 64, 7, 7)),
+                   {"bit_length": 8, "moving_rate": 0.9, "is_test": test},
+                   ["Out"] if test else ["Out", "OutScale", "OutAccum",
+                                         "OutState"])
+    yield ("fake_dequantize_max_abs",
+           {"X": np.round(r(64, 256, scale=40)),
+            "Scale": np.asarray([3.0], "float32")}, {"max_range": 127.0},
+           ["Out"])
+    yield ("fake_channel_wise_dequantize_max_abs",
+           {"X": np.round(r(64, 32, 3, 3, scale=40)),
+            "Scales": [("s0", np.abs(r(64)) + 0.1),
+                       ("s1", np.asarray([2.0], "float32"))]},
+           {"quant_bits": [8, 8]}, ["Out"])
+    yield ("mul", {"X": r(64, 256), "Y": r(256, 128)}, {}, ["Out"])
+    yield ("softmax", {"X": r(64, 1000)}, {}, ["Out"])
+    yield ("layer_norm", {"X": r(32, 128, 768), "Scale": r(768),
+                          "Bias": r(768)},
+           {"begin_norm_axis": 2, "epsilon": 1e-12}, ["Y"])
+    yield ("elementwise_add", {"X": r(32, 128, 768), "Y": r(768)},
+           {"axis": -1}, ["Out"])
+    yield ("gelu", {"X": r(32, 3072)}, {}, ["Out"])
+    yield ("relu", {"X": r(64, 256, 14, 14)}, {}, ["Out"])
+
+
+def op_harness_phase():
+    """``op_harness``: the port's per-op harness on the card. For each case
+    of ``op_harness_cases`` the op runs on the CPU (``run_op(...,
+    place=CPUPlace())``) and ``OpTest.check_output`` holds the card's run
+    to it (1e-5 relative and absolute; the quantized grids exactly, which
+    the same tolerance demands of integers); ``check_grad`` (autograd
+    against central differences, float64) runs on the card for tanh and
+    the dequant op."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.testing import OpTest, op_test
+
+    t_leg = time.perf_counter()
+    cpu, card = fluid.CPUPlace(), fluid.CUDAPlace(0)
+    rows = []
+    for op, inputs, attrs, outs in op_harness_cases():
+        want = op_test.run_op(op, inputs, outs, attrs, place=cpu)
+        case = type("Case", (OpTest,), {
+            "op_type": op, "inputs": inputs, "attrs": attrs,
+            "outputs": {s: want[s].numpy() for s in outs}})()
+        case.check_output(atol=1e-5, rtol=1e-5, place=card)
+        got = op_test.run_op(op, inputs, outs, attrs, place=card)
+        rows.append({"op": op, "is_test": bool(attrs.get("is_test", False)),
+                     "max_abs_diff": max(float((got[s].cpu() - want[s])
+                                               .abs().max()) for s in outs)})
+    grads = []
+    for op, inputs, attrs in (
+            ("tanh", {"X": np.random.RandomState(71).randn(3, 4)
+                      .astype("float32")}, {}),
+            ("fake_dequantize_max_abs",
+             {"X": np.random.RandomState(72).randn(3, 3).astype("float32"),
+              "Scale": np.asarray([2.0], "float32")},
+             {"max_range": 127.0})):
+        op_test.check_grad(op, inputs, ["X"], "Out", attrs, place=card)
+        grads.append(op)
+    emit("op_harness", nvidia_smi=SMI[0], cases=rows, check_grad=grads,
+         tol={"rtol": 1e-5, "atol": 1e-5}, leg_s=time.perf_counter() - t_leg)
+
+
 def diagnose(args):
     """``--recipe-bisect [--deterministic] NAME...``: ``recipe_bisect`` of
     each recipe ("lamb", "adamw", "adam"; run ``--deterministic`` with
@@ -10532,6 +11248,7 @@ def main():
     timed(resnet_train_phase, xent_rows, amp=False)
     timed(resnet_train_phase, xent_rows, amp=True)
     timed(resnet_parity_phase)
+    timed(qat_resnet50_phase, xent_rows)
     timed(mnist_train_phase, xent_rows)
     timed(vgg_train_phase, xent_rows, amp=False)
     timed(vgg_train_phase, xent_rows, amp=True)
@@ -10550,9 +11267,11 @@ def main():
     with tempfile.TemporaryDirectory() as ckpt:
         timed(bert_train_phase, xent_rows, amp=True, ckpt_dir=ckpt)
         timed(bert_train_phase, xent_rows, amp=False)
+        timed(checkpoint_resume_phase, xent_rows)
         infer = timed(bert_infer_phase, ckpt)
-    timed(bert_predictor_phase, infer)
-    del infer
+    pred = timed(bert_predictor_phase, infer)
+    timed(export_bert_phase, infer, pred)
+    del infer, pred
     timed(bert_parity_phase)
     timed(lookup_determinism, dev)
     timed(bert_recipe_train_phase, xent_rows)
@@ -10562,6 +11281,7 @@ def main():
     timed(sequence_models_phase, xent_rows, k4_rows)
     timed(control_flow_phase, xent_rows)
     timed(op_remainder_phase, k4_rows)
+    timed(op_harness_phase)
     # the card again, so the end of a long log still names it
     emit("phase_seconds", nvidia_smi=smi, total=time.perf_counter() - t0,
          **phase_s)

@@ -45,6 +45,13 @@ Ported so far:
   ``StaticRNN``, ``DynamicRNN``), the tensor arrays and the batched beam
   search (:mod:`.layers.beam_search`, re-exported by
   :mod:`.contrib.decoder`).
+* the model's lifecycle: rotating checkpoints (``io.save_checkpoint``,
+  ``load_checkpoint``), record files (:mod:`.recordio`, over the port's
+  own C++ library in :mod:`.native`), :class:`ParallelExecutor`, the
+  transpilers, :mod:`.debugger`, ``inference.export_program``
+  (``torch.export``), the per-op harness (:mod:`.testing`) and
+  quantization: the fake-quant ops, ``contrib.QuantizeTranspiler``,
+  ``contrib.slim`` and the int8 ``contrib.Calibrator``.
 
 A Fluid script runs unchanged with::
 
@@ -56,6 +63,7 @@ from . import (  # noqa: F401
     contrib,
     data,
     dataset,
+    debugger,
     evaluator,
     initializer,
     io,
@@ -95,6 +103,7 @@ from .core.framework import (  # noqa: F401
 from .core.place import CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace  # noqa: F401
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .executor import Executor, FetchHandle  # noqa: F401
+from .parallel_executor import ParallelExecutor  # noqa: F401
 from .reader.py_reader import EOFException  # noqa: F401
 from .flags import flags, get_flag, set_flag  # noqa: F401
 from .layers.layer_helper import ParamAttr, WeightNormParamAttr  # noqa: F401
@@ -111,4 +120,5 @@ __all__ = ["serving", "models", "CUDAPlace", "CPUPlace", "TPUPlace",
            "passes", "transpiler", "Pass", "PassBuilder", "get_pass",
            "register_pass", "registered_passes", "reader", "dataset",
            "metrics", "evaluator", "data", "DataFeeder", "AsyncExecutor",
-           "DataFeedDesc", "EOFException"]
+           "DataFeedDesc", "EOFException", "ParallelExecutor", "contrib",
+           "debugger"]

@@ -102,7 +102,7 @@ from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .monitor import metrics
 from .reader.prefetcher import CAPTURE_LOCK, DevicePrefetcher
 from .reader.py_reader import EOFException
-from .serving.captured import end_failed_capture
+from .serving.captured import end_failed_capture, gc_paused
 
 __all__ = ["Executor", "FeedError", "FetchHandle", "global_scope",
            "scope_guard"]
@@ -1099,8 +1099,10 @@ class _CapturedStep:
             graph = torch.cuda.CUDAGraph()
             for gen, _ in plan.generators.values():
                 graph.register_generator_state(gen)
-            # no prefetcher worker issues CUDA work during the capture
-            with CAPTURE_LOCK, torch.cuda.graph(graph, stream=exe._stream()):
+            # no prefetcher worker issues CUDA work during the capture, and
+            # the collector frees no dead graph in it (serving/captured.py)
+            with CAPTURE_LOCK, gc_paused(), torch.cuda.graph(
+                    graph, stream=exe._stream()):
                 fn()
             graphs.append(graph)
             return graph

@@ -26,8 +26,22 @@ cannot redraw, so a run that must start from the same weights copies them
 programs with the same layer functions and the same name generator, so
 their var names match one for one.
 
-Left out against the JAX package: the rotating checkpoints and preemption
-resume (``CheckpointConfig``, ``save_checkpoint``, ``load_checkpoint``).
+The rotating checkpoints (:func:`save_checkpoint`, :func:`load_checkpoint`,
+:func:`clean_checkpoint`, :class:`CheckpointConfig`) follow the JAX
+package's line for line: ``checkpoint_<serial>/`` directories of
+``save_persistables`` files, ``trainer_args.json`` and a ``_SUCCESS``
+mark, staged per trainer and process, fsync'd, published by one
+``os.replace``, rotated by trainer 0 only, with the fault site
+``io.save_checkpoint``. A checkpoint written by either package loads in
+the other.
+
+A bit-equal resume needs one more thing from the caller: the executor
+seeds each random op from (seed, step, op), and the step counts on the
+program (``program._tpu_step_counter``), not in the scope, so after
+:func:`load_checkpoint` set ``main._tpu_step_counter =
+trainer_args["step"]`` (the step the checkpoint was saved after), as the
+JAX package's supervisor does. :func:`load_checkpoint` does not set it,
+as the JAX package's does not.
 """
 
 from __future__ import annotations
@@ -36,6 +50,7 @@ import glob
 import json
 import os
 import re
+import shutil
 from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -58,6 +73,10 @@ __all__ = [
     "save_inference_model",
     "load_inference_model",
     "state_from_numpy",
+    "CheckpointConfig",
+    "save_checkpoint",
+    "load_checkpoint",
+    "clean_checkpoint",
 ]
 
 _COMBINED_DEFAULT = "__params__"
@@ -302,3 +321,170 @@ def state_from_numpy(program, arrays: Mapping[str, np.ndarray],
         scope.set_var(name, torch.tensor(arr).to(
             device=dev, dtype=to_torch_dtype(var.dtype)))
     return scope
+
+
+# -- rotating checkpoints + preemption resume ---------------------------------
+# (reference: contrib/trainer.py CheckpointConfig:100 + the Trainer's
+# _save_checkpoint/_load_checkpoint)
+
+_CKPT_PREFIX = "checkpoint_"
+_SUCCESS_MARK = "_SUCCESS"
+
+
+class CheckpointConfig:
+    """reference: contrib/trainer.py:100."""
+
+    def __init__(self, checkpoint_dir=None, max_num_checkpoints=3,
+                 epoch_interval=1, step_interval=10):
+        self.checkpoint_dir = checkpoint_dir or os.getcwd()
+        self.max_num_checkpoints = max_num_checkpoints
+        self.epoch_interval = epoch_interval
+        self.step_interval = step_interval
+
+
+def _fsync_path(path):
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _fsync_tree(dirpath):
+    """fsync every file under ``dirpath`` and the directories themselves:
+    without it a host crash between the write and the ``os.replace``
+    publish can leave a _SUCCESS-marked checkpoint whose tensor payloads
+    were still unflushed page cache. Best-effort on filesystems without
+    fsync semantics."""
+    try:
+        for root, dirs, files in os.walk(dirpath):
+            for name in files:
+                _fsync_path(os.path.join(root, name))
+            for name in dirs:
+                _fsync_path(os.path.join(root, name))
+        _fsync_path(dirpath)
+    except OSError:
+        pass
+
+
+def _checkpoint_serials(checkpoint_dir):
+    if not os.path.isdir(checkpoint_dir):
+        return []
+    serials = []
+    for name in os.listdir(checkpoint_dir):
+        if name.startswith(_CKPT_PREFIX):
+            try:
+                serials.append(int(name[len(_CKPT_PREFIX):]))
+            except ValueError:
+                continue
+    return sorted(serials)
+
+
+def save_checkpoint(executor, checkpoint_dir, main_program=None,
+                    trainer_id=0, trainer_args=None, max_num_checkpoints=3):
+    """Write a new serial-numbered checkpoint of all persistables of the
+    global scope, durably and atomically: the param files, trainer_args
+    and the _SUCCESS mark land in a staging dir, everything is fsync'd
+    (files and directories), then one ``os.replace`` publishes the
+    serial. Only ``trainer_id == 0`` rotates, so concurrent savers cannot
+    delete each other's serials. ``trainer_args`` (e.g. {'step': 123,
+    'epoch': 4}) are stored for the resume. Returns the serial."""
+    serials = _checkpoint_serials(checkpoint_dir)
+    serial = (serials[-1] + 1) if serials else 0
+    final = os.path.join(checkpoint_dir, _CKPT_PREFIX + str(serial))
+    # per trainer and process: two trainers racing to one serial stage into
+    # different dirs, so neither removes the other's half-written payload
+    tmp = "%s.tmp.%d.%d" % (final, trainer_id, os.getpid())
+    if os.path.isdir(tmp):
+        shutil.rmtree(tmp)
+    save_persistables(executor, tmp, main_program)
+    # chaos drills: a fault here leaves an unpublished staging dir, the
+    # torn write load_checkpoint must skip
+    from .reliability import faults as _faults
+
+    _faults.fire("io.save_checkpoint")
+    with open(os.path.join(tmp, "trainer_args.json"), "w") as f:
+        json.dump({"trainer_id": trainer_id, **(trainer_args or {})}, f)
+    with open(os.path.join(tmp, _SUCCESS_MARK), "w") as f:
+        f.write("ok")
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_tree(tmp)
+    try:
+        os.replace(tmp, final)
+    except OSError:
+        # lost the publish race: a peer published this serial (the same
+        # state: savers hold replicas); its checkpoint serves the resume
+        shutil.rmtree(tmp, ignore_errors=True)
+        if not os.path.isfile(os.path.join(final, _SUCCESS_MARK)):
+            raise
+        return serial
+    # publish barrier: the rename itself must survive a crash
+    try:
+        _fsync_path(checkpoint_dir)
+    except OSError:
+        pass
+    if trainer_id == 0:
+        serials.append(serial)
+        for old in (serials[:-max_num_checkpoints]
+                    if max_num_checkpoints > 0 else []):
+            shutil.rmtree(
+                os.path.join(checkpoint_dir, _CKPT_PREFIX + str(old)),
+                ignore_errors=True)
+    return serial
+
+
+def load_checkpoint(executor, checkpoint_dir, main_program=None, serial=None):
+    """Restore the latest complete checkpoint (or ``serial``) into the
+    global scope, on ``executor.place``; returns the stored trainer_args
+    dict, or None when no valid checkpoint exists (train from scratch).
+
+    A serial without _SUCCESS (preempted mid-save) is skipped. One that is
+    _SUCCESS-marked but unreadable (a truncated tensor file) is logged and
+    skipped for the serial before it, whose full ``load_persistables``
+    overwrites any var the failed one set; when every marked serial fails
+    this raises.
+
+    The step counter is the caller's to set (module docstring):
+    ``main._tpu_step_counter = trainer_args["step"]``."""
+    from .log import vlog
+
+    serials = _checkpoint_serials(checkpoint_dir)
+    candidates = [serial] if serial is not None else list(reversed(serials))
+    last_exc = None
+    for s in candidates:
+        d = os.path.join(checkpoint_dir, _CKPT_PREFIX + str(s))
+        if not os.path.isfile(os.path.join(d, _SUCCESS_MARK)):
+            continue  # partial write (preempted mid-save)
+        try:
+            load_persistables(executor, d, main_program)
+        except Exception as e:
+            last_exc = e
+            vlog(0, "load_checkpoint: serial %d is _SUCCESS-marked but "
+                    "unreadable (%s: %s); falling back to the previous "
+                    "serial", s, type(e).__name__, e)
+            continue
+        try:
+            with open(os.path.join(d, "trainer_args.json")) as f:
+                return json.load(f)
+        except FileNotFoundError:
+            return {}
+    if last_exc is not None:
+        raise RuntimeError(
+            "load_checkpoint: no readable checkpoint in %r (all "
+            "_SUCCESS-marked serials failed to restore; last error: %s: %s)"
+            % (checkpoint_dir, type(last_exc).__name__, last_exc)
+        ) from last_exc
+    return None
+
+
+def clean_checkpoint(checkpoint_dir, delete_dir=False):
+    """reference: io.py clean_checkpoint."""
+    for s in _checkpoint_serials(checkpoint_dir):
+        shutil.rmtree(os.path.join(checkpoint_dir, _CKPT_PREFIX + str(s)),
+                      ignore_errors=True)
+    if delete_dir and os.path.isdir(checkpoint_dir):
+        try:
+            os.rmdir(checkpoint_dir)
+        except OSError:
+            pass

@@ -2,8 +2,9 @@
 registers every ported op: attention math, the training slice's ops, the
 sequence and recurrent families, the structured losses (the CRF, CTC,
 the sampled heads), control flow, the tensor arrays and beam search, the
-metric, vision-tail and remaining general ops, the host ops, and the
-hand-written kernels under :mod:`.kernels`."""
+metric, vision-tail and remaining general ops, the host ops, the
+fake-quantization ops, and the hand-written kernels under
+:mod:`.kernels`."""
 
 from . import (  # noqa: F401
     activation_ops,
@@ -19,6 +20,7 @@ from . import (  # noqa: F401
     misc_ops,
     nn_ops,
     optimizer_ops,
+    quantize_ops,
     reduce_ops,
     rnn_ops,
     sequence_ops,

@@ -10,10 +10,17 @@ at its next use and an unchanged one is loaded as it is.
 :func:`build_all` compiles every source at once, one ``nvcc`` process per
 file, all started together; :func:`load` builds one source on first use.
 Nothing is built when this module is imported.
+
+:func:`refuse_export` is called by every wrapper on its CUDA branch,
+before it launches its kernel: under :func:`exporting` (which
+``inference.export_program`` enters around ``torch.export``) it raises,
+naming the kernel, since ``torch.export`` cannot trace a ``ctypes`` call
+and the wrapper must not fall back to its plain version on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +32,7 @@ from pathlib import Path
 from typing import Dict
 
 __all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "build_all",
-           "load"]
+           "load", "exporting", "refuse_export", "ExportRefused"]
 
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
@@ -34,6 +41,34 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_exporting = [0]  # depth of nested exporting() blocks
+
+
+class ExportRefused(RuntimeError):
+    """An export met a hand-written kernel (its message names it)."""
+
+
+@contextlib.contextmanager
+def exporting():
+    """While this block runs, a kernel wrapper's CUDA branch raises
+    :class:`ExportRefused` instead of launching (:func:`refuse_export`)."""
+    _exporting[0] += 1
+    try:
+        yield
+    finally:
+        _exporting[0] -= 1
+
+
+def refuse_export(kernel: str) -> None:
+    """Raise :class:`ExportRefused` naming ``kernel`` inside
+    :func:`exporting`; nothing otherwise."""
+    if _exporting[0]:
+        raise ExportRefused(
+            "export_program: the step reaches the hand-written CUDA kernel "
+            "%s, a ctypes call torch.export cannot trace; it is not "
+            "replaced by its plain version on the card. Export a program "
+            "whose path on the card has no hand-written kernel, or export "
+            "on the CPU" % kernel)
 
 
 def nvcc_path() -> str:

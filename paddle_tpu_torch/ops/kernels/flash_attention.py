@@ -62,6 +62,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import _build
+
 __all__ = ["flash_attention", "FlashAttention", "SegmentIds",
            "dropout_keep_mask", "dropout_threshold", "flash_fwd",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_reference",
@@ -121,8 +123,6 @@ def bind(lib):
 def _kernels():
     global _fns
     if _fns is None:
-        from . import _build
-
         _fns = bind(_build.load("flash_attention"))
     return _fns
 
@@ -290,7 +290,9 @@ def _check(q, k, v, ab, segment_ids, dropout_rate):
     if tuple(k.shape) != (b, h, sk, d) or tuple(v.shape) != (b, h, sk, d):
         raise ValueError("k and v must be [%d,%d,Sk,%d], got shapes %s %s"
                          % (b, h, d, tuple(k.shape), tuple(v.shape)))
-    if min(b, h, sq, sk) < 1:
+    # one comparison a size: min() over a symbolic batch pins it under
+    # torch.export (inference.export_program)
+    if b < 1 or h < 1 or sq < 1 or sk < 1:
         raise ValueError("empty attention: q %s k %s"
                          % (tuple(q.shape), tuple(k.shape)))
     if not (q.dtype == k.dtype == v.dtype):
@@ -429,6 +431,7 @@ def flash_fwd(q, k, v, ab=None, segment_ids=None, causal=False,
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, ab, segment_ids, causal,
                                    sm_scale, dropout_rate, dropout_seed)
+    _build.refuse_export("K1a (flash_fwd)")
     _check_cuda(q, (("q", q), ("k", k), ("v", v), ("ab", ab)))
     o = _like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -465,6 +468,7 @@ def flash_bwd_dkv(q, k, v, ab, segment_ids, lse, do, di, causal=False,
         return flash_bwd_dkv_reference(q, k, v, ab, segment_ids, lse, do, di,
                                        causal, sm_scale, dropout_rate,
                                        dropout_seed)
+    _build.refuse_export("K1b (flash_bwd_dkv)")
     _check_cuda(q, (("q", q), ("k", k), ("v", v), ("ab", ab), ("do", do)))
     dk, dv = _like(k), _like(v)
     q, k, v, do = _staged(q), _staged(k), _staged(v), _staged(do)
@@ -488,6 +492,7 @@ def flash_bwd_dq(q, k, v, ab, segment_ids, lse, do, di, causal=False,
                                          di, causal, sm_scale, dropout_rate,
                                          dropout_seed)
         return dq, dab if need_dab else None
+    _build.refuse_export("K1c (flash_bwd_dq)")
     _check_cuda(q, (("q", q), ("k", k), ("v", v), ("ab", ab), ("do", do)))
     dq = _like(q)
     dab = None if ab is None or not need_dab else torch.empty(

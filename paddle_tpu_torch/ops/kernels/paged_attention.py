@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from . import _build
 from ..attention_ops import decode_attention, neg_inf_value
 
 __all__ = ["paged_decode_attention", "gather_reference",
@@ -51,8 +52,6 @@ _outgrown = []
 def _kernel():
     global _fn
     if _fn is None:
-        from . import _build
-
         fn = _build.load("paged_attention").paged_decode_attention
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
@@ -158,6 +157,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, ctx_len, *,
     if q.device.type != "cuda":
         raise ValueError("paged_decode_attention runs on cuda or cpu, got %s"
                          % q.device)
+    _build.refuse_export("K3 (paged_decode_attention)")
     return _launch(q, k_pages, v_pages, page_table, ctx_len, ps, sm_scale,
                    CHUNK_ROWS)
 

@@ -36,6 +36,8 @@ import ctypes
 
 import torch
 
+from . import _build
+
 __all__ = ["softmax_xent", "SoftmaxXent", "softmax_xent_fwd",
            "softmax_xent_bwd", "softmax_xent_reference",
            "softmax_xent_reference_bwd", "LAUNCHES_FWD", "LAUNCHES_BWD",
@@ -53,8 +55,6 @@ _fns = None
 def _kernels():
     global _fns
     if _fns is None:
-        from . import _build
-
         lib = _build.load("softmax_xent")
         fwd, bwd = lib.softmax_xent_fwd, lib.softmax_xent_bwd
         # logits, labels, loss, lse, n, v, smooth, ignore, dtype, stream
@@ -115,6 +115,7 @@ def softmax_xent_fwd(logits, labels, smooth=0.0, ignore_index=-100):
     _check(logits, labels)
     if logits.device.type == "cpu":
         return softmax_xent_reference(logits, labels, smooth, ignore_index)
+    _build.refuse_export("K2a (softmax_xent_fwd)")
     logits, labels = logits.contiguous(), labels.contiguous()
     n, v = logits.shape
     loss = torch.empty((n, 1), dtype=torch.float32, device=logits.device)
@@ -142,6 +143,7 @@ def softmax_xent_bwd(logits, labels, lse, g, smooth=0.0, ignore_index=-100):
     if logits.device.type == "cpu":
         return softmax_xent_reference_bwd(logits, labels, lse, g, smooth,
                                           ignore_index)
+    _build.refuse_export("K2b (softmax_xent_bwd)")
     logits, labels = logits.contiguous(), labels.contiguous()
     lse, g = lse.contiguous(), g.contiguous()
     dlogits = torch.empty_like(logits)

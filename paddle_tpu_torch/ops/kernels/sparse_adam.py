@@ -36,6 +36,8 @@ import ctypes
 import numpy as np
 import torch
 
+from . import _build
+
 __all__ = ["sparse_adam_rows", "sparse_sgd_rows",
            "sparse_adam_rows_reference", "sparse_sgd_rows_reference",
            "sparse_rows_supported", "adam_constants", "vector_width",
@@ -67,8 +69,6 @@ def bind(lib):
 def _kernels():
     global _fns
     if _fns is None:
-        from . import _build
-
         _fns = bind(_build.load("sparse_adam"))
     return _fns
 
@@ -176,6 +176,7 @@ def sparse_adam_rows(param, moment1, moment2, ids, rows, lr_t, beta1=0.9,
     if param.device.type == "cpu":
         return sparse_adam_rows_reference(param, moment1, moment2, ids, rows,
                                           lr_t, beta1, beta2, epsilon)
+    _build.refuse_export("K4a (sparse_adam_rows)")
     if ids.shape[0] == 0:
         return param, moment1, moment2
     ids, rows = ids.contiguous(), rows.contiguous()
@@ -198,6 +199,7 @@ def sparse_sgd_rows(param, ids, rows, lr):
     _check((param,), ids, rows, lr)
     if param.device.type == "cpu":
         return sparse_sgd_rows_reference(param, ids, rows, lr)
+    _build.refuse_export("K4b (sparse_sgd_rows)")
     if ids.shape[0] == 0:
         return param
     ids, rows = ids.contiguous(), rows.contiguous()

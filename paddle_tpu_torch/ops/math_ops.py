@@ -94,7 +94,9 @@ def _elementwise(ctx: OpContext, fn):
         elif y.dtype == adt and x.dtype == torch.float32 and castable("X"):
             x = x.to(adt)
     axis = ctx.attr("axis", -1)
-    if x.shape != y.shape and axis != -1 and y.dim() < x.dim():
+    # ranks only (a lower rank differs in shape already): a comparison of
+    # sizes would pin a symbolic batch size under torch.export
+    if axis != -1 and y.dim() < x.dim():
         # Fluid axis semantics: y's dims align with x's dims starting at axis.
         new_shape = (1,) * axis + tuple(y.shape) \
             + (1,) * (x.dim() - axis - y.dim())

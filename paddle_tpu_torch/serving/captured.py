@@ -17,17 +17,43 @@ the body on the same stream into a ``torch.cuda.CUDAGraph`` and replays
 it, and every later run replays. On the CPU the body runs as it is. A
 capture that fails raises :class:`CaptureError` naming the dispatch:
 nothing runs eagerly in the graph's place.
+
+Every capture of the port runs with Python's cyclic garbage collector
+paused (:func:`gc_paused`): a CUDA graph in a dead reference cycle (an
+engine and its dispatches) that the collector frees during another
+graph's capture destroys its executable mid-capture, which CUDA forbids
+while a stream captures; the capture is invalidated and its next kernel
+fails (a cuBLAS sgemm with ``CUBLAS_STATUS_EXECUTION_FAILED`` on the
+H100, after "operation not permitted when stream is capturing (function
+reset)" warnings).
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 import warnings
 from typing import Callable, Optional
 
 import torch
 
-__all__ = ["CaptureError", "CapturedDispatch", "end_failed_capture"]
+__all__ = ["CaptureError", "CapturedDispatch", "end_failed_capture",
+           "gc_paused"]
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic garbage collector off for the block (a capture):
+    dead cycles are freed at a collection after it, outside any capture
+    (module docstring)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def end_failed_capture(stream, generators=()) -> None:
@@ -42,7 +68,7 @@ def end_failed_capture(stream, generators=()) -> None:
         graph.register_generator_state(gen)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the graph is empty
-        with torch.cuda.graph(graph, stream=stream):
+        with gc_paused(), torch.cuda.graph(graph, stream=stream):
             pass
     graph.reset()
 
@@ -102,7 +128,7 @@ class CapturedDispatch:
         before = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with gc_paused(), torch.cuda.graph(graph, stream=self.stream):
                 self.body()
         except Exception as e:
             end_failed_capture(self.stream)

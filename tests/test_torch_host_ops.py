@@ -207,22 +207,17 @@ STILL_TO_PORT = {
                            "for monitor/)",
     "paddle_tpu.imperative.": "Queue 1 item 6",
     "paddle_tpu.parallel.": "Queue 1 item 7",
-    "paddle_tpu.ParallelExecutor": "Queue 1 item 4",
-    "paddle_tpu.transpiler.": "Queue 1 item 4",
-    "paddle_tpu.io.": "Queue 1 item 4 (the checkpoint functions)",
-    "paddle_tpu.inference.": "Queue 1 item 4 (inference/export.py)",
-    "paddle_tpu.contrib.memory_usage": "Queue 1 item 4",
-    "paddle_tpu.contrib.op_freq_statistic": "Queue 1 item 4",
     "paddle_tpu.layers.": "Queue 1 item 5 (layers/detection.py)",
-    "paddle_tpu.contrib.Calibrator": "Queue 1 item 5",
-    "paddle_tpu.contrib.QuantizeTranspiler": "Queue 1 item 5",
     # JAX-only names
+    "paddle_tpu.inference.": "StableHLO (export_stablehlo, load_stablehlo); "
+                             "the port's counterpart is "
+                             "inference.export_program",
     "paddle_tpu.compile_cache.": "XLA's on-disk cache (nvcc's build "
                                 "directory in the port)",
     "paddle_tpu.is_compiled_with_tpu": "JAX only",
 }
 JAX_ONLY_SUFFIX = ".jax_device"
-MISSING_AT_MOST = 589
+MISSING_AT_MOST = 562
 
 
 def _resolves(name):

@@ -117,3 +117,25 @@ def test_padded_resume_equals_the_cold_stream(kind):
     assert toks == [list(r.tokens_out) for r in reqs]
     assert toks == hit_streams(jserving, kind)[0]
     assert all(0 <= t < SMALL["vocab_size"] for s in toks for t in s)
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_a_capture_pauses_the_cyclic_collector(enabled):
+    """Every capture runs under ``serving.captured.gc_paused``: a dead CUDA
+    graph freed by the collector during another capture invalidates it on
+    the card, so the collector is off inside and as it was after."""
+    import gc
+
+    from paddle_tpu_torch.serving.captured import gc_paused
+
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with gc_paused():
+            assert not gc.isenabled()
+        assert gc.isenabled() == enabled
+        with pytest.raises(ValueError), gc_paused():
+            raise ValueError("a failed capture")
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
