@@ -276,6 +276,22 @@ export of the causal LM at S = 2048 raises naming K1a. ``op_harness``
 (last) runs the port's ``OpTest`` on the card against the CPU for the 7
 fake-quant ops and a handful of dense ops.
 
+Detection and dygraph (``detection``, last): ``ssd_train`` trains SSD300
+on VGG-16 (``ssd_pascal.py``'s net: 300 x 300, 21 classes, conv4_3 L2
+normalised with a learned scale, fc6 dilated, the extra layers to 1 x 1,
+8,732 priors; batch 32, Momentum 1e-3 + L2 5e-4, seeded images and 1-8
+boxes an image) eagerly and captured in turns, captured = eager bit for
+bit, K2 twice a step at [279,424, 21]; ``ssd_detect`` runs its
+``for_test`` program with ``detection_output`` captured and holds the
+detections to the CPU's on the same ``loc``/``conf``, then
+``detection_map`` as a host op; ``two_stage_ops`` runs Detectron's C4
+op chain (63,000 anchors, ``generate_proposals`` at pre-NMS 6,000 eager
+and captured, the RPN and RoI samplers, mask targets, ``roi_align``)
+card = CPU; ``yolov3_loss`` YOLOv3's three heads at 608 card = CPU and
+captured; ``dygraph_resnet50`` Fluid's dygraph ResNet-50 at 32 x 224,
+one SGD step = the static one, ``jit_train`` (one CUDA graph) = eager
+bit for bit; ``detection_op_harness`` the 20 ops card = CPU.
+
 Diagnostics, not run by default: ``python3 chip_smoke.py
 --recipe-bisect [--deterministic] lamb adamw adam`` checksums every op's
 outputs and gradients over two eager runs of BERT-base's recipe step from
@@ -300,6 +316,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -2321,7 +2338,13 @@ def xent_shape_check(dev, flush, n, v, dtype=torch.float32, seed=1,
     relative against the plain version on the same values (bf16 upcasts
     exactly), dlogits to 1e-6 absolute in float32 and in bf16 each element
     to 2e-2·|want| + 1e-6·(max |want| of its row); times beside the byte
-    bound, the plain version and ``F.cross_entropy``."""
+    bound, the plain version and ``F.cross_entropy``. K2b's plain version
+    runs on K2a's own lse, as K2b does (its inputs are the same), and that
+    lse is held to the plain one at 1e-6 relative: at few classes and many
+    rows (SSD's [279,424, 21]) a dlogit reaches |g| ~ 5, and the last bit
+    of an lse summed in another order moves it by more than 1e-6 (the
+    difference from the plain backward on the plain lse is reported as
+    ``dlogits_abs_plain_lse``)."""
     from paddle_tpu_torch.ops.kernels import softmax_xent as sx
 
     F = torch.nn.functional
@@ -2339,6 +2362,11 @@ def xent_shape_check(dev, flush, n, v, dtype=torch.float32, seed=1,
     e_dx = float((dx.float() - want_dx).abs().max())
     shape = "[%d, %d] %s" % (n, v, str(dtype).replace("torch.", ""))
     check(e_loss <= 1e-5, "K2a %s loss rel err %g > 1e-5" % (shape, e_loss))
+    e_lse = rel_err(lse, want_lse)
+    check(e_lse <= 1e-6, "K2a %s lse rel err %g > 1e-6" % (shape, e_lse))
+    extra_err = {"lse_rel": e_lse, "dlogits_abs_plain_lse": e_dx}
+    want_dx = sx.softmax_xent_reference_bwd(x.float(), lab, lse, g)
+    e_dx = float((dx.float() - want_dx).abs().max())
     check(dx.dtype == dtype, "K2b %s dlogits dtype %s" % (shape, dx.dtype))
     if dtype == torch.float32:
         tol = {"loss_rel": 1e-5, "dlogits_abs": 1e-6}
@@ -2373,7 +2401,7 @@ def xent_shape_check(dev, flush, n, v, dtype=torch.float32, seed=1,
     nv, elem = n * v, x.element_size()
     times["fwd_bound_ms"] = (elem * nv + 16 * n) / H100_BYTES_PER_S * 1e3
     times["bwd_bound_ms"] = (2 * elem * nv + 16 * n) / H100_BYTES_PER_S * 1e3
-    max_err = {"loss_rel": e_loss, "dlogits_abs": e_dx}
+    max_err = {"loss_rel": e_loss, "dlogits_abs": e_dx, **extra_err}
     if e_scaled is not None:
         max_err["dlogits_scaled"] = e_scaled
     emit("kernel_vs_plain", kernel=kernel,
@@ -11176,6 +11204,1204 @@ def op_harness_phase():
          tol={"rtol": 1e-5, "atol": 1e-5}, leg_s=time.perf_counter() - t_leg)
 
 
+# -- detection and dygraph ----------------------------------------------------
+
+# SSD300 on VGG-16 (Liu et al., "SSD: Single Shot MultiBox Detector", ECCV
+# 2016, and its ssd_pascal.py): the conv widths of VGG-16's five groups,
+# fc6/fc7 and the extra layers (1x1 width; the 3x3 after it has twice it)
+SSD = dict(image=300, classes=21, max_boxes=50,
+           widths=(64, 128, 256, 512, 512, 1024, 256, 128), lr=1e-3)
+SSD_BATCH = 32
+SSD_PRIORS = 8732     # 38²·4 + 19²·6 + 10²·6 + 5²·6 + 3²·4 + 1²·4
+SSD_DETECT_BATCHES = 3   # ssd_detect: timed captured batches
+# Detectron's C4 Faster/Mask R-CNN (e2e_faster_rcnn_R-50-C4): two images
+# of 800 x 1333, res4 features [1024, 50, 84] at stride 16, 15 anchors a
+# cell, Fluid's generate_proposals defaults, 256 RPN and 512 RoI samples
+TWO_STAGE = dict(images=2, im_h=800, im_w=1333, c4=(1024, 50, 84),
+                 anchor_sizes=(32.0, 64.0, 128.0, 256.0, 512.0),
+                 ratios=(0.5, 1.0, 2.0), stride=16.0, pre_nms=6000,
+                 post_nms=1000, nms=0.7, min_size=0.1, rpn_batch=256,
+                 rpn_fg=0.5, roi_batch=512, roi_fg=0.25, classes=81,
+                 pooled=14, mask_res=14, max_gt=20, poly_len=16)
+TWO_STAGE_ROI_CHECK = 128   # roi_align's rois held card = CPU
+# YOLOv3 at 608 (Redmon & Farhadi 2018): three heads, the nine COCO
+# anchors, 80 classes, 50 padded boxes an image
+YOLO = dict(batch=8, classes=80, ignore=0.7, max_boxes=50,
+            anchors=[10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119,
+                     116, 90, 156, 198, 373, 326],
+            heads=((19, 32, [6, 7, 8]), (38, 16, [3, 4, 5]),
+                   (76, 8, [0, 1, 2])))
+# the dygraph ResNet-50 of Fluid's test_imperative_resnet.py
+DY_RESNET = dict(batch=32, image=224, classes=102, lr=0.01, steps=4)
+DETECTION_USERS = {
+    "ssd_train": "detection teams training single-shot detectors (SSD300 "
+                 "on VOC's 21 classes)",
+    "ssd_detect": "detection services serving SSD's decoded boxes after "
+                  "NMS",
+    "two_stage_ops": "Faster/Mask R-CNN trainers (Detectron's C4 "
+                     "configurations on COCO)",
+    "yolov3_loss": "YOLOv3 trainers at 608 on COCO",
+    "dygraph_resnet50": "researchers writing models in dygraph "
+                        "(define-by-run) style",
+}
+
+
+def build_ssd300(fluid, image=300, classes=21, max_boxes=50,
+                 widths=SSD["widths"], lr=1e-3):
+    """SSD300 on VGG-16 built from ``fluid.layers``: conv4_3 (38 x 38) L2
+    normalised with a learned scale (20 at start), fc6 a 3x3 conv of
+    dilation 6, fc7 1x1, the extra layers down to 1 x 1, ``multi_box_head``
+    over the six maps (min sizes 30-264, max 60-315, aspect ratios [2],
+    [2, 3] x 3, [2], [2], steps 8-300, variance 0.1/0.2), ``ssd_loss``
+    (overlap 0.5, neg:pos 3, ``per_prediction``) averaged over the batch,
+    Momentum(lr, 0.9) with L2 5e-4. Pool3 pads 1 to give 38 from 75 (the
+    paper's ceil mode; the port's pool2d floors, as Fluid does). The
+    ``for_test`` clone, taken before the optimizer, gains
+    ``detection_output`` (nms 0.45, top 400, keep 200, score 0.01).
+    Returns (main, startup, loss, extra)."""
+    c1, c2, c3, c4, c5, c6, e1, e2 = widths
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 24
+    L = fluid.layers
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = L.data("img", shape=[3, image, image])
+        gt_box = L.data("gt_box", shape=[max_boxes, 4])
+        gt_label = L.data("gt_label", shape=[max_boxes, 1], dtype="int64")
+
+        def conv(x, c, k=3, s=1, p=1, d=1):
+            return L.conv2d(x, c, k, stride=s, padding=p, dilation=d,
+                            act="relu")
+
+        x = img
+        for c, n, pad in ((c1, 2, 0), (c2, 2, 0), (c3, 3, 1)):
+            for _ in range(n):
+                x = conv(x, c)
+            x = L.pool2d(x, pool_size=2, pool_stride=2, pool_padding=pad)
+        for _ in range(3):
+            x = conv(x, c4)
+        conv4_3 = x
+        scale = L.create_parameter(
+            [1, c4, 1, 1], "float32",
+            default_initializer=fluid.initializer.Constant(20.0))
+        norm4_3 = L.elementwise_mul(L.l2_normalize(conv4_3, axis=1), scale)
+        x = L.pool2d(conv4_3, pool_size=2, pool_stride=2)
+        for _ in range(3):
+            x = conv(x, c5)
+        x = L.pool2d(x, pool_size=3, pool_stride=1, pool_padding=1)
+        fc7 = conv(conv(x, c6, 3, p=6, d=6), c6, 1, p=0)
+        c6_2 = conv(conv(fc7, e1, 1, p=0), 2 * e1, 3, s=2, p=1)
+        c7_2 = conv(conv(c6_2, e2, 1, p=0), 2 * e2, 3, s=2, p=1)
+        c8_2 = conv(conv(c7_2, e2, 1, p=0), 2 * e2, 3, p=0)
+        c9_2 = conv(conv(c8_2, e2, 1, p=0), 2 * e2, 3, p=0)
+        locs, confs, box, var = L.multi_box_head(
+            [norm4_3, fc7, c6_2, c7_2, c8_2, c9_2], img, base_size=image,
+            num_classes=classes,
+            aspect_ratios=[[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0], [2.0],
+                           [2.0]],
+            min_sizes=[30.0, 60.0, 111.0, 162.0, 213.0, 264.0],
+            max_sizes=[60.0, 111.0, 162.0, 213.0, 264.0, 315.0],
+            steps=[8.0, 16.0, 32.0, 64.0, 100.0, 300.0], flip=True,
+            kernel_size=3, pad=1, offset=0.5, variance=[0.1, 0.1, 0.2, 0.2])
+        loss = L.reduce_mean(L.ssd_loss(
+            locs, confs, gt_box, gt_label, box, var, overlap_threshold=0.5,
+            neg_pos_ratio=3.0, neg_overlap=0.5, match_type="per_prediction"))
+        test = main.clone(for_test=True)
+        tb = test.global_block
+        with fluid.program_guard(test, fluid.Program()):
+            nmsed, length = L.detection_output(
+                tb.var(locs.name), tb.var(confs.name), tb.var(box.name),
+                tb.var(var.name), nms_threshold=0.45, nms_top_k=400,
+                keep_top_k=200, score_threshold=0.01, return_length=True)
+        fluid.optimizer.Momentum(
+            lr, 0.9, regularization=fluid.regularizer.L2Decay(5e-4)
+        ).minimize(loss)
+    return main, startup, loss, dict(
+        test=test, nmsed=nmsed, length=length, locs=locs.name,
+        confs=confs.name, box=box.name, var=var.name, classes=classes)
+
+
+def ssd_feed(batch, image=300, max_boxes=50, classes=21, seed=0):
+    """Seeded images and 1-8 seeded boxes an image (normalised xyxy, sides
+    0.1-0.5, labels 1..classes-1), padded to ``max_boxes`` with zero rows
+    (label 0)."""
+    rng = np.random.RandomState(seed)
+    gt = np.zeros((batch, max_boxes, 4), np.float32)
+    lab = np.zeros((batch, max_boxes, 1), np.int64)
+    for b in range(batch):
+        n = rng.randint(1, 9)
+        c = rng.uniform(0.15, 0.85, (n, 2))
+        wh = rng.uniform(0.1, 0.5, (n, 2))
+        gt[b, :n] = np.clip(np.concatenate([c - wh / 2, c + wh / 2], 1), 0, 1)
+        lab[b, :n, 0] = rng.randint(1, classes, n)
+    return {"img": rng.randn(batch, 3, image, image).astype(np.float32),
+            "gt_box": gt, "gt_label": lab}
+
+
+def detection_rows_err(got, want, length):
+    """Card detections [B, K, 6] against the CPU's on their valid rows:
+    (labels equal, largest score and box difference)."""
+    labels_equal, err = True, 0.0
+    for b, n in enumerate(length):
+        g, w = got[b, :n], want[b, :n]
+        labels_equal &= bool(np.array_equal(g[:, 0], w[:, 0]))
+        if n:
+            err = max(err, float(np.abs(g[:, 1:] - w[:, 1:]).max()))
+    return labels_equal, err
+
+
+def ssd_detect_leg(exe, extra, dfeed, feed, scope):
+    """``ssd_detect``: the trained SSD's ``for_test`` program with
+    ``detection_output`` at batch 32, one eager batch and then captured
+    (``run_steps``: 2 warm-ups, the capture, ``SSD_DETECT_BATCHES`` timed
+    replays), captured = eager bit for bit; the detections and ``Length``
+    held against ``detection_output`` on the CPU on the same ``loc`` and
+    ``conf`` tensors (labels and lengths equal, scores and boxes to 1e-5),
+    and the last NMS alone held on the card's own decoded boxes and scores;
+    then ``detection_map`` over the detections and the feed's boxes, a
+    host op: its ``CompiledProgram`` step runs eagerly and is counted."""
+    import paddle_tpu_torch as fluid
+
+    t_leg = time.perf_counter()
+    dev = exe.place
+    test, classes = extra["test"], extra["classes"]
+    fetch = [extra["nmsed"], extra["length"], extra["locs"], extra["confs"],
+             extra["box"], extra["var"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = exe.run(test, feed=dfeed, fetch_list=fetch, scope=scope,
+                    return_numpy=False)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    exe_c = fluid.Executor(dev)
+    times, outs = [], None
+    for i in range(3 + SSD_DETECT_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = exe_c.run_steps(test, (dfeed,), steps=1, fetch_list=fetch,
+                               fetch_every=1, scope=scope,
+                               return_numpy=False)[0]
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    captured = [c is not None and c.graph is not None
+                for c in exe_c._captured.values()]
+    check(any(captured), "ssd_detect: the test program was not captured")
+    same = all(torch.equal(eager[k].reshape(-1), outs[k].reshape(-1))
+               for k in range(2))
+    check(same, "ssd_detect: captured detections part from eager")
+    nmsed, length, loc, conf, box, var = [
+        t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        for t in eager]
+    check(box.shape == (SSD_PRIORS, 4), "ssd_detect: %s priors, want %d"
+          % (box.shape, SSD_PRIORS))
+    # the same loc/conf through detection_output on the CPU
+    main, start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, start):
+        p = loc.shape[1]
+        lv = fluid.layers.data("loc", shape=[p, 4])
+        cv = fluid.layers.data("conf", shape=[p, classes])
+        pv = fluid.layers.data("prior", shape=[p, 4], append_batch_size=False)
+        vv = fluid.layers.data("var", shape=[p, 4], append_batch_size=False)
+        out, n_out = fluid.layers.detection_output(
+            lv, cv, pv, vv, nms_threshold=0.45, nms_top_k=400, keep_top_k=200,
+            score_threshold=0.01, return_length=True)
+        dec = fluid.layers.box_coder(pv, vv, lv, code_type="decode_center_size")
+        sm = fluid.layers.transpose(fluid.layers.softmax(cv, axis=-1),
+                                    perm=[0, 2, 1])
+    t0 = time.perf_counter()
+    cpu = fluid.Executor(fluid.CPUPlace())
+    cpu_out, cpu_len = cpu.run(main, feed={"loc": loc, "conf": conf,
+                                           "prior": box, "var": var},
+                               fetch_list=[out, n_out], scope=fluid.Scope())
+    cpu_s = time.perf_counter() - t0
+    lengths_equal = bool(np.array_equal(length, cpu_len))
+    labels_equal, err = detection_rows_err(nmsed, cpu_out, length)
+    # the last NMS alone on the card's own decoded boxes and scores
+    card = fluid.Executor(dev)
+    dscope = fluid.Scope()
+    cfeed = {"loc": loc, "conf": conf, "prior": box, "var": var}
+    dec_card, sm_card = card.run(main, feed=cfeed, fetch_list=[dec, sm],
+                                 scope=dscope)
+    nms_attrs = {"background_label": 0, "score_threshold": 0.01,
+                 "nms_top_k": 400, "nms_threshold": 0.45, "nms_eta": 1.0,
+                 "keep_top_k": 200, "normalized": True}
+    nms_in = {"BBoxes": torch.as_tensor(dec_card),
+              "Scores": torch.as_tensor(sm_card)}
+    nms_card, _ = registered_op("multiclass_nms", nms_attrs, nms_in,
+                                {"Out": 1, "Length": 1}, dev)
+    nms_cpu, _ = registered_op("multiclass_nms", nms_attrs, nms_in,
+                               {"Out": 1, "Length": 1}, torch.device("cpu"))
+    nms_len_equal = torch.equal(nms_card["Length"].cpu(), nms_cpu["Length"])
+    nms_labels, nms_err = detection_rows_err(
+        nms_card["Out"].cpu().numpy(), nms_cpu["Out"].numpy(),
+        nms_cpu["Length"].numpy())
+    check(nms_len_equal and nms_labels and nms_err <= 1e-5,
+          "ssd_detect: multiclass_nms on the card's decoded boxes parts from "
+          "the CPU (lengths %s, labels %s, err %g)"
+          % (nms_len_equal, nms_labels, nms_err))
+    check(lengths_equal and labels_equal and err <= 1e-5,
+          "ssd_detect: card detections against the CPU's on the same loc "
+          "and conf: lengths equal %s, labels equal %s, scores/boxes %g"
+          % (lengths_equal, labels_equal, err))
+    # detection_map: a host op, eager and counted under CompiledProgram
+    gt = np.concatenate([feed["gt_label"].astype(np.float32),
+                         feed["gt_box"]], -1)
+    mp, ms_ = fluid.Program(), fluid.Program()
+    with fluid.program_guard(mp, ms_):
+        det_v = fluid.layers.data("det", shape=list(nmsed.shape[1:]))
+        len_v = fluid.layers.data("det_len", shape=[], dtype="int32")
+        gt_v = fluid.layers.data("gt", shape=list(gt.shape[1:]))
+        m_v = fluid.layers.detection_map(det_v, gt_v, class_num=classes,
+                                         det_length=len_v)
+    exe_m = fluid.Executor(dev)
+    mfeed = {"det": nmsed, "det_len": length.astype(np.int32), "gt": gt}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        map_c = exe_m.run(fluid.CompiledProgram(mp), feed=mfeed,
+                          fetch_list=[m_v])[0]
+        map_s = time.perf_counter() - t0
+    host_steps = exe_m.host_op_steps
+    metric = fluid.metrics.DetectionMAP()
+    det_h = nmsed.copy()
+    det_h[det_h[..., 0] == 0] = -1.0
+    gt_h = gt.copy()
+    gt_h[gt_h[..., 0] == 0] = 0.0
+    metric.update(det_h, length, gt_h)
+    check(host_steps == 1 and float(map_c) == np.float32(metric.eval()),
+          "ssd_detect: detection_map %r (host steps %d) against the metric's "
+          "%r" % (float(map_c), host_steps, metric.eval()))
+    exe_c.close()
+    return dict(batch=SSD_BATCH, priors=SSD_PRIORS,
+                ms_a_batch_eager=eager_ms,
+                ms_a_batch_captured=float(np.median(times)),
+                ms_captured=times, captured_equals_eager=True,
+                detections_a_batch=int(length.sum()),
+                card_vs_cpu={"lengths_equal": lengths_equal,
+                             "labels_equal": labels_equal,
+                             "max_abs_err": err, "cpu_s": cpu_s},
+                nms_on_card_outputs={"lengths_equal": bool(nms_len_equal),
+                                     "labels_equal": nms_labels,
+                                     "max_abs_err": nms_err},
+                detection_map=float(map_c), detection_map_host_steps=host_steps,
+                detection_map_s=map_s,
+                detection_map_warned=any("detection_map" in str(w.message)
+                                         for w in caught),
+                users=DETECTION_USERS["ssd_detect"],
+                leg_s=time.perf_counter() - t_leg)
+
+
+def ssd_train_leg(xent_rows):
+    """``ssd_train`` (``seq_leg``: eager and captured steps in turns, 2
+    warm-ups, the capture and 4 timed each; captured = eager bit for bit,
+    losses and every persistable; profiles): SSD300 on VGG-16
+    (``build_ssd300``) at batch 32 on seeded images and boxes, K2a twice
+    and K2b once a step at [32·8732, 21] (the mining loss and the
+    confidence loss; the mining one has no gradient), counted by shape;
+    K2 held there against its plain version, timed beside its byte bound
+    and ``F.cross_entropy`` (``xent_shape_check``). Then ``ssd_detect`` on
+    the eager run's trained state. cuDNN's deterministic algorithms, as in
+    ``ocr_ctc_train``."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _ssd_train(xent_rows)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _ssd_train(xent_rows):
+    n_rows = SSD_BATCH * SSD_PRIORS
+    feed = ssd_feed(SSD_BATCH, SSD["image"], SSD["max_boxes"], SSD["classes"])
+    per_step = {"K2a": (r"xent_fwd_kernel", 2), "K2b": (r"xent_bwd_kernel", 1)}
+    line, launches, counts = seq_leg(
+        "ssd_train", lambda fluid: build_ssd300(fluid, **SSD), feed, per_step,
+        SSD_BATCH, SSD_BATCH, decode=ssd_detect_leg)
+    key = vision_key(n_rows, SSD["classes"], torch.float32)
+    by_shape = launches["K2_by_shape"]
+    emit("ssd_train", config=dict(SSD, batch=SSD_BATCH, priors=SSD_PRIORS),
+         optimizer="Momentum(%g, 0.9) + L2Decay(5e-4)" % SSD["lr"],
+         images_per_s_eager=line["sequences_per_s_eager"],
+         images_per_s_captured=line["sequences_per_s_captured"],
+         k2_at=key, k2_launches=by_shape, cudnn_deterministic=True,
+         reduced=["seeded images and 1-8 seeded boxes an image (no VOC or "
+                  "pretrained VGG-16 in the repository)"],
+         users=DETECTION_USERS["ssd_train"],
+         **{k: v for k, v in line.items() if k != "decode"})
+    emit("ssd_detect", nvidia_smi=SMI[0], **line["decode"])
+    check(set(by_shape) == {"K2a_" + key, "K2b_" + key}
+          and by_shape.get("K2a_" + key) == 2 * by_shape.get("K2b_" + key, 0)
+          > 0,
+          "ssd_train: K2 launches by shape %r, want K2a twice K2b at %s"
+          % (by_shape, key))
+    check(line["bit_equal"], "ssd_train: captured losses %r against eager %r "
+          "(state %.3g)" % (line["losses_captured"], line["losses_eager"],
+                            line["state_max_norm_diff"]))
+    import paddle_tpu_torch as fluid
+
+    dev = fluid.CUDAPlace(0)
+    flush = l2_flusher(dev)
+    k2 = xent_shape_check(dev, flush, n_rows, SSD["classes"], torch.float32,
+                          seed=14, kernel="softmax_xent_ssd")
+    for row, kern, part in zip(xent_rows, ("K2a", "K2b"), ("fwd", "bwd")):
+        row.setdefault("ssd_shapes", {})[key] = {
+            "launches_by_leg": {"ssd_train": by_shape.get(kern + "_" + key)},
+            "max_err": k2["max_err"],
+            **{k[len(part) + 1:]: v for k, v in k2.items()
+               if k.startswith(part + "_")}}
+    del flush
+    torch.cuda.empty_cache()
+
+
+def two_stage_feed(cfg, seed=0):
+    """Seeded C4 features, RPN head outputs and 4-12 gt boxes an image
+    (classes 1-80, one polygon of ``poly_len`` vertices each, padded)."""
+    rng = np.random.RandomState(seed)
+    b, (c, h, w) = cfg["images"], cfg["c4"]
+    a = len(cfg["anchor_sizes"]) * len(cfg["ratios"])
+    g, lv = cfg["max_gt"], cfg["poly_len"]
+    gt = np.zeros((b, g, 4), np.float32)
+    cls = np.zeros((b, g), np.int32)
+    segms = np.zeros((b, g, lv, 2), np.float32)
+    plen = np.zeros((b, g), np.int32)
+    for i in range(b):
+        n = rng.randint(4, 13)
+        ctr = rng.uniform([100, 100], [cfg["im_w"] - 100, cfg["im_h"] - 100],
+                          (n, 2))
+        rad = rng.uniform(20, 160, (n, 1))
+        ang = np.sort(rng.uniform(0, 2 * np.pi, (n, lv)), -1)
+        poly = ctr[:, None] + np.stack([np.cos(ang), np.sin(ang)], -1) \
+            * rad[..., None] * rng.uniform(0.6, 1.0, (n, lv, 1))
+        segms[i, :n] = poly
+        plen[i, :n] = rng.randint(6, lv + 1, n)
+        gt[i, :n] = np.concatenate([poly.min(1), poly.max(1)], -1)
+        cls[i, :n] = rng.randint(1, cfg["classes"], n)
+    return {"c4": rng.randn(b, c, h, w).astype(np.float32),
+            "rpn_cls": rng.randn(b, a, h, w).astype(np.float32),
+            "rpn_bbox": (rng.randn(b, 4 * a, h, w) * 0.1).astype(np.float32),
+            "im_info": np.array([[cfg["im_h"], cfg["im_w"], 1.0]] * b,
+                                np.float32),
+            "gt_boxes": gt, "gt_classes": cls, "gt_segms": segms,
+            "gt_poly_len": plen, "is_crowd": np.zeros((b, g), np.int32)}
+
+
+def build_two_stage(fluid, cfg, proposals_only=False):
+    """The Faster/Mask R-CNN target chain as ``fluid.layers`` build it:
+    ``anchor_generator`` (variance 1, Detectron's box weights) and
+    ``generate_proposals``; unless ``proposals_only``, then
+    ``rpn_target_assign``, ``generate_proposal_labels`` and
+    ``generate_mask_labels``, all at ``use_random=False``."""
+    b, (c, h, w) = cfg["images"], cfg["c4"]
+    a = len(cfg["anchor_sizes"]) * len(cfg["ratios"])
+    g, lv = cfg["max_gt"], cfg["poly_len"]
+    main, startup = fluid.Program(), fluid.Program()
+    L = fluid.layers
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        c4 = L.data("c4", shape=[c, h, w])
+        cls_v = L.data("rpn_cls", shape=[a, h, w])
+        bbox_v = L.data("rpn_bbox", shape=[4 * a, h, w])
+        info = L.data("im_info", shape=[3])
+        anchors, var = L.anchor_generator(
+            c4, anchor_sizes=list(cfg["anchor_sizes"]),
+            aspect_ratios=list(cfg["ratios"]), variance=[1.0, 1.0, 1.0, 1.0],
+            stride=[cfg["stride"]] * 2)
+        rois, probs, length = L.generate_proposals(
+            cls_v, bbox_v, info, anchors, var, pre_nms_top_n=cfg["pre_nms"],
+            post_nms_top_n=cfg["post_nms"], nms_thresh=cfg["nms"],
+            min_size=cfg["min_size"], return_length=True)
+        fetch = {"anchors": anchors, "rois": rois, "probs": probs,
+                 "length": length}
+        if not proposals_only:
+            gt_boxes = L.data("gt_boxes", shape=[g, 4])
+            gt_classes = L.data("gt_classes", shape=[g], dtype="int32")
+            crowd = L.data("is_crowd", shape=[g], dtype="int32")
+            segms = L.data("gt_segms", shape=[g, lv, 2])
+            plen = L.data("gt_poly_len", shape=[g], dtype="int32")
+            sm, tl, tb, iw = L.rpn_target_assign(
+                bbox_v, cls_v, anchors, var, gt_boxes, crowd, info,
+                rpn_batch_size_per_im=cfg["rpn_batch"],
+                rpn_fg_fraction=cfg["rpn_fg"], use_random=False)
+            s_rois, labels, tgts, inw, outw, roiw = L.generate_proposal_labels(
+                rois, gt_classes, crowd, gt_boxes, info,
+                batch_size_per_im=cfg["roi_batch"], fg_fraction=cfg["roi_fg"],
+                fg_thresh=0.5, class_nums=cfg["classes"], use_random=False)
+            mask, has = L.generate_mask_labels(
+                info, gt_classes, crowd, segms, s_rois, labels,
+                num_classes=cfg["classes"], resolution=cfg["mask_res"],
+                gt_poly_length=plen)
+            fetch.update(score_mask=sm, target_label=tl, target_bbox=tb,
+                         inside_w=iw, rois_sampled=s_rois, labels=labels,
+                         bbox_targets=tgts, bbox_inside_w=inw, roi_w=roiw,
+                         mask=mask, has_mask=has)
+    return main, startup, fetch
+
+
+def fetch_all(exe, prog, feed, fetch, scope):
+    names = sorted(fetch)
+    outs = exe.run(prog, feed=feed, fetch_list=[fetch[n] for n in names],
+                   scope=scope, return_numpy=False)
+    return dict(zip(names, outs))
+
+
+def _np_of(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def two_stage_ops_leg():
+    """``two_stage_ops``: Detectron's C4 op chain on seeded features
+    (``TWO_STAGE``): 63,000 anchors; ``generate_proposals`` at Fluid's
+    defaults (pre-NMS 6,000 — 6,000 NMS steps over both images, no host
+    read — post 1,000, nms 0.7) eagerly and captured (``run_steps``),
+    captured = eager bit for bit, both timed; ``rpn_target_assign`` (256
+    an image, fg 0.5), ``generate_proposal_labels`` (512, fg 0.25, 81
+    classes) and ``generate_mask_labels`` (14 x 14) at
+    ``use_random=False``: every output card = CPU (discrete ones equal,
+    floats 1e-5 norm-wise); ``roi_align`` 14 x 14 at 1/16 on the sampled
+    rois, forward card = CPU on ``TWO_STAGE_ROI_CHECK`` of them (1e-5),
+    its backward run twice on the card bit-equal."""
+    import paddle_tpu_torch as fluid
+
+    t_leg = time.perf_counter()
+    cfg = TWO_STAGE
+    dev = fluid.CUDAPlace(0)
+    feed = two_stage_feed(cfg)
+    dfeed = {k: torch.as_tensor(v, device=dev) for k, v in feed.items()}
+    # generate_proposals eager against captured
+    pmain, _, pfetch = build_two_stage(fluid, cfg, proposals_only=True)
+    pnames = sorted(pfetch)
+    pfeed = {k: dfeed[k] for k in ("c4", "rpn_cls", "rpn_bbox", "im_info")}
+    exe = fluid.Executor(dev)
+    eager_ms, eager = [], None
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = fetch_all(exe, pmain, pfeed, pfetch, fluid.Scope())
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    exe_c = fluid.Executor(dev)
+    cscope = fluid.Scope()
+    cap_ms, outs = [], None
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = exe_c.run_steps(pmain, (pfeed,), steps=1,
+                               fetch_list=[pfetch[n] for n in pnames],
+                               fetch_every=1, scope=cscope,
+                               return_numpy=False)[0]
+        torch.cuda.synchronize()
+        cap_ms.append((time.perf_counter() - t0) * 1e3)
+    capture_s = [c.capture_s for c in exe_c._captured.values()
+                 if getattr(c, "graph", None) is not None]
+    check(bool(capture_s), "two_stage_ops: generate_proposals not captured")
+    cap_equal = all(torch.equal(eager[n].reshape(-1), outs[k].reshape(-1))
+                    for k, n in enumerate(pnames))
+    check(cap_equal, "two_stage_ops: captured proposals part from eager")
+    (_, busy_e, kern_e, _, calls_e, _) = step_profile(
+        lambda: fetch_all(exe, pmain, pfeed, pfetch, fluid.Scope()),
+        cpu_ops=False)
+    exe_c.close()
+    n_anchors = int(np.prod(eager["anchors"].shape[:-1]))
+    check(n_anchors == 63000, "two_stage_ops: %d anchors" % n_anchors)
+    # the whole chain card against CPU
+    main, _, fetch = build_two_stage(fluid, cfg)
+    card = fetch_all(exe, main, dfeed, fetch, fluid.Scope())
+    t0 = time.perf_counter()
+    cpu = fetch_all(fluid.Executor(fluid.CPUPlace()), main, feed, fetch,
+                    fluid.Scope())
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for n in sorted(fetch):
+        g, w = _np_of(card[n]), _np_of(cpu[n])
+        if np.issubdtype(w.dtype, np.floating):
+            errs[n] = float(np.linalg.norm((g - w).astype(np.float64))
+                            / max(np.linalg.norm(w.astype(np.float64)), 1e-30))
+        else:
+            errs[n] = bool(np.array_equal(g, w))
+    bad = {n: e for n, e in errs.items()
+           if (e is not True) and not (isinstance(e, float) and e <= 1e-5)}
+    check(not bad, "two_stage_ops: card against CPU %r" % bad)
+    sm = _np_of(card["score_mask"])
+    labels = _np_of(card["labels"])
+    # roi_align on the sampled rois: forward card = CPU, backward twice
+    rois = card["rois_sampled"].reshape(-1, 4)
+    bid = torch.arange(cfg["images"], device=dev, dtype=torch.int32
+                       ).repeat_interleave(cfg["roi_batch"])
+    attrs = {"pooled_height": cfg["pooled"], "pooled_width": cfg["pooled"],
+             "spatial_scale": 1.0 / cfg["stride"], "sampling_ratio": -1}
+    x = dfeed["c4"]
+    grads, fwd_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, g = registered_op("roi_align", attrs, {
+            "X": x.clone(), "ROIs": rois, "BatchId": bid}, {"Out": 1}, dev)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        grads.append(g["X"])
+    bwd_equal = bool(torch.equal(grads[0], grads[1]))
+    check(bwd_equal, "two_stage_ops: roi_align's backward parts between runs")
+    k = TWO_STAGE_ROI_CHECK
+    sub = torch.cat([rois[:k // 2], rois[cfg["roi_batch"]:
+                                         cfg["roi_batch"] + k // 2]])
+    sub_bid = torch.cat([bid[:k // 2], bid[cfg["roi_batch"]:
+                                           cfg["roi_batch"] + k // 2]])
+    got, _ = registered_op("roi_align", attrs, {"X": x, "ROIs": sub,
+                                                "BatchId": sub_bid},
+                           {"Out": 1}, dev)
+    want, _ = registered_op("roi_align", attrs, {
+        "X": x.cpu(), "ROIs": sub.cpu(), "BatchId": sub_bid.cpu()},
+        {"Out": 1}, torch.device("cpu"))
+    roi_err = float((got["Out"].cpu() - want["Out"]).norm()
+                    / want["Out"].norm())
+    check(roi_err <= 1e-5, "two_stage_ops: roi_align card against CPU %g"
+          % roi_err)
+    emit("two_stage_ops", nvidia_smi=SMI[0], config=cfg, anchors=n_anchors,
+         generate_proposals_ms_eager=float(np.median(eager_ms)),
+         generate_proposals_ms_captured=float(np.median(cap_ms[3:])),
+         generate_proposals_ms_runs={"eager": eager_ms, "run_steps": cap_ms},
+         generate_proposals_capture_s=capture_s,
+         generate_proposals_kernels_eager=sum(kern_e.values()),
+         generate_proposals_device_busy_ms_eager=busy_e,
+         generate_proposals_host_launch_calls_eager=calls_e,
+         proposals_a_image=_np_of(eager["length"]).tolist(),
+         captured_equals_eager=cap_equal, card_vs_cpu=errs, cpu_s=cpu_s,
+         rpn_fg=int((sm == 1).sum()), rpn_bg=int((sm == 0).sum()),
+         roi_fg=int((labels > 0).sum()), roi_bg=int((labels == 0).sum()),
+         roi_align_rois=int(rois.shape[0]),
+         roi_align_fwd_bwd_ms=fwd_ms, roi_align_backward_bit_equal=bwd_equal,
+         roi_align_card_vs_cpu=roi_err, roi_align_checked_rois=k,
+         reduced=["seeded features and RPN outputs (no COCO or trained "
+                  "ResNet-50 in the repository)"],
+         users=DETECTION_USERS["two_stage_ops"],
+         leg_s=time.perf_counter() - t_leg)
+    del x, grads, card, cpu, dfeed
+    torch.cuda.empty_cache()
+
+
+def yolo_inputs(cfg, seed=0):
+    """Seeded head outputs [N, 255, H, W] for each head and 50 padded gt
+    rows an image (4-20 real: cx, cy in [0.05, 0.95], w, h in [0.02,
+    0.6]), labels 0-79, padding rows zero with label -1."""
+    rng = np.random.RandomState(seed)
+    n, nb = cfg["batch"], cfg["max_boxes"]
+    xs = [(rng.randn(n, len(m) * (5 + cfg["classes"]), s, s) * 0.5)
+          .astype(np.float32) for s, _, m in cfg["heads"]]
+    gt = np.zeros((n, nb, 4), np.float32)
+    lab = np.full((n, nb), -1, np.int32)
+    for i in range(n):
+        k = rng.randint(4, 21)
+        gt[i, :k, :2] = rng.uniform(0.05, 0.95, (k, 2))
+        gt[i, :k, 2:] = rng.uniform(0.02, 0.6, (k, 2))
+        lab[i, :k] = rng.randint(0, cfg["classes"], k)
+    return xs, gt, lab
+
+
+def yolo_step(cfg, xs, gt, lab):
+    """The three heads' ``yolov3_loss`` summed over images and heads, and
+    its gradient to each head's input: (losses [3, N], grads)."""
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+
+    impl = get_op_impl("yolov3_loss")
+    losses = []
+    for x, (_, down, mask) in zip(xs, cfg["heads"]):
+        env = {"X": x, "GTBox": gt, "GTLabel": lab}
+        op = SimpleNamespace(
+            type="yolov3_loss", block=None,
+            inputs={"X": ["X"], "GTBox": ["GTBox"], "GTLabel": ["GTLabel"]},
+            outputs={"Loss": ["Loss"]},
+            attrs={"anchors": cfg["anchors"], "anchor_mask": mask,
+                   "class_num": cfg["classes"], "ignore_thresh": cfg["ignore"],
+                   "downsample_ratio": down})
+        impl(OpContext(op, env, SimpleNamespace(is_test=False,
+                                                device=x.device,
+                                                program=None)))
+        losses.append(env["Loss"])
+    loss = torch.stack(losses)
+    grads = torch.autograd.grad(loss.sum(), xs)
+    return (loss.detach(),) + tuple(grads)
+
+
+def graph_of(fn, inputs):
+    """``fn(*inputs)`` captured into a CUDA graph on static copies of the
+    inputs (one warm-up on a side stream first): (graph, static outputs,
+    static inputs)."""
+    from paddle_tpu_torch.serving.captured import gc_paused
+
+    static = [t.detach().clone().requires_grad_(t.requires_grad)
+              for t in inputs]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(*static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with gc_paused(), torch.cuda.graph(graph, stream=stream):
+        out = fn(*static)
+    return graph, out, static
+
+
+def yolov3_loss_leg():
+    """``yolov3_loss``: YOLOv3's three heads at 608 (``YOLO``: [8, 255,
+    19/38/76], masks [6,7,8]/[3,4,5]/[0,1,2], 80 classes, ignore 0.7, 50
+    padded boxes an image, padding labels -1): forward and the gradient
+    to every head input on the card against the CPU (the losses 1e-5
+    relative each, the gradients 1e-5 norm-wise), two card runs bit-equal,
+    and the step captured in a CUDA graph equal to eager bit for bit."""
+    import paddle_tpu_torch as fluid
+
+    t_leg = time.perf_counter()
+    cfg = YOLO
+    dev = fluid.CUDAPlace(0)
+    xs, gt, lab = yolo_inputs(cfg)
+    card_x = [torch.as_tensor(x, device=dev).requires_grad_(True) for x in xs]
+    card_gt, card_lab = (torch.as_tensor(gt, device=dev),
+                         torch.as_tensor(lab, device=dev))
+    run = [yolo_step(cfg, card_x, card_gt, card_lab) for _ in range(2)]
+    runs_equal = all(torch.equal(a, b) for a, b in zip(*run))
+    cpu_x = [torch.as_tensor(x).requires_grad_(True) for x in xs]
+    t0 = time.perf_counter()
+    cpu = yolo_step(cfg, cpu_x, torch.as_tensor(gt), torch.as_tensor(lab))
+    cpu_s = time.perf_counter() - t0
+    loss_err = rel_err(run[0][0].cpu(), cpu[0])
+    grad_err = max(float((g.cpu() - w).norm() / w.norm())
+                   for g, w in zip(run[0][1:], cpu[1:]))
+    graph, out, static = graph_of(
+        lambda *a: yolo_step(cfg, list(a[:3]), a[3], a[4]),
+        card_x + [card_gt, card_lab])
+    graph.replay()
+    torch.cuda.synchronize()
+    cap_equal = all(torch.equal(a, b) for a, b in zip(out, run[0]))
+    times_e = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yolo_step(cfg, card_x, card_gt, card_lab)
+        torch.cuda.synchronize()
+        times_e.append((time.perf_counter() - t0) * 1e3)
+    times_c = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        times_c.append((time.perf_counter() - t0) * 1e3)
+    check(runs_equal and cap_equal and loss_err <= 1e-5 and grad_err <= 1e-5
+          and bool(torch.isfinite(run[0][0]).all()),
+          "yolov3_loss: runs equal %s, captured = eager %s, loss card vs CPU "
+          "%g, gradients %g (1e-5)" % (runs_equal, cap_equal, loss_err,
+                                       grad_err))
+    emit("yolov3_loss", nvidia_smi=SMI[0], config=cfg,
+         gt_boxes=int((lab >= 0).sum()), losses=run[0][0].cpu().tolist(),
+         loss_card_vs_cpu=loss_err, grad_card_vs_cpu=grad_err,
+         runs_bit_equal=runs_equal, captured_equals_eager=cap_equal,
+         ms_eager=float(np.median(times_e)),
+         ms_captured=float(np.median(times_c)), cpu_s=cpu_s,
+         users=DETECTION_USERS["yolov3_loss"],
+         leg_s=time.perf_counter() - t_leg)
+    del graph, out, static, run
+    torch.cuda.empty_cache()
+
+
+def dygraph_resnet(imp, class_dim=102):
+    """The dygraph ResNet-50 of Fluid's ``test_imperative_resnet.py``,
+    built from ``imperative.nn``: ``ConvBNLayer`` (a Conv2D with its bias,
+    then BatchNorm), ``BottleneckBlock`` (1x1, 3x3, 1x1 x4, a projection
+    when the shape changes), stages of 3/4/6/3 blocks of 64-512 filters,
+    global average pooling and an FC of ``class_dim`` with Uniform(±1/√2048)
+    weights. The FC gives logits (the test's FC has ``act='softmax'`` and
+    its loss ``cross_entropy``): the loss here is
+    ``F.softmax_with_cross_entropy``, which reaches K2a/K2b. Returns the
+    network and its (conv, bn) pairs in forward order."""
+    import math
+
+    import paddle_tpu_torch as fluid
+
+    pairs = []
+
+    class ConvBNLayer(imp.Layer):
+        def __init__(self, name_scope, num_channels, num_filters, filter_size,
+                     stride=1, act=None):
+            super().__init__(name_scope)
+            self._conv = imp.Conv2D(self.full_name(), num_channels, num_filters,
+                                    filter_size, stride=stride,
+                                    padding=(filter_size - 1) // 2)
+            self._batch_norm = imp.BatchNorm(self.full_name(), num_filters,
+                                             act=act)
+            pairs.append((self._conv, self._batch_norm))
+
+        def forward(self, inputs):
+            return self._batch_norm(self._conv(inputs))
+
+    class BottleneckBlock(imp.Layer):
+        def __init__(self, name_scope, num_channels, num_filters, stride,
+                     shortcut=True):
+            super().__init__(name_scope)
+            self.conv0 = ConvBNLayer(self.full_name(), num_channels,
+                                     num_filters, 1, act="relu")
+            self.conv1 = ConvBNLayer(self.full_name(), num_filters,
+                                     num_filters, 3, stride=stride, act="relu")
+            self.conv2 = ConvBNLayer(self.full_name(), num_filters,
+                                     num_filters * 4, 1)
+            if not shortcut:
+                self.short = ConvBNLayer(self.full_name(), num_channels,
+                                         num_filters * 4, 1, stride=stride)
+            self.shortcut = shortcut
+            self._num_channels_out = num_filters * 4
+
+        def forward(self, inputs):
+            conv2 = self.conv2(self.conv1(self.conv0(inputs)))
+            short = inputs if self.shortcut else self.short(inputs)
+            y = imp.dispatch("elementwise_add", {"X": short, "Y": conv2})
+            return imp.F.relu(y)
+
+    class ResNet(imp.Layer):
+        def __init__(self, name_scope, class_dim):
+            super().__init__(name_scope)
+            self.conv = ConvBNLayer(self.full_name(), 3, 64, 7, stride=2,
+                                    act="relu")
+            self.pool2d_max = imp.Pool2D(self.full_name(), pool_size=3,
+                                         pool_stride=2, pool_padding=1,
+                                         pool_type="max")
+            self.blocks = []
+            num_channels = 64
+            for block, (depth, nf) in enumerate(zip((3, 4, 6, 3),
+                                                    (64, 128, 256, 512))):
+                shortcut = False
+                for i in range(depth):
+                    bb = self.add_sublayer("bb_%d_%d" % (block, i),
+                                           BottleneckBlock(
+                        self.full_name(), num_channels, nf,
+                        2 if i == 0 and block != 0 else 1, shortcut))
+                    num_channels = bb._num_channels_out
+                    self.blocks.append(bb)
+                    shortcut = True
+            self.pool2d_avg = imp.Pool2D(self.full_name(), pool_size=7,
+                                         pool_type="avg", global_pooling=True)
+            stdv = 1.0 / math.sqrt(2048 * 1.0)
+            self.out = imp.FC(self.full_name(), size=class_dim,
+                              param_attr=fluid.ParamAttr(
+                                  initializer=fluid.initializer.Uniform(
+                                      -stdv, stdv)))
+
+        def forward(self, inputs):
+            y = self.pool2d_max(self.conv(inputs))
+            for bb in self.blocks:
+                y = bb(y)
+            return self.out(self.pool2d_avg(y))
+
+    return ResNet("resnet", class_dim), pairs
+
+
+def static_resnet_state(fluid, main, scope):
+    """The static ResNet-50's state in forward order: for each conv2d its
+    filter and its batch norm's (scale, bias, mean, variance), then the
+    fc's weight and bias."""
+    ops = main.global_block.ops
+    convs = [op.input("Filter")[0] for op in ops if op.type == "conv2d"]
+    bns = [[op.input(s)[0] for s in ("Scale", "Bias", "Mean", "Variance")]
+           for op in ops if op.type == "batch_norm"]
+    fc_w = [op.input("Y")[0] for op in ops if op.type == "mul"][0]
+    fc_b = [n for n in scope.vars if n.startswith("fc_0.b")][0]
+    return convs, bns, fc_w, fc_b
+
+
+def load_static_into_dygraph(net, pairs, convs, bns, fc_w, fc_b, scope,
+                             probe):
+    """Copies the static ResNet-50's state into the dygraph one (the conv
+    biases, absent in the static net, to 0), after one forward of
+    ``probe`` builds the lazily-sized FC."""
+    net(probe)
+    check(len(pairs) == len(convs) == len(bns) == 53,
+          "dygraph_resnet50: %d conv+bn pairs against %d convs, %d bns"
+          % (len(pairs), len(convs), len(bns)))
+    for (conv, bn), w, (s, b, m, v) in zip(pairs, convs, bns):
+        conv.weight.value = scope.find_var(w)
+        conv.bias.value = torch.zeros_like(conv.bias.value)
+        bn.weight.value = scope.find_var(s)
+        bn.bias.value = scope.find_var(b)
+        bn._mean.value = scope.find_var(m)
+        bn._variance.value = scope.find_var(v)
+    net.out.weight.value = scope.find_var(fc_w)
+    net.out.bias.value = scope.find_var(fc_b)
+
+
+def dygraph_state(net, pairs):
+    """Every parameter and BatchNorm running statistic, cloned."""
+    out = [p.value.detach().clone() for p in net.parameters()]
+    for _, bn in pairs:
+        out += [bn._mean.value.clone(), bn._variance.value.clone()]
+    return out
+
+
+def dygraph_resnet50_leg(xent_rows):
+    """``dygraph_resnet50``: ``dygraph_resnet`` at batch 32 x 224, 102
+    classes, on the card (``imperative.guard()``), with cuDNN's
+    deterministic algorithms. From the port's static ``models.resnet``
+    ResNet-50's startup state: one dygraph SGD step equals the static
+    program's SGD step (loss and every parameter and running statistic,
+    1e-5 norm-wise); then from that same state ``DY_RESNET['steps']``
+    eager Momentum steps (``backward``, ``minimize``,
+    ``clear_gradients``) against ``jit_train`` (one eager step, then one
+    CUDA graph of forward, backward and update, replayed): losses,
+    parameters and BatchNorm's running statistics bit-equal. K2a/K2b
+    launch in the eager steps at [32, 102], and are held against their
+    plain versions at that shape (``xent_shape_check``). Times: an eager
+    dygraph step, a ``jit_train`` replay, the static program's captured
+    step."""
+    prev = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        _dygraph_resnet50(xent_rows)
+    finally:
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = prev
+
+
+def _dygraph_resnet50(xent_rows):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import imperative as imp
+    from paddle_tpu_torch.models import resnet as rn
+
+    t_leg = time.perf_counter()
+    cfg = DY_RESNET
+    dev = fluid.CUDAPlace(0)
+    feed = resnet_feed(cfg["batch"], cfg["image"], cfg["classes"], seed=80)
+    # the static program (SGD) and its startup state
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", shape=[3, cfg["image"], cfg["image"]])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        _, loss, _ = rn.resnet50(img, label, class_num=cfg["classes"])
+        fluid.optimizer.SGD(cfg["lr"]).minimize(loss)
+    scope = fluid.Scope()
+    exe = fluid.Executor(dev)
+    exe.run(startup, scope=scope)
+    start = clone_scope(fluid, scope)
+    convs, bns, fc_w, fc_b = static_resnet_state(fluid, main, scope)
+    dfeed = {k: torch.as_tensor(v, device=dev) for k, v in feed.items()}
+    static_loss = float(exe.run(main, feed=dfeed, fetch_list=[loss],
+                                scope=scope)[0])
+
+    def loss_of(net):
+        def loss_fn(x, y):
+            return imp.F.mean(imp.F.softmax_with_cross_entropy(net(x), y))
+        return loss_fn
+
+    with imp.guard(seed=5):
+        # one SGD step against the static program's
+        net, pairs = dygraph_resnet(imp, cfg["classes"])
+        load_static_into_dygraph(net, pairs, convs, bns, fc_w, fc_b, start,
+                                 imp.to_variable(feed["img"][:2]))
+        x = imp.to_variable(feed["img"])
+        y = imp.to_variable(feed["label"])
+        dl = loss_of(net)(x, y)
+        dl.backward()
+        fluid.optimizer.SGD(cfg["lr"]).minimize(dl)
+        net.clear_gradients()
+        sgd_loss_err = abs(float(dl.numpy()) - static_loss) / abs(static_loss)
+        sgd_state_err = 0.0
+        got = dict([(w, c.weight.value) for (c, _), w in zip(pairs, convs)]
+                   + [(fc_w, net.out.weight.value), (fc_b, net.out.bias.value)])
+        for (_, bn), names in zip(pairs, bns):
+            got.update(zip(names, (bn.weight.value, bn.bias.value,
+                                   bn._mean.value, bn._variance.value)))
+        for n, t in got.items():
+            w = scope.find_var(n)
+            sgd_state_err = max(sgd_state_err, float(
+                (t.detach().double() - w.double()).norm()
+                / max(float(w.double().norm()), 1e-30)))
+        del net, pairs, got
+        check(sgd_loss_err <= 1e-5 and sgd_state_err <= 1e-5,
+              "dygraph_resnet50: the SGD step against the static one: loss "
+              "%g, state %g norm-wise (1e-5)" % (sgd_loss_err, sgd_state_err))
+
+        # eager Momentum steps against jit_train, from one state
+        runs = {}
+        kernel_counters(reset=True)
+        for mode in ("eager", "jit_train"):
+            net, pairs = dygraph_resnet(imp, cfg["classes"])
+            load_static_into_dygraph(net, pairs, convs, bns, fc_w, fc_b, start,
+                                 imp.to_variable(feed["img"][:2]))
+            opt = fluid.optimizer.Momentum(cfg["lr"], 0.9)
+            loss_fn = loss_of(net)
+            losses, times = [], []
+            step = imp.jit_train(loss_fn, net, opt) if mode == "jit_train" \
+                else None
+            for i in range(cfg["steps"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if step is not None:
+                    lv = step(dfeed["img"], dfeed["label"])
+                else:
+                    lv = loss_fn(imp.to_variable(feed["img"]),
+                                 imp.to_variable(feed["label"]))
+                    lv.backward()
+                    opt.minimize(lv)
+                    net.clear_gradients()
+                losses.append(lv.value.detach().clone())
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            if mode == "eager":
+                k2 = kernel_counters()
+            runs[mode] = dict(losses=torch.stack(losses), times=times,
+                              state=dygraph_state(net, pairs),
+                              captured=getattr(step, "captured", None))
+            if step is not None and step.captured:
+                graphs = step._jit_state["graphs"]
+                replay = next(iter(graphs.values()))[0].replay
+                (_, busy_c, kern_c, _, _, _) = step_profile(replay,
+                                                            cpu_ops=False)
+                t_rep = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    replay()
+                    torch.cuda.synchronize()
+                    t_rep.append((time.perf_counter() - t0) * 1e3)
+                runs[mode].update(replay_ms=t_rep, busy_ms=busy_c,
+                                  kernels=sum(kern_c.values()))
+                del graphs, replay
+            elif step is None:
+                (_, busy_e, kern_e, _, calls_e, _) = step_profile(
+                    lambda: loss_fn(imp.to_variable(feed["img"]),
+                                    imp.to_variable(feed["label"])),
+                    cpu_ops=False)
+            del net, pairs, opt, loss_fn
+    e, j = runs["eager"], runs["jit_train"]
+    losses_equal = bool(torch.equal(e["losses"], j["losses"]))
+    state_equal = len(e["state"]) == len(j["state"]) and all(
+        torch.equal(a, b) for a, b in zip(e["state"], j["state"]))
+    key = vision_key(cfg["batch"], cfg["classes"], torch.float32)
+    check(j["captured"] is True and losses_equal and state_equal,
+          "dygraph_resnet50: jit_train (captured %s) against eager: losses "
+          "%s / %s, state bit-equal %s" % (j["captured"],
+                                           e["losses"].tolist(),
+                                           j["losses"].tolist(), state_equal))
+    check(k2["K2a"] == k2["K2b"] == cfg["steps"]
+          and set(k2["K2_by_shape"]) == {"K2a_" + key, "K2b_" + key},
+          "dygraph_resnet50: K2 launches in %d eager steps %r"
+          % (cfg["steps"], k2))
+    # the static captured step (its SGD program) for the comparison
+    exe_s = fluid.Executor(dev)
+    static_ms = []
+    for i in range(3 + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe_s.run_steps(main, (dfeed,), steps=1, fetch_list=[loss],
+                        scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        if i >= 3:
+            static_ms.append((time.perf_counter() - t0) * 1e3)
+    exe_s.close()
+    # K2a/K2b against their plain versions at the loss shape this leg
+    # gives them, [32, 102]
+    flush = l2_flusher(dev)
+    k2_check = xent_shape_check(dev, flush, cfg["batch"], cfg["classes"],
+                                torch.float32, seed=15,
+                                kernel="softmax_xent_dygraph")
+    del flush
+    for row, kern, part in zip(xent_rows, ("K2a", "K2b"), ("fwd", "bwd")):
+        row.setdefault("vision_shapes", {})[key] = {
+            "launches_by_leg": {"dygraph_resnet50": k2[kern]},
+            "max_err": k2_check["max_err"],
+            **{k[len(part) + 1:]: v for k, v in k2_check.items()
+               if k.startswith(part + "_")}}
+    emit("dygraph_resnet50", nvidia_smi=SMI[0], config=cfg,
+         sgd_step_vs_static={"loss_rel": sgd_loss_err,
+                             "state_norm_rel": sgd_state_err},
+         losses_eager=e["losses"].tolist(), losses_jit_train=j["losses"].tolist(),
+         bit_equal=True, k2_launches=k2,
+         step_ms_eager=float(np.median(e["times"][1:])),
+         step_ms_eager_runs=e["times"], step_ms_jit_train_calls=j["times"],
+         step_ms_jit_train_replay=float(np.median(j.get("replay_ms", [0]))),
+         step_ms_static_captured=float(np.median(static_ms)),
+         kernels_a_forward_eager=sum(kern_e.values()),
+         host_launch_calls_forward_eager=calls_e,
+         kernels_a_jit_train_replay=j.get("kernels"),
+         device_busy_ms_replay=j.get("busy_ms"), cudnn_deterministic=True,
+         reduced=["seeded images (no flowers data in the repository); the "
+                  "loss takes logits (softmax_with_cross_entropy) where the "
+                  "test's FC has act='softmax' and cross_entropy"],
+         users=DETECTION_USERS["dygraph_resnet50"],
+         leg_s=time.perf_counter() - t_leg)
+    del scope, start, exe, runs
+    torch.cuda.empty_cache()
+
+
+def detection_harness_cases():
+    """(op, inputs, attrs, output slots) of the 20 detection ops at test
+    size, seeded, for ``detection_op_harness``."""
+    rng = np.random.RandomState(90)
+
+    def boxes(n, lead=(), hi=1.0, min_wh=0.05):
+        p = rng.uniform(0, hi, lead + (n, 2, 2))
+        a, b = p.min(-2), p.max(-2)
+        b = np.maximum(b, a + min_wh * hi)
+        return np.concatenate([a, b], -1).astype("float32")
+
+    def r(*s, scale=1.0):
+        return (rng.randn(*s) * scale).astype("float32")
+
+    fm = {"Input": np.zeros((1, 8, 5, 6), "float32"),
+          "Image": np.zeros((1, 3, 40, 48), "float32")}
+    yield ("iou_similarity", {"X": boxes(6, (2,)), "Y": boxes(9)}, {},
+           ["Out"])
+    yield ("box_coder", {"PriorBox": boxes(9), "TargetBox": boxes(4, (2,))},
+           {"code_type": "encode_center_size",
+            "variance": [0.1, 0.1, 0.2, 0.2]}, ["OutputBox"])
+    yield ("prior_box", fm, {"min_sizes": [8.0], "max_sizes": [16.0],
+                             "aspect_ratios": [2.0], "flip": True,
+                             "clip": True}, ["Boxes", "Variances"])
+    yield ("density_prior_box", fm, {"fixed_sizes": [8.0],
+                                     "fixed_ratios": [1.0, 2.0],
+                                     "densities": [2]}, ["Boxes", "Variances"])
+    yield ("anchor_generator", {"Input": fm["Input"]},
+           {"anchor_sizes": [16.0, 32.0], "aspect_ratios": [0.5, 1.0, 2.0],
+            "stride": [8.0, 8.0]}, ["Anchors", "Variances"])
+    yield ("box_clip", {"Input": r(2, 7, 4, scale=30),
+                        "ImInfo": np.float32([[40, 48, 1], [30, 20, 2]])},
+           {}, ["Output"])
+    dist = (rng.randint(0, 6, (2, 4, 12)) / 5.0).astype("float32")
+    yield ("bipartite_match", {"DistMat": dist},
+           {"match_type": "per_prediction", "dist_threshold": 0.5},
+           ["ColToRowMatchIndices", "ColToRowMatchDist"])
+    match = rng.randint(-1, 4, (2, 12)).astype("int32")
+    yield ("target_assign", {"X": r(2, 4, 12, 4), "MatchIndices": match,
+                             "NegMask": (match < 0).astype("int32")},
+           {"mismatch_value": 0.0}, ["Out", "OutWeight"])
+    yield ("mine_hard_examples",
+           {"ClsLoss": (rng.randint(0, 5, (2, 12)) / 2.0).astype("float32"),
+            "MatchIndices": match, "MatchDist": r(2, 12) ** 2},
+           {"neg_pos_ratio": 3.0, "neg_dist_threshold": 0.5}, ["NegMask"])
+    yield ("multiclass_nms", {"BBoxes": boxes(30, (2,), min_wh=0.1),
+                              "Scores": (rng.randint(0, 8, (2, 4, 30)) / 8.0)
+                              .astype("float32")},
+           {"background_label": 0, "score_threshold": 0.1, "nms_top_k": 12,
+            "nms_threshold": 0.5, "nms_eta": 0.8, "keep_top_k": 10},
+           ["Out", "Length"])
+    x = r(2, 3, 9, 11)
+    rois = boxes(5, hi=16.0, min_wh=0.1)
+    bid = np.int32([0, 1, 1, 0, 1])
+    yield ("roi_align", {"X": x, "ROIs": rois, "BatchId": bid},
+           {"pooled_height": 3, "pooled_width": 2, "spatial_scale": 0.5},
+           ["Out"])
+    yield ("roi_pool", {"X": x, "ROIs": rois, "BatchId": bid},
+           {"pooled_height": 2, "pooled_width": 3, "spatial_scale": 0.5},
+           ["Out"])
+    yield ("roi_perspective_transform",
+           {"X": x, "ROIs": np.float32([[1, 1, 9, 2, 10, 8, 2, 7],
+                                        [3, 2, 6, 1, 8, 6, -2, 11]]),
+            "BatchId": np.int32([0, 1])},
+           {"transformed_height": 4, "transformed_width": 5}, ["Out"])
+    yield ("polygon_box_transform", {"Input": r(2, 8, 3, 4)}, {}, ["Output"])
+    gt = np.concatenate([rng.uniform(0.1, 0.9, (2, 6, 2)),
+                         rng.uniform(0.05, 0.5, (2, 6, 2))], -1)
+    yield ("yolov3_loss", {"X": r(2, 3 * 8, 5, 6, scale=0.5),
+                           "GTBox": gt.astype("float32"),
+                           "GTLabel": rng.randint(-1, 3, (2, 6))
+                           .astype("int32")},
+           {"anchors": [10, 13, 16, 30, 33, 23], "anchor_mask": [0, 1, 2],
+            "class_num": 3, "ignore_thresh": 0.5, "downsample_ratio": 8},
+           ["Loss"])
+    anc = np.stack(np.meshgrid(np.arange(6) * 16.0, np.arange(5) * 16.0),
+                   -1).reshape(5, 6, 1, 2)
+    anc = np.concatenate([anc, anc + 31.0], -1).repeat(3, 2).astype("float32")
+    yield ("generate_proposals",
+           {"Scores": r(2, 3, 5, 6), "BboxDeltas": r(2, 12, 5, 6, scale=0.2),
+            "ImInfo": np.float32([[80, 96, 1], [70, 90, 1]]),
+            "Anchors": anc, "Variances": np.ones_like(anc)},
+           {"pre_nms_topN": 40, "post_nms_topN": 12, "nms_thresh": 0.5,
+            "min_size": 2.0}, ["RpnRois", "RpnRoiProbs", "Length"])
+    gtb = boxes(4, (2,), hi=80.0, min_wh=0.2)
+    yield ("rpn_target_assign",
+           {"Anchor": anc.reshape(-1, 4), "GtBoxes": gtb,
+            "ImInfo": np.float32([[80, 96, 1], [80, 96, 1]])},
+           {"rpn_batch_size_per_im": 16, "rpn_fg_fraction": 0.25,
+            "rpn_positive_overlap": 0.5, "use_random": False},
+           ["ScoreMask", "TargetLabel", "TargetBBox", "BBoxInsideWeight"])
+    prop = np.concatenate([gtb + r(2, 4, 4, scale=2.0),
+                           boxes(10, (2,), hi=80.0, min_wh=0.1)], 1)
+    yield ("generate_proposal_labels",
+           {"RpnRois": prop, "GtClasses": np.int32([[1, 2, 3, 1], [2, 2, 1, 3]]),
+            "GtBoxes": gtb, "ImInfo": np.float32([[80, 96, 1]] * 2)},
+           {"batch_size_per_im": 8, "fg_fraction": 0.25, "class_nums": 4,
+            "use_random": False},
+           ["Rois", "LabelsInt32", "BboxTargets", "RoiWeights"])
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (2, 3, 6)), -1)
+    segms = (rng.uniform(10, 30, (2, 3, 1, 2))
+             + np.stack([np.cos(ang), np.sin(ang)], -1) * 6).astype("float32")
+    yield ("generate_mask_labels",
+           {"Rois": boxes(5, (2,), hi=40.0, min_wh=0.2),
+            "LabelsInt32": rng.randint(-1, 3, (2, 5)).astype("int32"),
+            "GtSegms": segms, "GtPolyLength": np.int32([[6, 5, 4], [3, 6, 2]]),
+            "GtClasses": np.int32([[1, 2, 3], [3, 1, 2]])},
+           {"num_classes": 4, "resolution": 5},
+           ["MaskInt32", "RoiHasMaskInt32"])
+    det = np.concatenate([rng.randint(0, 4, (2, 8, 1)),
+                          rng.randint(1, 9, (2, 8, 1)) / 9.0,
+                          boxes(8, (2,))], -1).astype("float32")
+    lab = np.concatenate([rng.randint(0, 4, (2, 5, 1)), boxes(5, (2,))],
+                         -1).astype("float32")
+    lab[:, :3, 1:] = det[:, :3, 2:]
+    lab[:, :3, 0] = det[:, :3, 0]
+    yield ("detection_map", {"DetectRes": det, "Label": lab,
+                             "DetLength": np.int32([8, 6])},
+           {"overlap_threshold": 0.5, "background_label": 0}, ["MAP"])
+
+
+DETECTION_OPS = 20
+
+
+def detection_op_harness_leg():
+    """``detection_op_harness``: the port's ``OpTest.check_output`` on the
+    card for the 20 detection ops of ``detection_harness_cases`` against
+    their run on the CPU (1e-5 relative and absolute: integer outputs
+    exactly)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.testing import OpTest, op_test
+
+    t_leg = time.perf_counter()
+    cpu, card = fluid.CPUPlace(), fluid.CUDAPlace(0)
+    rows = []
+    for op, inputs, attrs, outs in detection_harness_cases():
+        want = op_test.run_op(op, inputs, outs, attrs, place=cpu)
+        case = type("Case", (OpTest,), {
+            "op_type": op, "inputs": inputs, "attrs": attrs,
+            "outputs": {s: want[s].numpy() for s in outs}})()
+        case.check_output(atol=1e-5, rtol=1e-5, place=card)
+        got = op_test.run_op(op, inputs, outs, attrs, place=card)
+        rows.append({"op": op, "max_abs_diff": max(
+            float((got[s].cpu().double() - want[s].double()).abs().max())
+            for s in outs)})
+    check(len({r["op"] for r in rows}) == DETECTION_OPS,
+          "detection_op_harness: %d ops" % len(rows))
+    emit("detection_op_harness", nvidia_smi=SMI[0], cases=rows,
+         tol={"rtol": 1e-5, "atol": 1e-5}, leg_s=time.perf_counter() - t_leg)
+
+
+def detection_phase(xent_rows):
+    """Detection and dygraph: ``ssd_train`` (+ ``ssd_detect``),
+    ``two_stage_ops``, ``yolov3_loss``, ``dygraph_resnet50``,
+    ``detection_op_harness``; each leg's seconds in
+    ``detection_leg_seconds``."""
+    secs = {}
+    for name, fn, args in (("ssd_train", ssd_train_leg, (xent_rows,)),
+                           ("two_stage_ops", two_stage_ops_leg, ()),
+                           ("yolov3_loss", yolov3_loss_leg, ()),
+                           ("dygraph_resnet50", dygraph_resnet50_leg,
+                            (xent_rows,)),
+                           ("detection_op_harness", detection_op_harness_leg,
+                            ())):
+        t0 = time.perf_counter()
+        fn(*args)
+        secs[name] = time.perf_counter() - t0
+    emit("detection_leg_seconds", nvidia_smi=SMI[0], **secs)
+
+
 def diagnose(args):
     """``--recipe-bisect [--deterministic] NAME...``: ``recipe_bisect`` of
     each recipe ("lamb", "adamw", "adam"; run ``--deterministic`` with
@@ -11282,6 +12508,7 @@ def main():
     timed(control_flow_phase, xent_rows)
     timed(op_remainder_phase, k4_rows)
     timed(op_harness_phase)
+    timed(detection_phase, xent_rows)
     # the card again, so the end of a long log still names it
     emit("phase_seconds", nvidia_smi=smi, total=time.perf_counter() - t0,
          **phase_s)

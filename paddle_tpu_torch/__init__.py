@@ -52,6 +52,11 @@ Ported so far:
   (``torch.export``), the per-op harness (:mod:`.testing`) and
   quantization: the fake-quant ops, ``contrib.QuantizeTranspiler``,
   ``contrib.slim`` and the int8 ``contrib.Calibrator``.
+* detection (the ops of :mod:`.ops.detection_ops` and the layers of
+  :mod:`.layers.detection`: priors, matching, NMS, the RoI ops,
+  ``yolov3_loss``, the two-stage samplers, ``detection_map``) and
+  dygraph (:mod:`.imperative`: eager ops on torch's autograd, ``jit``
+  and ``jit_train`` as CUDA graphs).
 
 A Fluid script runs unchanged with::
 
@@ -65,6 +70,7 @@ from . import (  # noqa: F401
     dataset,
     debugger,
     evaluator,
+    imperative,
     initializer,
     io,
     layers,
@@ -121,4 +127,4 @@ __all__ = ["serving", "models", "CUDAPlace", "CPUPlace", "TPUPlace",
            "register_pass", "registered_passes", "reader", "dataset",
            "metrics", "evaluator", "data", "DataFeeder", "AsyncExecutor",
            "DataFeedDesc", "EOFException", "ParallelExecutor", "contrib",
-           "debugger"]
+           "debugger", "imperative"]

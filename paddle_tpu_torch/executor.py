@@ -115,13 +115,14 @@ WARMUP_STEPS = 2
 
 # ops that need the host while a step runs: ``print`` and ``py_func`` run
 # Python on a host copy, ``tree_conv`` builds its patch matrices from a
-# host copy of its edges. A CUDA graph replays none of them, so a captured
+# host copy of its edges, ``detection_map`` matches detections to boxes on
+# the host (``metrics.DetectionMAP``). A CUDA graph replays none of them, so a captured
 # step whose program holds one (in any block) runs every step eagerly on
 # its device instead, counted by ``Executor.host_op_steps``. So does a
 # ``while`` the captured step cannot split the step at: one inside another
 # block, or in a program that trains (no model of either package trains
 # through a ``while``: its gradient raises)
-HOST_OPS = frozenset({"print", "py_func", "tree_conv"})
+HOST_OPS = frozenset({"print", "py_func", "tree_conv", "detection_map"})
 
 # ops that index by their data: run untaken in a captured
 # ``conditional_block`` they may see an index out of range, a device

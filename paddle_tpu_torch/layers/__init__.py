@@ -1,13 +1,38 @@
 # ported from paddle_tpu/layers/__init__.py
 """``fluid.layers``: the layer functions ported so far (io, tensor, nn,
 attention, sequence, rnn, control flow, the tensor arrays and beam
-search, the learning-rate schedulers and the generated wrappers).
-Detection is not ported yet. Layer functions whose ops are not
+search, detection, the learning-rate schedulers and the generated
+wrappers). Layer functions whose ops are not
 registered in the port still build; running them raises the registry's
 ``NotImplementedError`` naming the op."""
 
 from . import (attention, beam_search as beam_search_mod, control_flow,  # noqa: F401
-               io, learning_rate_scheduler, nn, rnn, sequence, tensor)
+               detection, io, learning_rate_scheduler, nn, rnn, sequence, tensor)
+from .detection import (  # noqa: F401
+    anchor_generator,
+    bipartite_match,
+    box_clip,
+    box_coder,
+    density_prior_box,
+    detection_output,
+    generate_proposals,
+    iou_similarity,
+    mine_hard_examples,
+    multi_box_head,
+    multiclass_nms,
+    polygon_box_transform,
+    prior_box,
+    detection_map,
+    generate_mask_labels,
+    generate_proposal_labels,
+    roi_align,
+    roi_perspective_transform,
+    roi_pool,
+    rpn_target_assign,
+    ssd_loss,
+    target_assign,
+    yolov3_loss,
+)
 from .beam_search import (  # noqa: F401
     array_length,
     array_read,

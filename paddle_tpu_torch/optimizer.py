@@ -9,9 +9,12 @@ after the backward under ``torch.no_grad()``.
 
 Every optimizer, ``ModelAverage``, the clips of :mod:`.clip` and the
 schedules of ``layers.learning_rate_scheduler`` build ops the port
-registers. Left out against the JAX package until dygraph and the monitor
-are ported: the imperative path (``_imperative_minimize`` and the eager
-accumulators), and the ``PADDLE_TPU_GRAD_NORM`` probe of the monitor.
+registers. In imperative (dygraph) mode ``minimize`` runs the same
+update ops eagerly (``_imperative_minimize``) through
+``imperative.EagerBlock``, over accumulators that are tensors on the
+tracer's device (``_EagerSlot``), updated in place; an optimizer used
+once in either mode refuses the other. Left out against the JAX package
+until the monitor is ported: the ``PADDLE_TPU_GRAD_NORM`` probe.
 """
 
 from __future__ import annotations
@@ -61,6 +64,16 @@ __all__ = [
 ]
 
 
+class _EagerSlot:
+    """Mutable tensor holder for imperative-mode accumulators/LR (duck-typed
+    like VarBase for EagerBlock's in-place output writes)."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
+
+
 class Optimizer:
     """Base optimizer (reference: optimizer.py:44)."""
 
@@ -105,6 +118,15 @@ class Optimizer:
     def _add_accumulator(self, name: str, param: Parameter, dtype=None, fill_value=0.0, shape=None):
         if name in self._accumulators and param.name in self._accumulators[name]:
             return self._accumulators[name][param.name]
+        if getattr(self, "_imperative", False):
+            from .core.dtypes import to_torch_dtype
+
+            shape = tuple(shape if shape is not None else param.shape)
+            slot = _EagerSlot(torch.full(shape, float(fill_value),
+                                         dtype=to_torch_dtype(dtype or "float32"),
+                                         device=param.value.device))
+            self._accumulators.setdefault(name, {})[param.name] = slot
+            return slot
         acc_name = unique_name.generate("%s_%s_%s" % (param.name, self.type, name))
         shape = list(shape if shape is not None else param.shape)
         dtype = dtype or "float32"
@@ -170,7 +192,20 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None, no_grad_set=None):
         """reference: optimizer.py:357. Ops are appended to the *loss's*
-        program, not whatever default program is active at call time."""
+        program, not whatever default program is active at call time.
+
+        In imperative (dygraph) mode the same per-optimizer update ops run
+        eagerly instead (reference: optimizer.py minimize under
+        _in_imperative_mode)."""
+        from .imperative import base as _imp
+
+        if _imp.enabled():
+            return self._imperative_minimize(loss, parameter_list, no_grad_set)
+        if getattr(self, "_imperative", False):
+            raise RuntimeError(
+                "This optimizer instance was used in imperative mode; its "
+                "accumulators are eager tensors and cannot drive a static "
+                "program. Create a fresh optimizer per mode.")
         from .core.framework import program_guard
 
         with program_guard(loss.block.program, startup_program):
@@ -178,7 +213,53 @@ class Optimizer:
             optimize_ops = self.apply_gradients(params_grads)
         return optimize_ops, params_grads
 
+    def _imperative_minimize(self, loss, parameter_list=None, no_grad_set=None):
+        """Dygraph optimize step: run `_append_optimize_op` with an
+        EagerBlock so every subclass's update math is reused unchanged.
+        Accumulators are tensors on the parameters' device; the ParamOut
+        writes go in place into the VarBase tensors. Gradient *clipping* is
+        not wired in dygraph (the reference's 1.x dygraph had the same
+        gap)."""
+        from .imperative.tracer import EagerBlock, current_tracer
+        from .regularizer import L1DecayRegularizer, L2DecayRegularizer
+
+        if isinstance(self._learning_rate, Variable):
+            raise NotImplementedError(
+                "LR-scheduler Variables are a static-graph feature; use a "
+                "float learning rate (optionally updated between steps) in "
+                "imperative mode.")
+        self._imperative = True
+        no_grad = {getattr(v, "name", v) for v in (no_grad_set or ())}
+        params = parameter_list if parameter_list is not None else current_tracer().parameters()
+        params = sorted((p for p in params
+                         if p.trainable and p._grad is not None and p.name not in no_grad),
+                        key=lambda p: p.name)
+        block = EagerBlock()
+        self._create_accumulators(block, params)
+        params_grads, ops = [], []
+        for p in params:
+            g = p._grad
+            reg = getattr(p, "regularizer", None) or self.regularization
+            if reg is not None:
+                pv = p.value.detach()
+                if isinstance(reg, L2DecayRegularizer):
+                    g = g + reg._coeff * pv
+                elif isinstance(reg, L1DecayRegularizer):
+                    g = g + reg._coeff * torch.sign(pv)
+                else:
+                    raise NotImplementedError("unsupported regularizer in dygraph: %r" % reg)
+            params_grads.append((p, g))
+            ops.append(self._append_optimize_op(block, (p, g)))
+        self._finish_update(block, params_grads)
+        return ops, params_grads
+
     def _lr_input(self, param=None):
+        if getattr(self, "_imperative", False):
+            plr = 1.0 if param is None else getattr(
+                param, "optimize_attr", {"learning_rate": 1.0}).get("learning_rate", 1.0)
+            dev = param.value.device if param is not None else "cpu"
+            return _EagerSlot(torch.full((1,), float(self._learning_rate) * float(plr),
+                                         dtype=torch.float32, device=dev))
         lr = self._global_learning_rate()
         plr = 1.0
         if param is not None:
@@ -281,6 +362,13 @@ class AdamOptimizer(Optimizer):
             self._add_accumulator("moment2", p)
         if not parameters:
             return
+        if getattr(self, "_imperative", False):
+            for p in parameters:
+                self._add_accumulator("beta1_pow_acc", p,
+                                      fill_value=self._beta1, shape=[1])
+                self._add_accumulator("beta2_pow_acc", p,
+                                      fill_value=self._beta2, shape=[1])
+            return
         # ONE shared beta-pow pair for the whole parameter set, as in the
         # JAX package (optax keeps a single step count the same way). The
         # reference's per-param [1] scalars are always numerically
@@ -296,6 +384,8 @@ class AdamOptimizer(Optimizer):
             self._accumulators["beta2_pow_acc"][p.name] = b2
 
     def _finish_update(self, block, parameters_and_grads):
+        if getattr(self, "_imperative", False):
+            return
         pows = self._accumulators.get("beta1_pow_acc")
         if not pows:
             return
@@ -319,8 +409,12 @@ class AdamOptimizer(Optimizer):
         b2p = self._get_accumulator("beta2_pow_acc", p)
         attrs = {"beta1": self._beta1, "beta2": self._beta2, "epsilon": self._epsilon}
         attrs.update(self._extra_attrs())
-        # pows are SHARED read-only here; _finish_update bumps them once
-        outputs = {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2}
+        if getattr(self, "_imperative", False):
+            outputs = {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
+                       "Beta1PowOut": b1p, "Beta2PowOut": b2p}
+        else:
+            # pows are SHARED read-only here; _finish_update bumps them once
+            outputs = {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2}
         return block.append_op(
             self.type,
             inputs={"Param": p, "Grad": g, "Moment1": m1, "Moment2": m2,

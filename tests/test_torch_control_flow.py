@@ -523,7 +523,7 @@ def test_the_slice_registers_its_ops_as_the_jax_package():
     from paddle_tpu_torch.core.registry import registered_ops
 
     ported = set(registered_ops())
-    assert SLICE_OPS <= ported and len(ported) == 274
+    assert SLICE_OPS <= ported and len(ported) == 294
     assert ported <= set(jax_ops())
     for name in ("While", "cond", "StaticRNN", "IfElse", "Switch",
                  "is_empty", "beam_search", "beam_search_decode",

@@ -9,8 +9,8 @@
 * ``delete_var`` drops its inputs from the step's values in both
   packages;
 * under ``CompiledProgram`` and ``run_steps`` a program holding a host op
-  (``executor.HOST_OPS``: ``print``, ``py_func``, ``tree_conv``) runs
-  every step eagerly, rows equal to ``Executor.run``'s, counted by
+  (``executor.HOST_OPS``: ``print``, ``py_func``, ``tree_conv``,
+  ``detection_map``) runs every step eagerly, rows equal to ``Executor.run``'s, counted by
   ``Executor.host_op_steps``, with one warning naming the op; a program
   without one is still captured; ``Switch`` through ``CompiledProgram``
   (captured) equals the JAX package's ``CompiledProgram``;
@@ -205,9 +205,7 @@ STILL_TO_PORT = {
     "paddle_tpu.reliability.": "Queue 1 item 8",
     "paddle_tpu.serving.": "Queue 1 item 8 (the serving pieces that wait "
                            "for monitor/)",
-    "paddle_tpu.imperative.": "Queue 1 item 6",
     "paddle_tpu.parallel.": "Queue 1 item 7",
-    "paddle_tpu.layers.": "Queue 1 item 5 (layers/detection.py)",
     # JAX-only names
     "paddle_tpu.inference.": "StableHLO (export_stablehlo, load_stablehlo); "
                              "the port's counterpart is "
@@ -217,7 +215,7 @@ STILL_TO_PORT = {
     "paddle_tpu.is_compiled_with_tpu": "JAX only",
 }
 JAX_ONLY_SUFFIX = ".jax_device"
-MISSING_AT_MOST = 562
+MISSING_AT_MOST = 461
 
 
 def _resolves(name):
